@@ -1,0 +1,104 @@
+"""The port's CUDA kernels on the card, against their plain versions.
+
+These tests need an NVIDIA GPU and ``nvcc`` (the kernels have no CPU mode)
+and skip without one. They import no JAX, so they run on a machine that has
+only PyTorch::
+
+    PYTHONPATH=src python3 -m pytest -q tests/test_torch_cuda.py
+
+Tolerance: bf16, rtol = atol = 2e-2 (tests/test_kernels.py's ``_tol``).
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.expert_ffn import (expert_ffn_from_pool,
+                                            expert_ffn_from_pool_plain)
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_plain)
+from repro_torch.kernels.flash_decode import flash_decode, flash_decode_plain
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("U,C", [(3, 8), (2, 130)])
+def test_expert_ffn_kernel_on_card(cuda, U, C):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    d, f, cap = 256, 192, 5
+    r = lambda *s, sc=1.0: (torch.randn(s, generator=g, device=cuda) * sc).to(torch.bfloat16)
+    x, w1, w3, w2 = r(U, C, d), r(cap, d, f, sc=d ** -0.5), r(cap, d, f, sc=d ** -0.5), \
+        r(cap, f, d, sc=f ** -0.5)
+    slots = torch.tensor([4, 1, 3][:U], dtype=torch.int32, device=cuda)
+    n = expert_ffn_from_pool.launches
+    got = expert_ffn_from_pool(x, w1, w3, w2, slots)
+    assert expert_ffn_from_pool.launches == n + 1
+    torch.testing.assert_close(got, expert_ffn_from_pool_plain(x, w1, w3, w2, slots),
+                               rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,causal,window", [(512, True, -1), (200, True, 64),
+                                             (100, False, -1)])
+def test_flash_attention_kernel_on_card(cuda, S, causal, window):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    r = lambda *s: torch.randn(s, generator=g, device=cuda).to(torch.bfloat16)
+    q, k, v = r(2, S, 8, 128), r(2, S, 2, 128), r(2, S, 2, 128)
+    torch.testing.assert_close(
+        flash_attention(q, k, v, causal=causal, window=window),
+        flash_attention_plain(q, k, v, causal=causal, window=window),
+        rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [-1, 32])
+def test_flash_decode_kernel_on_card(cuda, window):
+    g = torch.Generator(device=cuda).manual_seed(2)
+    B, W, H, Hkv, D = 2, 300, 32, 8, 128
+    r = lambda *s: torch.randn(s, generator=g, device=cuda).to(torch.bfloat16)
+    q, k, v = r(B, H, D), r(B, W, Hkv, D), r(B, W, Hkv, D)
+    sp = torch.arange(W, dtype=torch.int32, device=cuda).repeat(B, 1)
+    sp[0, 200:] = -1
+    pos = torch.tensor([199, 299], dtype=torch.int32, device=cuda)
+    torch.testing.assert_close(flash_decode(q, k, v, pos, sp, window=window),
+                               flash_decode_plain(q, k, v, pos, sp, window=window),
+                               rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+def test_engine_on_card_matches_cpu(cuda):
+    """The same engine and weights on the card (kernels) and on the CPU
+    (reference attention, plain FFN): the prefill logits agree to a few
+    bf16 ulps and every kernel of the path launched."""
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.models.params import init_params
+    from repro_torch.serving.engine import MoEServingEngine
+    cfg = dataclasses.replace(reduced(get_config("mixtral_8x7b")),
+                              head_dim=64, n_kv_heads=1)
+    gpu = init_params(cfg, 0, device=cuda)
+    cpu = {"embed": gpu["embed"].cpu(), "ln_f": gpu["ln_f"].cpu(),
+           "layers": {k: ({kk: vv.cpu() for kk, vv in v.items()}
+                          if isinstance(v, dict) else v.cpu())
+                      for k, v in gpu["layers"].items()}}
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab, 33).astype(np.int32)
+    kernels = (expert_ffn_from_pool, flash_attention, flash_decode)
+    before = [k.launches for k in kernels]
+    g = MoEServingEngine(cfg, gpu, policy="duo", temperature=0.0)
+    lg_g = g.prefill_layers(prompt[None])[0].cpu()
+    r = g.serve(prompt, max_new=4)
+    assert all(k.launches > b for k, b in zip(kernels, before))
+    assert g.cache.hbm_bound_ok and r.tokens.shape == (5,)
+    c = MoEServingEngine(cfg, cpu, policy="duo", temperature=0.0)
+    lg_c = c.prefill_layers(prompt[None])[0]
+    torch.testing.assert_close(lg_g[:, :cfg.vocab], lg_c[:, :cfg.vocab],
+                               rtol=5e-2, atol=5e-2)
