@@ -8,22 +8,36 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
   1. device  — the card's name and power limit (``nvidia-smi``).
   2. build   — compiles every CUDA kernel of ``src/repro_torch/csrc`` for
                sm_90a (one ``nvcc`` per source, in parallel).
-  3. kernels — each kernel at the shapes the Mixtral-8x7B serve path gives
-               it, held against its plain PyTorch version on the card
-               (bf16 tolerance rtol = atol = 2e-2, the repo's kernel-test
-               tolerance), extra GQA / window / ragged cases, then timed with
-               CUDA events (median of 20 after warm-up) beside the plain
-               version, a PyTorch library call where one computes the same
-               function, and the bound from bytes at 3.35 TB/s and bf16
-               operations at 989 TFLOP/s (H100 SXM data sheet).
-  4. check   — a small model served by the same engine on the card and on
-               the CPU (plain versions): the prefill logits must agree.
+  3. kernels — each kernel at the shapes its main path gives it (the
+               Mixtral-8x7B serve path; Mamba2-2.7B's prefill for
+               ``ssd_scan``), held against its plain PyTorch version on the
+               card, with extra GQA / window / ragged / group / type cases,
+               then timed with CUDA events (median of 20 after warm-up)
+               beside the plain version, a PyTorch library call where one
+               computes the same function, and the bound from bytes at
+               3.35 TB/s and operations at 989 TFLOP/s bf16 (tensor cores)
+               or 67 TFLOP/s f32 (``ssd_scan``: CUDA cores), from the H100
+               SXM data sheet. Tolerance: bf16 outputs rtol = atol = 2e-2
+               (the repo's kernel-test tolerance), ``ssd_scan``'s f32
+               outputs 1e-3 (tests/test_kernels.py's for that kernel).
+  4. check   — a small MoE model served by the same engine on the card and
+               on the CPU (plain versions): the prefill logits must agree.
   5. serve   — Mixtral-8x7B at full width, depth cut to ``--layers``, random
                weights from ``--seed``: ODF traces over prompts of 512
                tokens, the ExpertMLP predictor trained on the card, then 4
                requests served under ``duo`` (512-token prompts, 32 new
-               tokens, greedy). Every kernel's launch count is reset just
-               before the serve and must be > 0 just after.
+               tokens, greedy). The launch counts of its kernels are reset
+               just before the serve and must be > 0 just after.
+  6. ssm_check — a small Mamba2 (2 layers, head_dim 64, state 128) through
+               the model bundle on the card and on the CPU: the prefill
+               logits must agree.
+  7. ssm     — Mamba2-2.7B at its published widths and all 64 layers,
+               random weights from ``--seed``: 4
+               prompts of 2048 tokens one at a time, each ``prefill`` then
+               32 greedy ``decode_step``s; TTFT, decode tokens/s, peak
+               device memory. ``ssd_scan``'s count is reset just before and
+               must be > 0 just after. Then a ``torch.profiler`` window over
+               one prefill and 8 decode steps: device busy time by kernel.
 
 The last three lines are the card's ``nvidia-smi`` name and power limit,
 the kernels' JSON summary, and ``{"ok": true, "device": {...}}``.
@@ -32,6 +46,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -45,7 +60,9 @@ import torch
 ROOT = Path(__file__).resolve().parent
 PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 PEAK_BF16_OPS_PER_S = 989e12   # H100 SXM dense bf16 tensor cores
+PEAK_F32_OPS_PER_S = 67e12     # H100 SXM f32, CUDA cores
 TOL = dict(rtol=2e-2, atol=2e-2)
+TOL_F32 = dict(rtol=1e-3, atol=1e-3)
 
 
 def emit(obj) -> None:
@@ -76,21 +93,21 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
-def bound(n_bytes: float, n_ops: float):
+def bound(n_bytes: float, n_ops: float, peak_ops: float = PEAK_BF16_OPS_PER_S):
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_ops / PEAK_BF16_OPS_PER_S * 1e3
+    t_ops = n_ops / peak_ops * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def max_err(got, want) -> float:
+def max_err(got, want, tol=TOL) -> float:
     got, want = got.float(), want.float()
     if not torch.isfinite(got).all():
         raise AssertionError("kernel output is not finite")
     err = (got - want).abs()
-    lim = TOL["atol"] + TOL["rtol"] * want.abs()
+    lim = tol["atol"] + tol["rtol"] * want.abs()
     if (err > lim).any():
         raise AssertionError(f"kernel disagrees with its plain version: max abs "
-                             f"err {float(err.max())} beyond rtol=atol=2e-2")
+                             f"err {float(err.max())} beyond {tol}")
     return float(err.max())
 
 
@@ -191,6 +208,56 @@ def kernel_flash_decode(g):
                 shape=dict(B=B, W=W, H=H, Hkv=Hkv, D=D), max_abs_err=err,
                 ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                 library_ms=library_ms)
+
+
+def ssd_inputs(g, B, S, H, G, P, N, dtype):
+    """x ~ N(0,1), b, c ~ N(0,1)/2, dt = softplus(N(0,1))/2,
+    da = -dt exp(N(0,1)/5): tests/test_kernels.py's distribution."""
+    r = lambda *s, sc=1.0: (torch.randn(s, generator=g, device="cuda") * sc).to(dtype)
+    x, b, c = r(B, S, H, P), r(B, S, G, N, sc=0.5), r(B, S, G, N, sc=0.5)
+    dt = torch.nn.functional.softplus(torch.randn(B, S, H, generator=g, device="cuda")) * 0.5
+    da = -dt * torch.exp(torch.randn(B, S, H, generator=g, device="cuda") * 0.2)
+    return x, b, c, da, dt
+
+
+def ssd_scan_work(B, S, H, G, P, N, in_bytes):
+    """(bytes, f32 operations) of the least work that yields y and the final
+    state: inputs read once, y and the state written once; per token and
+    head the recurrence y_t = (C_t.B_t) dt_t x_t + exp(da_t) C_t h_{t-1},
+    h_t = exp(da_t) h_{t-1} + dt_t B_t x_t^T, i.e. C_t.B_t (N MACs), its
+    product with x_t (P), the state update (N x P) and the incoming-state
+    term (N x P, none at t = 0). Every chunk length gives the same y and
+    state; this is the chunked form at length 1, and a longer chunk (the
+    kernel's 256) adds the masked intra-chunk square on top."""
+    macs = S * (N + P) + S * N * P + (S - 1) * N * P
+    n_bytes = (in_bytes * B * S * (H * P + 2 * G * N) + 4 * 2 * B * S * H
+               + 4 * B * S * H * P + 4 * B * H * N * P)
+    return n_bytes, 2 * B * H * macs
+
+
+def kernel_ssd_scan(g):
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+    # Mamba2-2.7B's prefill of a 2048-token prompt: bf16 x/b/c, f32 da/dt
+    B, S, H, G, P, N = 1, 2048, 80, 1, 64, 128
+    args = ssd_inputs(g, B, S, H, G, P, N, torch.bfloat16)
+    (y, h), (y0, h0) = ssd_scan(*args), ssd_scan_plain(*args)
+    err = max(max_err(y, y0, TOL_F32), max_err(h, h0, TOL_F32))
+    # a ragged S, two rows, two groups, f32 inputs
+    for case in ((1, 1000, H, G, P, N, torch.bfloat16),
+                 (2, 700, 8, 2, P, N, torch.bfloat16),
+                 (2, 300, 8, 1, P, N, torch.float32)):
+        a = ssd_inputs(g, *case)
+        (y, h), (y0, h0) = ssd_scan(*a), ssd_scan_plain(*a)
+        err = max(err, max_err(y, y0, TOL_F32), max_err(h, h0, TOL_F32))
+    ms = time_ms(lambda: ssd_scan(*args))
+    plain_ms = time_ms(lambda: ssd_scan_plain(*args))
+    bms, by = bound(*ssd_scan_work(B, S, H, G, P, N, 2), PEAK_F32_OPS_PER_S)
+    return dict(name="ssd_scan", route="cuda",
+                source="src/repro_torch/csrc/ssd_scan.cu",
+                replaces="src/repro/kernels/ssd_scan.py:81",
+                shape=dict(B=B, S=S, H=H, G=G, P=P, N=N, chunk=256),
+                tol=TOL_F32, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bms, bound_by=by, library_ms=None)
 
 
 # -- phase 4: engine on the card vs the same engine on the CPU ---------------
@@ -317,6 +384,133 @@ def serve(layers: int, seed: int, kernels):
         launches=launches)
 
 
+# -- phase 6: the ssm bundle on the card vs on the CPU -------------------------
+
+def check_small_ssm(seed: int):
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.models.model import build
+    # reduced mamba2 with the kernel's widths: 8 heads of 64, state 128
+    cfg = dataclasses.replace(reduced(get_config("mamba2_2_7b")),
+                              ssm_head_dim=64, ssm_state=128)
+    bundle = build(cfg)
+    gpu = bundle.init(seed, device="cuda")
+    cpu = {"embed": gpu["embed"].cpu(), "ln_f": gpu["ln_f"].cpu(),
+           "layers": {"ln": gpu["layers"]["ln"].cpu(),
+                      "ssm": {k: v.cpu() for k, v in gpu["layers"]["ssm"].items()}}}
+    # 300 tokens: two chunks, the second ragged
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(0, cfg.vocab, (1, 300)))
+    lg_g, _ = bundle.prefill(gpu, {"tokens": toks.cuda()})
+    lg_c, _ = bundle.prefill(cpu, {"tokens": toks})
+    real = slice(0, cfg.vocab)
+    err = float((lg_g.cpu()[0, real].float() - lg_c[0, real].float()).abs().max())
+    # bf16 activations through two layers: a few bf16 ulps of O(1) logits
+    if not (torch.isfinite(lg_g).all() and err < 5e-2):
+        raise AssertionError(f"ssm card vs CPU prefill logits differ by {err}")
+    return dict(phase="ssm_check", layers=cfg.n_layers, d_model=cfg.d_model,
+                head_dim=cfg.ssm_head_dim, state=cfg.ssm_state, vocab=cfg.vocab,
+                prompt=300, prefill_logit_max_abs_err=err, tol=5e-2)
+
+
+# -- phase 7: Mamba2-2.7B through the model bundle -------------------------------
+
+def serve_ssm(seed: int, ssd_scan):
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.model import build, greedy_token
+
+    cfg = get_config("mamba2_2_7b")
+    bundle = build(cfg)
+    held_before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = bundle.init(seed, device="cuda")
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    leaves = [params["embed"], params["ln_f"], params["layers"]["ln"],
+              *params["layers"]["ssm"].values()]
+    n_params = sum(t.numel() for t in leaves)
+    param_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    prompts = np.random.default_rng(seed).integers(0, cfg.vocab, (4, 2048))
+    new_tokens = 32
+
+    def request(prompt):
+        toks = torch.from_numpy(prompt[None]).cuda()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        last, cache = bundle.prefill(params, {"tokens": toks})
+        tok = greedy_token(last, cfg.vocab)
+        out, finite = [tok], torch.isfinite(last).all()
+        torch.cuda.synchronize()
+        ttft = time.perf_counter() - t0
+        for _ in range(new_tokens):
+            lg, cache = bundle.decode_step(params, {"token": tok}, cache)
+            tok = greedy_token(lg, cfg.vocab)
+            out.append(tok)
+            finite &= torch.isfinite(lg).all()
+        torch.cuda.synchronize()
+        return ttft, time.perf_counter() - t0, torch.cat(out, 1)[0].cpu(), bool(finite)
+
+    request(prompts[0][:300])   # warm-up: allocator, cuBLAS handles
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ssd_scan.launches = 0
+    runs = [request(p) for p in prompts]
+    launches = ssd_scan.launches
+    peak = torch.cuda.max_memory_allocated()
+    for _, _, toks, finite in runs:
+        if toks.shape != (new_tokens + 1,) or not ((toks >= 0) & (toks < cfg.vocab)).all():
+            raise AssertionError(f"bad tokens {toks}")
+        if not finite:
+            raise AssertionError("ssm logits not finite")
+    if launches == 0:
+        raise AssertionError("ssd_scan never launched while serving Mamba2")
+    return dict(
+        phase="ssm", model="mamba2-2.7b", layers=cfg.n_layers,
+        widths=dict(d_model=cfg.d_model, d_inner=cfg.ssm_expand * cfg.d_model,
+                    heads=cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim,
+                    head_dim=cfg.ssm_head_dim, state=cfg.ssm_state,
+                    groups=cfg.ssm_groups, conv=cfg.ssm_conv, vocab=cfg.vocab),
+        n_params=n_params, param_bytes=param_bytes, init_s=t_init,
+        prompt_tokens=prompts.shape[1], new_tokens=new_tokens,
+        ttft_s=[r[0] for r in runs], e2e_s=[r[1] for r in runs],
+        decode_tok_per_s=[new_tokens / (r[1] - r[0]) for r in runs],
+        tokens_head=[r[2][:8].tolist() for r in runs],
+        memory_allocated_before_init=held_before, max_memory_allocated=peak,
+        launches={"ssd_scan": launches},
+        profile=profile_ssm(bundle, params, prompts[0], cfg.vocab))
+
+
+def profile_ssm(bundle, params, prompt, vocab: int):
+    """Device time by kernel name over one prefill and over 8 decode steps
+    (``torch.profiler``, CUDA activity), against the host-clock window."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models.model import greedy_token
+    toks = torch.from_numpy(prompt[None]).cuda()
+    out = {}
+    for name in ("prefill", "decode"):
+        last, cache = bundle.prefill(params, {"tokens": toks})
+        tok = greedy_token(last, vocab)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            if name == "prefill":
+                bundle.prefill(params, {"tokens": toks})
+            else:
+                for _ in range(8):
+                    lg, cache = bundle.decode_step(params, {"token": tok}, cache)
+                    tok = greedy_token(lg, vocab)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        by_name = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+        busy = sum(by_name.values())
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        out[name] = dict(wall_ms=wall * 1e3, device_busy_ms=busy if by_name else None,
+                         busy_share=busy / (wall * 1e3) if by_name else None,
+                         top_kernels_ms=[[n[:80], t] for n, t in top])
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=4,
@@ -332,6 +526,7 @@ def main() -> int:
     from repro_torch.kernels.expert_ffn import expert_ffn_from_pool
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.kernels.ssd_scan import ssd_scan
 
     card = nvidia_smi()
     emit(dict(phase="device", nvidia_smi=card,
@@ -349,10 +544,10 @@ def main() -> int:
 
     g = torch.Generator(device="cuda").manual_seed(args.seed)
     results = [kernel_expert_ffn(g), kernel_flash_attention(g),
-               kernel_flash_decode(g)]
+               kernel_flash_decode(g), kernel_ssd_scan(g)]
     torch.cuda.empty_cache()
     for r in results:
-        emit(dict(phase="kernel", tol=TOL, **r))
+        emit(dict(phase="kernel", **({"tol": TOL} | r)))
 
     emit(check_small(args.seed))
     torch.cuda.empty_cache()
@@ -360,9 +555,17 @@ def main() -> int:
     kernels = [expert_ffn_from_pool, flash_attention, flash_decode]
     srv = serve(args.layers, args.seed, kernels)
     emit(srv)
+    gc.collect()   # the engine's reference cycles hold its expert pool
+    torch.cuda.empty_cache()
 
+    emit(check_small_ssm(args.seed))
+    ssm = serve_ssm(args.seed, ssd_scan)
+    emit(ssm)
+
+    # each kernel's launches from the path that runs it
+    launches = srv["launches"] | ssm["launches"]
     summary = [{k: r[k] for k in ("name", "route", "source", "replaces")}
-               | {"launches": srv["launches"][r["name"]]}
+               | {"launches": launches[r["name"]]}
                | {k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                     "bound_by", "library_ms")}
                for r in results]

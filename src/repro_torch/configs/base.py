@@ -80,12 +80,13 @@ class ArchConfig:
                       == self.local_global_pattern) else self.sliding_window
 
 
-# the configs this slice serves: the paper's headline model, and qwen2-moe
-# (shared experts, padded router) for the routing tests
-ARCH_IDS = ("mixtral_8x7b", "qwen2_moe_a2_7b")
+# the configs the port serves: the paper's headline model, qwen2-moe (shared
+# experts, padded router) for the routing tests, and mamba2 (the ssm family)
+ARCH_IDS = ("mixtral_8x7b", "qwen2_moe_a2_7b", "mamba2_2_7b")
 
 _ALIASES = {a.replace("_", "-"): a for a in ARCH_IDS}
 _ALIASES["qwen2-moe-a2.7b"] = "qwen2_moe_a2_7b"
+_ALIASES["mamba2-2.7b"] = "mamba2_2_7b"
 
 
 def get_config(name: str) -> ArchConfig:

@@ -6,7 +6,9 @@ only PyTorch::
 
     PYTHONPATH=src python3 -m pytest -q tests/test_torch_cuda.py
 
-Tolerance: bf16, rtol = atol = 2e-2 (tests/test_kernels.py's ``_tol``).
+Tolerance: bf16, rtol = atol = 2e-2 (tests/test_kernels.py's ``_tol``);
+``ssd_scan``'s f32 outputs rtol = atol = 1e-3 (tests/test_kernels.py's
+tolerance for the Pallas ``ssd_scan``).
 """
 import dataclasses
 
@@ -19,6 +21,7 @@ from repro_torch.kernels.expert_ffn import (expert_ffn_from_pool,
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
 from repro_torch.kernels.flash_decode import flash_decode, flash_decode_plain
+from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -73,6 +76,53 @@ def test_flash_decode_kernel_on_card(cuda, window):
     torch.testing.assert_close(flash_decode(q, k, v, pos, sp, window=window),
                                flash_decode_plain(q, k, v, pos, sp, window=window),
                                rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,G,P,N,dtype", [
+    (1, 512, 4, 1, 64, 128, torch.bfloat16),
+    (2, 300, 8, 2, 64, 128, torch.bfloat16),   # ragged S, two groups, B=2
+    (2, 70, 4, 1, 16, 16, torch.float32),      # one ragged chunk, the reduced widths
+])
+def test_ssd_scan_kernel_on_card(cuda, B, S, H, G, P, N, dtype):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    r = lambda *s, sc=1.0: (torch.randn(s, generator=g, device=cuda) * sc).to(dtype)
+    x, b, c = r(B, S, H, P), r(B, S, G, N, sc=0.5), r(B, S, G, N, sc=0.5)
+    dt = torch.nn.functional.softplus(torch.randn(B, S, H, generator=g, device=cuda)) * 0.5
+    da = -dt * torch.exp(torch.randn(B, S, H, generator=g, device=cuda) * 0.2)
+    n = ssd_scan.launches
+    y, h = ssd_scan(x, b, c, da, dt)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == n + 1
+    y0, h0 = ssd_scan_plain(x, b, c, da, dt)
+    torch.testing.assert_close(y, y0, rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(h, h0, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_ssm_bundle_on_card_matches_cpu(cuda):
+    """Mamba2 with the kernel's widths (head_dim 64, state 128), 2 layers,
+    on the card (ssd_scan kernel) and on the CPU (plain version): prefill
+    logits agree to a few bf16 ulps and the kernel ran once per layer."""
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.models.model import build
+    cfg = dataclasses.replace(reduced(get_config("mamba2_2_7b")),
+                              ssm_head_dim=64, ssm_state=128)
+    bundle = build(cfg)
+    gpu = bundle.init(0, device=cuda)
+    cpu = {"embed": gpu["embed"].cpu(), "ln_f": gpu["ln_f"].cpu(),
+           "layers": {"ln": gpu["layers"]["ln"].cpu(),
+                      "ssm": {k: v.cpu() for k, v in gpu["layers"]["ssm"].items()}}}
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (1, 300)))
+    n = ssd_scan.launches
+    lg_g, cache_g = bundle.prefill(gpu, {"tokens": toks.to(cuda)})
+    assert ssd_scan.launches == n + cfg.n_layers
+    assert all(v.is_cuda for v in cache_g.values())
+    assert all(v.is_cuda for v in bundle.init_cache(1, device=cuda).values())
+    lg_c, cache_c = bundle.prefill(cpu, {"tokens": toks})
+    torch.testing.assert_close(lg_g.cpu()[:, :cfg.vocab], lg_c[:, :cfg.vocab],
+                               rtol=5e-2, atol=5e-2)
+    torch.testing.assert_close(cache_g["ssm"].cpu(), cache_c["ssm"], rtol=5e-2, atol=5e-2)
 
 
 @pytest.mark.cuda
