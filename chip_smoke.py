@@ -7,7 +7,10 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 
   1. device  — the card's name and power limit (``nvidia-smi``).
   2. build   — compiles every CUDA kernel of ``src/repro_torch/csrc`` for
-               sm_90a (one ``nvcc`` per source, in parallel).
+               sm_90a (one ``nvcc`` per source, in parallel); prints each
+               library's ptxas registers / spills and its count of HGMMA
+               (wgmma), UTMALDG (TMA load) and HMMA (mma.sync / wmma)
+               instructions in ``cuobjdump -sass``.
   3. kernels — each kernel at the shapes its main path gives it (the
                Mixtral-8x7B serve path; Mamba2-2.7B's prefill for
                ``ssd_scan``), held against its plain PyTorch version on the
@@ -17,7 +20,14 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                computes the same function, and the bound from bytes at
                3.35 TB/s and operations at 989 TFLOP/s bf16 (tensor cores)
                or 67 TFLOP/s f32 (``ssd_scan``: CUDA cores), from the H100
-               SXM data sheet. Tolerance: bf16 outputs rtol = atol = 2e-2
+               SXM data sheet. ``flash_attention`` and ``flash_decode`` are
+               also timed by device time alone (``device_ms``: the median
+               over 20 calls of the time the card is busy with the work
+               each call launches, from a ``torch.profiler`` window)
+               beside their library call's
+               (``library_device_ms``), kernel and library in turns, at the
+               main path's shape and at a long one (``long``: S=4096,
+               W=4096). Tolerance: bf16 outputs rtol = atol = 2e-2
                (the repo's kernel-test tolerance), ``ssd_scan``'s f32
                outputs 1e-3 (tests/test_kernels.py's for that kernel).
   4. check   — a small MoE model served by the same engine on the card and
@@ -49,6 +59,7 @@ import dataclasses
 import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -76,8 +87,9 @@ def nvidia_smi() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median device time of one call, by CUDA events around each call."""
+def event_ms(fn, reps: int = 20, warmup: int = 3) -> list:
+    """Device time of each call, by CUDA events around it. On an idle stream
+    this includes the host's time to issue the call."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -90,7 +102,69 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
-    return float(np.median(times))
+    return times
+
+
+def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Median of ``event_ms``."""
+    return float(np.median(event_ms(fn, reps, warmup)))
+
+
+def busy_ms(events) -> float:
+    """Length of the union of the events' device intervals: work that
+    overlaps (a kernel launched as a programmatic dependent starts before
+    the kernel it waits for ends) counts once, idle gaps not at all."""
+    total, end = 0.0, float("-inf")
+    for t0, t1 in sorted((e.time_range.start, e.time_range.end) for e in events):
+        total += max(0.0, t1 - max(t0, end))
+        end = max(end, t1)
+    return total / 1e3
+
+
+def kernel_ms(fn, reps: int = 20) -> list:
+    """Device time of each call: the busy time (``busy_ms``) of the device
+    work (kernels, copies, sets) the call launches, from a
+    ``torch.profiler`` window over ``reps`` calls, each ending in a sync.
+    The calls run one after another and launch the same work, so the
+    device events, in device order, fall into ``reps`` equal runs (the
+    host and device clocks are not aligned closely enough to match events
+    to calls)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+            torch.cuda.synchronize()
+    work = sorted((e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA),
+                  key=lambda e: e.time_range.start)
+    n = len(work) // reps
+    runs = [work[i * n:(i + 1) * n] for i in range(reps)]
+    if n == 0 or len(work) % reps or any(
+            [e.name for e in r] != [e.name for e in runs[0]] for r in runs):
+        raise AssertionError(f"profiler saw {len(work)} device events in {reps} "
+                             f"calls: {[e.name[:40] for e in work[:8]]}")
+    return [busy_ms(r) for r in runs]
+
+
+def in_turns(kernel, library, timer) -> tuple:
+    """Medians of ``timer`` over kernel, library, library, kernel."""
+    k = timer(kernel)
+    lib = timer(library) + timer(library)
+    k += timer(kernel)
+    return float(np.median(k)), float(np.median(lib))
+
+
+def sass_counts(lib: Path):
+    """Tensor-core and TMA instructions in a built library's SASS."""
+    from repro_torch.kernels import _build
+    tool = Path(_build.nvcc()).parent / "cuobjdump"
+    if not tool.is_file():
+        return f"not counted: {tool} not found"
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    return {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "UTMALDG", "HMMA")}
 
 
 def bound(n_bytes: float, n_ops: float, peak_ops: float = PEAK_BF16_OPS_PER_S):
@@ -142,50 +216,90 @@ def kernel_expert_ffn(g):
                 plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None)
 
 
+def device_vs_library(kernel, library):
+    """Event-timed and profiler-timed medians of a kernel and its library
+    call, each timed in turns (kernel, library, library, kernel)."""
+    ms, library_ms = in_turns(kernel, library, event_ms)
+    device_ms, library_device_ms = in_turns(kernel, library, kernel_ms)
+    return dict(ms=ms, library_ms=library_ms, device_ms=device_ms,
+                library_device_ms=library_device_ms,
+                device_ratio=device_ms / library_device_ms)
+
+
+def attention_bound(B, S, H, Hkv, D):
+    """Causal prefill: q, k, v read once and o written once (bf16); 4 D
+    operations for each of the S (S + 1) / 2 live (query, key) pairs of
+    each head."""
+    pairs = S * (S + 1) // 2
+    return bound(2 * (2 * B * S * H * D + 2 * B * S * Hkv * D), 4 * B * H * D * pairs)
+
+
 def kernel_flash_attention(g):
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
-    B, S, H, Hkv, D = 1, 512, 32, 8, 128
-    mk = lambda s, h: torch.randn(B, s, h, D, generator=g, device="cuda").to(torch.bfloat16)
-    q, k, v = mk(S, H), mk(S, Hkv), mk(S, Hkv)
-    err = max_err(flash_attention(q, k, v), flash_attention_plain(q, k, v))
-    for s, causal, window in ((S, True, 128), (500, True, -1), (200, False, -1)):
+    H, Hkv, D = 32, 8, 128
+    mk = lambda s, h: torch.randn(1, s, h, D, generator=g, device="cuda").to(torch.bfloat16)
+
+    def shape(S):
+        q, k, v = mk(S, H), mk(S, Hkv), mk(S, Hkv)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        err = max_err(flash_attention(q, k, v), flash_attention_plain(q, k, v))
+        timed = device_vs_library(lambda: flash_attention(q, k, v),
+                                  lambda: F.scaled_dot_product_attention(
+                                      qt, kt, vt, is_causal=True, enable_gqa=True))
+        bms, by = attention_bound(1, S, H, Hkv, D)
+        return (q, k, v), dict(shape=dict(B=1, S=S, H=H, Hkv=Hkv, D=D), max_abs_err=err,
+                               bound_ms=bms, bound_by=by,
+                               bound_share=bms / timed["device_ms"], **timed)
+
+    (q, k, v), main = shape(512)
+    err = main["max_abs_err"]
+    for s, causal, window in ((512, True, 128), (500, True, -1), (200, False, -1)):
         qs, ks, vs = q[:, :s], k[:, :s], v[:, :s]   # strided views, ragged S
         err = max(err, max_err(
             flash_attention(qs, ks, vs, causal=causal, window=window),
             flash_attention_plain(qs, ks, vs, causal=causal, window=window)))
-    ms = time_ms(lambda: flash_attention(q, k, v))
     plain_ms = time_ms(lambda: flash_attention_plain(q, k, v))
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True))
-    pairs = S * (S + 1) // 2
-    bms, by = bound(2 * (2 * B * S * H * D + 2 * B * S * Hkv * D),
-                    4 * B * H * D * pairs)
+    _, long = shape(4096)
+    torch.cuda.empty_cache()
     return dict(name="flash_attention", route="cuda",
                 source="src/repro_torch/csrc/flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention.py:96",
-                shape=dict(B=B, S=S, H=H, Hkv=Hkv, D=D), max_abs_err=err,
-                ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                library_ms=library_ms)
+                plain_ms=plain_ms, long=long, **(main | dict(max_abs_err=err)))
 
 
 def kernel_flash_decode(g):
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_decode import flash_decode, flash_decode_plain
-    B, W, H, Hkv, D = 1, 545, 32, 8, 128
+    from repro_torch.kernels.flash_decode import (flash_decode, flash_decode_plain,
+                                                  n_splits)
+    H, Hkv, D = 32, 8, 128
     dev = "cuda"
-    q = torch.randn(B, H, D, generator=g, device=dev).to(torch.bfloat16)
-    k = torch.randn(B, W, Hkv, D, generator=g, device=dev).to(torch.bfloat16)
-    v = torch.randn(B, W, Hkv, D, generator=g, device=dev).to(torch.bfloat16)
-    pos = torch.full((B,), W - 1, dtype=torch.int32, device=dev)
-    sp = torch.arange(W, dtype=torch.int32, device=dev)[None]
-    err = max_err(flash_decode(q, k, v, pos, sp), flash_decode_plain(q, k, v, pos, sp))
+    r = lambda *s: torch.randn(s, generator=g, device=dev).to(torch.bfloat16)
+
+    def shape(W):
+        q, k, v = r(1, H, D), r(1, W, Hkv, D), r(1, W, Hkv, D)
+        pos = torch.full((1,), W - 1, dtype=torch.int32, device=dev)
+        sp = torch.arange(W, dtype=torch.int32, device=dev)[None]
+        err = max_err(flash_decode(q, k, v, pos, sp), flash_decode_plain(q, k, v, pos, sp))
+        mask = ((sp >= 0) & (sp <= pos[:, None]))[:, None, None, :]
+        timed = device_vs_library(lambda: flash_decode(q, k, v, pos, sp),
+                                  lambda: F.scaled_dot_product_attention(
+                                      q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+                                      attn_mask=mask, enable_gqa=True))
+        # q and o once, the valid slots' K and V rows once, pos and slot_pos
+        n_valid = int(mask.sum())
+        bms, by = bound(2 * (2 * H * D + 2 * n_valid * Hkv * D) + 4 * (W + 1),
+                        4 * H * D * n_valid)
+        return (q, k, v, pos, sp), dict(
+            shape=dict(B=1, W=W, H=H, Hkv=Hkv, D=D, n_split=n_splits(1, Hkv, W)),
+            max_abs_err=err, bound_ms=bms, bound_by=by,
+            bound_share=bms / timed["device_ms"], **timed)
+
+    (q, k, v, pos, sp), main = shape(545)
+    W, err = 545, main["max_abs_err"]
     # two rows at different positions, empty slots, slots past pos, a window
-    q2 = torch.randn(2, H, D, generator=g, device=dev).to(torch.bfloat16)
-    k2 = torch.randn(2, W, Hkv, D, generator=g, device=dev).to(torch.bfloat16)
-    v2 = torch.randn(2, W, Hkv, D, generator=g, device=dev).to(torch.bfloat16)
+    q2, k2, v2 = r(2, H, D), r(2, W, Hkv, D), r(2, W, Hkv, D)
     sp2 = torch.arange(W, dtype=torch.int32, device=dev).repeat(2, 1)
     sp2[0, 300:] = -1
     sp2[1, :40] = -1
@@ -193,21 +307,12 @@ def kernel_flash_decode(g):
     for window in (-1, 64):
         err = max(err, max_err(flash_decode(q2, k2, v2, pos2, sp2, window=window),
                                flash_decode_plain(q2, k2, v2, pos2, sp2, window=window)))
-    ms = time_ms(lambda: flash_decode(q, k, v, pos, sp))
     plain_ms = time_ms(lambda: flash_decode_plain(q, k, v, pos, sp))
-    mask = ((sp >= 0) & (sp <= pos[:, None]))[:, None, None, :]
-    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        q[:, :, None], k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask,
-        enable_gqa=True))
-    n_valid = int(mask.sum())
-    bms, by = bound(2 * (2 * B * H * D + 2 * n_valid * Hkv * D) + 4 * (B * W + B),
-                    4 * H * D * n_valid)
+    _, long = shape(4096)
     return dict(name="flash_decode", route="cuda",
                 source="src/repro_torch/csrc/flash_decode.cu",
                 replaces="src/repro/kernels/flash_decode.py:80",
-                shape=dict(B=B, W=W, H=H, Hkv=Hkv, D=D), max_abs_err=err,
-                ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                library_ms=library_ms)
+                plain_ms=plain_ms, long=long, **(main | dict(max_abs_err=err)))
 
 
 def ssd_inputs(g, B, S, H, G, P, N, dtype):
@@ -539,8 +644,9 @@ def main() -> int:
                  _build.library_path(n).with_suffix(".so.log").read_text().splitlines()
                  if "registers" in ln or "spill" in ln]
              for n in _build.SOURCES}
+    sass = {n: sass_counts(_build.library_path(n)) for n in _build.SOURCES}
     emit(dict(phase="build", seconds=time.perf_counter() - t0,
-              per_source_s=per_source, ptxas=ptxas))
+              per_source_s=per_source, ptxas=ptxas, sass=sass))
 
     g = torch.Generator(device="cuda").manual_seed(args.seed)
     results = [kernel_expert_ffn(g), kernel_flash_attention(g),
@@ -568,6 +674,7 @@ def main() -> int:
                | {"launches": launches[r["name"]]}
                | {k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                     "bound_by", "library_ms")}
+               | {k: r[k] for k in ("device_ms", "library_device_ms") if k in r}
                for r in results]
     print(card, flush=True)
     emit({"kernels": summary})

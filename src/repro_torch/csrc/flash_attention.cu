@@ -1,202 +1,418 @@
-// Causal / windowed GQA prefill attention with an online softmax.
+// Causal / windowed GQA prefill attention with an online softmax, for Hopper.
 //
 // Replaces the Pallas kernel `flash_attention` (repro/kernels/flash_attention.py):
 // scale D^-0.5, mask -1e30, f32 logits and running max / denominator, the
-// probabilities rounded to bf16 before the PV product, and KV tiles that are
-// fully masked (past the causal frontier or outside the window) skipped.
-// Query head h reads KV head h / G.
+// probabilities rounded to bf16 before the PV product, f32 accumulation, the
+// output divided by max(l, 1e-20), and KV tiles that are fully masked (past
+// the causal frontier or outside the window) skipped. Query head h reads KV
+// head h / G. The exponentials are exp2 of logits pre-scaled by log2(e).
 //
 // It reads the serving engine's layouts in place through strides: q and o
 // [B, S, H, D], k and v [B, S, Hkv, D], the last dimension contiguous.
 //
 // What bounds it on an H100: at the serve shape (S=512, H=32, Hkv=8, D=128)
 // causal attention is 2.1 GFLOP over 10.5 MB of q/k/v/o, a few microseconds
-// at peak either way; the kernel is latency-bound by its tile loop. Design:
-// one block of 4 warps per (64-query tile, head, batch row); each KV tile of
-// 64 keys is staged in shared memory and each warp owns 16 query rows end to
-// end (scores, softmax, output accumulator), so only the K/V staging needs
-// block-wide barriers. QK^T and PV run on the tensor cores through wmma; the
-// output accumulator lives in shared memory in f32 so that rows can be
-// rescaled by the online-softmax correction.
-#include <mma.h>
+// at peak either way, so the kernel is bound by the latency of its longest
+// block's tile loop (8 tiles); at S=4096 it is bound by the tensor cores
+// (137 GFLOP). Design:
+//   - one block per (64-query tile, head, batch row): one consumer warpgroup
+//     (128 threads) and one producer warp, two blocks an SM. Blocks are
+//     launched longest first (the q-tile index is the slowest grid axis,
+//     reversed), so the causal tail is short.
+//   - the producer loads the Q tile once, then K and V tiles of 64 keys into
+//     a 2-stage ring, all by TMA (4-D tensor maps over the strided views,
+//     128-byte swizzle, boxes 64 columns wide; rows past S arrive as zeros),
+//     with a full / empty mbarrier pair per stage.
+//   - S = Q K^T by wgmma m64n64k16 from shared memory into f32 registers; the
+//     online softmax works on that fragment in registers (a thread holds two
+//     rows, so a row max is a 4-lane shuffle; exp2 on the SFU); the
+//     per-element mask runs only on the tiles that need it (causal diagonal,
+//     window edge, ragged end).
+//   - O += P V by wgmma with P converted to bf16 in registers as the A operand
+//     and V's [keys, D] tile read as an MN-major B operand, issued in one
+//     wgmma group with the next tile's S, so each tile waits on the tensor
+//     cores once. No wgmma is in flight while other instructions touch its
+//     registers (a pipelined softmax made ptxas serialize or guard them).
+//     O (64 x D f32) stays in registers for the whole loop and is written
+//     once, divided by l.
+//   - D is a template parameter; tiles hold D padded to whole 64-column
+//     boxes (TMA zero-fills the columns past D), so any multiple of 16 fits
+//     the same layout. D = 64 and 128 are instantiated. (Two consumer
+//     warpgroups sharing a deeper ring, 128 rows a block, measured slower.)
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
 
 #include "common.cuh"
 
-using namespace nvcuda;
-
 namespace {
 
-constexpr int BQ = 64;   // query rows per block
-constexpr int BKV = 64;  // keys per tile
-constexpr int THREADS = 128;
-constexpr int SLD = BKV + 4;  // f32 score row stride
-constexpr int PLD = BKV + 8;  // bf16 probability row stride
+constexpr int BQ = 64;                     // query rows per block: one wgmma M
+constexpr int BKV = 64;                    // keys per tile
+constexpr int STAGES = 2;
+constexpr int CONSUMERS = 128;             // one warpgroup
+constexpr int THREADS = CONSUMERS + 32;    // and one producer warp
+constexpr int BOX = 64;                    // bf16 columns per TMA box: one 128-byte row
+constexpr int BOX_BYTES = 64 * BOX * 2;    // a box of 64 rows
+constexpr float LOG2E = 1.4426950408889634f;
 
 template <int D>
-struct Layout {
-  static constexpr int QLD = D + 8;  // bf16 row stride of Q/K/V tiles
-  static constexpr int OLD = D + 4;  // f32 row stride of the accumulator
-  static constexpr size_t q = 0;
-  static constexpr size_t k = q + sizeof(bf16) * BQ * QLD;
-  static constexpr size_t v = k + sizeof(bf16) * BKV * QLD;
-  static constexpr size_t s = v + sizeof(bf16) * BKV * QLD;
-  static constexpr size_t p = s + sizeof(float) * BQ * SLD;
-  static constexpr size_t o = p + sizeof(bf16) * BQ * PLD;
-  static constexpr size_t m = o + sizeof(float) * BQ * OLD;
-  static constexpr size_t l = m + sizeof(float) * BQ;
-  static constexpr size_t bytes = l + sizeof(float) * BQ;
+struct Smem {
+  static constexpr int DP = (D + BOX - 1) / BOX * BOX;  // columns held, whole boxes
+  static constexpr int NBOX = DP / BOX;
+  static constexpr int TILE = NBOX * BOX_BYTES;         // 64 rows x DP (BQ == BKV)
+  static constexpr int q = 0;
+  static constexpr int kv = TILE;                       // stage s: K at kv + 2s TILE, V after it
+  static constexpr int bar = kv + 2 * STAGES * TILE;    // q, full[STAGES], empty[STAGES]
+  static constexpr int bytes = bar + 8 * (1 + 2 * STAGES) + 1024;  // + room to align to 1024
 };
 
-// rows [0, 64) of a [S, D] slab (row stride ld) into shared memory; rows
-// past S read as zeros
-template <int D>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, long long ld, int row0,
-                                          int S) {
-  constexpr int QLD = Layout<D>::QLD;
-  for (int c = threadIdx.x; c < 64 * D / 8; c += THREADS) {
-    const int r = c / (D / 8), col = (c % (D / 8)) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (row0 + r < S) val = *reinterpret_cast<const uint4*>(src + (row0 + r) * ld + col);
-    *reinterpret_cast<uint4*>(dst + r * QLD + col) = val;
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// wait until the barrier's phase of this parity has completed; a wait that
+// never ends (a lost copy) traps, so the launch fails instead of hanging
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (uint32_t polls = 0; !done; ++polls) {
+    if (polls == (1u << 22)) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// one box of a 4-D tensor map into shared memory, completion on `bar`
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled tile (1024-byte aligned
+// atoms of 8 rows x 128 bytes). K-major: sbo = 1024 (next 8 rows), lbo unused.
+// MN-major: lbo = the next 64-column box, sbo = 1024 (next 8 rows along K).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr >> 4) & 0x3FFF) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// 2^x by the SFU (ex2.approx, relative error ~2^-22; -1e30 gives 0)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// keep the compiler from moving accumulator reads / writes across a wgmma
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// d[32] (+)= A[64x16] B[16x64]: A and B from shared memory, both K-major
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// d[32] (+)= A[64x16] B[16x64]: A from registers, B from shared memory, MN-major
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                            int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+// d[64] (+)= A[64x16] B[16x128]: A from registers, B from shared memory, MN-major
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t db,
+                                            int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+// S = Q K^T over DP / 16 steps of 16 columns (32 bytes; 4 per 128-byte box)
+template <int DP>
+__device__ __forceinline__ void qk_tile(float (&sc)[32], uint32_t sq, uint32_t sk) {
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk) {
+    const uint32_t off = (kk / 4) * BOX_BYTES + (kk % 4) * 32;
+    wgmma_ss_n64(sc, sw128_desc(sq + off, 16, 1024), sw128_desc(sk + off, 16, 1024), kk > 0);
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(THREADS)
-    flash_attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, bf16* __restrict__ o, int S, int G,
-                      long long sqb, long long sqs, long long sqh, long long skb, long long sks,
-                      long long skh, long long svb, long long svs, long long svh, long long sob,
-                      long long sos, long long soh, int causal, int window, float scale) {
-  typedef Layout<D> Lay;
-  constexpr int QLD = Lay::QLD, OLD = Lay::OLD;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem + Lay::q);
-  bf16* Ks = reinterpret_cast<bf16*>(smem + Lay::k);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + Lay::v);
-  float* Ss = reinterpret_cast<float*>(smem + Lay::s);
-  bf16* Ps = reinterpret_cast<bf16*>(smem + Lay::p);
-  float* Os = reinterpret_cast<float*>(smem + Lay::o);
-  float* Ms = reinterpret_cast<float*>(smem + Lay::m);
-  float* Ls = reinterpret_cast<float*>(smem + Lay::l);
+__global__ void __launch_bounds__(THREADS, 2)
+    flash_attn_kernel(__grid_constant__ const CUtensorMap tq, __grid_constant__ const CUtensorMap tk,
+                      __grid_constant__ const CUtensorMap tv, bf16* __restrict__ o, int S, int G,
+                      long long sob, long long sos, long long soh, int causal, int window,
+                      float scale_log2) {
+  typedef Smem<D> Lay;
+  constexpr int DP = Lay::DP, NBOX = Lay::NBOX, TILE = Lay::TILE;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw)) + 1023) & ~1023u;
+  const uint32_t sq = base + Lay::q, bar_q = base + Lay::bar;
+  const uint32_t bar_full = bar_q + 8, bar_empty = bar_full + 8 * STAGES;
 
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / G;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const bf16* qb = q + b * sqb + h * sqh;
-  const bf16* kb = k + b * skb + hk * skh;
-  const bf16* vb = v + b * svb + hk * svh;
-
-  load_tile<D>(Qs, qb, sqs, q0, S);
-  for (int i = tid; i < BQ * OLD; i += THREADS) Os[i] = 0.0f;
-  if (tid < BQ) {
-    Ms[tid] = KERNEL_NEG_INF;
-    Ls[tid] = 0.0f;
-  }
-
+  const int qt = gridDim.z - 1 - blockIdx.z;  // longest causal tiles first
+  const int q0 = qt * BQ, h = blockIdx.x, b = blockIdx.y, hk = h / G;
   // live KV tiles: up to the causal frontier of the tile's last query, and
   // from the first key its first query can see through the window
   const int kv_end = causal ? min(S, q0 + BQ) : S;
   const int kv_begin = window > 0 ? max(0, q0 - window + 1) : 0;
-  const int row0 = warp * 16;
+  const int t_begin = kv_begin / BKV, t_end = (kv_end + BKV - 1) / BKV;
 
-  for (int t = kv_begin / BKV; t * BKV < kv_end; ++t) {
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= CONSUMERS) {
+    // producer warp: one thread issues every copy
+    if (threadIdx.x != CONSUMERS) return;
+    mbar_expect_tx(bar_q, TILE);
+    for (int c = 0; c < NBOX; ++c) tma_load(sq + c * BOX_BYTES, &tq, bar_q, c * BOX, h, q0, b);
+    for (int t = t_begin, it = 0; t < t_end; ++t, ++it) {
+      const int s = it % STAGES;
+      mbar_wait(bar_empty + 8 * s, ((it / STAGES) & 1) ^ 1);  // first round passes
+      const uint32_t sk = base + Lay::kv + 2 * s * TILE, sv = sk + TILE;
+      mbar_expect_tx(bar_full + 8 * s, 2 * TILE);
+      for (int c = 0; c < NBOX; ++c) {
+        tma_load(sk + c * BOX_BYTES, &tk, bar_full + 8 * s, c * BOX, hk, t * BKV, b);
+        tma_load(sv + c * BOX_BYTES, &tv, bar_full + 8 * s, c * BOX, hk, t * BKV, b);
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup. Fragment of a 64 x N f32 wgmma accumulator: thread (warp w of the
+  // warpgroup, lane l) holds rows 16w + l/4 (+8) and columns 8j + 2(l%4) (+1):
+  // element 4j + 2i + c is row 16w + l/4 + 8i, column 8j + 2(l%4) + c.
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int row0 = 16 * warp + lane / 4, col0 = 2 * (lane % 4);
+  float acc[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.0f;
+  float m[2] = {KERNEL_NEG_INF, KERNEL_NEG_INF}, l[2] = {0.0f, 0.0f};  // l: this thread's columns
+
+  // Per tile: the softmax, then one wgmma group with O += P V of this tile
+  // and S = Q K^T of the next, one wait.
+  const int n_tiles = t_end - t_begin;
+  float sc[32];
+  mbar_wait(bar_q, 0);
+  mbar_wait(bar_full, 0);
+  fence_regs(sc);
+  wgmma_fence();
+  qk_tile<DP>(sc, sq, base + Lay::kv);
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_regs(sc);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int t = t_begin + it, s = it % STAGES, s1 = (it + 1) % STAGES;
     const int k0 = t * BKV;
-    __syncthreads();  // previous tile fully consumed (and Q/O/M/L initialised)
-    load_tile<D>(Ks, kb, sks, k0, S);
-    load_tile<D>(Vs, vb, svs, k0, S);
-    __syncthreads();
-
-    // scores of this warp's 16 rows against the 64 keys
-    {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> sf[BKV / 16];
+    const bool edge = k0 + BKV > S || (causal && k0 + BKV - 1 > q0) ||
+                      (window > 0 && k0 <= q0 + BQ - 1 - window);
 #pragma unroll
-      for (int j = 0; j < BKV / 16; ++j) wmma::fill_fragment(sf[j], 0.0f);
-#pragma unroll
-      for (int kk = 0; kk < D; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> qa;
-        wmma::load_matrix_sync(qa, Qs + row0 * QLD + kk, QLD);
-#pragma unroll
-        for (int j = 0; j < BKV / 16; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kf;
-          wmma::load_matrix_sync(kf, Ks + (j * 16) * QLD + kk, QLD);
-          wmma::mma_sync(sf[j], qa, kf, sf[j]);
-        }
+    for (int e = 0; e < 32; ++e) {
+      float x = sc[e] * scale_log2;
+      if (edge) {
+        const int qi = q0 + row0 + 8 * ((e / 2) % 2), ki = k0 + 8 * (e / 4) + col0 + e % 2;
+        const bool ok = ki < S && (!causal || ki <= qi) && (window <= 0 || ki > qi - window);
+        x = ok ? x : KERNEL_NEG_INF;
       }
-#pragma unroll
-      for (int j = 0; j < BKV / 16; ++j)
-        wmma::store_matrix_sync(Ss + row0 * SLD + j * 16, sf[j], SLD, wmma::mem_row_major);
+      sc[e] = x;
     }
-    __syncwarp();
 
-    // online softmax over this warp's rows; lane handles keys lane, lane+32
-    for (int r = 0; r < 16; ++r) {
-      const int row = row0 + r, qi = q0 + row;
-      float sv[2];
+    // online softmax on the two rows this thread holds
+    float mx[2] = {m[0], m[1]};
 #pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int ki = k0 + lane + 32 * c;
-        bool ok = ki < S;
-        if (causal) ok = ok && ki <= qi;
-        if (window > 0) ok = ok && ki > qi - window;
-        sv[c] = ok ? Ss[row * SLD + lane + 32 * c] * scale : KERNEL_NEG_INF;
-      }
-      const float m_old = Ms[row];
-      const float m_new = fmaxf(m_old, warp_max(fmaxf(sv[0], sv[1])));
-      const float p0 = expf(sv[0] - m_new), p1 = expf(sv[1] - m_new);
-      Ps[row * PLD + lane] = __float2bfloat16(p0);
-      Ps[row * PLD + lane + 32] = __float2bfloat16(p1);
-      const float sum = warp_sum(p0 + p1);
-      const float corr = expf(m_old - m_new);
-      for (int c = lane; c < D; c += 32) Os[row * OLD + c] *= corr;
-      __syncwarp();
-      if (lane == 0) {
-        Ms[row] = m_new;
-        Ls[row] = Ls[row] * corr + sum;
-      }
+    for (int e = 0; e < 32; ++e) mx[(e / 2) % 2] = fmaxf(mx[(e / 2) % 2], sc[e]);
+    float corr[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      corr[i] = exp2_approx(m[i] - mx[i]);
+      m[i] = mx[i];
+      l[i] *= corr[i];
     }
-    __syncwarp();
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      sc[e] = exp2_approx(sc[e] - mx[(e / 2) % 2]);
+      l[(e / 2) % 2] += sc[e];  // the f32 sum, before rounding
+    }
+    // P as the A operand of four k16 steps: the accumulator's 16 x 16 block
+    // of keys 16k..16k+15 is exactly the A fragment of that step
+    uint32_t pa[BKV / 16][4];
+#pragma unroll
+    for (int k = 0; k < BKV / 16; ++k)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) pa[k][r] = pack_bf16(sc[8 * k + 2 * r], sc[8 * k + 2 * r + 1]);
+#pragma unroll
+    for (int e = 0; e < DP / 2; ++e) acc[e] *= corr[(e / 2) % 2];
 
-    // O[rows] += P[rows] @ V
+    // the next tile's K has to have landed before its S is issued. On the
+    // last tile S is computed from a stage no copy is writing and dropped:
+    // issuing it unconditionally keeps the wgmma group free of branches.
+    if (it + 1 < n_tiles) mbar_wait(bar_full + 8 * s1, ((it + 1) / STAGES) & 1);
+    fence_regs(acc);
+    fence_regs(sc);
+    wgmma_fence();
+    // O += P V: V's tile [keys, DP] is MN-major; 16 keys = 2048 bytes
+    const uint32_t sv = base + Lay::kv + (2 * s + 1) * TILE;
 #pragma unroll
-    for (int j = 0; j < D / 16; ++j) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> of;
-      wmma::load_matrix_sync(of, Os + row0 * OLD + j * 16, OLD, wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < BKV; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> pa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vf;
-        wmma::load_matrix_sync(pa, Ps + row0 * PLD + kk, PLD);
-        wmma::load_matrix_sync(vf, Vs + kk * QLD + j * 16, QLD);
-        wmma::mma_sync(of, pa, vf, of);
-      }
-      wmma::store_matrix_sync(Os + row0 * OLD + j * 16, of, OLD, wmma::mem_row_major);
+    for (int k = 0; k < BKV / 16; ++k) {
+      const uint64_t dv = sw128_desc(sv + k * 16 * 128, BOX_BYTES, 1024);
+      if constexpr (DP == 128) wgmma_rs_n128(acc, pa[k], dv, 1);
+      else wgmma_rs_n64(acc, pa[k], dv, 1);
     }
+    qk_tile<DP>(sc, sq, base + Lay::kv + 2 * s1 * TILE);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+    fence_regs(sc);
+    mbar_arrive(bar_empty + 8 * s);
   }
-  __syncwarp();
 
+  float den[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    den[i] = fmaxf(l[i], 1e-20f);
+  }
   bf16* ob = o + b * sob + h * soh;
-  for (int r = 0; r < 16; ++r) {
-    const int row = row0 + r, qi = q0 + row;
-    if (qi >= S) break;
-    const float denom = fmaxf(Ls[row], 1e-20f);
-    for (int c = lane; c < D; c += 32)
-      ob[qi * sos + c] = __float2bfloat16(Os[row * OLD + c] / denom);
+#pragma unroll
+  for (int j = 0; j < DP / 8; ++j) {
+    const int col = 8 * j + col0;
+    if (col >= D) continue;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int qi = q0 + row0 + 8 * i;
+      if (qi < S)
+        *reinterpret_cast<uint32_t*>(ob + qi * sos + col) =
+            pack_bf16(acc[4 * j + 2 * i] / den[i], acc[4 * j + 2 * i + 1] / den[i]);
+    }
   }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through the runtime's entry-point query: no -lcuda
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// tensor map of a bf16 [B, S, heads, D] view with element strides (sb, ss, sh):
+// dims (D, heads, S, B), boxes of 64 columns x 1 head x 64 rows x 1 batch row
+bool tensor_map(CUtensorMap* map, const void* ptr, int B, int S, int heads, int D, long long sb,
+                long long ss, long long sh) {
+  EncodeTiled enc = encoder();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)ss * 2, (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {BOX, 1, BKV, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
+             unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int S, int H, int Hkv,
            const long long* st, int causal, int window, float scale, cudaStream_t s) {
-  const size_t bytes = Layout<D>::bytes;
-  cudaError_t e = cudaFuncSetAttribute(flash_attn_kernel<D>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  CUtensorMap tq, tk, tv;
+  if (!tensor_map(&tq, q, B, S, H, D, st[0], st[1], st[2]) ||
+      !tensor_map(&tk, k, B, S, Hkv, D, st[3], st[4], st[5]) ||
+      !tensor_map(&tv, v, B, S, Hkv, D, st[6], st[7], st[8]))
+    return cudaErrorInvalidValue;
+  const int bytes = Smem<D>::bytes;
+  cudaError_t e =
+      cudaFuncSetAttribute(flash_attn_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return e;
-  dim3 grid((S + BQ - 1) / BQ, H, B);
-  flash_attn_kernel<D><<<grid, THREADS, bytes, s>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), S, H / Hkv, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
-      st[8], st[9], st[10], st[11], causal, window, scale);
+  dim3 grid(H, B, (S + BQ - 1) / BQ);
+  flash_attn_kernel<D><<<grid, THREADS, bytes, s>>>(tq, tk, tv, static_cast<bf16*>(o), S, H / Hkv,
+                                                    st[9], st[10], st[11], causal, window,
+                                                    scale * LOG2E);
   return cudaGetLastError();
 }
 

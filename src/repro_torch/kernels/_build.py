@@ -95,6 +95,16 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+def function(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
+    """``symbol`` of library ``name`` with its C signature (``int`` result),
+    set once per loaded library rather than on every call."""
+    fn = getattr(load(name), symbol)   # ctypes caches it on the library
+    if fn.argtypes is None:
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    return fn
+
+
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
     if rc != 0:
         msg = lib.cuda_error_string(rc).decode()

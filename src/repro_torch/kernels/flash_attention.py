@@ -7,9 +7,9 @@ means unbounded. The port reads the serving engine's layout: q ``[B,S,H,D]``,
 k/v ``[B,S,Hkv,D]`` (any strides with a contiguous last dimension), output
 ``[B,S,H,D]``.
 
-On a CUDA tensor the wrapper launches ``csrc/flash_attention.cu``; on a CPU
-tensor it runs ``flash_attention_plain``. ``flash_attention.launches``
-counts kernel launches.
+On a CUDA tensor the wrapper launches ``csrc/flash_attention.cu`` (wgmma
+and TMA, for Hopper); on a CPU tensor it runs ``flash_attention_plain``.
+``flash_attention.launches`` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -20,6 +20,10 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
+# q, k, v, o, B, S, H, Hkv, D, strides, causal, window, scale, stream
+_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+             + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                ctypes.c_void_p])
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = -1):
@@ -67,16 +71,11 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = -1):
     o = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     strides = (ctypes.c_longlong * 12)(*(
         s for t in (q, k, v, o) for s in t.stride()[:3]))
-    lib = _build.load("flash_attention")
-    fn = lib.flash_attention_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-                   + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_float, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    fn = _build.function("flash_attention", "flash_attention_fwd", _ARGTYPES)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             B, S, H, Hkv, D, strides, int(causal), int(window), D ** -0.5,
             _build.stream_ptr(q))
-    _build.check(lib, rc, "flash_attention")
+    _build.check(_build.load("flash_attention"), rc, "flash_attention")
     flash_attention.launches += 1
     return o
 

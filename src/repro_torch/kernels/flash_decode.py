@@ -8,9 +8,10 @@ layout. A slot is valid when ``0 <= slot_pos <= pos`` and, for
 ``window > 0``, ``slot_pos > pos - window``. Scale ``D**-0.5``, mask -1e30,
 f32 softmax statistics, probabilities rounded to the V dtype before PV.
 
-On a CUDA tensor the wrapper launches ``csrc/flash_decode.cu``; on a CPU
-tensor it runs ``flash_decode_plain``. ``flash_decode.launches`` counts
-kernel launches.
+On a CUDA tensor the wrapper launches ``csrc/flash_decode.cu``: a split-K
+pass over ``n_splits(...)`` contiguous slot ranges, then a combine pass, both
+from one C call; on a CPU tensor it runs ``flash_decode_plain``.
+``flash_decode.launches`` counts wrapper calls that launched the kernels.
 """
 from __future__ import annotations
 
@@ -21,6 +22,24 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
+H100_SMS = 132
+MIN_SPLIT_SLOTS = 32    # slots a range holds at least, where W allows
+MAX_SPLIT_SLOTS = 64    # the kernel's score buffer (csrc/flash_decode.cu MAX_SPLIT)
+# q, k, v, pos, slot_pos, o, scratch, B, H, Hkv, W, D, strides, window,
+# scale, n_split, stream
+_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+             + [ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                ctypes.c_void_p])
+_SMS = {}
+
+
+def n_splits(B: int, Hkv: int, W: int, sms: int = H100_SMS) -> int:
+    """How many slot ranges the split pass cuts W into: enough blocks
+    (B * Hkv * n) to cover ``sms`` SMs, at most ``MAX_SPLIT_SLOTS`` slots a
+    range, and at least ``MIN_SPLIT_SLOTS`` where W allows. Range i is
+    ``[i*W // n, (i+1)*W // n)``, so lengths differ by at most one."""
+    n = max(-(-sms // (B * Hkv)), -(-W // MAX_SPLIT_SLOTS))
+    return max(1, min(n, W // MIN_SPLIT_SLOTS))
 
 
 def flash_decode_plain(q, k, v, pos, slot_pos, *, window: int = -1):
@@ -64,24 +83,25 @@ def flash_decode(q, k, v, pos, slot_pos, *, window: int = -1):
     for t in (q, k, v):
         if t.dtype != torch.bfloat16 or t.stride(-1) != 1:
             raise ValueError("q, k, v must be bf16 with a contiguous last dim")
+        if any(s % 8 for s in t.stride()[:-1]) or t.data_ptr() % 16:
+            raise ValueError("q, k, v need 16-byte strides and pointers")
     if pos.dtype != torch.int32 or slot_pos.dtype != torch.int32 \
             or slot_pos.stride(1) != 1:
         raise ValueError("pos / slot_pos must be int32, slot_pos rows contiguous")
     pos = pos.contiguous()   # the kernel reads pos[b] at stride 1
+    if q.device not in _SMS:
+        _SMS[q.device] = torch.cuda.get_device_properties(q.device).multi_processor_count
+    n = n_splits(B, Hkv, W, _SMS[q.device])
     o = torch.empty((B, H, D), dtype=q.dtype, device=q.device)
+    scratch = torch.empty(B * H * n * (D + 2), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 11)(
         q.stride(0), q.stride(1), *k.stride()[:3], *v.stride()[:3],
         slot_pos.stride(0), o.stride(0), o.stride(1))
-    lib = _build.load("flash_decode")
-    fn = lib.flash_decode_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
-                   + [ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
-                      ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    fn = _build.function("flash_decode", "flash_decode_fwd", _ARGTYPES)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
-            slot_pos.data_ptr(), o.data_ptr(), B, H, Hkv, W, D, strides,
-            int(window), D ** -0.5, _build.stream_ptr(q))
-    _build.check(lib, rc, "flash_decode")
+            slot_pos.data_ptr(), o.data_ptr(), scratch.data_ptr(), B, H, Hkv, W,
+            D, strides, int(window), D ** -0.5, n, _build.stream_ptr(q))
+    _build.check(_build.load("flash_decode"), rc, "flash_decode")
     flash_decode.launches += 1
     return o
 

@@ -79,6 +79,85 @@ def test_flash_decode_kernel_on_card(cuda, window):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,Hkv,D,causal,window", [
+    (1, 1, 8, 8, 128, True, -1),       # one row, G = 1
+    (2, 63, 8, 1, 128, True, -1),      # one ragged tile, G = 8
+    (1, 65, 16, 2, 64, True, -1),      # D = 64, a 1-row second tile
+    (2, 300, 8, 8, 128, True, 1),      # window 1: only the diagonal
+    (1, 300, 8, 2, 64, True, 64),      # window 64: one tile wide
+    (1, 333, 8, 2, 128, True, 200),    # window 200 across tile edges
+    (1, 200, 8, 2, 128, False, 200),   # non-causal, windowed
+    (2, 130, 8, 2, 128, False, -1),    # non-causal, ragged
+    (1, 4096, 32, 8, 128, True, -1),   # the long shape
+])
+def test_flash_attention_kernel_cases(cuda, B, S, H, Hkv, D, causal, window):
+    g = torch.Generator(device=cuda).manual_seed(4)
+    r = lambda *s: torch.randn(s, generator=g, device=cuda).to(torch.bfloat16)
+    q, k, v = r(B, S, H, D), r(B, S, Hkv, D), r(B, S, Hkv, D)
+    n = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    assert flash_attention.launches == n + 1
+    torch.testing.assert_close(got, flash_attention_plain(q, k, v, causal=causal, window=window),
+                               rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 100, 449])
+def test_flash_attention_kernel_strided_views(cuda, s):
+    """q[:, :s] of a [B,S,H,D] tensor and k, v sliced out of one qkv
+    tensor: strides the kernel's tensor maps must follow."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    B, S, H, Hkv, D = 2, 512, 8, 2, 128
+    qkv = torch.randn(B, S, H + 2 * Hkv, D, generator=g, device=cuda).to(torch.bfloat16)
+    q, k, v = qkv[:, :s, :H], qkv[:, :s, H:H + Hkv], qkv[:, :s, H + Hkv:]
+    torch.testing.assert_close(flash_attention(q, k, v), flash_attention_plain(q, k, v),
+                               rtol=2e-2, atol=2e-2)
+
+
+def _decode_case(cuda, B, W, H, Hkv, D, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    r = lambda *s: torch.randn(s, generator=g, device=cuda).to(torch.bfloat16)
+    sp = torch.arange(W, dtype=torch.int32, device=cuda).repeat(B, 1)
+    return r(B, H, D), r(B, W, Hkv, D), r(B, W, Hkv, D), sp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ragged", "empty_split", "all_empty", "three_rows",
+                                  "small_window", "long", "d64"])
+def test_flash_decode_kernel_splits(cuda, case):
+    """Cases of the split-K pass: W not a multiple of the range length, a
+    whole range of empty slots, no valid slot at all (the mean of V, as the
+    plain version gives), three rows at three positions, a window shorter
+    than one range, W = 4096, and D = 64 with G = 4."""
+    from repro_torch.kernels.flash_decode import n_splits
+    B, W, H, Hkv, D = {"three_rows": 3, "d64": 2}.get(case, 1), 545, 32, 8, 128
+    if case == "long":
+        W = 4096
+    if case == "d64":
+        H, Hkv, D = 16, 4, 64
+    q, k, v, sp = _decode_case(cuda, B, W, H, Hkv, D, seed=6)
+    pos = torch.full((B,), W - 1, dtype=torch.int32, device=cuda)
+    window = -1
+    n = n_splits(B, Hkv, W)
+    if case == "ragged":
+        assert W % n
+    elif case == "empty_split":
+        sp[:, (W * 2) // n:(W * 4) // n] = -1    # ranges 2 and 3
+    elif case == "all_empty":
+        sp[:] = -1
+    elif case == "three_rows":
+        pos = torch.tensor([100, 300, 544], dtype=torch.int32, device=cuda)
+        sp[1, 200:260] = -1
+    elif case == "small_window":
+        window = 16
+    launches = flash_decode.launches
+    got = flash_decode(q, k, v, pos, sp, window=window)
+    assert flash_decode.launches == launches + 1
+    torch.testing.assert_close(got, flash_decode_plain(q, k, v, pos, sp, window=window),
+                               rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("B,S,H,G,P,N,dtype", [
     (1, 512, 4, 1, 64, 128, torch.bfloat16),
     (2, 300, 8, 2, 64, 128, torch.bfloat16),   # ragged S, two groups, B=2

@@ -171,3 +171,28 @@ def test_wrappers_take_plain_versions_on_cpu_without_launching():
                        flash_decode_plain(q[:, 0], k, v, pos, sp))
     assert (expert_ffn_from_pool.launches, flash_attention.launches,
             flash_decode.launches) == before
+
+
+@pytest.mark.parametrize("B,Hkv,W", [
+    (1, 8, 545), (1, 8, 4096), (1, 8, 31), (1, 8, 40), (3, 8, 545),
+    (1, 2, 100), (2, 4, 70000), (64, 8, 4096), (1, 1, 33), (17, 8, 1),
+])
+def test_flash_decode_n_splits_cover_the_card_and_tile_w(B, Hkv, W):
+    """The split-K choice: ranges [i*W//n, (i+1)*W//n) tile W exactly, each
+    holds at least MIN_SPLIT_SLOTS slots (unless W is shorter, then one
+    range) and at most MAX_SPLIT_SLOTS, and B*Hkv*n blocks cover the SMs
+    unless the minimum length stops it."""
+    from repro_torch.kernels.flash_decode import (H100_SMS, MAX_SPLIT_SLOTS,
+                                                  MIN_SPLIT_SLOTS, n_splits)
+    n = n_splits(B, Hkv, W)
+    edges = [i * W // n for i in range(n + 1)]
+    lengths = np.diff(edges)
+    assert edges[0] == 0 and edges[-1] == W and lengths.sum() == W
+    assert lengths.max() <= MAX_SPLIT_SLOTS
+    if W >= MIN_SPLIT_SLOTS:
+        assert lengths.min() >= MIN_SPLIT_SLOTS
+    else:
+        assert n == 1
+    assert B * Hkv * n >= H100_SMS or n == max(1, W // MIN_SPLIT_SLOTS)
+    if (B, Hkv, W) == (1, 8, 545):
+        assert n == 17    # the serve shape: 136 blocks of 32-33 slots
