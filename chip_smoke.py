@@ -18,17 +18,21 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                then timed with CUDA events (median of 20 after warm-up)
                beside the plain version, a PyTorch library call where one
                computes the same function, and the bound from bytes at
-               3.35 TB/s and operations at 989 TFLOP/s bf16 (tensor cores)
-               or 67 TFLOP/s f32 (``ssd_scan``: CUDA cores), from the H100
-               SXM data sheet. ``flash_attention`` and ``flash_decode`` are
-               also timed by device time alone (``device_ms``: the median
-               over 20 calls of the time the card is busy with the work
-               each call launches, from a ``torch.profiler`` window)
-               beside their library call's
-               (``library_device_ms``), kernel and library in turns, at the
-               main path's shape and at a long one (``long``: S=4096,
-               W=4096). Tolerance: bf16 outputs rtol = atol = 2e-2
-               (the repo's kernel-test tolerance), ``ssd_scan``'s f32
+               3.35 TB/s and operations at 989 TFLOP/s bf16 (tensor cores),
+               from the H100 SXM data sheet (``ssd_scan`` also reports the
+               bound of its f32 recurrence at 67 TFLOP/s on the CUDA
+               cores, ``bound_f32_recurrence_ms``). Every kernel is also
+               timed by device time alone (``device_ms``: the median over
+               20 calls of the time the card is busy with the work each
+               call launches, from a ``torch.profiler`` window): the two
+               attention kernels beside their library call's
+               (``library_device_ms``), and ``expert_ffn`` beside a cuBLAS
+               yardstick (``cublas_device_ms``: three ``torch.bmm`` and
+               silu * mul on slabs gathered beforehand), kernel and
+               library in turns, at the main path's shape and, but for
+               ``expert_ffn``, at a long one (``long``: S=4096, W=4096;
+               ``ssd_scan`` S=8192). Tolerance: bf16 outputs rtol = atol =
+               2e-2 (the repo's kernel-test tolerance), ``ssd_scan``'s f32
                outputs 1e-3 (tests/test_kernels.py's for that kernel).
   4. check   — a small MoE model served by the same engine on the card and
                on the CPU (plain versions): the prefill logits must agree.
@@ -47,7 +51,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                32 greedy ``decode_step``s; TTFT, decode tokens/s, peak
                device memory. ``ssd_scan``'s count is reset just before and
                must be > 0 just after. Then a ``torch.profiler`` window over
-               one prefill and 8 decode steps: device busy time by kernel.
+               one prefill and 8 decode steps: device busy time by kernel,
+               and ``ssd_scan``'s three kernels' share of it.
 
 The last three lines are the card's ``nvidia-smi`` name and power limit,
 the kernels' JSON summary, and ``{"ok": true, "device": {...}}``.
@@ -74,6 +79,8 @@ PEAK_BF16_OPS_PER_S = 989e12   # H100 SXM dense bf16 tensor cores
 PEAK_F32_OPS_PER_S = 67e12     # H100 SXM f32, CUDA cores
 TOL = dict(rtol=2e-2, atol=2e-2)
 TOL_F32 = dict(rtol=1e-3, atol=1e-3)
+# the kernels one ssd_scan call launches (csrc/ssd_scan.cu)
+SSD_SCAN_KERNELS = ("chunk_state_kernel", "state_pass_kernel", "chunk_scan_kernel")
 
 
 def emit(obj) -> None:
@@ -126,23 +133,24 @@ def kernel_ms(fn, reps: int = 20) -> list:
     work (kernels, copies, sets) the call launches, from a
     ``torch.profiler`` window over ``reps`` calls, each ending in a sync.
     The calls run one after another and launch the same work, so the
-    device events, in device order, fall into ``reps`` equal runs (the
-    host and device clocks are not aligned closely enough to match events
-    to calls)."""
+    device events, in device order, fall into equal runs (the host and
+    device clocks are not aligned closely enough to match events to
+    calls). One more call opens the window and is not counted: the
+    profiler may drop events at its start."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
+        for _ in range(reps + 1):
             fn()
             torch.cuda.synchronize()
     work = sorted((e for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA),
                   key=lambda e: e.time_range.start)
-    n = len(work) // reps
+    n = round(len(work) / (reps + 1))
+    work = work[len(work) - reps * n:]
     runs = [work[i * n:(i + 1) * n] for i in range(reps)]
-    if n == 0 or len(work) % reps or any(
-            [e.name for e in r] != [e.name for e in runs[0]] for r in runs):
+    if n == 0 or any([e.name for e in r] != [e.name for e in runs[0]] for r in runs):
         raise AssertionError(f"profiler saw {len(work)} device events in {reps} "
                              f"calls: {[e.name[:40] for e in work[:8]]}")
     return [busy_ms(r) for r in runs]
@@ -206,14 +214,23 @@ def kernel_expert_ffn(g):
                            expert_ffn_from_pool_plain(xs, w1, w3, w2, sl)))
     ms = time_ms(lambda: expert_ffn_from_pool(*args))
     plain_ms = time_ms(lambda: expert_ffn_from_pool_plain(*args), reps=5)
+    # yardstick, not one call of the same function: cuBLAS's three batched
+    # products and silu * mul on slabs gathered beforehand (not timed)
+    idx = slots.long()
+    g1, g3, g2 = w1[idx], w3[idx], w2[idx]
+    cublas = lambda: torch.bmm(torch.nn.functional.silu(torch.bmm(x, g1)) * torch.bmm(x, g3), g2)
+    device_ms, cublas_device_ms = in_turns(lambda: expert_ffn_from_pool(*args), cublas,
+                                           kernel_ms)
     n_bytes = 2 * (2 * U * C * d + 3 * U * d * f) + 4 * U
     bms, by = bound(n_bytes, 2 * 3 * U * C * d * f)
-    del w1, w3, w2
+    del w1, w3, w2, g1, g3, g2
     return dict(name="expert_ffn_from_pool", route="cuda",
                 source="src/repro_torch/csrc/expert_ffn.cu",
                 replaces="src/repro/kernels/expert_ffn.py:64",
                 shape=dict(U=U, C=C, d=d, f=f), max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None)
+                device_ms=device_ms, cublas_device_ms=cublas_device_ms,
+                plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                bound_share=bms / device_ms, library_ms=None)
 
 
 def device_vs_library(kernel, library):
@@ -325,28 +342,47 @@ def ssd_inputs(g, B, S, H, G, P, N, dtype):
     return x, b, c, da, dt
 
 
-def ssd_scan_work(B, S, H, G, P, N, in_bytes):
-    """(bytes, f32 operations) of the least work that yields y and the final
-    state: inputs read once, y and the state written once; per token and
-    head the recurrence y_t = (C_t.B_t) dt_t x_t + exp(da_t) C_t h_{t-1},
-    h_t = exp(da_t) h_{t-1} + dt_t B_t x_t^T, i.e. C_t.B_t (N MACs), its
-    product with x_t (P), the state update (N x P) and the incoming-state
-    term (N x P, none at t = 0). Every chunk length gives the same y and
-    state; this is the chunked form at length 1, and a longer chunk (the
-    kernel's 256) adds the masked intra-chunk square on top."""
-    macs = S * (N + P) + S * N * P + (S - 1) * N * P
+def ssd_scan_work(B, S, H, G, P, N, in_bytes, chunk=256):
+    """(bytes, chunked-form operations, recurrence operations) of a call.
+    Bytes: inputs read once, y (f32) and the final state (f32) written
+    once. Chunked form, the tensor cores' work at ``chunk``: per head and
+    chunk of r rows the lower triangle of C B^T and its product with x
+    (r (r + 1) / 2 (N + P) MACs), the chunk state B^T x (r N P) and the
+    incoming-state term C h_in (r N P, none in the first chunk). The
+    recurrence, one row per chunk, is the least f32 work that yields y and
+    the state (per token and head C_t.B_t, its product with x_t, the state
+    update and the incoming-state term), the bound while the kernel ran on
+    the CUDA cores."""
+    chunked = 0
+    for s0 in range(0, S, chunk):
+        r = min(chunk, S - s0)
+        chunked += r * (r + 1) // 2 * (N + P) + r * N * P * (2 if s0 else 1)
+    recurrence = S * (N + P) + S * N * P + (S - 1) * N * P
     n_bytes = (in_bytes * B * S * (H * P + 2 * G * N) + 4 * 2 * B * S * H
                + 4 * B * S * H * P + 4 * B * H * N * P)
-    return n_bytes, 2 * B * H * macs
+    return n_bytes, 2 * B * H * chunked, 2 * B * H * recurrence
 
 
 def kernel_ssd_scan(g):
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
     # Mamba2-2.7B's prefill of a 2048-token prompt: bf16 x/b/c, f32 da/dt
-    B, S, H, G, P, N = 1, 2048, 80, 1, 64, 128
-    args = ssd_inputs(g, B, S, H, G, P, N, torch.bfloat16)
-    (y, h), (y0, h0) = ssd_scan(*args), ssd_scan_plain(*args)
-    err = max(max_err(y, y0, TOL_F32), max_err(h, h0, TOL_F32))
+    H, G, P, N = 80, 1, 64, 128
+
+    def shape(S):
+        args = ssd_inputs(g, 1, S, H, G, P, N, torch.bfloat16)
+        (y, h), (y0, h0) = ssd_scan(*args), ssd_scan_plain(*args)
+        err = max(max_err(y, y0, TOL_F32), max_err(h, h0, TOL_F32))
+        n_bytes, chunked, recurrence = ssd_scan_work(1, S, H, G, P, N, 2)
+        bms, by = bound(n_bytes, chunked)
+        device_ms = float(np.median(kernel_ms(lambda: ssd_scan(*args))))
+        return args, dict(shape=dict(B=1, S=S, H=H, G=G, P=P, N=N, chunk=256),
+                          max_abs_err=err, device_ms=device_ms, bound_ms=bms,
+                          bound_by=by, bound_share=bms / device_ms,
+                          bound_f32_recurrence_ms=bound(n_bytes, recurrence,
+                                                        PEAK_F32_OPS_PER_S)[0])
+
+    args, main = shape(2048)
+    err = main["max_abs_err"]
     # a ragged S, two rows, two groups, f32 inputs
     for case in ((1, 1000, H, G, P, N, torch.bfloat16),
                  (2, 700, 8, 2, P, N, torch.bfloat16),
@@ -356,13 +392,13 @@ def kernel_ssd_scan(g):
         err = max(err, max_err(y, y0, TOL_F32), max_err(h, h0, TOL_F32))
     ms = time_ms(lambda: ssd_scan(*args))
     plain_ms = time_ms(lambda: ssd_scan_plain(*args))
-    bms, by = bound(*ssd_scan_work(B, S, H, G, P, N, 2), PEAK_F32_OPS_PER_S)
+    del args
+    _, long = shape(8192)
     return dict(name="ssd_scan", route="cuda",
                 source="src/repro_torch/csrc/ssd_scan.cu",
-                replaces="src/repro/kernels/ssd_scan.py:81",
-                shape=dict(B=B, S=S, H=H, G=G, P=P, N=N, chunk=256),
-                tol=TOL_F32, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bms, bound_by=by, library_ms=None)
+                replaces="src/repro/kernels/ssd_scan.py:81", tol=TOL_F32, ms=ms,
+                plain_ms=plain_ms, library_ms=None, long=long,
+                **(main | dict(max_abs_err=err)))
 
 
 # -- phase 4: engine on the card vs the same engine on the CPU ---------------
@@ -609,9 +645,11 @@ def profile_ssm(bundle, params, prompt, vocab: int):
             if e.device_type == torch.autograd.DeviceType.CUDA:
                 by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
         busy = sum(by_name.values())
+        scan = sum(t for n, t in by_name.items() if any(k in n for k in SSD_SCAN_KERNELS))
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
         out[name] = dict(wall_ms=wall * 1e3, device_busy_ms=busy if by_name else None,
                          busy_share=busy / (wall * 1e3) if by_name else None,
+                         ssd_scan_ms=scan, ssd_scan_share=scan / busy if by_name else None,
                          top_kernels_ms=[[n[:80], t] for n, t in top])
     return out
 
@@ -674,7 +712,8 @@ def main() -> int:
                | {"launches": launches[r["name"]]}
                | {k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                     "bound_by", "library_ms")}
-               | {k: r[k] for k in ("device_ms", "library_device_ms") if k in r}
+               | {k: r[k] for k in ("device_ms", "library_device_ms", "cublas_device_ms")
+                  if k in r}
                for r in results]
     print(card, flush=True)
     emit({"kernels": summary})

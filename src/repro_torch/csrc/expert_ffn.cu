@@ -1,201 +1,212 @@
-// Grouped SwiGLU expert FFN straight off the expert-cache slot pools.
+// Grouped SwiGLU expert FFN straight off the expert-cache slot pools, on
+// wgmma + TMA (sm_90a).
 //
 // Replaces the Pallas kernel `expert_ffn` / `expert_ffn_from_pool`
 // (repro/kernels/expert_ffn.py): for each group u with pool slot s = slots[u]
 //   out[u] = (silu(x[u] @ w1[s]) * (x[u] @ w3[s])).bf16 @ w2[s]
-// with f32 accumulation and bf16 output. The slab of slot s is found by a
-// pointer offset s*d*f into the [capacity, ...] pools: no gather copy.
+// with f32 accumulation and bf16 output. The slab of slot s is read in place:
+// each pool has a 3-D tensor map (columns, rows, slot) and the slot is the
+// outer coordinate of every weight tile, so nothing is gathered.
 //
-// What bounds it on an H100: at the serve shapes (U=8 groups, C=256 rows,
-// d=4096, f=14336) one launch reads 2.8 GB of expert weights and does 0.72
-// TFLOP, so it sits near the ridge (0.84 ms of bytes, 0.73 ms of math).
-// The design reads every weight tile from device memory once per 128-row
-// tile: C <= 128 reads the slabs once, and for C = 256 the two row tiles of
-// one weight tile are neighbouring blocks (blockIdx.x), so the second read
-// mostly hits L2. Math runs on the tensor cores through wmma (bf16 16x16x16,
-// f32 accumulators) from a 2-stage cp.async shared-memory pipeline.
+// What bounds it on an H100: bytes, barely. At the serve shapes (U=8
+// groups, C=256 rows, d=4096, f=14336) one call reads 2.82 GB of expert
+// weights (0.84 ms at 3.35 TB/s) and does 0.72 TFLOP (0.73 ms at 989
+// TFLOP/s), so the weights have to stream off HBM once while the tensor
+// cores stay near their peak; in practice the tensor cores' sustained rate
+// sets the pace. The first design (wmma from a 2-stage cp.async ring)
+// reached about 175 TFLOP/s, 21% of the bound.
 //
-// Two passes, as a first design that is right:
-//   up:   h[u, C, f] = silu(x@w1) * (x@w3), f32 in registers, stored bf16
-//         (the Pallas kernel rounds h to bf16 before the down projection too)
-//   down: out[u, C, d] = h @ w2, f32 accumulation, stored bf16
-// Tiles are fixed (128 rows) whatever C is, so a row's result never depends
-// on the size of its group.
-#include <mma.h>
-
-#include "common.cuh"
-
-using namespace nvcuda;
+// Design. Two passes, as the Pallas kernel rounds h to bf16 between them:
+//   up:   h[u, C, f] = silu(x@w1) * (x@w3): both accumulators of a tile in
+//         registers, SiLU and the product in f32, stored as bf16
+//   down: out[u, C, d] = h @ w2, stored as bf16
+// A block computes a 128-row output tile, 128 columns of both w1 and w3 in
+// the up pass and 256 columns of w2 in the down pass (so each h tile
+// leaves L2 half as often). One producer warp issues TMA loads of the A
+// tile (128 rows x 64 deep, 128-byte swizzle, rows past C arrive as zeros)
+// and of two B tiles (64 deep x 128 columns; the weights are [K, N]
+// row-major, so B is the MN-major operand, two 64-column boxes each) into
+// a ring of 4 stages of 48 KB with a full / empty mbarrier pair per stage.
+// Two consumer warpgroups of 64 rows each run wgmma m64n128k16 from shared
+// memory into f32 registers and keep one wgmma group in flight: a stage is
+// released once the group after it has been issued and the group on it
+// has completed. The accumulators are not touched between the first wgmma
+// and the epilogue, and the roles branch on a warp-uniform warpgroup
+// index, so ptxas serializes nothing. The two row tiles of a group
+// (C = 256) that share a weight tile are neighbouring blocks (blockIdx.x),
+// so the weights come off HBM once and the second read hits L2. A
+// warpgroup whose rows all lie past C still issues its products, on
+// zeros: a branch around them makes ptxas serialize the wgmmas. Tiles are
+// fixed (128 x 128 per operand, K in order) whatever C is, with no
+// split-K, so a row's result is bit-identical whatever the size of its
+// group.
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int BM = 128;      // rows per block tile
-constexpr int BK = 32;       // depth per pipeline stage
-constexpr int THREADS = 256; // 8 warps: 4 along M x 2 along N
-constexpr int PAD = 8;       // shared-memory row padding (bf16 elements)
+constexpr int BM = 128;                  // rows per block: two warpgroups of 64
+constexpr int BN = 128;                  // output columns per block
+constexpr int BK = 64;                   // depth per stage: one 128-byte row of A
+constexpr int CONSUMERS = 256;           // two warpgroups
+constexpr int THREADS = CONSUMERS + 32;  // and one producer warp
+constexpr int BOX_BYTES = 64 * 128;      // a weight box: 64 rows x 64 bf16 columns
 
-template <int NB, int BN>
-struct __align__(128) Smem {
-  bf16 a[2][BM][BK + PAD];
-  bf16 b[2][NB][BK][BN + PAD];
-  float stage[THREADS / 32][16][16];  // per-warp epilogue staging
+// shared memory: a ring of stages, each the A tile and two B tiles
+struct Lay {
+  static constexpr int STAGES = 4;
+  static constexpr int A = BM * BK * 2;                   // 16 KB
+  static constexpr int B = BK * BN * 2;                   // 16 KB: two boxes along N
+  static constexpr int STAGE = A + 2 * B;
+  static constexpr int bar = STAGES * STAGE;              // full[STAGES], then empty[STAGES]
+  static constexpr int bytes = bar + 16 * STAGES + 1024;  // + room to align to 1024
 };
 
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> Acc;
-
-// acc[nb][i][j] += A[BM x K] @ B_nb[K x BN] for this warp's 32 x BN/2 tile.
-// A rows >= m_valid read as zeros. K % BK == 0; B rows have stride ldb.
-template <int NB, int BN>
-__device__ __forceinline__ void mainloop(const bf16* A, int lda, int m_valid, const bf16* B0,
-                                         const bf16* B1, int ldb, int K, Smem<NB, BN>& sm,
-                                         Acc (&acc)[NB][2][BN / 32]) {
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, wm = warp % 4, wn = warp / 4;
-#pragma unroll
-  for (int nb = 0; nb < NB; ++nb)
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < BN / 32; ++j) wmma::fill_fragment(acc[nb][i][j], 0.0f);
-
-  auto load_stage = [&](int st, int k0) {
-    for (int c = tid; c < BM * BK / 8; c += THREADS) {
-      const int r = c / (BK / 8), col = (c % (BK / 8)) * 8;
-      const bool v = r < m_valid;
-      cp_async16(&sm.a[st][r][col], A + (size_t)(v ? r : 0) * lda + k0 + col, v);
-    }
-#pragma unroll
-    for (int nb = 0; nb < NB; ++nb) {
-      const bf16* B = nb == 0 ? B0 : B1;
-      for (int c = tid; c < BK * BN / 8; c += THREADS) {
-        const int r = c / (BN / 8), col = (c % (BN / 8)) * 8;
-        cp_async16(&sm.b[st][nb][r][col], B + (size_t)(k0 + r) * ldb + col, true);
-      }
-    }
-    cp_async_commit();
-  };
-
+// Up (GLU): out[u] tile (blockIdx.x: 128-row tile, .y: 128-column tile,
+// .z: group u) = silu(A @ B0) * (A @ B1), B0 and B1 the same columns of
+// two pools. Down: out[u] tile of 256 columns = A @ B0, its second 128
+// columns read through tb1 = tb0 at column offset BN. A is [U, C, K] and
+// each B pool [cap, K, n_out], all bf16; out is [U, C, n_out].
+template <bool GLU>
+__global__ void __launch_bounds__(THREADS, 1)
+    ffn_kernel(__grid_constant__ const CUtensorMap ta, __grid_constant__ const CUtensorMap tb0,
+               __grid_constant__ const CUtensorMap tb1, const int* __restrict__ slots,
+               bf16* __restrict__ out, int C, int K, int n_out) {
+  typedef Lay L;
+  constexpr int STAGES = L::STAGES, NB = 2, COLS = GLU ? BN : 2 * BN;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw)) + 1023) & ~1023u;
+  const uint32_t full = base + L::bar, empty = full + 8 * STAGES;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * COLS, u = blockIdx.z;
   const int nk = K / BK;
-  load_stage(0, 0);
-  for (int kt = 0; kt < nk; ++kt) {
-    if (kt + 1 < nk) {
-      load_stage((kt + 1) & 1, (kt + 1) * BK);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, CONSUMERS);
     }
-    __syncthreads();
-    const int st = kt & 1;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(af[i], &sm.a[st][wm * 32 + i * 16][kk], BK + PAD);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // the warpgroup index, made warp-uniform for the compiler by a shuffle,
+  // so the consumers' path is not a divergent one to ptxas
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == CONSUMERS / 128) {
+    // producer warp: one thread issues every copy
+    if (threadIdx.x != CONSUMERS) return;
+    const int slot = slots[u];
+    for (int kt = 0; kt < nk; ++kt) {
+      const int s = kt % STAGES;
+      mbar_wait(empty + 8 * s, ((kt / STAGES) & 1) ^ 1);  // the first round passes
+      const uint32_t st = base + s * L::STAGE, bar = full + 8 * s;
+      mbar_expect_tx(bar, L::STAGE);
+      tma_load_3d(st, &ta, bar, kt * BK, m0, u);
 #pragma unroll
       for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
-        for (int j = 0; j < BN / 32; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr;
-          wmma::load_matrix_sync(bfr, &sm.b[st][nb][kk][wn * (BN / 2) + j * 16], BN + PAD);
+        for (int bx = 0; bx < BN / 64; ++bx)
+          tma_load_3d(st + L::A + nb * L::B + bx * BOX_BYTES, nb == 0 ? &tb0 : &tb1, bar,
+                      n0 + (GLU ? 0 : nb * BN) + 64 * bx, kt * BK, slot);
+    }
+    return;
+  }
+
+  // consumer warpgroup wg: rows m0 + 64 wg .. (past C they are zeros: no
+  // branch around the products, which ptxas would serialize)
+  float acc[NB][64];
 #pragma unroll
-          for (int i = 0; i < 2; ++i) wmma::mma_sync(acc[nb][i][j], af[i], bfr, acc[nb][i][j]);
+  for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[nb][i] = 0.0f;
+  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt % STAGES;
+    mbar_wait(full + 8 * s, (kt / STAGES) & 1);
+    const uint32_t st = base + s * L::STAGE;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      // A: K-major, 32 bytes per k16 step; B: MN-major, 16 rows (2048 bytes)
+      // per k16 step, the next 64-column box BOX_BYTES on
+      const uint64_t da = sw128_desc(st + wg * 64 * 128 + kk * 32, 16, 1024);
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb)
+        wgmma_ss_n128_tb(acc[nb], da,
+                         sw128_desc(st + L::A + nb * L::B + kk * 16 * 128, BOX_BYTES, 1024), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();  // the group on the previous stage has completed
+    if (kt > 0) mbar_arrive(empty + 8 * ((kt - 1) % STAGES));
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb) fence_regs(acc[nb]);
+
+  // accumulator fragment: thread (warp w of the warpgroup, lane l) holds rows
+  // 16w + l/4 (+8), columns 8j + 2(l%4) (+1): element 4j + 2i + c
+  const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+  const int r0 = m0 + 64 * wg + 16 * warp + lane / 4;
+  bf16* ob = out + (size_t)u * C * n_out;
+#pragma unroll
+  for (int nb = 0; nb < (GLU ? 1 : NB); ++nb)
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int col = n0 + nb * BN + 8 * j + 2 * (lane % 4);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = r0 + 8 * i;
+        float v0 = acc[nb][4 * j + 2 * i], v1 = acc[nb][4 * j + 2 * i + 1];
+        if constexpr (GLU) {
+          v0 = v0 / (1.0f + expf(-v0)) * acc[1][4 * j + 2 * i];
+          v1 = v1 / (1.0f + expf(-v1)) * acc[1][4 * j + 2 * i + 1];
         }
-    }
-    __syncthreads();
-  }
-}
-
-// Write one 16x16 f32 fragment as bf16 rows [row0, row0+16) of `out`
-// (row stride ldo), skipping rows >= m_valid. Each lane writes 8 values.
-__device__ __forceinline__ void store_bf16(float (&stg)[16][16], const Acc& frag, bf16* out,
-                                           int ldo, int row0, int m_valid) {
-  const int lane = threadIdx.x % 32;
-  wmma::store_matrix_sync(&stg[0][0], frag, 16, wmma::mem_row_major);
-  __syncwarp();
-  const int r = lane / 2, c = (lane % 2) * 8;
-  if (row0 + r < m_valid) {
-    __align__(16) bf16 vals[8];
-#pragma unroll
-    for (int t = 0; t < 8; ++t) vals[t] = __float2bfloat16(stg[r][c + t]);
-    *reinterpret_cast<uint4*>(out + (size_t)(row0 + r) * ldo + c) =
-        *reinterpret_cast<const uint4*>(vals);
-  }
-  __syncwarp();
-}
-
-// up pass: grid (ceil(C/BM), f/64, U)
-__global__ void __launch_bounds__(THREADS)
-    ffn_up_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1p,
-                  const bf16* __restrict__ w3p, const int* __restrict__ slots,
-                  bf16* __restrict__ h, int C, int d, int f) {
-  constexpr int BN = 64;
-  __shared__ __align__(128) unsigned char raw[sizeof(Smem<2, BN>)];
-  Smem<2, BN>& sm = *reinterpret_cast<Smem<2, BN>*>(raw);
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN, u = blockIdx.z;
-  const int m_valid = min(BM, C - m0);
-  const size_t slab = (size_t)slots[u] * d * f;
-  const bf16* A = x + ((size_t)u * C + m0) * d;
-  Acc acc[2][2][BN / 32];
-  mainloop<2, BN>(A, d, m_valid, w1p + slab + n0, w3p + slab + n0, f, d, sm, acc);
-
-  const int warp = threadIdx.x / 32, wm = warp % 4, wn = warp / 4;
-  bf16* out = h + ((size_t)u * C + m0) * f + n0 + wn * (BN / 2);
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < BN / 32; ++j) {
-      Acc& g = acc[0][i][j];
-      const Acc& up = acc[1][i][j];
-      // same fragment type => same element mapping, so this is elementwise
-#pragma unroll
-      for (int t = 0; t < g.num_elements; ++t) {
-        const float a = g.x[t];
-        g.x[t] = a / (1.0f + expf(-a)) * up.x[t];
+        if (row < C && col < n_out)
+          *reinterpret_cast<uint32_t*>(ob + (size_t)row * n_out + col) = pack_bf16(v0, v1);
       }
-      store_bf16(sm.stage[warp], g, out + j * 16, f, wm * 32 + i * 16, m_valid);
     }
 }
 
-// down pass: grid (ceil(C/BM), d/128, U)
-__global__ void __launch_bounds__(THREADS)
-    ffn_down_kernel(const bf16* __restrict__ h, const bf16* __restrict__ w2p,
-                    const int* __restrict__ slots, bf16* __restrict__ y, int C, int d, int f) {
-  constexpr int BN = 128;
-  __shared__ __align__(128) unsigned char raw[sizeof(Smem<1, BN>)];
-  Smem<1, BN>& sm = *reinterpret_cast<Smem<1, BN>*>(raw);
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN, u = blockIdx.z;
-  const int m_valid = min(BM, C - m0);
-  const bf16* B = w2p + (size_t)slots[u] * f * d + n0;
-  const bf16* A = h + ((size_t)u * C + m0) * f;
-  Acc acc[1][2][BN / 32];
-  mainloop<1, BN>(A, f, m_valid, B, B, d, f, sm, acc);
+// [n, rows, cols] bf16, row-major, as a 3-D tensor map with boxes of 64
+// columns x box_rows rows x 1
+bool map3(CUtensorMap* map, const void* ptr, int n, int rows, int cols, int box_rows) {
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)n};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * 2, (cuuint64_t)rows * cols * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  return bf16_tensor_map(map, ptr, 3, dims, strides, box);
+}
 
-  const int warp = threadIdx.x / 32, wm = warp % 4, wn = warp / 4;
-  bf16* out = y + ((size_t)u * C + m0) * d + n0 + wn * (BN / 2);
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < BN / 32; ++j)
-      store_bf16(sm.stage[warp], acc[0][i][j], out + j * 16, d, wm * 32 + i * 16, m_valid);
+template <bool GLU>
+int launch(const CUtensorMap& ta, const CUtensorMap& tb0, const CUtensorMap& tb1,
+           const void* slots, void* out, int U, int C, int K, int n_out, cudaStream_t s) {
+  static bool attr = false;  // dynamic shared memory above 48 KB, once
+  if (!attr) {
+    cudaError_t e = cudaFuncSetAttribute(ffn_kernel<GLU>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, Lay::bytes);
+    if (e != cudaSuccess) return e;
+    attr = true;
+  }
+  const int cols = GLU ? BN : 2 * BN;
+  const dim3 grid((C + BM - 1) / BM, (n_out + cols - 1) / cols, U);
+  ffn_kernel<GLU><<<grid, THREADS, Lay::bytes, s>>>(
+      ta, tb0, tb1, static_cast<const int*>(slots), static_cast<bf16*>(out), C, K, n_out);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // x [U,C,d]; w1p/w3p [cap,d,f]; w2p [cap,f,d]; slots [U] int32 (device);
-// h [U,C,f] scratch; out [U,C,d]. Requires d % 128 == 0 and f % 64 == 0.
+// h [U,C,f] scratch; out [U,C,d]; all contiguous, 16-byte aligned.
+// Requires d % 128 == 0 and f % 64 == 0. Two launches on `stream`.
 extern "C" int expert_ffn_from_pool(const void* x, const void* w1p, const void* w3p,
                                     const void* w2p, const void* slots, void* h, void* out,
-                                    int U, int C, int d, int f, void* stream) {
+                                    int U, int C, int d, int f, int cap, void* stream) {
+  if (d % 128 != 0 || f % 64 != 0 || U < 1 || C < 1) return cudaErrorInvalidValue;
+  CUtensorMap tx, t1, t3, th, t2;
+  if (!map3(&tx, x, U, C, d, BM) || !map3(&t1, w1p, cap, d, f, BK) ||
+      !map3(&t3, w3p, cap, d, f, BK) || !map3(&th, h, U, C, f, BM) ||
+      !map3(&t2, w2p, cap, f, d, BK))
+    return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int mt = (C + BM - 1) / BM;
-  ffn_up_kernel<<<dim3(mt, f / 64, U), THREADS, 0, s>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w1p), static_cast<const bf16*>(w3p),
-      static_cast<const int*>(slots), static_cast<bf16*>(h), C, d, f);
-  cudaError_t e = cudaGetLastError();
+  const int e = launch<true>(tx, t1, t3, slots, h, U, C, d, f, s);
   if (e != cudaSuccess) return e;
-  ffn_down_kernel<<<dim3(mt, d / 128, U), THREADS, 0, s>>>(
-      static_cast<const bf16*>(h), static_cast<const bf16*>(w2p), static_cast<const int*>(slots),
-      static_cast<bf16*>(out), C, d, f);
-  return cudaGetLastError();
+  return launch<false>(th, t2, t2, slots, out, U, C, f, d, s);
 }

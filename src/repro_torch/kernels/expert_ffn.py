@@ -8,10 +8,12 @@ Port of the Pallas ``expert_ffn`` / ``expert_ffn_from_pool``
 
 f32 accumulation, ``h`` rounded to bf16 before the down projection, output
 in ``x.dtype``. On a CUDA tensor the wrapper launches the hand-written
-kernel (``csrc/expert_ffn.cu``: wmma tensor-core tiles that read each slab
-by a pointer offset into the pools, no gather copy); on a CPU tensor it runs
+kernel (``csrc/expert_ffn.cu``: two wgmma + TMA passes, up and down, that
+read each slab in place through a tensor map per pool with the slot as a
+coordinate, no gather copy); on a CPU tensor it runs
 ``expert_ffn_from_pool_plain``, the same function in plain PyTorch.
-``expert_ffn_from_pool.launches`` counts kernel launches.
+``expert_ffn_from_pool.launches`` counts calls that launched the kernel,
+one per call whatever the number of kernels in it.
 """
 from __future__ import annotations
 
@@ -21,6 +23,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import _build
+
+# x, w1_pool, w3_pool, w2_pool, slots, h, out; U, C, d, f, capacity; stream
+_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
 def expert_ffn_plain(x, w1, w3, w2):
@@ -44,8 +49,8 @@ def _check(x, w1_pool, w3_pool, w2_pool, slots):
                          f"w3 {tuple(w3_pool.shape)} w2 {tuple(w2_pool.shape)} "
                          f"slots {tuple(slots.shape)}")
     for t in (x, w1_pool, w3_pool, w2_pool):
-        if t.dtype != torch.bfloat16 or not t.is_contiguous():
-            raise ValueError("x and the pools must be contiguous bf16")
+        if t.dtype != torch.bfloat16 or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("x and the pools must be contiguous, 16-byte aligned bf16")
     if slots.dtype != torch.int32:
         raise ValueError("slots must be int32")
     if d % 128 or f % 64:
@@ -68,14 +73,11 @@ def expert_ffn_from_pool(x, w1_pool, w3_pool, w2_pool, slots):
     f = w1_pool.shape[2]
     h = torch.empty((U, C, f), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
-    lib = _build.load("expert_ffn")
-    fn = lib.expert_ffn_from_pool
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _build.function("expert_ffn", "expert_ffn_from_pool", _ARGTYPES)
     rc = fn(x.data_ptr(), w1_pool.data_ptr(), w3_pool.data_ptr(),
             w2_pool.data_ptr(), slots.data_ptr(), h.data_ptr(), out.data_ptr(),
-            U, C, d, f, _build.stream_ptr(x))
-    _build.check(lib, rc, "expert_ffn_from_pool")
+            U, C, d, f, w1_pool.shape[0], _build.stream_ptr(x))
+    _build.check(_build.load("expert_ffn"), rc, "expert_ffn_from_pool")
     expert_ffn_from_pool.launches += 1
     return out
 

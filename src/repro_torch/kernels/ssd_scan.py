@@ -18,8 +18,10 @@ Per (batch row, head), over chunks of ``cl = min(chunk, S)`` in order, with
 
 Rows past S carry dt = da = 0, so they leave the state unchanged.
 
-On a CUDA tensor the wrapper launches ``csrc/ssd_scan.cu``; on a CPU tensor
-it runs ``ssd_scan_plain``. ``ssd_scan.launches`` counts kernel launches.
+On a CUDA tensor the wrapper launches ``csrc/ssd_scan.cu`` (three kernels:
+chunk states, state passing, chunk scan, on the tensor cores); on a CPU
+tensor it runs ``ssd_scan_plain``. ``ssd_scan.launches`` counts calls that
+launched the kernel, one per call whatever the number of kernels in it.
 """
 from __future__ import annotations
 
@@ -31,6 +33,10 @@ import torch.nn.functional as F
 from repro_torch.kernels import _build
 
 MAX_CHUNK = 256
+# x, b, c, da, dt, y, state, and the scratch: chunk states, chunk decays,
+# incoming states; B, S, H, G, P, N, chunk, in_bf16; strides; stream
+_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
+             + [ctypes.c_void_p, ctypes.c_void_p])
 # (P, N) pairs the kernel is instantiated for: Mamba2-2.7B's, and the
 # reduced configs' (tests)
 KERNEL_SHAPES = ((64, 128), (16, 16))
@@ -81,8 +87,9 @@ def ssd_scan_plain(x, b, c, da, dt, *, chunk: int = 256):
 def ssd_scan(x, b, c, da, dt, *, chunk: int = 256):
     """x: [B,S,H,P]; b, c: [B,S,G,N]; da, dt: [B,S,H] -> (y [B,S,H,P] f32,
     state [B,H,N,P] f32). On the card: x, b, c all bf16 or all f32 with a
-    contiguous last dim, da / dt f32, (P, N) in ``KERNEL_SHAPES``,
-    ``chunk <= 256``; any other strides are read as they are."""
+    contiguous last dim and 16-byte aligned rows, da / dt f32, (P, N) in
+    ``KERNEL_SHAPES``, ``chunk <= 256``; other strides are read as they
+    are."""
     tensors = (x, b, c, da, dt)
     if not x.is_cuda:
         if any(t.is_cuda for t in tensors):
@@ -103,20 +110,28 @@ def ssd_scan(x, b, c, da, dt, *, chunk: int = 256):
             or c.dtype != x.dtype or any(t.stride(-1) != 1 for t in (x, b, c)):
         raise ValueError("x, b, c must share one type (bf16 or f32) and have "
                          "a contiguous last dim")
+    per16 = 16 // x.element_size()   # elements in 16 bytes
+    if any(t.data_ptr() % 16 or any(s % per16 for s in t.stride()[:3])
+           for t in (x, b, c)):
+        raise ValueError("x, b, c rows must be 16-byte aligned (pointer and strides)")
     if da.dtype != torch.float32 or dt.dtype != torch.float32:
         raise ValueError("da, dt must be f32")
-    y = torch.empty((B, S, H, P), dtype=torch.float32, device=x.device)
-    state = torch.empty((B, H, N, P), dtype=torch.float32, device=x.device)
+    cl = min(chunk, S)
+    nc = -(-S // cl)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    y = torch.empty((B, S, H, P), **f32)
+    state = torch.empty((B, H, N, P), **f32)
+    chunk_states = torch.empty((B, H, nc, N, P), **f32)
+    chunk_decay = torch.empty((B, H, nc), **f32)
+    incoming = torch.empty((B, H, nc, 2, N, P), dtype=torch.bfloat16, device=x.device)
     strides = (ctypes.c_longlong * 15)(*x.stride()[:3], *b.stride()[:3],
                                        *c.stride()[:3], *da.stride(), *dt.stride())
-    lib = _build.load("ssd_scan")
-    fn = lib.ssd_scan_fwd
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 2
-    fn.restype = ctypes.c_int
+    fn = _build.function("ssd_scan", "ssd_scan_fwd", _ARGTYPES)
     rc = fn(x.data_ptr(), b.data_ptr(), c.data_ptr(), da.data_ptr(), dt.data_ptr(),
-            y.data_ptr(), state.data_ptr(), B, S, H, G, P, N, min(chunk, S),
+            y.data_ptr(), state.data_ptr(), chunk_states.data_ptr(),
+            chunk_decay.data_ptr(), incoming.data_ptr(), B, S, H, G, P, N, cl,
             int(x.dtype == torch.bfloat16), strides, _build.stream_ptr(x))
-    _build.check(lib, rc, "ssd_scan")
+    _build.check(_build.load("ssd_scan"), rc, "ssd_scan")
     ssd_scan.launches += 1
     return y, state
 

@@ -50,6 +50,38 @@ def test_expert_ffn_kernel_on_card(cuda, U, C):
                                rtol=2e-2, atol=2e-2)
 
 
+def _ffn_case(cuda, U, C, d, f, cap, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    r = lambda *s, sc=1.0: (torch.randn(s, generator=g, device=cuda) * sc).to(torch.bfloat16)
+    return (r(U, C, d), r(cap, d, f, sc=d ** -0.5), r(cap, d, f, sc=d ** -0.5),
+            r(cap, f, d, sc=f ** -0.5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 8, 130, 256])
+def test_expert_ffn_kernel_group_sizes(cuda, C):
+    """One group of C rows: one row, a partial warpgroup, a ragged second
+    row tile, two full row tiles; f = 448 ends in a half column tile."""
+    x, w1, w3, w2 = _ffn_case(cuda, 1, C, 512, 448, 3, seed=8)
+    slots = torch.tensor([2], dtype=torch.int32, device=cuda)
+    torch.testing.assert_close(expert_ffn_from_pool(x, w1, w3, w2, slots),
+                               expert_ffn_from_pool_plain(x, w1, w3, w2, slots),
+                               rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+def test_expert_ffn_kernel_row_invariant(cuda):
+    """A row's output does not depend on the size of its group: the row
+    alone (C = 1) equals, bit for bit, the same row inside a group of
+    C = 256 (fixed tiles, K in one order, no split chosen by C)."""
+    x, w1, w3, w2 = _ffn_case(cuda, 1, 256, 512, 448, 3, seed=9)
+    slots = torch.tensor([1], dtype=torch.int32, device=cuda)
+    full = expert_ffn_from_pool(x, w1, w3, w2, slots)
+    for row in (0, 63, 64, 127, 128, 200, 255):
+        one = expert_ffn_from_pool(x[:, row:row + 1].contiguous(), w1, w3, w2, slots)
+        assert torch.equal(one[0, 0], full[0, row]), row
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("S,causal,window", [(512, True, -1), (200, True, 64),
                                              (100, False, -1)])
@@ -174,6 +206,26 @@ def test_ssd_scan_kernel_on_card(cuda, B, S, H, G, P, N, dtype):
     torch.cuda.synchronize()
     assert ssd_scan.launches == n + 1
     y0, h0 = ssd_scan_plain(x, b, c, da, dt)
+    torch.testing.assert_close(y, y0, rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(h, h0, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("chunk", [1, 17, 64, 256])
+@pytest.mark.parametrize("S", [1, 63, 64, 257, 1000])
+def test_ssd_scan_kernel_lengths_and_chunks(cuda, S, chunk, dtype):
+    """Sequence lengths around the 64-row tile and the chunk, chunks from
+    one row to the longest, B=2, two groups of two heads, at Mamba2's
+    widths: y and the final state against the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    B, H, G, P, N = 2, 4, 2, 64, 128
+    r = lambda *s, sc=1.0: (torch.randn(s, generator=g, device=cuda) * sc).to(dtype)
+    x, b, c = r(B, S, H, P), r(B, S, G, N, sc=0.5), r(B, S, G, N, sc=0.5)
+    dt = torch.nn.functional.softplus(torch.randn(B, S, H, generator=g, device=cuda)) * 0.5
+    da = -dt * torch.exp(torch.randn(B, S, H, generator=g, device=cuda) * 0.2)
+    y, h = ssd_scan(x, b, c, da, dt, chunk=chunk)
+    y0, h0 = ssd_scan_plain(x, b, c, da, dt, chunk=chunk)
     torch.testing.assert_close(y, y0, rtol=1e-3, atol=1e-3)
     torch.testing.assert_close(h, h0, rtol=1e-3, atol=1e-3)
 
