@@ -42,10 +42,44 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                requests served under ``duo`` (512-token prompts, 32 new
                tokens, greedy). The launch counts of its kernels are reset
                just before the serve and must be > 0 just after.
-  6. ssm_check — a small Mamba2 (2 layers, head_dim 64, state 128) through
+  6. batch_check — the check phase's small model through the
+               continuous-batching engine (``lfp``, ``max_batch=4``), 4
+               prompts of 12-40 tokens and 8 greedy new tokens each, on the
+               card and on the CPU, chunked (``prefill_budget=8``) and
+               monolithic. The CPU engine runs its attention in the card
+               kernels' arithmetic (``flash_decode_plain``, queries folded
+               into its batch): first-token logits must agree within
+               ``BATCH_CHECK_TOL``, and the same CPU run with the queries
+               scaled by 1.01 (a softmax-scale fault, the control) must
+               not. Reports the card against the CPU's reference attention
+               too, tokens on both devices (and where they part, with the
+               CPU's top-2 margin there), ``batch_invariant`` (the card at
+               ``max_batch=4`` against each request alone at
+               ``max_batch=1``: max abs logit difference, tokens equal) and
+               ``chunked_vs_monolithic`` on the card.
+  7. batch   — ``BatchedServingEngine`` at Mixtral-8x7B width, the serve
+               phase's params and predictor: ``duo``, ``max_batch=8``,
+               ``max_seq=2048``, ``prefill_budget=512`` (rr), 8 requests of
+               128-1536 prompt tokens and 32 new tokens, 4 submitted before
+               the first step and 4 after step 4; then a monolithic run of
+               4 requests of 512 tokens at ``max_batch=4``. TTFT from
+               submission, E2E, decode tokens/s, decode step wall time by
+               batch size, expert copies per decode step, the perf
+               counters, the KV row gather time per layer, peak device
+               memory, ``hbm_bound_ok``. ``kernel_checks`` holds the
+               phase's own kernel shapes against their plain versions
+               (tolerance as the kernel phase) and times them: the folded
+               chunk attention (C=512 over W=2048, beside SDPA with its
+               mask), decode attention at B=8 over gathered pool rows
+               (beside SDPA) and the grouped sweep's ``expert_ffn`` at U=8,
+               C=8 out of the engine's pools (beside the cuBLAS
+               yardstick). The MoE kernels' launch counts are reset just
+               before the phase and must each be > 0 after it; the checks'
+               launches are not counted.
+  8. ssm_check — a small Mamba2 (2 layers, head_dim 64, state 128) through
                the model bundle on the card and on the CPU: the prefill
                logits must agree.
-  7. ssm     — Mamba2-2.7B at its published widths and all 64 layers,
+  9. ssm     — Mamba2-2.7B at its published widths and all 64 layers,
                random weights from ``--seed``: 4
                prompts of 2048 tokens one at a time, each ``prefill`` then
                32 greedy ``decode_step``s; TTFT, decode tokens/s, peak
@@ -60,6 +94,7 @@ the kernels' JSON summary, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -79,6 +114,11 @@ PEAK_BF16_OPS_PER_S = 989e12   # H100 SXM dense bf16 tensor cores
 PEAK_F32_OPS_PER_S = 67e12     # H100 SXM f32, CUDA cores
 TOL = dict(rtol=2e-2, atol=2e-2)
 TOL_F32 = dict(rtol=1e-3, atol=1e-3)
+# batch_check: first-token logits on the card against the CPU engine in the
+# kernels' arithmetic (logits of max |x| 3.4). Sound runs read up to 0.030;
+# the control, a 1% softmax-scale fault, 0.056 (NVIDIA H100 80GB HBM3 and
+# its host's CPU): the limit sits between them
+BATCH_CHECK_TOL = 4e-2
 # the kernels one ssd_scan call launches (csrc/ssd_scan.cu)
 SSD_SCAN_KERNELS = ("chunk_state_kernel", "state_pass_kernel", "chunk_scan_kernel")
 
@@ -128,32 +168,37 @@ def busy_ms(events) -> float:
     return total / 1e3
 
 
-def kernel_ms(fn, reps: int = 20) -> list:
+def kernel_ms(fn, reps: int = 20, opening: int = 10) -> list:
     """Device time of each call: the busy time (``busy_ms``) of the device
     work (kernels, copies, sets) the call launches, from a
     ``torch.profiler`` window over ``reps`` calls, each ending in a sync.
     The calls run one after another and launch the same work, so the
-    device events, in device order, fall into equal runs (the host and
-    device clocks are not aligned closely enough to match events to
-    calls). One more call opens the window and is not counted: the
-    profiler may drop events at its start."""
+    device events, in device order, end in ``reps`` equal runs of names
+    (the host and device clocks are not aligned closely enough to match
+    events to calls); a call's run is the shortest that repeats, so a call
+    must not launch one sequence of kernels twice. ``opening`` more calls
+    open the window and are not counted: the profiler drops events at its
+    start (the first 8 calls of a masked SDPA, NVIDIA H100 80GB HBM3)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps + 1):
+        for _ in range(reps + opening):
             fn()
             torch.cuda.synchronize()
     work = sorted((e for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA),
                   key=lambda e: e.time_range.start)
-    n = round(len(work) / (reps + 1))
-    work = work[len(work) - reps * n:]
-    runs = [work[i * n:(i + 1) * n] for i in range(reps)]
-    if n == 0 or any([e.name for e in r] != [e.name for e in runs[0]] for r in runs):
-        raise AssertionError(f"profiler saw {len(work)} device events in {reps} "
-                             f"calls: {[e.name[:40] for e in work[:8]]}")
-    return [busy_ms(r) for r in runs]
+    for n in range(1, len(work) // reps + 1):
+        tail = work[len(work) - reps * n:]
+        runs = [tail[i * n:(i + 1) * n] for i in range(reps)]
+        if all([e.name for e in r] == [e.name for e in runs[0]] for r in runs):
+            return [busy_ms(r) for r in runs]
+    names = {}
+    for e in work:
+        names[e.name[:40]] = names.get(e.name[:40], 0) + 1
+    raise AssertionError(f"profiler saw {len(work)} device events in {reps + opening} "
+                         f"calls, no {reps} equal runs at the end: {names}")
 
 
 def in_turns(kernel, library, timer) -> tuple:
@@ -403,11 +448,11 @@ def kernel_ssd_scan(g):
 
 # -- phase 4: engine on the card vs the same engine on the CPU ---------------
 
-def check_small(seed: int):
+def small_moe(seed: int):
+    """Reduced Mixtral with the kernels' widths (head_dim 64, GQA G = 4) on
+    the card, and the same weights on the CPU."""
     from repro_torch.configs.base import get_config, reduced
     from repro_torch.models.params import init_params
-    from repro_torch.serving.engine import MoEServingEngine
-    # reduced mixtral with the kernels' widths: head_dim 64, GQA G = 4
     cfg = dataclasses.replace(reduced(get_config("mixtral_8x7b")),
                               head_dim=64, n_kv_heads=1)
     gpu = init_params(cfg, seed, device="cuda")
@@ -415,6 +460,12 @@ def check_small(seed: int):
     cpu["layers"] = {k: ({kk: vv.cpu() for kk, vv in v.items()}
                          if isinstance(v, dict) else v.cpu())
                      for k, v in gpu["layers"].items()}
+    return cfg, gpu, cpu
+
+
+def check_small(seed: int):
+    from repro_torch.serving.engine import MoEServingEngine
+    cfg, gpu, cpu = small_moe(seed)
     prompt = np.random.default_rng(seed).integers(0, cfg.vocab, 40).astype(np.int32)
     out = {}
     for name, p in (("cuda", gpu), ("cpu", cpu)):
@@ -469,6 +520,7 @@ def serve(layers: int, seed: int, kernels):
     engine = MoEServingEngine(cfg, params, policy="duo", stats=stats,
                               predictor=pred, temperature=0.0)
     sp = SamplingParams(temperature=0.0, max_new_tokens=32)
+    gc.collect()   # the trace engine's reference cycles hold its expert pool
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for fn in kernels:
@@ -503,7 +555,7 @@ def serve(layers: int, seed: int, kernels):
     missing = [n for n, c in launches.items() if c == 0]
     if missing:
         raise AssertionError(f"kernels never launched while serving: {missing}")
-    return dict(
+    return (dict(
         phase="serve", model="mixtral-8x7b", layers=layers,
         widths=dict(d_model=cfg.d_model, n_heads=cfg.n_heads,
                     n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
@@ -522,10 +574,431 @@ def serve(layers: int, seed: int, kernels):
         expert_copy_ms=copy_ms,
         expert_copy_gb_per_s=engine.store.bytes_per_expert / copy_ms / 1e6,
         host_ram_bytes=os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES"),
-        launches=launches)
+        launches=launches), (cfg, params, stats, pred))
 
 
-# -- phase 6: the ssm bundle on the card vs on the CPU -------------------------
+# -- phase 6: the batched engine on the card vs on the CPU ---------------------
+
+def run_batched(cfg, params, prompts, new_tokens: int, **kw):
+    """Serve ``prompts`` through one BatchedServingEngine, all submitted
+    before the first step; returns ({rid: tokens}, {rid: [logits rows]}),
+    every row the engine sampled from (the real vocabulary's columns)."""
+    from repro_torch.serving.batching import BatchedServingEngine
+    eng = BatchedServingEngine(cfg, params, temperature=0.0, **kw)
+    rows = {}
+    sample = eng._sample_req
+
+    def record(req, row):
+        rows.setdefault(req.rid, []).append(row[: cfg.vocab])
+        return sample(req, row)
+
+    eng._sample_req = record
+    for p in prompts:
+        eng.submit(p, max_new=new_tokens)
+    eng.run_until_drained()
+    if not eng.cache.hbm_bound_ok:
+        raise AssertionError("expert pool grew past its capacity")
+    return {r.rid: list(r.tokens) for r in eng.finished}, rows
+
+
+def first_divergence(a, b):
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+
+
+def rows_diff(rows_a, rows_b, toks_a, toks_b) -> float:
+    """Max abs logit difference over the rows two runs share a prefix for
+    (every row up to and including the first position where they part)."""
+    err = 0.0
+    for rid, ra in rows_a.items():
+        i = first_divergence(toks_a[rid], toks_b[rid])
+        n = len(ra) if i is None else i + 1
+        err = max(err, max(float(np.abs(x - y).max())
+                           for x, y in zip(ra[:n], rows_b[rid][:n])))
+    return err
+
+
+@contextlib.contextmanager
+def cpu_attention(q_scale: float = 1.0):
+    """The CPU engine's attention in the card kernels' arithmetic: every
+    call of the reference ``layers.attention`` runs as ``flash_decode_plain``
+    with the queries folded into its batch (unnormalised p rounded to bf16,
+    divided by the f32 sum; ``flash_attention_plain``'s arithmetic too).
+    ``q_scale`` != 1 scales the queries: a softmax-scale fault, the control
+    that shows the comparison can fail."""
+    from repro_torch.kernels.flash_decode import flash_decode_plain
+    from repro_torch.models import layers
+
+    def attention(q, k, v, *, q_pos, k_pos, window=None, causal=True, scale=None):
+        if not causal or scale is not None:
+            raise NotImplementedError("the engines call causal attention only")
+        B, Sq, H, D = q.shape
+        q_pos, k_pos = q_pos.expand(B, Sq), k_pos.expand(B, k.shape[1])
+        fold = lambda t: t[:, None].expand(B, Sq, *t.shape[1:]).reshape(B * Sq, *t.shape[1:])
+        o = flash_decode_plain((q * q_scale).reshape(B * Sq, H, D), fold(k), fold(v),
+                               q_pos.reshape(-1), fold(k_pos),
+                               window=-1 if window is None else int(window))
+        return o.reshape(B, Sq, H, D)
+
+    reference = layers.attention
+    layers.attention = attention
+    try:
+        yield
+    finally:
+        layers.attention = reference
+
+
+def first_rows_diff(rows_a, rows_b) -> float:
+    return max(float(np.abs(rows_a[r][0] - rows_b[r][0]).max()) for r in rows_a)
+
+
+def check_batch_small(seed: int):
+    cfg, gpu, cpu = small_moe(seed)
+    rng = np.random.default_rng(seed + 1)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in (12, 40, 23, 31)]
+    kw = dict(policy="lfp", max_batch=4, max_seq=64)
+    res = dict(phase="batch_check", layers=cfg.n_layers, head_dim=cfg.hd,
+               prompt_lens=[len(p) for p in prompts], new_tokens=8, tol=BATCH_CHECK_TOL)
+    card = {}
+    for mode, budget in (("chunked", 8), ("monolithic", None)):
+        run = lambda params: run_batched(cfg, params, prompts, 8, prefill_budget=budget, **kw)
+        tok_g, rows_g = card[mode] = run(gpu)
+        tok_r, rows_r = run(cpu)                    # the reference attention
+        with cpu_attention():
+            tok_c, rows_c = run(cpu)                # the kernels' arithmetic
+        with cpu_attention(q_scale=1.01):
+            tok_f, rows_f = run(cpu)                # a 1% softmax-scale fault
+        err, control = first_rows_diff(rows_g, rows_c), first_rows_diff(rows_f, rows_c)
+        finite = all(np.isfinite(x).all() for rs in rows_g.values() for x in rs)
+        if not (finite and err < BATCH_CHECK_TOL < control):
+            raise AssertionError(f"{mode}: card vs CPU first-token logits differ by {err}, "
+                                 f"the control by {control}, limit {BATCH_CHECK_TOL}")
+        parts = {}
+        for rid in tok_g:
+            i = first_divergence(tok_g[rid], tok_c[rid])
+            if i is not None:
+                top = np.sort(rows_c[rid][i])[-2:]
+                parts[rid] = dict(first_divergence=i, cpu_top2_margin=float(top[1] - top[0]))
+        res[mode] = dict(
+            first_token_logit_max_abs_err=err,
+            control_q_scale_1pct=control,
+            vs_cpu_reference_attention=first_rows_diff(rows_g, rows_r),
+            cpu_reference_vs_kernel_arithmetic=first_rows_diff(rows_r, rows_c),
+            first_token_logit_max_abs=max(float(np.abs(r[0]).max()) for r in rows_c.values()),
+            tokens_cuda=[tok_g[r] for r in sorted(tok_g)],
+            tokens_cpu=[tok_c[r] for r in sorted(tok_c)],
+            tokens_equal=tok_g == tok_c, tokens_equal_cpu_reference=tok_g == tok_r,
+            divergences=parts)
+    # the same 4 requests one by one through an engine with one slot
+    tok_b, rows_b = card["monolithic"]
+    tok_1, rows_1 = run_batched(cfg, gpu, prompts, 8, prefill_budget=None,
+                                **(kw | dict(max_batch=1)))
+    res["batch_invariant"] = dict(max_abs_logit_diff=rows_diff(rows_b, rows_1, tok_b, tok_1),
+                                  tokens_equal=tok_b == tok_1)
+    tok_ch, rows_ch = card["chunked"]
+    res["chunked_vs_monolithic"] = dict(
+        first_token_max_abs_logit_diff=first_rows_diff(rows_ch, rows_b),
+        tokens_equal=tok_ch == tok_b)
+    return res
+
+
+# -- phase 7: the batched engine at Mixtral-8x7B width ---------------------------
+
+def serve_batch(mixtral, seed: int, kernels):
+    from repro_torch.serving.batching import BatchedServingEngine
+    cfg, params, stats, pred = mixtral
+    rng = np.random.default_rng(seed + 2)
+    lens = (128, 256, 384, 512, 512, 768, 1024, 1536)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in lens]
+    new_tokens = 32
+    # the phase's kernel shapes held against their plain versions, before
+    # its engines run (these launches are not the path's)
+    with uncounted(kernels):
+        checks = dict(chunk_attention=chunk_attention(cfg, 2048, start=1024, C=512),
+                      decode_attention=decode_attention(
+                          cfg, 2048, [n + new_tokens - 1 for n in lens]),
+                      decode_expert_ffn=decode_expert_ffn(cfg))
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels:
+        fn.launches = 0
+
+    def engine(profile_at=None, **kw):
+        """The engine, with hooks that check every sampled logits row, keep
+        request 0's rows, count each decode step's expert copies and gather
+        reads, and profile three decode steps of batch ``profile_at``."""
+        from torch.profiler import ProfilerActivity, profile
+        eng = BatchedServingEngine(cfg, params, policy="duo", stats=stats,
+                                   predictor=pred, max_seq=2048, temperature=0.0, **kw)
+        finite, rows0 = [], []
+        sample, decode = eng._sample_req, eng._decode_step
+        steps = []    # (batch size, expert copies, rows read through a gather)
+        prof = dict(n=0)
+
+        def record(req, row):
+            finite.append(bool(np.isfinite(row).all()))
+            if req.rid == 0:
+                rows0.append(row)
+            return sample(req, row)
+
+        def counted(batch):
+            n0 = len(eng.cache.transfer_log)
+            idx = np.array([r.slot for r in batch])
+            window = len(batch) == profile_at and prof["n"] < 3
+            if window and prof["n"] == 0:
+                torch.cuda.synchronize()
+                prof["p"] = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                prof["p"].start()
+                prof["t0"] = time.perf_counter()
+            decode(batch)
+            if window:
+                prof["n"] += 1
+                if prof["n"] == 3:
+                    torch.cuda.synchronize()
+                    prof["wall"] = time.perf_counter() - prof["t0"]
+                    prof["p"].stop()
+            steps.append((len(batch), len(eng.cache.transfer_log) - n0,
+                          not np.array_equal(idx, np.arange(idx[0], idx[0] + idx.size))))
+
+        eng._sample_req, eng._decode_step = record, counted
+        return eng, finite, steps, rows0, prof
+
+    # chunked: requests 1-4 before the first step, 5-8 after step 4
+    eng, finite, steps, rows0, prof = engine(profile_at=8, max_batch=8, prefill_budget=512,
+                                             prefill_fairness="rr")
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, max_new=new_tokens) for p in prompts[:4]]
+    for _ in range(4):
+        eng.step()
+    reqs += [eng.submit(p, max_new=new_tokens) for p in prompts[4:]]
+    eng.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    results = [r.result() for r in reqs]
+    walls = np.array(eng.decode_step_wall)
+    hist = np.array(eng.decode_batch_hist)
+    copies = np.array([c for _, c, _ in steps])
+    n_decoded = sum(len(r.tokens) - 1 for r in results)
+    chunked = dict(
+        prompt_lens=list(lens), new_tokens=new_tokens, wall_s=wall,
+        ttft_s=[r.ttft_wall for r in results], e2e_s=[r.e2e_wall for r in results],
+        decode_tok_per_s=n_decoded / float(walls.sum()),
+        tok_per_s_wall=sum(len(r.tokens) for r in results) / wall,
+        decode_steps=len(walls), decode_batch_hist=hist.tolist(),
+        decode_step_ms_median_by_batch={int(b): float(np.median(walls[hist == b]) * 1e3)
+                                        for b in np.unique(hist)},
+        expert_copies_per_decode_step=dict(median=float(np.median(copies)),
+                                           max=int(copies.max()), total=int(copies.sum())),
+        expert_copies_total=len(eng.cache.transfer_log),
+        hits=eng.cache.hits, misses=eng.cache.misses,
+        cache_capacity=eng.cache.capacity,
+        perf={f: getattr(eng.perf, f) for f in (
+            "decode_rows_dense", "decode_rows_grouped", "decode_rows_launched",
+            "decode_ffn_launches", "decode_layers", "prefill_ffn_launches",
+            "prefill_moe_layers")},
+        decode_steps_with_kv_gather=sum(g for _, _, g in steps),
+        hbm_bound_ok=eng.cache.hbm_bound_ok,
+        profile_3_steps_at_batch_8=device_profile(prof))
+    ok = all(finite) and eng.cache.hbm_bound_ok
+    tokens_ok = all(len(r.tokens) == new_tokens + 1
+                    and all(0 <= t < cfg.vocab for t in r.tokens) for r in results)
+    # one layer's KV rows of 8 requests gathered out of order: what a
+    # decode step pays per layer when the batch's slots are not consecutive
+    jidx = torch.arange(7, -1, -1, device="cuda")
+    K, V = eng._K[0], eng._V[0]
+    gather_ms = time_ms(lambda: (K[jidx], V[jidx]))
+    gather_bytes = 2 * K[jidx].nbytes
+    del eng, K, V
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # request 0 again, alone in an engine with one slot and room for every
+    # expert: the same prefill chunks, decode at B=1 instead of B<=8
+    alone, finite_1, _, rows1, _ = engine(max_batch=1, prefill_budget=512,
+                                          cache_capacity=cfg.n_layers * cfg.n_experts)
+    req1 = alone.submit(prompts[0], max_new=new_tokens)
+    alone.run_until_drained()
+    tok0, tok1 = list(results[0].tokens), list(req1.tokens)
+    i = first_divergence(tok0, tok1)
+    n = len(rows0) if i is None else i + 1
+    invariant = dict(request=0, tokens_equal=tok0 == tok1, first_divergence=i,
+                     max_abs_logit_diff=max(float(np.abs(a - b).max())
+                                            for a, b in zip(rows0[:n], rows1[:n])),
+                     first_token_max_abs_logit_diff=float(np.abs(rows0[0] - rows1[0]).max()))
+    ok = ok and all(finite_1) and alone.cache.hbm_bound_ok
+    del alone
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # monolithic: flash_attention prefill under the batched engine
+    mono, finite_m, steps_m, _, _ = engine(max_batch=4, prefill_budget=None)
+    t0 = time.perf_counter()
+    mreqs = [mono.submit(p, max_new=new_tokens)
+             for p in rng.integers(0, cfg.vocab, (4, 512)).astype(np.int32)]
+    mono.run_until_drained()
+    torch.cuda.synchronize()
+    mwall = time.perf_counter() - t0
+    mres = [r.result() for r in mreqs]
+    mwalls, mhist = np.array(mono.decode_step_wall), np.array(mono.decode_batch_hist)
+    mcopies = np.array([c for _, c, _ in steps_m])
+    monolithic = dict(
+        prompt_lens=[512] * 4, wall_s=mwall,
+        ttft_s=[r.ttft_wall for r in mres], e2e_s=[r.e2e_wall for r in mres],
+        decode_tok_per_s=sum(len(r.tokens) - 1 for r in mres) / float(mwalls.sum()),
+        decode_step_ms_median_by_batch={int(b): float(np.median(mwalls[mhist == b]) * 1e3)
+                                        for b in np.unique(mhist)},
+        expert_copies_per_decode_step=dict(median=float(np.median(mcopies)),
+                                           max=int(mcopies.max()), total=int(mcopies.sum())),
+        expert_copies_total=len(mono.cache.transfer_log),
+        cache_capacity=mono.cache.capacity,
+        hits=mono.cache.hits, misses=mono.cache.misses,
+        hbm_bound_ok=mono.cache.hbm_bound_ok)
+    ok = ok and all(finite_m) and mono.cache.hbm_bound_ok
+    tokens_ok = tokens_ok and all(len(r.tokens) == new_tokens + 1
+                                  and all(0 <= t < cfg.vocab for t in r.tokens)
+                                  for r in mres)
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    peak = torch.cuda.max_memory_allocated()
+    del mono
+    if not ok:
+        raise AssertionError("batch: non-finite logits or the expert pool grew")
+    if not tokens_ok:
+        raise AssertionError("batch: a request's tokens are out of range or short")
+    missing = [n for n, c in launches.items() if c == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched by the batched engine: {missing}")
+    return dict(phase="batch", model="mixtral-8x7b", layers=cfg.n_layers,
+                chunked=chunked, monolithic=monolithic, batch_invariant=invariant,
+                kv_gather_ms_per_layer=gather_ms, kv_gather_bytes_per_layer=gather_bytes,
+                kernel_checks=checks, max_memory_allocated=peak, launches=launches)
+
+
+@contextlib.contextmanager
+def uncounted(kernels):
+    """Launches inside the block do not count as the main path's."""
+    saved = [fn.launches for fn in kernels]
+    try:
+        yield
+    finally:
+        for fn, n in zip(kernels, saved):
+            fn.launches = n
+
+
+def decode_bound(H, Hkv, D, n_valid, n_rows, W):
+    """q and o once, the valid slots' K and V rows once, pos and slot_pos."""
+    return bound(2 * (2 * n_rows * H * D + 2 * n_valid * Hkv * D) + 4 * n_rows * (W + 1),
+                 4 * H * D * n_valid)
+
+
+def chunk_attention(cfg, W: int, start: int, C: int):
+    """Chunked-prefill attention as the batched engine runs it on the card
+    (flash_decode, the chunk's C queries folded into its batch over one
+    request's [1, W] cache through a batch stride of 0) at the batch
+    phase's widths: held against the plain version on the same views,
+    timed beside it and beside SDPA with the same mask."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_decode import flash_decode, flash_decode_plain
+    g = torch.Generator(device="cuda").manual_seed(0)
+    r = lambda *s: torch.randn(s, generator=g, device="cuda").to(torch.bfloat16)
+    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q, k, v = r(C, H, D), r(1, W, Hkv, D), r(1, W, Hkv, D)
+    sp = torch.full((1, W), -1, dtype=torch.int32, device="cuda")
+    sp[0, :start + C] = torch.arange(start + C, dtype=torch.int32, device="cuda")
+    pos = start + torch.arange(C, dtype=torch.int32, device="cuda")
+    args = (q, k.expand(C, -1, -1, -1), v.expand(C, -1, -1, -1), pos, sp.expand(C, W))
+    err = max_err(flash_decode(*args), flash_decode_plain(*args))
+    mask = ((sp >= 0) & (sp <= pos[:, None]))[None, None]
+    timed = device_vs_library(lambda: flash_decode(*args),
+                              lambda: F.scaled_dot_product_attention(
+                                  q.transpose(0, 1)[None], k.transpose(1, 2),
+                                  v.transpose(1, 2), attn_mask=mask, enable_gqa=True))
+    plain_ms = time_ms(lambda: flash_decode_plain(*args), reps=5)
+    # the K / V rows are read once however many queries fold over them
+    keys = start + C
+    bms, by = bound(2 * (2 * C * H * D + 2 * keys * Hkv * D) + 4 * (C + W),
+                    4 * H * D * (C * start + C * (C + 1) // 2))
+    return dict(C=C, start=start, W=W, max_abs_err=err, plain_ms=plain_ms,
+                bound_ms=bms, bound_by=by, bound_share=bms / timed["device_ms"], **timed)
+
+
+def decode_attention(cfg, W: int, pos):
+    """Batched decode attention at B=8 over pool rows gathered out of slot
+    order (as the engine gathers them), row b at position ``pos[b]``: held
+    against the plain version, timed beside it and beside SDPA."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_decode import flash_decode, flash_decode_plain
+    B = len(pos)
+    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    g = torch.Generator(device="cuda").manual_seed(1)
+    r = lambda *s: torch.randn(s, generator=g, device="cuda").to(torch.bfloat16)
+    q, pool_k, pool_v = r(B, H, D), r(B, W, Hkv, D), r(B, W, Hkv, D)
+    jidx = torch.arange(B - 1, -1, -1, device="cuda")
+    k, v = pool_k[jidx], pool_v[jidx]
+    pos = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    slots = torch.arange(W, dtype=torch.int32, device="cuda")[None]
+    sp = torch.where(slots <= pos[:, None], slots, -1).to(torch.int32)
+    args = (q, k, v, pos, sp)
+    err = max_err(flash_decode(*args), flash_decode_plain(*args))
+    mask = ((sp >= 0) & (sp <= pos[:, None]))[:, None, None, :]
+    timed = device_vs_library(lambda: flash_decode(*args),
+                              lambda: F.scaled_dot_product_attention(
+                                  q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+                                  attn_mask=mask, enable_gqa=True))
+    plain_ms = time_ms(lambda: flash_decode_plain(*args), reps=5)
+    bms, by = decode_bound(H, Hkv, D, int(mask.sum()), B, W)
+    return dict(B=B, W=W, pos=pos.tolist(), max_abs_err=err, plain_ms=plain_ms,
+                bound_ms=bms, bound_by=by, bound_share=bms / timed["device_ms"], **timed)
+
+
+def decode_expert_ffn(cfg):
+    """The grouped decode sweep's launch at B=8: U=8 experts of C=8 bucketed
+    rows, read by slot (in a mixed order) out of pools of 8 slabs, held
+    against the plain version and timed beside it and the cuBLAS yardstick
+    of the kernel phase."""
+    from repro_torch.kernels.expert_ffn import (expert_ffn_from_pool,
+                                                expert_ffn_from_pool_plain)
+    U, C, d, f = 8, 8, cfg.d_model, cfg.d_expert
+    g = torch.Generator(device="cuda").manual_seed(2)
+    r = lambda *s: torch.randn(s, generator=g, device="cuda").to(torch.bfloat16)
+    x = r(U, C, d)
+    w1 = r(U, d, f) * d ** -0.5
+    w3 = r(U, d, f) * d ** -0.5
+    w2 = r(U, f, d) * f ** -0.5
+    slots = torch.tensor([3, 0, 7, 1, 6, 2, 5, 4], dtype=torch.int32, device="cuda")
+    args = (x, w1, w3, w2, slots)
+    err = max_err(expert_ffn_from_pool(*args), expert_ffn_from_pool_plain(*args))
+    ms = time_ms(lambda: expert_ffn_from_pool(*args))
+    plain_ms = time_ms(lambda: expert_ffn_from_pool_plain(*args), reps=5)
+    idx = slots.long()
+    g1, g3, g2 = w1[idx], w3[idx], w2[idx]
+    cublas = lambda: torch.bmm(torch.nn.functional.silu(torch.bmm(x, g1)) * torch.bmm(x, g3), g2)
+    device_ms, cublas_device_ms = in_turns(lambda: expert_ffn_from_pool(*args), cublas,
+                                           kernel_ms)
+    bms, by = bound(2 * (2 * U * C * d + 3 * U * d * f) + 4 * U, 2 * 3 * U * C * d * f)
+    return dict(U=U, C=C, d=d, f=f, slots=slots.tolist(), max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, device_ms=device_ms, cublas_device_ms=cublas_device_ms,
+                bound_ms=bms, bound_by=by, bound_share=bms / device_ms)
+
+
+def device_profile(prof):
+    """Device busy time and the top kernels of a profiled window, beside
+    its host-clock length (the profiler's own cost is in that wall)."""
+    if "p" not in prof:
+        return None
+    ev = [e for e in prof["p"].events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name = {}
+    for e in ev:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    busy = busy_ms(ev)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return dict(wall_ms=prof["wall"] * 1e3, device_busy_ms=busy,
+                busy_share=busy / (prof["wall"] * 1e3),
+                top_kernels_ms=[[n[:80], t] for n, t in top])
+
+
+# -- phase 8: the ssm bundle on the card vs on the CPU -------------------------
 
 def check_small_ssm(seed: int):
     from repro_torch.configs.base import get_config, reduced
@@ -552,7 +1025,7 @@ def check_small_ssm(seed: int):
                 prompt=300, prefill_logit_max_abs_err=err, tol=5e-2)
 
 
-# -- phase 7: Mamba2-2.7B through the model bundle -------------------------------
+# -- phase 9: Mamba2-2.7B through the model bundle -------------------------------
 
 def serve_ssm(seed: int, ssd_scan):
     from repro_torch.configs.base import get_config
@@ -697,17 +1170,25 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     kernels = [expert_ffn_from_pool, flash_attention, flash_decode]
-    srv = serve(args.layers, args.seed, kernels)
+    srv, mixtral = serve(args.layers, args.seed, kernels)
     emit(srv)
     gc.collect()   # the engine's reference cycles hold its expert pool
+    torch.cuda.empty_cache()
+
+    emit(check_batch_small(args.seed))
+    bat = serve_batch(mixtral, args.seed, kernels)
+    emit(bat)
+    del mixtral
+    gc.collect()
     torch.cuda.empty_cache()
 
     emit(check_small_ssm(args.seed))
     ssm = serve_ssm(args.seed, ssd_scan)
     emit(ssm)
 
-    # each kernel's launches from the path that runs it
-    launches = srv["launches"] | ssm["launches"]
+    # each kernel's launches from the paths that run it
+    launches = {n: c + bat["launches"][n] for n, c in srv["launches"].items()} \
+        | ssm["launches"]
     summary = [{k: r[k] for k in ("name", "route", "source", "replaces")}
                | {"launches": launches[r["name"]]}
                | {k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",

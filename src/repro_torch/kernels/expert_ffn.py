@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import _build
+from repro_torch.models.layers import matmul_rows
 
 # x, w1_pool, w3_pool, w2_pool, slots, h, out; U, C, d, f, capacity; stream
 _ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
@@ -30,9 +31,9 @@ _ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 def expert_ffn_plain(x, w1, w3, w2):
     """x: [E,C,d]; w1/w3: [E,d,f]; w2: [E,f,d] -> [E,C,d] (x.dtype)."""
-    h = F.silu(torch.matmul(x.float(), w1.float())) \
-        * torch.matmul(x.float(), w3.float())
-    return torch.matmul(h.to(x.dtype).float(), w2.float()).to(x.dtype)
+    xf = x.float()
+    h = F.silu(matmul_rows(xf, w1.float())) * matmul_rows(xf, w3.float())
+    return matmul_rows(h.to(x.dtype).float(), w2.float()).to(x.dtype)
 
 
 def expert_ffn_from_pool_plain(x, w1_pool, w3_pool, w2_pool, slots):

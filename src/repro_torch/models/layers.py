@@ -8,7 +8,10 @@ Prefill and decode attention take the hand-written kernels on a CUDA tensor
 (``kernels/flash_attention.py``, ``kernels/flash_decode.py``). On the CPU
 they take the reference's full ``attention`` instead, the function the JAX
 serving engine itself runs, so the CPU parity tests hold the port to the
-engine's own numbers.
+engine's own numbers. Chunked prefill has no kernel of its own: on the card
+its C queries are folded into ``flash_decode``'s batch dimension, each
+reading the request's one cache row through a batch stride of 0 (the
+valid-key set ``0 <= slot_pos <= pos`` is the reference mask's).
 """
 from __future__ import annotations
 
@@ -16,7 +19,6 @@ import dataclasses
 from typing import Optional, Union
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_decode import flash_decode
@@ -159,5 +161,96 @@ def self_attn_decode(x, p, dims: AttnDims, cache_k, cache_v, slot_pos, slot: int
     return o.reshape(B, 1, -1) @ p["wo"], cache_k, cache_v
 
 
+def self_attn_prefill_chunk(x, p, dims: AttnDims, cache_k, cache_v, slot_pos,
+                            start: int, *, window=None):
+    """Chunked prefill: C prompt tokens attend over the request's
+    already-written KV prefix plus themselves, appending their K/V.
+
+    x: [B,C,d]; cache_k/v: [B,W,Hkv,hd] and slot_pos: [B,W] int32 (-1 =
+    empty), all written IN PLACE at slots start..start+C-1 (prefill never
+    wraps the ring: start + C <= W is the caller's invariant). On the card
+    (one request, B = 1, as the engines call it) the C queries run as one
+    ``flash_decode`` call: q [C,H,D], pos = start + arange(C), and the
+    cache and slot_pos expanded to C rows with a batch stride of 0.
+    Returns (out, cache_k, cache_v, slot_pos)."""
+    B, C, _ = x.shape
+    positions = (start + torch.arange(C, dtype=torch.int32, device=x.device)
+                 )[None].expand(B, C)
+    q, k, v = _qkv(x, p, dims, positions)
+    cache_k[:, start:start + C] = k
+    cache_v[:, start:start + C] = v
+    slot_pos[:, start:start + C] = positions
+    if x.is_cuda:
+        if B != 1:
+            raise ValueError(f"chunked prefill on the card takes one request, got B={B}")
+        W = cache_k.shape[1]
+        o = flash_decode(q[0], cache_k.expand(C, W, -1, -1),
+                         cache_v.expand(C, W, -1, -1), positions[0].contiguous(),
+                         slot_pos.expand(C, W),
+                         window=-1 if window is None else int(window))[None]
+    else:
+        o = attention(q, cache_k, cache_v, q_pos=positions, k_pos=slot_pos,
+                      window=window, causal=True)
+    return o.reshape(B, C, -1) @ p["wo"], cache_k, cache_v, slot_pos
+
+
+def self_attn_decode_batched(x, p, dims: AttnDims, cache_k, cache_v, slot_pos,
+                             slot: torch.Tensor, pos: torch.Tensor, *,
+                             window=None):
+    """One-token decode for B sequences at different positions.
+
+    x: [B,1,d]; cache_k/v: [B,W,Hkv,hd], row b's new K/V written IN PLACE at
+    ``slot[b]``; slot_pos: [B,W] int32, already holding ``pos[b]`` at
+    ``slot[b]``; slot, pos: [B] tensors on x's device. Returns (out,
+    cache_k, cache_v)."""
+    B = x.shape[0]
+    pos = pos.to(torch.int32)
+    positions = pos.reshape(B, 1)
+    q, k, v = _qkv(x, p, dims, positions)
+    rows = torch.arange(B, device=x.device)
+    slot = slot.long()
+    cache_k[rows, slot] = k[:, 0]
+    cache_v[rows, slot] = v[:, 0]
+    if x.is_cuda:
+        o = flash_decode(q[:, 0], cache_k, cache_v, pos, slot_pos,
+                         window=-1 if window is None else int(window))[:, None]
+    else:
+        o = attention(q, cache_k, cache_v, q_pos=positions, k_pos=slot_pos,
+                      window=window, causal=True)
+    return o.reshape(B, 1, -1) @ p["wo"], cache_k, cache_v
+
+
+def matmul_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` whose every row is the same whatever the number of rows of
+    ``a``: a single row is padded to two, because the CPU's f32 product
+    takes another path for one row (a matrix-vector product that sums in
+    another order) and would part a request served alone from the same
+    request in a batch."""
+    if a.shape[-2] != 1:
+        return torch.matmul(a, b)
+    return torch.matmul(torch.cat([a, torch.zeros_like(a)], -2), b)[..., :1, :]
+
+
+def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """bf16 ``a @ b`` [M,K] x [K,N] with an f32 result, as XLA computes a
+    bf16 product whose f32 cast it folds in (the JAX engine's head and
+    ``expert_raw``): on the card one cuBLAS product with an f32 output, on
+    the CPU the f32 product of the bf16 values, row-invariant."""
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return matmul_rows(a.float(), b.float())
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu`` primitive by primitive (x * 1 / (1 + exp(-x))), each
+    step rounded to x's dtype as XLA rounds a bf16 program; ``F.silu``
+    rounds once and parts from the reference by a bf16 ulp."""
+    return x * (1.0 / (1.0 + torch.exp(-x)))
+
+
+def swiglu_hidden(x, w1, w3):
+    return silu(x @ w1) * (x @ w3)
+
+
 def swiglu(x, w1, w3, w2):
-    return (F.silu(x @ w1) * (x @ w3)) @ w2
+    return swiglu_hidden(x, w1, w3) @ w2

@@ -1,9 +1,9 @@
 """Engine-phase span recorder (the part of ``repro.obs.spans`` the
-single-request engine uses).
+serving engines use).
 
 One :class:`SpanRecorder` per engine (``engine.obs``): ``begin``/``end``
 spans and ``instant`` marks on four lanes (lifecycle, prefill, decode,
-prefetch). Off by default — every method starts with an ``enabled`` check —
+prefetch), and one ``terminal`` record per request id. Off by default — every method starts with an ``enabled`` check —
 bounded by a ring of closed spans, with open spans kept apart so ring
 eviction cannot orphan one, and rid-sampled by a deterministic hash.
 """
@@ -48,6 +48,10 @@ class SpanRecorder:
         self.closed: Deque[Span] = collections.deque(maxlen=self.capacity)
         self._open: Dict[int, Span] = {}
         self._next_token = 0
+        # rid -> terminal reason, a bounded FIFO
+        self._terminal: Dict[int, str] = {}
+        self._terminal_order: Deque[int] = collections.deque()
+        self._terminal_window = max(4 * self.capacity, 65536)
         self.n_dropped = 0  # closed spans evicted by the ring
 
     def sampled(self, rid: Optional[int]) -> bool:
@@ -85,6 +89,22 @@ class SpanRecorder:
             return
         t = monotonic()
         self._close(Span(name, lane, t, t, rid, args))
+
+    def terminal(self, rid: int, reason: str, **args) -> None:
+        """Record the request's ONE terminal transition; a second terminal
+        for the same rid is a lifecycle bug and raises."""
+        if not self.enabled:
+            return
+        prev = self._terminal.get(rid)
+        if prev is not None:
+            raise RuntimeError(f"rid {rid} reached a second terminal "
+                               f"{reason!r} (already {prev!r})")
+        self._terminal[rid] = reason
+        self._terminal_order.append(rid)
+        while len(self._terminal_order) > self._terminal_window:
+            self._terminal.pop(self._terminal_order.popleft(), None)
+        self.instant(f"request.{reason}", lane="lifecycle", rid=rid,
+                     reason=reason, **args)
 
     def _close(self, span: Span) -> None:
         if len(self.closed) == self.capacity:

@@ -2,10 +2,12 @@
 
 Port of ``repro.serving.engine``: ``EngineCore`` (host expert store, device
 weights, one scheduler + expert-residency pair, the per-layer steps, the
-token-event sink) and ``MoEServingEngine`` (monolithic prefill, decode with
-the policy's prefetch, ``serve``), plus ``collect_traces``.
+token-event sink) and ``MoEServingEngine`` (prefill, decode with the
+policy's prefetch, ``serve``), plus ``collect_traces``.
 
-  * prefill, per layer: attention (the flash_attention kernel on the card),
+  * prefill, per layer: attention (the flash_attention kernel on the card;
+    with a chunk size, ``prefill_chunk`` attends each chunk over the KV
+    written by earlier chunks, through flash_decode on the card),
     gate read back to the host, the policy's ``PrefillPlan`` staged with the
     same ``prefetch`` calls in the same order as the reference, then ONE
     grouped expert-FFN launch straight off the residency pools (the
@@ -13,9 +15,11 @@ the policy's prefetch, ``serve``), plus ``collect_traces``.
     path, here the default).
   * decode, per layer: attention over the ring cache (the flash_decode
     kernel on the card), gate, correction fetches for misses (sync point
-    #1), the selected experts one by one (``torch.matmul``, as the
-    reference's ``expert_raw`` is plain XLA), then the predicted experts of
-    layer l+1 prefetched on the copy stream while layer l computes.
+    #1), the selected experts one by one (``_expert_raw``: the reference's
+    ``expert_raw`` is plain XLA, not the kernel), then the predicted
+    experts of layer l+1 prefetched on the copy stream while layer l
+    computes. The continuous-batching engine (``serving/batching.py``)
+    builds on the same per-layer steps.
 
 Routed-expert weights live only in the host store; the device holds the
 non-expert weights and one ``ExpertResidency`` (core/cache.py) whose pools
@@ -153,7 +157,7 @@ class RequestResult:
     e2e_wall: float
     hits: int
     misses: int
-    finish_reason: str = "length"   # length | stop_token
+    finish_reason: str = "length"   # length | stop_token | cancelled
 
 
 class EngineCore:
@@ -172,8 +176,6 @@ class EngineCore:
                  spans: Union[bool, SpanRecorder] = False):
         if not (cfg.is_moe and cfg.n_dense_layers == 0):
             raise ValueError("the engine schedules experts of a uniform MoE stack")
-        if prefill_chunk is not None:
-            raise NotImplementedError("chunked prefill is not ported yet")
         self.cfg = cfg
         self.L = cfg.n_layers
         self.E = cfg.n_experts
@@ -194,6 +196,7 @@ class EngineCore:
         self._moe = [{k: v[l] for k, v in lp["moe"].items()
                       if k not in ("w1", "w3", "w2")} for l in range(self.L)]
         self.temperature = temperature
+        self.prefill_chunk_size = prefill_chunk
         self.fused_prefill = bool(fused_prefill)
         self.metrics = MetricsRegistry()
         self.obs = (spans if isinstance(spans, SpanRecorder)
@@ -203,10 +206,13 @@ class EngineCore:
         self._events: List[Event] = []
         sc = StateConstructor(stats) if stats is not None else None
         # ONE ledger per engine, sized for the policy default and for the
-        # largest pinned set one prefill plan can create (all E experts)
+        # largest pinned set one prefill plan can create (every expert a
+        # chunk's tokens activate stays pinned until end_layer)
+        pin_bound = self.E if prefill_chunk is None \
+            else min(self.E, prefill_chunk * self.k)
         cap = cache_capacity or max(
             default_capacity(policy, self.L, self.E, self.k,
-                             batch=sched_batch), self.E)
+                             batch=sched_batch), pin_bound)
         self.cache = ExpertResidency(self.store, capacity=cap,
                                      device=self.device)
         self.metrics.gauge("residency_hits", "expert-cache hits (lifetime)",
@@ -234,6 +240,18 @@ class EngineCore:
                                      lp["attn"], self.dims)
         return x + h, k, v
 
+    def _attn_prefill_chunk(self, lp, x, ck, cv, sp, start: int):
+        h, ck, cv, sp = L.self_attn_prefill_chunk(
+            L.rms_norm(x, lp["ln1"], self.cfg.rms_eps), lp["attn"], self.dims,
+            ck, cv, sp, start)
+        return x + h, ck, cv, sp
+
+    def _attn_decode_batched(self, lp, x, ck, cv, sp, slot, pos):
+        h, ck, cv = L.self_attn_decode_batched(
+            L.rms_norm(x, lp["ln1"], self.cfg.rms_eps), lp["attn"], self.dims,
+            ck, cv, sp, slot, pos)
+        return x + h, ck, cv
+
     def _attn_decode(self, lp, x, ck, cv, sp, slot, pos):
         h, ck, cv = L.self_attn_decode(
             L.rms_norm(x, lp["ln1"], self.cfg.rms_eps), lp["attn"], self.dims,
@@ -249,9 +267,12 @@ class EngineCore:
     @staticmethod
     def _expert_raw(xn, w1p, w3p, w2p, slot: int):
         """Pre-gate expert output in f32 [T, d], weights read by slot out of
-        the residency pools; bf16 products as the reference's XLA einsum."""
+        the residency pools: bf16 products as the reference's XLA einsum,
+        the last one with an f32 result (its jitted ``expert_raw`` folds the
+        f32 cast into that product)."""
         x2 = xn.reshape(-1, xn.shape[-1])
-        return L.swiglu(x2, w1p[slot], w3p[slot], w2p[slot]).float()
+        h = L.swiglu_hidden(x2, w1p[slot], w3p[slot])
+        return L.mm_f32(h, w2p[slot])
 
     def _expert(self, xn, w1p, w3p, w2p, slot: int, gate_w):
         return (self._expert_raw(xn, w1p, w3p, w2p, slot)
@@ -266,9 +287,12 @@ class EngineCore:
 
     def _head(self, x_last):
         x = L.rms_norm(x_last, self.dev["ln_f"], self.cfg.rms_eps)
-        lg = x @ self.dev["embed"].T.to(x.dtype)
+        # f32 logits, never rounded to bf16: the JAX engine's jitted head
+        # folds the f32 cast into the product (bf16 logits would make
+        # greedy ties common and part the two packages' tokens)
+        lg = L.mm_f32(x, self.dev["embed"].T)
         pad = torch.arange(self.vp, device=lg.device) >= self.cfg.vocab
-        return lg.float().masked_fill(pad, -1e9)
+        return lg.masked_fill(pad, -1e9)
 
     def _embed(self, tokens) -> torch.Tensor:
         tok = torch.as_tensor(np.asarray(tokens), dtype=torch.long,
@@ -374,10 +398,43 @@ class EngineCore:
         self.sched.end_layer(l)
         return x, ids_np.reshape(-1, self.k), act
 
-    def prefill_layers(self, tokens: np.ndarray):
-        """Layer-by-layer monolithic prefill of tokens [1, S]. Returns
-        (last_logits [1, Vp] f32, (kc, vc) per-layer [1,S,Hkv,hd] lists,
-        active_per_layer, per-token paths [S, L, k])."""
+    def prefill_chunk(self, chunk: np.ndarray, start: int,
+                      kc: List[torch.Tensor], vc: List[torch.Tensor],
+                      sp: torch.Tensor, *, need_logits: bool = True):
+        """Run ONE prefill chunk [1, C] through all layers incrementally.
+
+        The chunk's queries attend over the KV prefix earlier chunks wrote
+        (slots 0..start-1 of the per-layer [1, W, Hkv, hd] buffers kc / vc)
+        plus themselves, and write their K/V and positions (sp, [1, W]
+        int32) at slots start..start+C-1, in place. Experts go through the
+        same per-layer ``prefill_plan`` path as monolithic prefill. Returns
+        (logits [1, Vp] of the chunk's last position or None, kc, vc, sp,
+        active_per_layer, per-token paths [C, L, k])."""
+        x = self._embed(chunk)
+        C = chunk.shape[1]
+        active: List[List[int]] = []
+        paths = np.zeros((C, self.L, self.k), np.int32)
+        for l in range(self.L):
+            lp = self._layers[l]
+            x, kc[l], vc[l], sp = self._attn_prefill_chunk(lp, x, kc[l], vc[l],
+                                                           sp, start)
+            x, ids_np, act = self._prefill_moe(l, lp, x)
+            paths[:, l] = ids_np
+            active.append(act)
+        logits = self._head(x[:, -1]) if need_logits else None
+        return logits, kc, vc, sp, active, paths
+
+    def prefill_layers(self, tokens: np.ndarray,
+                       chunk_size: Optional[int] = None):
+        """Layer-by-layer prefill of tokens [1, S]: monolithic, or, with
+        ``chunk_size`` (default: the engine's ``prefill_chunk_size``), a
+        sequence of ``prefill_chunk`` calls. Returns (last_logits [1, Vp]
+        f32, (kc, vc) per-layer [1,S,Hkv,hd] lists, active_per_layer,
+        per-token paths [S, L, k])."""
+        if chunk_size is None:
+            chunk_size = self.prefill_chunk_size
+        if chunk_size is not None:
+            return self._prefill_layers_chunked(tokens, chunk_size)
         S = tokens.shape[1]
         x = self._embed(tokens)
         kc, vc = [], []
@@ -392,6 +449,30 @@ class EngineCore:
             vc.append(v_)
             active.append(act)
         return self._head(x[:, -1]), (kc, vc), active, paths
+
+    def _prefill_layers_chunked(self, tokens: np.ndarray, chunk_size: int):
+        """``prefill_layers``' contract, the prompt run ``chunk_size``
+        tokens at a time through ``prefill_chunk`` (buffers sized to it)."""
+        if chunk_size < 1:
+            raise ValueError(f"chunk_size must be >= 1, got {chunk_size}")
+        S = tokens.shape[1]
+        shape = (1, S, self.cfg.n_kv_heads, self.cfg.hd)
+        kc = [torch.zeros(shape, dtype=L.PDT, device=self.device)
+              for _ in range(self.L)]
+        vc = [torch.zeros_like(k) for k in kc]
+        sp = torch.full((1, S), -1, dtype=torch.int32, device=self.device)
+        active_sets = [set() for _ in range(self.L)]
+        paths = np.zeros((S, self.L, self.k), np.int32)
+        logits = None
+        for start in range(0, S, chunk_size):
+            stop = min(start + chunk_size, S)
+            logits, kc, vc, sp, act, cpaths = self.prefill_chunk(
+                tokens[:, start:stop], start, kc, vc, sp,
+                need_logits=(stop == S))
+            paths[start:stop] = cpaths
+            for l in range(self.L):
+                active_sets[l].update(act[l])
+        return logits, (kc, vc), [sorted(a) for a in active_sets], paths
 
     # -- event stream --------------------------------------------------------
     def _emit(self, ev: Event) -> None:

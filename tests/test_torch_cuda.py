@@ -283,3 +283,133 @@ def test_engine_on_card_matches_cpu(cuda):
     lg_c = c.prefill_layers(prompt[None])[0]
     torch.testing.assert_close(lg_g[:, :cfg.vocab], lg_c[:, :cfg.vocab],
                                rtol=5e-2, atol=5e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 17, 256])
+@pytest.mark.parametrize("start", [0, 300])
+def test_flash_decode_folded_chunk_attention(cuda, C, start):
+    """Chunked-prefill attention on the card: the chunk's C queries folded
+    into flash_decode's batch, one request's cache and slot positions read
+    through a batch stride of 0; against the plain version on the same
+    views and the reference attention on the unexpanded cache."""
+    from repro_torch.models.layers import attention
+    g = torch.Generator(device=cuda).manual_seed(C + start)
+    H, Hkv, D, W = 32, 8, 128, 640
+    r = lambda *s: torch.randn(s, generator=g, device=cuda).to(torch.bfloat16)
+    q, k, v = r(C, H, D), r(1, W, Hkv, D), r(1, W, Hkv, D)
+    sp = torch.full((1, W), -1, dtype=torch.int32, device=cuda)
+    sp[0, :start + C] = torch.arange(start + C, dtype=torch.int32, device=cuda)
+    pos = start + torch.arange(C, dtype=torch.int32, device=cuda)
+    kx, vx, spx = k.expand(C, -1, -1, -1), v.expand(C, -1, -1, -1), sp.expand(C, W)
+    assert C == 1 or (kx.stride(0) == 0 and spx.stride(0) == 0)
+    n = flash_decode.launches
+    got = flash_decode(q, kx, vx, pos, spx)
+    assert flash_decode.launches == n + 1
+    torch.testing.assert_close(got, flash_decode_plain(q, kx, vx, pos, spx),
+                               rtol=2e-2, atol=2e-2)
+    want = attention(q[None], k, v, q_pos=pos[None], k_pos=sp)[0]
+    torch.testing.assert_close(got, want, rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+def test_self_attn_decode_batched_pool_rows(cuda):
+    """Batched decode attention over pool rows that are not 0..B-1 (the
+    engine's gather path) against the same layer on the CPU."""
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.models import layers as L
+    from repro_torch.models.params import attn_dims, init_params
+    cfg = dataclasses.replace(reduced(get_config("mixtral_8x7b")),
+                              head_dim=64, n_kv_heads=1)
+    p = init_params(cfg, 0, device=cuda)
+    attn = {k: v[0] for k, v in p["layers"]["attn"].items()}
+    rng = np.random.default_rng(0)
+    W, rows = 96, [5, 1, 3]
+    pool = torch.from_numpy(rng.standard_normal((6, W, 1, 64), np.float32)
+                            ).to(torch.bfloat16)
+    pos = np.array([40, 95, 7], np.int32)
+    sp = np.full((3, W), -1, np.int32)
+    for b, n in enumerate(pos):
+        sp[b, : n + 1] = np.arange(n + 1)
+    x = torch.from_numpy(rng.standard_normal((3, 1, cfg.d_model), np.float32)
+                         ).to(torch.bfloat16)
+    outs = {}
+    for dev in ("cpu", cuda):
+        a = {k: v.to(dev) for k, v in attn.items()}
+        ck = pool.to(dev)[torch.tensor(rows, device=dev)]
+        cv = (pool.to(dev) * 0.5)[torch.tensor(rows, device=dev)]
+        n = flash_decode.launches
+        o, ck, cv = L.self_attn_decode_batched(
+            x.to(dev), a, attn_dims(cfg), ck, cv, torch.from_numpy(sp).to(dev),
+            torch.from_numpy(pos % W).to(dev), torch.from_numpy(pos).to(dev))
+        assert flash_decode.launches == n + (dev != "cpu")
+        outs[str(dev)] = (o.cpu(), ck.cpu())
+    torch.testing.assert_close(outs["cuda"][0], outs["cpu"][0], rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(outs["cuda"][1], outs["cpu"][1], rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("budget", [None, 8])
+def test_batched_engine_on_card(cuda, budget):
+    """A small BatchedServingEngine on the card: every kernel of its path
+    launches, the expert pool stays within its bound through a
+    cancellation, and first-token logits agree with the same engine on the
+    CPU."""
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.models.params import init_params
+    from repro_torch.serving.batching import BatchedServingEngine
+    cfg = dataclasses.replace(reduced(get_config("mixtral_8x7b")),
+                              head_dim=64, n_kv_heads=1)
+    gpu = init_params(cfg, 0, device=cuda)
+    cpu = {"embed": gpu["embed"].cpu(), "ln_f": gpu["ln_f"].cpu(),
+           "layers": {k: ({kk: vv.cpu() for kk, vv in v.items()}
+                          if isinstance(v, dict) else v.cpu())
+                      for k, v in gpu["layers"].items()}}
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in (12, 33, 20, 27, 15)]
+    first = {}
+    for name, params in (("cuda", gpu), ("cpu", cpu)):
+        eng = BatchedServingEngine(cfg, params, policy="lfp", max_batch=4, max_seq=64,
+                                   prefill_budget=budget)
+        sample = eng._sample_req
+
+        def record(req, row, name=name, sample=sample):
+            if not req.tokens:
+                first[(name, req.rid)] = row[: cfg.vocab]
+            return sample(req, row)
+
+        eng._sample_req = record
+        kernels = (expert_ffn_from_pool, flash_decode,
+                   flash_decode if budget else flash_attention)
+        before = [k.launches for k in kernels]
+        reqs = [eng.submit(p, max_new=6) for p in prompts]
+        for _ in range(3):
+            eng.step()
+        eng.cancel(reqs[1])
+        assert eng.cache.hbm_bound_ok
+        eng.run_until_drained()
+        assert eng.cache.hbm_bound_ok and eng.idle
+        if name == "cuda":
+            assert all(k.launches > b for k, b in zip(kernels, before))
+        for r in reqs:
+            assert r.state in ("done", "cancelled")
+            assert all(0 <= t < cfg.vocab for t in r.tokens)
+    for rid in range(len(prompts)):
+        if ("cpu", rid) in first:
+            np.testing.assert_allclose(first[("cuda", rid)], first[("cpu", rid)],
+                                       rtol=5e-2, atol=5e-2)
+
+
+@pytest.mark.cuda
+def test_mm_f32_on_card(cuda):
+    """The head's bf16 product with an f32 result: on the card (cuBLAS,
+    f32 output) against the CPU's f32 product of the same bf16 values, and
+    a row's result whatever the number of rows."""
+    from repro_torch.models.layers import mm_f32
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(8, 4096, generator=g, device=cuda).to(torch.bfloat16)
+    w = (torch.randn(4096, 1024, generator=g, device=cuda) * 0.02).to(torch.bfloat16)
+    got = mm_f32(x, w)
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got.cpu(), mm_f32(x.cpu(), w.cpu()), rtol=1e-4, atol=1e-4)
+    assert torch.equal(mm_f32(x[:1], w), got[:1])

@@ -159,10 +159,52 @@ def test_collect_traces_and_stop_tokens(setup):
     assert r.finish_reason == "stop_token"
 
 
-def test_chunked_prefill_is_not_ported(setup):
+@pytest.mark.parametrize("chunk", [1, 3, "S"])
+def test_chunked_prefill_matches_monolithic(setup, chunk):
+    """Chunked prefill (any chunk size) gives the monolithic engine's
+    logits, tokens, traces and per-layer active sets, bit for bit."""
     s = setup
-    with pytest.raises(NotImplementedError):
-        T.MoEServingEngine(s["cfg"], s["tp"], policy="duo", prefill_chunk=4)
+    prompt = s["prompts"][4]
+    size = len(prompt) if chunk == "S" else chunk
+    mono = T.MoEServingEngine(s["cfg"], s["tp"], policy="duo", stats=s["stats"],
+                              predictor=s["tpred"], temperature=0.0)
+    chunked = T.MoEServingEngine(s["cfg"], s["tp"], policy="duo",
+                                 stats=s["stats"], predictor=s["tpred"],
+                                 temperature=0.0, prefill_chunk=size)
+    lm, (km, vm), am, pm = mono.prefill_layers(prompt[None])
+    lc, (kc, vc), ac, pc = chunked.prefill_layers(prompt[None])
+    assert torch.equal(lm, lc) and am == ac
+    np.testing.assert_array_equal(pm, pc)
+    assert all(torch.equal(a, b) for a, b in zip(km + vm, kc + vc))
+    rm, rc = mono.serve(prompt, max_new=5), chunked.serve(prompt, max_new=5)
+    np.testing.assert_array_equal(rc.tokens, rm.tokens)
+    np.testing.assert_array_equal(rc.decode_trace, rm.decode_trace)
+    assert rc.prefill_active == rm.prefill_active
+    assert chunked.cache.hbm_bound_ok
+    assert chunked.perf.prefill_moe_layers == -(-len(prompt) // size) * 2 * 2
+
+
+def test_chunked_prefill_parity_with_reference(setup):
+    """The chunked single-request engine against the reference's, chunk 4."""
+    s = setup
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("REPRO_OPT_GROUPED_FFN", "1")
+        mp.setenv("REPRO_PALLAS_INTERPRET", "1")
+        je = J.MoEServingEngine(s["jcfg"], s["jp"], policy="duo",
+                                stats=s["stats"], predictor=s["jpred"],
+                                temperature=0.0, prefill_chunk=4)
+        jr = je.serve(s["prompts"][3], max_new=4)
+    te = T.MoEServingEngine(s["cfg"], s["tp"], policy="duo", stats=s["stats"],
+                            predictor=s["tpred"], temperature=0.0,
+                            prefill_chunk=4)
+    tr = te.serve(s["prompts"][3], max_new=4)
+    np.testing.assert_array_equal(tr.tokens, jr.tokens)
+    np.testing.assert_array_equal(tr.decode_trace, jr.decode_trace)
+    np.testing.assert_array_equal(tr.pred_trace, jr.pred_trace)
+    assert tr.prefill_active == jr.prefill_active
+    assert [(e.kind, e.key) for e in te.cache.events] == \
+        [(e.kind, e.key) for e in je.cache.events]
+    assert te.cache.capacity == je.cache.capacity
 
 
 def test_metrics_and_spans(setup):

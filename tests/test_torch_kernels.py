@@ -23,6 +23,7 @@ from repro_torch.kernels.expert_ffn import (expert_ffn_from_pool,
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
 from repro_torch.kernels.flash_decode import flash_decode, flash_decode_plain
+from repro_torch.models.layers import matmul_rows
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -196,3 +197,20 @@ def test_flash_decode_n_splits_cover_the_card_and_tile_w(B, Hkv, W):
     assert B * Hkv * n >= H100_SMS or n == max(1, W // MIN_SPLIT_SLOTS)
     if (B, Hkv, W) == (1, 8, 545):
         assert n == 17    # the serve shape: 136 blocks of 32-33 slots
+
+
+@pytest.mark.parametrize("C", [1, 2, 5, 16])
+def test_expert_ffn_plain_rows_do_not_depend_on_group_size(C):
+    """A row's plain expert FFN output is bit-equal whatever its group's
+    size, one row included (the card's kernel tiles promise the same), so
+    a request decodes alike alone and in a batch."""
+    rng = np.random.default_rng(C)
+    bf = lambda *s, sc=1.0: torch.from_numpy(
+        rng.standard_normal(s).astype(np.float32) * sc).bfloat16()
+    x, w1, w3, w2 = bf(2, 16, 128), bf(2, 128, 64, sc=0.1), \
+        bf(2, 128, 64, sc=0.1), bf(2, 64, 128, sc=0.1)
+    full = expert_ffn_plain(x, w1, w3, w2)
+    assert torch.equal(expert_ffn_plain(x[:, :C], w1, w3, w2), full[:, :C])
+    a = x[0].float()
+    assert torch.equal(matmul_rows(a[:C], w1[0].float()),
+                       matmul_rows(a, w1[0].float())[:C])

@@ -148,6 +148,75 @@ def test_self_attn_decode(model):
         np.testing.assert_allclose(_np(g), _np(w), **BF16)
 
 
+@pytest.mark.parametrize("start,C,window", [(0, 5, None), (7, 4, None),
+                                             (9, 6, 4)])
+def test_self_attn_prefill_chunk(model, start, C, window):
+    """A chunk of 2 rows at positions start..start+C-1 over a cache whose
+    first ``start`` slots hold earlier chunks; K/V and slot positions are
+    written in place."""
+    jcfg, cfg, jp, tp = model
+    rng = np.random.default_rng(start)
+    B, W = 2, 24
+    shape = (B, W, cfg.n_kv_heads, cfg.hd)
+    ck = jnp.asarray(rng.standard_normal(shape), jnp.bfloat16)
+    cv = jnp.asarray(rng.standard_normal(shape), jnp.bfloat16)
+    sp = np.where(np.arange(W) < start, np.arange(W), -1)
+    sp = np.repeat(sp[None], B, 0).astype(np.int32)
+    x = jnp.asarray(rng.standard_normal((B, C, cfg.d_model)), jnp.bfloat16)
+    pa = _layer0(jp["layers"]["attn"])
+    ta = {k: v[0] for k, v in tp["layers"]["attn"].items()}
+    jo, jck, jcv, jsp = JL.self_attn_prefill_chunk(
+        x, pa, jattn_dims(jcfg), ck, cv, jnp.asarray(sp), start, window=window)
+    tck, tcv, tsp = _t(ck), _t(cv), torch.from_numpy(sp.copy())
+    to, tck2, tcv2, tsp2 = TL.self_attn_prefill_chunk(
+        _t(x), ta, attn_dims(cfg), tck, tcv, tsp, start, window=window)
+    assert tck2 is tck and tcv2 is tcv and tsp2 is tsp   # written in place
+    np.testing.assert_array_equal(tsp.numpy(), np.asarray(jsp))
+    for g, w in ((to, jo), (tck2, jck), (tcv2, jcv)):
+        np.testing.assert_allclose(_np(g), _np(w), **BF16)
+
+
+@pytest.mark.parametrize("window", [None, 5])
+def test_self_attn_decode_batched(model, window):
+    """Three rows at different positions, each with its own slot and ring
+    state (one row with empty slots below its position)."""
+    jcfg, cfg, jp, tp = model
+    rng = np.random.default_rng(11)
+    B, W = 3, 16
+    shape = (B, W, cfg.n_kv_heads, cfg.hd)
+    ck = jnp.asarray(rng.standard_normal(shape), jnp.bfloat16)
+    cv = jnp.asarray(rng.standard_normal(shape), jnp.bfloat16)
+    pos = np.array([4, 15, 9], np.int32)
+    slot = pos % W
+    sp = np.full((B, W), -1, np.int32)
+    for b in range(B):
+        sp[b, : pos[b] + 1] = np.arange(pos[b] + 1)
+    sp[2, :3] = -1
+    x = jnp.asarray(rng.standard_normal((B, 1, cfg.d_model)), jnp.bfloat16)
+    pa = _layer0(jp["layers"]["attn"])
+    ta = {k: v[0] for k, v in tp["layers"]["attn"].items()}
+    jo, jck, jcv = JL.self_attn_decode_batched(
+        x, pa, jattn_dims(jcfg), ck, cv, jnp.asarray(sp), jnp.asarray(slot),
+        jnp.asarray(pos), window=window)
+    tck, tcv = _t(ck), _t(cv)
+    to, tck2, tcv2 = TL.self_attn_decode_batched(
+        _t(x), ta, attn_dims(cfg), tck, tcv, torch.from_numpy(sp),
+        torch.from_numpy(slot), torch.from_numpy(pos), window=window)
+    assert tck2 is tck and tcv2 is tcv
+    for g, w in ((to, jo), (tck2, jck), (tcv2, jcv)):
+        np.testing.assert_allclose(_np(g), _np(w), **BF16)
+
+
+def test_silu_rounds_like_the_reference():
+    """``silu`` on bf16 gives jax.nn.silu's bits (XLA rounds each of its
+    primitives to bf16); F.silu, rounded once, does not always."""
+    x = np.random.default_rng(5).standard_normal(4096).astype(np.float32) * 4
+    jx = jnp.asarray(x, jnp.bfloat16)
+    want = _np(jax.jit(jax.nn.silu)(jx))
+    np.testing.assert_array_equal(_np(TL.silu(_t(jx))), want)
+    assert (_np(torch.nn.functional.silu(_t(jx))) != want).any()
+
+
 def test_route(model):
     jcfg, cfg, jp, tp = model
     rng = np.random.default_rng(4)
