@@ -24,16 +24,23 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                cores, ``bound_f32_recurrence_ms``). Every kernel is also
                timed by device time alone (``device_ms``: the median over
                20 calls of the time the card is busy with the work each
-               call launches, from a ``torch.profiler`` window): the two
+               call launches, from a ``torch.profiler`` window): the three
                attention kernels beside their library call's
                (``library_device_ms``), and ``expert_ffn`` beside a cuBLAS
                yardstick (``cublas_device_ms``: three ``torch.bmm`` and
                silu * mul on slabs gathered beforehand), kernel and
                library in turns, at the main path's shape and, but for
                ``expert_ffn``, at a long one (``long``: S=4096, W=4096;
-               ``ssd_scan`` S=8192). Tolerance: bf16 outputs rtol = atol =
-               2e-2 (the repo's kernel-test tolerance), ``ssd_scan``'s f32
-               outputs 1e-3 (tests/test_kernels.py's for that kernel).
+               ``ssd_scan`` S=8192). ``flash_attention_chunk`` (chunked
+               prefill over a pool row at slot 3) runs at the batch
+               phase's chunk (C=512 from start 1024, W=2048), a grid of
+               starts / lengths / windows / groups / -1 holes / pool views,
+               C=64 (``c64``) and ``long`` (C=512 from 3584, W=4096),
+               timed beside SDPA with its mask and beside the folded
+               ``flash_decode`` route it replaces (``folded_device_ms``).
+               Tolerance: bf16 outputs rtol = atol = 2e-2 (the repo's
+               kernel-test tolerance), ``ssd_scan``'s f32 outputs 1e-3
+               (tests/test_kernels.py's for that kernel).
   4. check   — a small MoE model served by the same engine on the card and
                on the CPU (plain versions): the prefill logits must agree.
   5. serve   — Mixtral-8x7B at full width, depth cut to ``--layers``, random
@@ -68,14 +75,20 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                counters, the KV row gather time per layer, peak device
                memory, ``hbm_bound_ok``. ``kernel_checks`` holds the
                phase's own kernel shapes against their plain versions
-               (tolerance as the kernel phase) and times them: the folded
-               chunk attention (C=512 over W=2048, beside SDPA with its
-               mask), decode attention at B=8 over gathered pool rows
-               (beside SDPA) and the grouped sweep's ``expert_ffn`` at U=8,
-               C=8 out of the engine's pools (beside the cuBLAS
-               yardstick). The MoE kernels' launch counts are reset just
-               before the phase and must each be > 0 after it; the checks'
-               launches are not counted.
+               (tolerance as the kernel phase) and times them: the chunk
+               attention (``flash_attention_chunk``, C=512 from start 1024
+               over W=2048, beside SDPA with its mask and the folded
+               ``flash_decode`` route), decode attention at B=8 over
+               gathered pool rows (beside SDPA) and the grouped sweep's
+               ``expert_ffn`` at U=8, C=8 out of the engine's pools (beside
+               the cuBLAS yardstick). The launch counts of the MoE kernels
+               and of ``flash_attention_chunk`` are reset just before the
+               phase and must each be > 0 after it; the checks' launches
+               are not counted. ``chunk_route_ab``: the chunked run four
+               times more, uncounted, its chunk attention through the
+               kernel and through the folded ``flash_decode`` route in
+               turns (folded, kernel, kernel, folded): wall, TTFT, decode
+               step median at B=8.
   8. ssm_check — a small Mamba2 (2 layers, head_dim 64, state 128) through
                the model bundle on the card and on the CPU: the prefill
                logits must agree.
@@ -178,17 +191,24 @@ def kernel_ms(fn, reps: int = 20, opening: int = 10) -> list:
     events to calls); a call's run is the shortest that repeats, so a call
     must not launch one sequence of kernels twice. ``opening`` more calls
     open the window and are not counted: the profiler drops events at its
-    start (the first 8 calls of a masked SDPA, NVIDIA H100 80GB HBM3)."""
+    start (the first 8 calls of a masked SDPA, NVIDIA H100 80GB HBM3). A
+    window that returns no device event at all is opened again, twice at
+    most: once in a whole run the profiler returned none (NVIDIA H100 80GB
+    HBM3, torch 2.11), where the same calls measured fine before and
+    after."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps + opening):
-            fn()
-            torch.cuda.synchronize()
-    work = sorted((e for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA),
-                  key=lambda e: e.time_range.start)
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps + opening):
+                fn()
+                torch.cuda.synchronize()
+        work = sorted((e for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA),
+                      key=lambda e: e.time_range.start)
+        if work:
+            break
     for n in range(1, len(work) // reps + 1):
         tail = work[len(work) - reps * n:]
         runs = [tail[i * n:(i + 1) * n] for i in range(reps)]
@@ -375,6 +395,28 @@ def kernel_flash_decode(g):
                 source="src/repro_torch/csrc/flash_decode.cu",
                 replaces="src/repro/kernels/flash_decode.py:80",
                 plain_ms=plain_ms, long=long, **(main | dict(max_abs_err=err)))
+
+
+def kernel_flash_attention_chunk(g):
+    from repro_torch.kernels.flash_attention import (flash_attention_chunk,
+                                                     flash_attention_chunk_plain)
+    H, Hkv, D = 32, 8, 128
+    # the batch phase's chunk: 512 queries after a 1024-token prefix
+    main = chunk_attention(H, Hkv, D, 2048, start=1024, C=512)
+    err = main["max_abs_err"]
+    for start, C, W, h, hkv, d, window, holes, slot, B in CHUNK_CASES:
+        q, k, v, sp = chunk_inputs(g, B, start, C, W, h, hkv, d, holes, slot)
+        err = max(err, max_err(flash_attention_chunk(q, k, v, sp, start, window=window),
+                               flash_attention_chunk_plain(q, k, v, sp, start, window=window)))
+    short = chunk_attention(H, Hkv, D, 2048, start=1024, C=64, seed=1)
+    long = chunk_attention(H, Hkv, D, 4096, start=3584, C=512, seed=2)
+    err = max(err, short["max_abs_err"], long["max_abs_err"])
+    torch.cuda.empty_cache()
+    return dict(name="flash_attention_chunk", route="cuda",
+                source="src/repro_torch/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention.py:96",
+                shape=dict(B=1, C=512, start=1024, W=2048, H=H, Hkv=Hkv, D=D),
+                c64=short, long=long, **(main | dict(max_abs_err=err)))
 
 
 def ssd_inputs(g, B, S, H, G, P, N, dtype):
@@ -622,7 +664,9 @@ def cpu_attention(q_scale: float = 1.0):
     """The CPU engine's attention in the card kernels' arithmetic: every
     call of the reference ``layers.attention`` runs as ``flash_decode_plain``
     with the queries folded into its batch (unnormalised p rounded to bf16,
-    divided by the f32 sum; ``flash_attention_plain``'s arithmetic too).
+    divided by the f32 sum: the arithmetic of ``flash_attention_plain`` and
+    ``flash_attention_chunk_plain`` too, so one emulation serves monolithic
+    prefill, chunked prefill and decode, which pass per-row positions).
     ``q_scale`` != 1 scales the queries: a softmax-scale fault, the control
     that shows the comparison can fail."""
     from repro_torch.kernels.flash_decode import flash_decode_plain
@@ -704,6 +748,7 @@ def check_batch_small(seed: int):
 # -- phase 7: the batched engine at Mixtral-8x7B width ---------------------------
 
 def serve_batch(mixtral, seed: int, kernels):
+    from repro_torch.kernels.flash_attention import flash_attention_chunk as chunk_kernel
     from repro_torch.serving.batching import BatchedServingEngine
     cfg, params, stats, pred = mixtral
     rng = np.random.default_rng(seed + 2)
@@ -713,7 +758,8 @@ def serve_batch(mixtral, seed: int, kernels):
     # the phase's kernel shapes held against their plain versions, before
     # its engines run (these launches are not the path's)
     with uncounted(kernels):
-        checks = dict(chunk_attention=chunk_attention(cfg, 2048, start=1024, C=512),
+        checks = dict(chunk_attention=chunk_attention(cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                                                      2048, start=1024, C=512),
                       decode_attention=decode_attention(
                           cfg, 2048, [n + new_tokens - 1 for n in lens]),
                       decode_expert_ffn=decode_expert_ffn(cfg))
@@ -764,18 +810,21 @@ def serve_batch(mixtral, seed: int, kernels):
         eng._sample_req, eng._decode_step = record, counted
         return eng, finite, steps, rows0, prof
 
-    # chunked: requests 1-4 before the first step, 5-8 after step 4
+    def drive(eng):
+        """The chunked workload: requests 1-4 before the first step, 5-8
+        after step 4; returns (wall seconds, results)."""
+        t0 = time.perf_counter()
+        reqs = [eng.submit(p, max_new=new_tokens) for p in prompts[:4]]
+        for _ in range(4):
+            eng.step()
+        reqs += [eng.submit(p, max_new=new_tokens) for p in prompts[4:]]
+        eng.run_until_drained()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, [r.result() for r in reqs]
+
     eng, finite, steps, rows0, prof = engine(profile_at=8, max_batch=8, prefill_budget=512,
                                              prefill_fairness="rr")
-    t0 = time.perf_counter()
-    reqs = [eng.submit(p, max_new=new_tokens) for p in prompts[:4]]
-    for _ in range(4):
-        eng.step()
-    reqs += [eng.submit(p, max_new=new_tokens) for p in prompts[4:]]
-    eng.run_until_drained()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    results = [r.result() for r in reqs]
+    wall, results = drive(eng)
     walls = np.array(eng.decode_step_wall)
     hist = np.array(eng.decode_batch_hist)
     copies = np.array([c for _, c, _ in steps])
@@ -812,6 +861,28 @@ def serve_batch(mixtral, seed: int, kernels):
     del eng, K, V
     gc.collect()
     torch.cuda.empty_cache()
+
+    # the chunk kernel end to end: the chunked run again (uncounted), its
+    # chunk attention through the kernel and through the folded route it
+    # replaced, in turns in one process (host clock: the spread of two
+    # calls is wider than the difference)
+    from repro_torch.models import layers
+    route_ab = {}
+    with uncounted(kernels):
+        for route in ("folded", "kernel", "kernel", "folded"):
+            e = engine(max_batch=8, prefill_budget=512, prefill_fairness="rr")[0]
+            layers.flash_attention_chunk = folded_chunk if route == "folded" else chunk_kernel
+            try:
+                w, res = drive(e)
+            finally:
+                layers.flash_attention_chunk = chunk_kernel
+            ws, hs = np.array(e.decode_step_wall), np.array(e.decode_batch_hist)
+            route_ab.setdefault(route, []).append(dict(
+                wall_s=w, ttft_s=[r.ttft_wall for r in res],
+                decode_step_ms_median_at_8=float(np.median(ws[hs == 8]) * 1e3)))
+            del e
+            gc.collect()
+            torch.cuda.empty_cache()
 
     # request 0 again, alone in an engine with one slot and room for every
     # expert: the same prefill chunks, decode at B=1 instead of B<=8
@@ -870,7 +941,8 @@ def serve_batch(mixtral, seed: int, kernels):
     if missing:
         raise AssertionError(f"kernels never launched by the batched engine: {missing}")
     return dict(phase="batch", model="mixtral-8x7b", layers=cfg.n_layers,
-                chunked=chunked, monolithic=monolithic, batch_invariant=invariant,
+                chunked=chunked, chunk_route_ab=route_ab, monolithic=monolithic,
+                batch_invariant=invariant,
                 kv_gather_ms_per_layer=gather_ms, kv_gather_bytes_per_layer=gather_bytes,
                 kernel_checks=checks, max_memory_allocated=peak, launches=launches)
 
@@ -892,35 +964,83 @@ def decode_bound(H, Hkv, D, n_valid, n_rows, W):
                  4 * H * D * n_valid)
 
 
-def chunk_attention(cfg, W: int, start: int, C: int):
-    """Chunked-prefill attention as the batched engine runs it on the card
-    (flash_decode, the chunk's C queries folded into its batch over one
-    request's [1, W] cache through a batch stride of 0) at the batch
-    phase's widths: held against the plain version on the same views,
-    timed beside it and beside SDPA with the same mask."""
-    import torch.nn.functional as F
-    from repro_torch.kernels.flash_decode import flash_decode, flash_decode_plain
-    g = torch.Generator(device="cuda").manual_seed(0)
+def chunk_inputs(g, B, start, C, W, H, Hkv, D, holes=False, pool_slot=0):
+    """q [B,C,H,D] at positions start.., and k, v [B,W,Hkv,D] and slot_pos
+    [B,W] as views of a pool of pool_slot + B rows at row ``pool_slot``
+    (as the batched engine passes a request's row): slot j holds j up to
+    the chunk's last position, -1 past it, and with ``holes`` -1 at every
+    seventh slot of the prefix."""
     r = lambda *s: torch.randn(s, generator=g, device="cuda").to(torch.bfloat16)
-    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q, k, v = r(C, H, D), r(1, W, Hkv, D), r(1, W, Hkv, D)
-    sp = torch.full((1, W), -1, dtype=torch.int32, device="cuda")
-    sp[0, :start + C] = torch.arange(start + C, dtype=torch.int32, device="cuda")
+    n = pool_slot + B
+    pool_k, pool_v = r(n, W, Hkv, D), r(n, W, Hkv, D)
+    j = torch.arange(W, device="cuda")
+    sp = torch.where(j < start + C, j, -1)
+    if holes:
+        sp = torch.where((j < start) & (j % 7 == 3), -1, sp)
+    rows = slice(pool_slot, n)
+    return r(B, C, H, D), pool_k[rows], pool_v[rows], sp.to(torch.int32).repeat(n, 1)[rows]
+
+
+# start, C, W, H, Hkv, D, window, holes, pool slot, B: starts 37 / 300, C
+# 1-200, a window, D = 64, G = 1 / 4 / 8, -1 holes, pool views (W = 642:
+# slot_pos rows not 16-byte aligned), B = 2 (tests/test_torch_cuda.py's grid)
+CHUNK_CASES = (
+    (37, 1, 640, 32, 8, 128, -1, False, 0, 1),
+    (37, 17, 640, 32, 8, 128, -1, True, 0, 1),
+    (300, 64, 640, 32, 8, 128, -1, False, 0, 1),
+    (300, 200, 640, 32, 8, 128, 256, False, 0, 1),
+    (37, 200, 640, 16, 4, 64, -1, True, 0, 1),
+    (300, 17, 640, 8, 8, 128, 256, True, 0, 1),
+    (300, 64, 640, 32, 4, 128, -1, False, 0, 1),
+    (300, 200, 640, 32, 8, 128, -1, True, 3, 1),
+    (300, 17, 642, 32, 8, 64, 256, True, 3, 1),
+    (37, 100, 640, 8, 2, 128, 64, True, 0, 2),
+)
+
+
+def folded_chunk(q, k, v, slot_pos, q_start: int, *, window: int = -1):
+    """The chunked-prefill route ``flash_attention_chunk`` replaced: one
+    request's C queries folded into ``flash_decode``'s batch, its cache
+    row and slot positions read through a batch stride of 0 (B = 1)."""
+    from repro_torch.kernels.flash_decode import flash_decode
+    C, W = q.shape[1], k.shape[1]
+    pos = q_start + torch.arange(C, dtype=torch.int32, device=q.device)
+    return flash_decode(q[0], k.expand(C, -1, -1, -1), v.expand(C, -1, -1, -1), pos,
+                        slot_pos.expand(C, W), window=window)[None]
+
+
+def chunk_attention(H, Hkv, D, W: int, start: int, C: int, seed: int = 0):
+    """Chunked-prefill attention as the batched engine runs it on the card
+    (``flash_attention_chunk`` over one request's pool row, a view of a
+    pool at slot 3) for C queries from ``start``: held against the plain
+    version on the same views, timed beside it, beside SDPA with the same
+    mask (``library_device_ms``) and beside the route it replaces, the C
+    queries folded into ``flash_decode``'s batch over the row through a
+    batch stride of 0 (``folded_device_ms``)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention_chunk,
+                                                     flash_attention_chunk_plain)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, sp = chunk_inputs(g, 1, start, C, W, H, Hkv, D, pool_slot=3)
+    args = (q, k, v, sp, start)
+    err = max_err(flash_attention_chunk(*args), flash_attention_chunk_plain(*args))
     pos = start + torch.arange(C, dtype=torch.int32, device="cuda")
-    args = (q, k.expand(C, -1, -1, -1), v.expand(C, -1, -1, -1), pos, sp.expand(C, W))
-    err = max_err(flash_decode(*args), flash_decode_plain(*args))
-    mask = ((sp >= 0) & (sp <= pos[:, None]))[None, None]
-    timed = device_vs_library(lambda: flash_decode(*args),
+    ok = (sp >= 0) & (sp <= pos[:, None])           # [C, W]
+    timed = device_vs_library(lambda: flash_attention_chunk(*args),
                               lambda: F.scaled_dot_product_attention(
-                                  q.transpose(0, 1)[None], k.transpose(1, 2),
-                                  v.transpose(1, 2), attn_mask=mask, enable_gqa=True))
-    plain_ms = time_ms(lambda: flash_decode_plain(*args), reps=5)
-    # the K / V rows are read once however many queries fold over them
-    keys = start + C
-    bms, by = bound(2 * (2 * C * H * D + 2 * keys * Hkv * D) + 4 * (C + W),
-                    4 * H * D * (C * start + C * (C + 1) // 2))
-    return dict(C=C, start=start, W=W, max_abs_err=err, plain_ms=plain_ms,
-                bound_ms=bms, bound_by=by, bound_share=bms / timed["device_ms"], **timed)
+                                  q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                  attn_mask=ok[None, None], enable_gqa=True))
+    chunk_ms, folded_device_ms = in_turns(lambda: flash_attention_chunk(*args),
+                                          lambda: folded_chunk(*args), kernel_ms)
+    plain_ms = time_ms(lambda: flash_attention_chunk_plain(*args), reps=5)
+    # q and o once, the valid slots' K and V rows once, slot_pos; 4 D
+    # operations for each valid (query, key) pair of each head
+    n_keys, n_pairs = int((sp >= 0).sum()), int(ok.sum())
+    bms, by = bound(2 * (2 * C * H * D + 2 * n_keys * Hkv * D) + 4 * W, 4 * H * D * n_pairs)
+    return dict(C=C, start=start, W=W, H=H, Hkv=Hkv, D=D, max_abs_err=err,
+                plain_ms=plain_ms, folded_device_ms=folded_device_ms,
+                folded_ratio=folded_device_ms / chunk_ms, bound_ms=bms, bound_by=by,
+                bound_share=bms / timed["device_ms"], **timed)
 
 
 def decode_attention(cfg, W: int, pos):
@@ -1140,7 +1260,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _build
     from repro_torch.kernels.expert_ffn import expert_ffn_from_pool
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_chunk
     from repro_torch.kernels.flash_decode import flash_decode
     from repro_torch.kernels.ssd_scan import ssd_scan
 
@@ -1161,7 +1281,7 @@ def main() -> int:
 
     g = torch.Generator(device="cuda").manual_seed(args.seed)
     results = [kernel_expert_ffn(g), kernel_flash_attention(g),
-               kernel_flash_decode(g), kernel_ssd_scan(g)]
+               kernel_flash_attention_chunk(g), kernel_flash_decode(g), kernel_ssd_scan(g)]
     torch.cuda.empty_cache()
     for r in results:
         emit(dict(phase="kernel", **({"tol": TOL} | r)))
@@ -1176,7 +1296,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     emit(check_batch_small(args.seed))
-    bat = serve_batch(mixtral, args.seed, kernels)
+    bat = serve_batch(mixtral, args.seed, kernels + [flash_attention_chunk])
     emit(bat)
     del mixtral
     gc.collect()
@@ -1187,14 +1307,16 @@ def main() -> int:
     emit(ssm)
 
     # each kernel's launches from the paths that run it
-    launches = {n: c + bat["launches"][n] for n, c in srv["launches"].items()} \
-        | ssm["launches"]
+    launches = {}
+    for phase in (srv, bat, ssm):
+        for n, c in phase["launches"].items():
+            launches[n] = launches.get(n, 0) + c
     summary = [{k: r[k] for k in ("name", "route", "source", "replaces")}
                | {"launches": launches[r["name"]]}
                | {k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                     "bound_by", "library_ms")}
-               | {k: r[k] for k in ("device_ms", "library_device_ms", "cublas_device_ms")
-                  if k in r}
+               | {k: r[k] for k in ("device_ms", "library_device_ms", "cublas_device_ms",
+                                    "folded_device_ms") if k in r}
                for r in results]
     print(card, flush=True)
     emit({"kernels": summary})

@@ -39,6 +39,31 @@
 //     boxes (TMA zero-fills the columns past D), so any multiple of 16 fits
 //     the same layout. D = 64 and 128 are instantiated. (Two consumer
 //     warpgroups sharing a deeper ring, 128 rows a block, measured slower.)
+//
+// Chunked prefill (`flash_attention_chunk_fwd`, the same device code with
+// CHUNK = true): C queries at absolute positions q_start .. q_start + C - 1
+// attend over a request's KV row of W slots, q and o [B, C, H, D], k and v
+// [B, W, Hkv, D] (a view of the engine's slot pool), slot_pos [B, W] int32.
+// Slot j is valid for the query at position p when 0 <= slot_pos[j] <= p
+// and, for window > 0, slot_pos[j] > p - window: the reference
+// `attention(q_pos, k_pos=slot_pos)`'s valid-key set. Q tiles are 64 rows
+// from q_start (rows past C are neither computed into o nor written); key
+// tiles stay aligned at slot 0 and are walked in ascending order over
+// [kv_begin, min(W, q_start + last row + 1)). That range is complete
+// because the caller never wraps the ring in prefill: slot j holds
+// position j or -1, and q_start + C <= W, so no slot past the chunk's last
+// position can be valid, and a window's first valid slot is
+// p - window + 1. Each tile's 64 slot positions arrive by TMA beside its
+// K and V (int32, OOB slots as zeros, masked by index), and every tile is
+// masked by them, so -1 holes anywhere in the range stay exact. A tile
+// that is fully masked for a row adds exact zeros to it (its correction
+// is exp2(0) = 1), so with slot_pos = arange the chunk's rows equal rows
+// q_start.. of the monolithic kernel bit for bit: the same tiles in the
+// same order, the extra ones masked. Grid (H, B, ceil(C / 64)). At the
+// batched engine's chunk (C=512 from 1024 over W=2048, Mixtral's heads)
+// the work is 11 us at the tensor cores' peak, and the kernel is bound,
+// as monolithic prefill is, by its longest block's tile loop (24 tiles);
+// a chunk of C <= 64 launches only H * B blocks (32 for 132 SMs there).
 #include "hopper.cuh"
 
 namespace {
@@ -50,6 +75,7 @@ constexpr int CONSUMERS = 128;             // one warpgroup
 constexpr int THREADS = CONSUMERS + 32;    // and one producer warp
 constexpr int BOX = 64;                    // bf16 columns per TMA box: one 128-byte row
 constexpr int BOX_BYTES = 64 * BOX * 2;    // a box of 64 rows
+constexpr int SP_BYTES = BKV * 4;          // a tile's int32 slot positions
 constexpr float LOG2E = 1.4426950408889634f;
 
 template <int D>
@@ -59,7 +85,8 @@ struct Smem {
   static constexpr int TILE = NBOX * BOX_BYTES;         // 64 rows x DP (BQ == BKV)
   static constexpr int q = 0;
   static constexpr int kv = TILE;                       // stage s: K at kv + 2s TILE, V after it
-  static constexpr int bar = kv + 2 * STAGES * TILE;    // q, full[STAGES], empty[STAGES]
+  static constexpr int sp = kv + 2 * STAGES * TILE;     // stage s: BKV slot positions (chunk)
+  static constexpr int bar = sp + STAGES * SP_BYTES;    // q, full[STAGES], empty[STAGES]
   static constexpr int bytes = bar + 8 * (1 + 2 * STAGES) + 1024;  // + room to align to 1024
 };
 
@@ -80,25 +107,30 @@ __device__ __forceinline__ void qk_tile(float (&sc)[32], uint32_t sq, uint32_t s
   }
 }
 
-template <int D>
+// Sq query rows against Sk keys (Sq == Sk == S but in CHUNK mode); in
+// CHUNK mode query row r sits at position q_start + r, and the keys are
+// masked by the slot positions of tensor map tsp (causal is implied)
+template <int D, bool CHUNK>
 __global__ void __launch_bounds__(THREADS, 2)
     flash_attn_kernel(__grid_constant__ const CUtensorMap tq, __grid_constant__ const CUtensorMap tk,
-                      __grid_constant__ const CUtensorMap tv, bf16* __restrict__ o, int S, int G,
-                      long long sob, long long sos, long long soh, int causal, int window,
-                      float scale_log2) {
+                      __grid_constant__ const CUtensorMap tv, __grid_constant__ const CUtensorMap tsp,
+                      bf16* __restrict__ o, int Sq, int Sk, int q_start, int G, long long sob,
+                      long long sos, long long soh, int causal, int window, float scale_log2) {
   typedef Smem<D> Lay;
   constexpr int DP = Lay::DP, NBOX = Lay::NBOX, TILE = Lay::TILE;
   extern __shared__ unsigned char smem_raw[];
-  const uint32_t base = (static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw)) + 1023) & ~1023u;
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  const uint32_t base = (raw + 1023) & ~1023u;
   const uint32_t sq = base + Lay::q, bar_q = base + Lay::bar;
   const uint32_t bar_full = bar_q + 8, bar_empty = bar_full + 8 * STAGES;
 
   const int qt = gridDim.z - 1 - blockIdx.z;  // longest causal tiles first
   const int q0 = qt * BQ, h = blockIdx.x, b = blockIdx.y, hk = h / G;
+  const int p0 = CHUNK ? q_start + q0 : q0;   // position of the tile's first query
   // live KV tiles: up to the causal frontier of the tile's last query, and
   // from the first key its first query can see through the window
-  const int kv_end = causal ? min(S, q0 + BQ) : S;
-  const int kv_begin = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int kv_end = CHUNK ? min(Sk, p0 + min(BQ, Sq - q0)) : causal ? min(Sk, q0 + BQ) : Sk;
+  const int kv_begin = window > 0 ? max(0, p0 - window + 1) : 0;
   const int t_begin = kv_begin / BKV, t_end = (kv_end + BKV - 1) / BKV;
 
   if (threadIdx.x == 0) {
@@ -120,11 +152,12 @@ __global__ void __launch_bounds__(THREADS, 2)
       const int s = it % STAGES;
       mbar_wait(bar_empty + 8 * s, ((it / STAGES) & 1) ^ 1);  // first round passes
       const uint32_t sk = base + Lay::kv + 2 * s * TILE, sv = sk + TILE;
-      mbar_expect_tx(bar_full + 8 * s, 2 * TILE);
+      mbar_expect_tx(bar_full + 8 * s, 2 * TILE + (CHUNK ? SP_BYTES : 0));
       for (int c = 0; c < NBOX; ++c) {
         tma_load(sk + c * BOX_BYTES, &tk, bar_full + 8 * s, c * BOX, hk, t * BKV, b);
         tma_load(sv + c * BOX_BYTES, &tv, bar_full + 8 * s, c * BOX, hk, t * BKV, b);
       }
+      if (CHUNK) tma_load_2d(base + Lay::sp + s * SP_BYTES, &tsp, bar_full + 8 * s, t * BKV, b);
     }
     return;
   }
@@ -154,17 +187,34 @@ __global__ void __launch_bounds__(THREADS, 2)
   for (int it = 0; it < n_tiles; ++it) {
     const int t = t_begin + it, s = it % STAGES, s1 = (it + 1) % STAGES;
     const int k0 = t * BKV;
-    const bool edge = k0 + BKV > S || (causal && k0 + BKV - 1 > q0) ||
-                      (window > 0 && k0 <= q0 + BQ - 1 - window);
+    if constexpr (CHUNK) {
+      // every tile, by the slot positions of this stage: the pair of
+      // columns 8j + col0 (+1) is element 4j + lane % 4 of int2s
+      const int2* sp2 =
+          reinterpret_cast<const int2*>(smem_raw + (base - raw) + Lay::sp + s * SP_BYTES);
+      int2 kp[BKV / 8];
 #pragma unroll
-    for (int e = 0; e < 32; ++e) {
-      float x = sc[e] * scale_log2;
-      if (edge) {
-        const int qi = q0 + row0 + 8 * ((e / 2) % 2), ki = k0 + 8 * (e / 4) + col0 + e % 2;
-        const bool ok = ki < S && (!causal || ki <= qi) && (window <= 0 || ki > qi - window);
-        x = ok ? x : KERNEL_NEG_INF;
+      for (int j = 0; j < BKV / 8; ++j) kp[j] = sp2[4 * j + lane % 4];
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int qi = p0 + row0 + 8 * ((e / 2) % 2), ki = k0 + 8 * (e / 4) + col0 + e % 2;
+        const int pk = e % 2 ? kp[e / 4].y : kp[e / 4].x;
+        const bool ok = ki < Sk && pk >= 0 && pk <= qi && (window <= 0 || pk > qi - window);
+        sc[e] = ok ? sc[e] * scale_log2 : KERNEL_NEG_INF;
       }
-      sc[e] = x;
+    } else {
+      const bool edge = k0 + BKV > Sk || (causal && k0 + BKV - 1 > q0) ||
+                        (window > 0 && k0 <= q0 + BQ - 1 - window);
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        float x = sc[e] * scale_log2;
+        if (edge) {
+          const int qi = q0 + row0 + 8 * ((e / 2) % 2), ki = k0 + 8 * (e / 4) + col0 + e % 2;
+          const bool ok = ki < Sk && (!causal || ki <= qi) && (window <= 0 || ki > qi - window);
+          x = ok ? x : KERNEL_NEG_INF;
+        }
+        sc[e] = x;
+      }
     }
 
     // online softmax on the two rows this thread holds
@@ -233,7 +283,7 @@ __global__ void __launch_bounds__(THREADS, 2)
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int qi = q0 + row0 + 8 * i;
-      if (qi < S)
+      if (qi < Sq)
         *reinterpret_cast<uint32_t*>(ob + qi * sos + col) =
             pack_bf16(acc[4 * j + 2 * i] / den[i], acc[4 * j + 2 * i + 1] / den[i]);
     }
@@ -250,22 +300,39 @@ bool tensor_map(CUtensorMap* map, const void* ptr, int B, int S, int heads, int 
   return bf16_tensor_map(map, ptr, 4, dims, strides, box);
 }
 
-template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int S, int H, int Hkv,
-           const long long* st, int causal, int window, float scale, cudaStream_t s) {
-  CUtensorMap tq, tk, tv;
-  if (!tensor_map(&tq, q, B, S, H, D, st[0], st[1], st[2]) ||
-      !tensor_map(&tk, k, B, S, Hkv, D, st[3], st[4], st[5]) ||
-      !tensor_map(&tv, v, B, S, Hkv, D, st[6], st[7], st[8]))
+// tensor map of the int32 slot positions [B, W] (row stride spb elements):
+// dims (W, B), boxes of BKV slots x 1 row; slots past W arrive as zeros
+bool slot_map(CUtensorMap* map, const int* ptr, int B, int W, long long spb) {
+  EncodeTiled enc = encoder();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)W, (cuuint64_t)B};
+  // a row stride is read only for B > 1; one row takes any multiple of 16
+  const cuuint64_t strides[1] = {B > 1 ? (cuuint64_t)spb * 4 : ((cuuint64_t)W * 4 + 15) / 16 * 16};
+  const cuuint32_t box[2] = {BKV, 1}, unit[2] = {1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_INT32, 2, const_cast<int*>(ptr), dims, strides, box,
+             unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// st: q b,s,h; k b,s,h; v b,s,h; o b,s,h (elements); slot_pos (chunk only)
+template <int D, bool CHUNK>
+int launch(const void* q, const void* k, const void* v, const int* slot_pos, void* o, int B,
+           int Sq, int Sk, int H, int Hkv, const long long* st, long long spb, int q_start,
+           int causal, int window, float scale, cudaStream_t s) {
+  CUtensorMap tq, tk, tv, tsp = {};
+  if (!tensor_map(&tq, q, B, Sq, H, D, st[0], st[1], st[2]) ||
+      !tensor_map(&tk, k, B, Sk, Hkv, D, st[3], st[4], st[5]) ||
+      !tensor_map(&tv, v, B, Sk, Hkv, D, st[6], st[7], st[8]) ||
+      (CHUNK && !slot_map(&tsp, slot_pos, B, Sk, spb)))
     return cudaErrorInvalidValue;
   const int bytes = Smem<D>::bytes;
-  cudaError_t e =
-      cudaFuncSetAttribute(flash_attn_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  cudaError_t e = cudaFuncSetAttribute(flash_attn_kernel<D, CHUNK>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return e;
-  dim3 grid(H, B, (S + BQ - 1) / BQ);
-  flash_attn_kernel<D><<<grid, THREADS, bytes, s>>>(tq, tk, tv, static_cast<bf16*>(o), S, H / Hkv,
-                                                    st[9], st[10], st[11], causal, window,
-                                                    scale * LOG2E);
+  dim3 grid(H, B, (Sq + BQ - 1) / BQ);
+  flash_attn_kernel<D, CHUNK><<<grid, THREADS, bytes, s>>>(
+      tq, tk, tv, tsp, static_cast<bf16*>(o), Sq, Sk, q_start, H / Hkv, st[9], st[10], st[11],
+      causal, window, scale * LOG2E);
   return cudaGetLastError();
 }
 
@@ -277,7 +344,29 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
                                    int S, int H, int Hkv, int D, const long long* strides,
                                    int causal, int window, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 128) return launch<128>(q, k, v, o, B, S, H, Hkv, strides, causal, window, scale, s);
-  if (D == 64) return launch<64>(q, k, v, o, B, S, H, Hkv, strides, causal, window, scale, s);
+  if (D == 128)
+    return launch<128, false>(q, k, v, nullptr, o, B, S, S, H, Hkv, strides, 0, 0, causal, window,
+                              scale, s);
+  if (D == 64)
+    return launch<64, false>(q, k, v, nullptr, o, B, S, S, H, Hkv, strides, 0, 0, causal, window,
+                             scale, s);
+  return cudaErrorInvalidValue;
+}
+
+// Chunked prefill: q, o [B, C, H, D]; k, v [B, W, Hkv, D]; slot_pos [B, W]
+// int32, row stride spb (elements), its pointer 16-byte aligned and, for
+// B > 1, spb a multiple of 4. strides as flash_attention_fwd's. The caller
+// guarantees q_start + C <= W and that slot j holds position j or -1.
+extern "C" int flash_attention_chunk_fwd(const void* q, const void* k, const void* v,
+                                         const int* slot_pos, void* o, int B, int C, int W, int H,
+                                         int Hkv, int D, const long long* strides, long long spb,
+                                         int q_start, int window, float scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 128)
+    return launch<128, true>(q, k, v, slot_pos, o, B, C, W, H, Hkv, strides, spb, q_start, 1,
+                             window, scale, s);
+  if (D == 64)
+    return launch<64, true>(q, k, v, slot_pos, o, B, C, W, H, Hkv, strides, spb, q_start, 1,
+                            window, scale, s);
   return cudaErrorInvalidValue;
 }

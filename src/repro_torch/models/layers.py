@@ -8,10 +8,10 @@ Prefill and decode attention take the hand-written kernels on a CUDA tensor
 (``kernels/flash_attention.py``, ``kernels/flash_decode.py``). On the CPU
 they take the reference's full ``attention`` instead, the function the JAX
 serving engine itself runs, so the CPU parity tests hold the port to the
-engine's own numbers. Chunked prefill has no kernel of its own: on the card
-its C queries are folded into ``flash_decode``'s batch dimension, each
-reading the request's one cache row through a batch stride of 0 (the
-valid-key set ``0 <= slot_pos <= pos`` is the reference mask's).
+engine's own numbers. Chunked prefill runs ``flash_attention_chunk`` on the
+card: the chunk's C queries at their absolute positions over the request's
+KV row, masked by its slot positions (the reference mask's valid-key set
+``0 <= slot_pos <= pos``); decode runs ``flash_decode``.
 """
 from __future__ import annotations
 
@@ -20,7 +20,7 @@ from typing import Optional, Union
 
 import torch
 
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import flash_attention, flash_attention_chunk
 from repro_torch.kernels.flash_decode import flash_decode
 
 PDT = torch.bfloat16  # param / activation dtype
@@ -168,11 +168,11 @@ def self_attn_prefill_chunk(x, p, dims: AttnDims, cache_k, cache_v, slot_pos,
 
     x: [B,C,d]; cache_k/v: [B,W,Hkv,hd] and slot_pos: [B,W] int32 (-1 =
     empty), all written IN PLACE at slots start..start+C-1 (prefill never
-    wraps the ring: start + C <= W is the caller's invariant). On the card
-    (one request, B = 1, as the engines call it) the C queries run as one
-    ``flash_decode`` call: q [C,H,D], pos = start + arange(C), and the
-    cache and slot_pos expanded to C rows with a batch stride of 0.
-    Returns (out, cache_k, cache_v, slot_pos)."""
+    wraps the ring: start + C <= W and slot j holds position j or -1 are
+    the caller's invariants). On the card the C queries run as one
+    ``flash_attention_chunk`` call over the cache views as given (the
+    engine passes a view of its slot pool). Returns (out, cache_k,
+    cache_v, slot_pos)."""
     B, C, _ = x.shape
     positions = (start + torch.arange(C, dtype=torch.int32, device=x.device)
                  )[None].expand(B, C)
@@ -181,13 +181,8 @@ def self_attn_prefill_chunk(x, p, dims: AttnDims, cache_k, cache_v, slot_pos,
     cache_v[:, start:start + C] = v
     slot_pos[:, start:start + C] = positions
     if x.is_cuda:
-        if B != 1:
-            raise ValueError(f"chunked prefill on the card takes one request, got B={B}")
-        W = cache_k.shape[1]
-        o = flash_decode(q[0], cache_k.expand(C, W, -1, -1),
-                         cache_v.expand(C, W, -1, -1), positions[0].contiguous(),
-                         slot_pos.expand(C, W),
-                         window=-1 if window is None else int(window))[None]
+        o = flash_attention_chunk(q, cache_k, cache_v, slot_pos, start,
+                                  window=-1 if window is None else int(window))
     else:
         o = attention(q, cache_k, cache_v, q_pos=positions, k_pos=slot_pos,
                       window=window, causal=True)

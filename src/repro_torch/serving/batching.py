@@ -20,8 +20,8 @@ On the card:
     rows: a view of the pool when the batch's slots are consecutive and in
     order, else a gather copy of those rows (the new K/V row is written
     back to the pool in place);
-  * chunked-prefill attention is ``flash_decode`` with the chunk's queries
-    folded into its batch (``layers.self_attn_prefill_chunk``), monolithic
+  * chunked-prefill attention is ``flash_attention_chunk`` over the
+    request's pool row (``layers.self_attn_prefill_chunk``), monolithic
     prefill ``flash_attention``;
   * the grouped decode sweep is one ``expert_ffn_from_pool`` launch per
     layer, reading the slabs by slot out of the residency pools.

@@ -7,7 +7,7 @@ policy's prefetch, ``serve``), plus ``collect_traces``.
 
   * prefill, per layer: attention (the flash_attention kernel on the card;
     with a chunk size, ``prefill_chunk`` attends each chunk over the KV
-    written by earlier chunks, through flash_decode on the card),
+    written by earlier chunks, through flash_attention_chunk on the card),
     gate read back to the host, the policy's ``PrefillPlan`` staged with the
     same ``prefetch`` calls in the same order as the reference, then ONE
     grouped expert-FFN launch straight off the residency pools (the

@@ -19,6 +19,8 @@ import torch
 from repro_torch.kernels.expert_ffn import (expert_ffn_from_pool,
                                             expert_ffn_from_pool_plain)
 from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_chunk,
+                                                 flash_attention_chunk_plain,
                                                  flash_attention_plain)
 from repro_torch.kernels.flash_decode import flash_decode, flash_decode_plain
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
@@ -312,6 +314,134 @@ def test_flash_decode_folded_chunk_attention(cuda, C, start):
     torch.testing.assert_close(got, want, rtol=2e-2, atol=2e-2)
 
 
+def _chunk_case(cuda, B, start, C, W, H, Hkv, D, holes=False, pool_slot=None, seed=0):
+    """q [B,C,H,D] at positions start.., caches [B,W,Hkv,D] (with
+    ``pool_slot``, rows pool_slot.. of a pool of pool_slot + B rows, as
+    the engine passes them) and slot_pos [B,W]: slot j holds j up to the
+    chunk's last position, -1 past it, and with ``holes`` -1 at every
+    seventh slot of the prefix."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    r = lambda *s: torch.randn(s, generator=g, device=cuda).to(torch.bfloat16)
+    n = B if pool_slot is None else pool_slot + B
+    first = 0 if pool_slot is None else pool_slot
+    pool_k, pool_v = r(n, W, Hkv, D), r(n, W, Hkv, D)
+    j = torch.arange(W, device=cuda)
+    sp = torch.where(j < start + C, j, -1)
+    if holes:
+        sp = torch.where((j < start) & (j % 7 == 3), -1, sp)
+    pool_sp = sp.to(torch.int32).repeat(n, 1)
+    return (r(B, C, H, D), pool_k[first:first + B], pool_v[first:first + B],
+            pool_sp[first:first + B])
+
+
+# start, C, W, H, Hkv, D, window, holes, pool slot, B: the batch phase's
+# shape, starts 37 / 300, C 1-200, a window, D = 64, G = 1 / 4 / 8, -1
+# holes, pool views (W = 642: slot_pos rows not 16-byte aligned), B = 2,
+# the long shape
+CHUNK_CASES = [
+    (1024, 512, 2048, 32, 8, 128, -1, False, None, 1),
+    (37, 1, 640, 32, 8, 128, -1, False, None, 1),
+    (37, 17, 640, 32, 8, 128, -1, True, None, 1),
+    (300, 64, 640, 32, 8, 128, -1, False, None, 1),
+    (300, 200, 640, 32, 8, 128, 256, False, None, 1),
+    (37, 200, 640, 16, 4, 64, -1, True, None, 1),
+    (300, 17, 640, 8, 8, 128, 256, True, None, 1),
+    (300, 64, 640, 32, 4, 128, -1, False, None, 1),
+    (300, 200, 640, 32, 8, 128, -1, True, 3, 1),
+    (300, 17, 642, 32, 8, 64, 256, True, 3, 1),
+    (37, 100, 640, 8, 2, 128, 64, True, None, 2),
+    (3584, 512, 4096, 32, 8, 128, -1, False, None, 1),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CHUNK_CASES)
+def test_flash_attention_chunk_kernel_cases(cuda, case):
+    start, C, W, H, Hkv, D, window, holes, slot, B = case
+    q, k, v, sp = _chunk_case(cuda, B, start, C, W, H, Hkv, D, holes, slot, seed=C + start)
+    n = flash_attention_chunk.launches
+    got = flash_attention_chunk(q, k, v, sp, start, window=window)
+    assert flash_attention_chunk.launches == n + 1
+    torch.testing.assert_close(
+        got, flash_attention_chunk_plain(q, k, v, sp, start, window=window),
+        rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("s", [0, 37, 512])
+def test_flash_attention_chunk_bit_equal_to_monolithic(cuda, s, D):
+    """With slot_pos = arange, no window and q_start = s, the chunk kernel
+    reproduces rows s..S-1 of the monolithic kernel bit for bit: the same
+    key tiles in the same order, the extra ones fully masked."""
+    g = torch.Generator(device=cuda).manual_seed(s + D)
+    B, S, H, Hkv = 2, 700, 32, 8
+    r = lambda *sh: torch.randn(sh, generator=g, device=cuda).to(torch.bfloat16)
+    q, k, v = r(B, S, H, D), r(B, S, Hkv, D), r(B, S, Hkv, D)
+    sp = torch.arange(S, dtype=torch.int32, device=cuda).repeat(B, 1)
+    assert torch.equal(flash_attention_chunk(q[:, s:], k, v, sp, s),
+                       flash_attention(q, k, v)[:, s:])
+
+
+@pytest.mark.cuda
+def test_flash_attention_chunk_pool_view(cuda):
+    """k, v and slot_pos as views of a pool at slot 3, read in place: the
+    same result as on contiguous copies of the same rows."""
+    q, k, v, sp = _chunk_case(cuda, 1, 300, 200, 640, 32, 8, 128, True, 3, seed=3)
+    assert k.storage_offset() == 3 * k.stride(0) and sp.storage_offset() == 3 * 640
+    got = flash_attention_chunk(q, k, v, sp, 300)
+    assert torch.equal(got, flash_attention_chunk(q, k.clone(), v.clone(), sp.clone(), 300))
+    torch.testing.assert_close(got, flash_attention_chunk_plain(q, k, v, sp, 300),
+                               rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+def test_flash_attention_chunk_launch_counter(cuda):
+    """A chunk call counts one launch of its own and none of the decode or
+    monolithic kernels."""
+    q, k, v, sp = _chunk_case(cuda, 1, 37, 17, 640, 32, 8, 128)
+    before = (flash_attention_chunk.launches, flash_decode.launches, flash_attention.launches)
+    flash_attention_chunk(q, k, v, sp, 37)
+    assert (flash_attention_chunk.launches, flash_decode.launches,
+            flash_attention.launches) == (before[0] + 1, before[1], before[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,start,C", [(1, 0, 40), (1, 37, 17), (2, 64, 30)])
+def test_self_attn_prefill_chunk_on_card(cuda, B, start, C):
+    """The chunked-prefill layer on the card (flash_attention_chunk, B
+    requests at once) against the same layer on the CPU (the reference
+    attention): output and the in-place cache writes."""
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.models import layers as L
+    from repro_torch.models.params import attn_dims, init_params
+    cfg = dataclasses.replace(reduced(get_config("mixtral_8x7b")),
+                              head_dim=64, n_kv_heads=1)
+    p = init_params(cfg, 0, device=cuda)
+    attn = {k: v[0] for k, v in p["layers"]["attn"].items()}
+    rng = np.random.default_rng(B + start)
+    W = 128
+    ck = torch.from_numpy(rng.standard_normal((B, W, 1, 64), np.float32)).to(torch.bfloat16)
+    sp = np.full((B, W), -1, np.int32)
+    sp[:, :start] = np.arange(start)
+    x = torch.from_numpy(rng.standard_normal((B, C, cfg.d_model), np.float32)
+                         ).to(torch.bfloat16)
+    outs = {}
+    for dev in ("cpu", cuda):
+        a = {k: v.to(dev) for k, v in attn.items()}
+        before = (flash_attention_chunk.launches, flash_decode.launches)
+        o, k2, v2, sp2 = L.self_attn_prefill_chunk(
+            x.to(dev), a, attn_dims(cfg), ck.clone().to(dev), (ck * 0.5).to(dev),
+            torch.from_numpy(sp.copy()).to(dev), start)
+        on_card = dev != "cpu"
+        assert (flash_attention_chunk.launches, flash_decode.launches) == \
+            (before[0] + on_card, before[1])
+        outs[str(dev)] = (o.cpu(), k2.cpu(), sp2.cpu())
+    torch.testing.assert_close(outs["cuda"][0], outs["cpu"][0], rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(outs["cuda"][1], outs["cpu"][1], rtol=2e-2, atol=2e-2)
+    assert torch.equal(outs["cuda"][2], outs["cpu"][2])
+
+
 @pytest.mark.cuda
 def test_self_attn_decode_batched_pool_rows(cuda):
     """Batched decode attention over pool rows that are not 0..B-1 (the
@@ -380,7 +510,7 @@ def test_batched_engine_on_card(cuda, budget):
 
         eng._sample_req = record
         kernels = (expert_ffn_from_pool, flash_decode,
-                   flash_decode if budget else flash_attention)
+                   flash_attention_chunk if budget else flash_attention)
         before = [k.launches for k in kernels]
         reqs = [eng.submit(p, max_new=6) for p in prompts]
         for _ in range(3):
