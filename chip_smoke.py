@@ -88,11 +88,38 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                times more, uncounted, its chunk attention through the
                kernel and through the folded ``flash_decode`` route in
                turns (folded, kernel, kernel, folded): wall, TTFT, decode
-               step median at B=8.
-  8. ssm_check — a small Mamba2 (2 layers, head_dim 64, state 128) through
+               step median at B=8. ``linear_ab``: the same four more runs,
+               its dense products and router through ``layers.linear``
+               (row-invariant: fixed 128-row cuBLAS calls) and through the
+               plain product in turns (plain, linear, linear, plain), with
+               whether each run's tokens equal the first run's.
+  8. cluster — the serving surface (``repro_torch.serving``: ReplicaPool,
+               ClusterFrontend, handles) over the batch phase's params,
+               predictor and 8 prompts, every replica at ``max_seq=2048``
+               (where ``flash_decode``'s split count does not depend on the
+               batch) and ``max_batch=8``. Run A, ``disagg``: a prefill and
+               a decode replica (``prefill_budget=512``, rr), 4 requests
+               submitted before the first poll and 4 after poll 4, each
+               handed off once (its KV rows to host tensors and back). Run
+               B, ``drain``: two ``role="both"`` replicas behind
+               ``least_loaded``, monolithic prefill, spans on, all 8
+               submitted at once, ``pool.drain(0)`` after poll 6; its
+               Perfetto trace (one flow pair per migration) and metrics
+               snapshot must validate. Per run: TTFT, E2E, each hop's
+               snapshot-to-restore and handoff latency (first token after
+               the snapshot), handoff bytes and MB/s, each replica's expert
+               copies and ms per slab (CUDA events on its copy stream; the
+               two replicas' first-touch copies share the host link),
+               ``hbm_bound_ok``, peak device memory, launches. Every
+               request must end ``done`` with the batch phase's first
+               chunked run's tokens (where they part: the first index and
+               both rows' top-2 margins, then a failure), every replica's
+               host store must view the params' pinned slabs, and the MoE
+               kernels' counts, reset just before, must each be > 0.
+  9. ssm_check — a small Mamba2 (2 layers, head_dim 64, state 128) through
                the model bundle on the card and on the CPU: the prefill
                logits must agree.
-  9. ssm     — Mamba2-2.7B at its published widths and all 64 layers,
+ 10. ssm     — Mamba2-2.7B at its published widths and all 64 layers,
                random weights from ``--seed``: 4
                prompts of 2048 tokens one at a time, each ``prefill`` then
                32 greedy ``decode_step``s; TTFT, decode tokens/s, peak
@@ -195,7 +222,8 @@ def kernel_ms(fn, reps: int = 20, opening: int = 10) -> list:
     window that returns no device event at all is opened again, twice at
     most: once in a whole run the profiler returned none (NVIDIA H100 80GB
     HBM3, torch 2.11), where the same calls measured fine before and
-    after."""
+    after; so is one that returns too few to end in ``reps`` equal runs
+    (once, 5 of a window's 30 ``flash_attention`` calls, same card)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -207,13 +235,11 @@ def kernel_ms(fn, reps: int = 20, opening: int = 10) -> list:
         work = sorted((e for e in prof.events()
                        if e.device_type == torch.autograd.DeviceType.CUDA),
                       key=lambda e: e.time_range.start)
-        if work:
-            break
-    for n in range(1, len(work) // reps + 1):
-        tail = work[len(work) - reps * n:]
-        runs = [tail[i * n:(i + 1) * n] for i in range(reps)]
-        if all([e.name for e in r] == [e.name for e in runs[0]] for r in runs):
-            return [busy_ms(r) for r in runs]
+        for n in range(1, len(work) // reps + 1):
+            tail = work[len(work) - reps * n:]
+            runs = [tail[i * n:(i + 1) * n] for i in range(reps)]
+            if all([e.name for e in r] == [e.name for e in runs[0]] for r in runs):
+                return [busy_ms(r) for r in runs]
     names = {}
     for e in work:
         names[e.name[:40]] = names.get(e.name[:40], 0) + 1
@@ -771,21 +797,21 @@ def serve_batch(mixtral, seed: int, kernels):
         fn.launches = 0
 
     def engine(profile_at=None, **kw):
-        """The engine, with hooks that check every sampled logits row, keep
-        request 0's rows, count each decode step's expert copies and gather
-        reads, and profile three decode steps of batch ``profile_at``."""
+        """The engine, with hooks that check every sampled logits row and
+        keep it by request id, count each decode step's expert copies and
+        gather reads, and profile three decode steps of batch
+        ``profile_at``."""
         from torch.profiler import ProfilerActivity, profile
         eng = BatchedServingEngine(cfg, params, policy="duo", stats=stats,
                                    predictor=pred, max_seq=2048, temperature=0.0, **kw)
-        finite, rows0 = [], []
+        finite, rows = [], {}
         sample, decode = eng._sample_req, eng._decode_step
         steps = []    # (batch size, expert copies, rows read through a gather)
         prof = dict(n=0)
 
         def record(req, row):
             finite.append(bool(np.isfinite(row).all()))
-            if req.rid == 0:
-                rows0.append(row)
+            rows.setdefault(req.rid, []).append(row)
             return sample(req, row)
 
         def counted(batch):
@@ -808,7 +834,7 @@ def serve_batch(mixtral, seed: int, kernels):
                           not np.array_equal(idx, np.arange(idx[0], idx[0] + idx.size))))
 
         eng._sample_req, eng._decode_step = record, counted
-        return eng, finite, steps, rows0, prof
+        return eng, finite, steps, rows, prof
 
     def drive(eng):
         """The chunked workload: requests 1-4 before the first step, 5-8
@@ -822,9 +848,15 @@ def serve_batch(mixtral, seed: int, kernels):
         torch.cuda.synchronize()
         return time.perf_counter() - t0, [r.result() for r in reqs]
 
-    eng, finite, steps, rows0, prof = engine(profile_at=8, max_batch=8, prefill_budget=512,
-                                             prefill_fairness="rr")
+    eng, finite, steps, rows, prof = engine(profile_at=8, max_batch=8, prefill_budget=512,
+                                            prefill_fairness="rr")
     wall, results = drive(eng)
+    # what the cluster phase holds its runs against: each prompt's tokens
+    # and logits rows from this run (rids follow the prompts' order)
+    reference = dict(prompts=prompts, new_tokens=new_tokens,
+                     tokens=[list(r.tokens) for r in results],
+                     rows=[rows[rid] for rid in range(len(prompts))])
+    rows0 = rows[0]
     walls = np.array(eng.decode_step_wall)
     hist = np.array(eng.decode_batch_hist)
     copies = np.array([c for _, c, _ in steps])
@@ -884,10 +916,33 @@ def serve_batch(mixtral, seed: int, kernels):
             gc.collect()
             torch.cuda.empty_cache()
 
+    # the row-invariant products end to end: the chunked run again
+    # (uncounted), its dense products and router through layers.linear and
+    # through the plain product, in turns
+    row_linear = layers.linear
+    linear_ab = {}
+    with uncounted(kernels):
+        for how in ("plain", "linear", "linear", "plain"):
+            e = engine(max_batch=8, prefill_budget=512, prefill_fairness="rr")[0]
+            layers.linear = (lambda x, w: x @ w) if how == "plain" else row_linear
+            try:
+                w, res = drive(e)
+            finally:
+                layers.linear = row_linear
+            ws, hs = np.array(e.decode_step_wall), np.array(e.decode_batch_hist)
+            linear_ab.setdefault(how, []).append(dict(
+                wall_s=w, ttft_s=[r.ttft_wall for r in res],
+                decode_step_ms_median_at_8=float(np.median(ws[hs == 8]) * 1e3),
+                tokens_equal=[list(r.tokens) for r in res] == reference["tokens"]))
+            del e
+            gc.collect()
+            torch.cuda.empty_cache()
+
     # request 0 again, alone in an engine with one slot and room for every
     # expert: the same prefill chunks, decode at B=1 instead of B<=8
     alone, finite_1, _, rows1, _ = engine(max_batch=1, prefill_budget=512,
                                           cache_capacity=cfg.n_layers * cfg.n_experts)
+    rows1 = rows1.setdefault(0, [])
     req1 = alone.submit(prompts[0], max_new=new_tokens)
     alone.run_until_drained()
     tok0, tok1 = list(results[0].tokens), list(req1.tokens)
@@ -941,10 +996,219 @@ def serve_batch(mixtral, seed: int, kernels):
     if missing:
         raise AssertionError(f"kernels never launched by the batched engine: {missing}")
     return dict(phase="batch", model="mixtral-8x7b", layers=cfg.n_layers,
-                chunked=chunked, chunk_route_ab=route_ab, monolithic=monolithic,
+                chunked=chunked, chunk_route_ab=route_ab, linear_ab=linear_ab,
+                monolithic=monolithic,
                 batch_invariant=invariant,
                 kv_gather_ms_per_layer=gather_ms, kv_gather_bytes_per_layer=gather_bytes,
-                kernel_checks=checks, max_memory_allocated=peak, launches=launches)
+                kernel_checks=checks, max_memory_allocated=peak,
+                launches=launches), reference
+
+
+# -- phase 8: replicas behind the cluster frontend at Mixtral-8x7B width ---------
+
+def timed_copies(res):
+    """Time every expert copy the residency ``res`` issues: CUDA events on
+    its copy stream around each ``prefetch`` that copies (the copy is the
+    last work queued there, so end - start is its duration, with any wait
+    for the slot's last use). Returns the list the event pairs land in."""
+    pairs = []
+    prefetch = res.prefetch
+
+    def timed(key):
+        if key not in res.slot_of or key in res._loaded:
+            return prefetch(key)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record(res._copy_stream)
+        out = prefetch(key)
+        end.record(res._copy_stream)
+        pairs.append((start, end))
+        return out
+
+    res.prefetch = timed
+    return pairs
+
+
+def row_drift(params) -> dict:
+    """How far a row's product moves with the rows beside it: the max abs
+    difference of rows [0, m) computed alone against among 1536 rows, m in
+    1, 8, 64, 100, 512, for the plain product and for ``layers.linear``
+    (which must not move), on layer 0's ``wk`` (bf16) and router (f32)."""
+    from repro_torch.models.layers import linear
+    g = torch.Generator(device="cuda").manual_seed(1)
+    out = {}
+    for name, w in (("wk", params["layers"]["attn"]["wk"][0]),
+                    ("router", params["layers"]["moe"]["router"][0])):
+        x = torch.randn(1536, w.shape[0], generator=g, device="cuda").to(w.dtype)
+        for how, fn in (("plain", torch.mm), ("linear", linear)):
+            full = fn(x, w)
+            out[f"{name}_{how}"] = max(float((fn(x[:m], w) - full[:m]).abs().max())
+                                       for m in (1, 8, 64, 100, 512))
+    return out
+
+
+def top2_margin(row) -> float:
+    top = np.sort(np.asarray(row, np.float64))[-2:]
+    return float(top[1] - top[0])
+
+
+def serve_cluster(mixtral, reference, kernels):
+    """Run A: one prefill and one decode replica behind ``disagg``; run B:
+    two replicas behind ``least_loaded``, replica 0 drained mid-decode. Both
+    on the batch phase's prompts, held against its first chunked run."""
+    import tempfile
+    from repro_torch.obs import validate_metrics_snapshot, validate_trace, write_trace
+    from repro_torch.serving import ClusterFrontend, ReplicaPool, SamplingParams, TokenEvent
+    from repro_torch.serving.batching import kv_row_bytes
+    cfg, params, stats, pred = mixtral
+    prompts, new_tokens = reference["prompts"], reference["new_tokens"]
+    sp = SamplingParams(temperature=0.0, max_new_tokens=new_tokens)
+    moe = params["layers"]["moe"]
+    t_phase = time.perf_counter()
+    drift = row_drift(params)
+    if drift["wk_linear"] or drift["router_linear"]:
+        raise AssertionError(f"layers.linear rows depend on the row count: {drift}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels:
+        fn.launches = 0
+
+    def build(**kw):
+        """The pool, with every sampled logits row kept by prompt and every
+        replica's expert copies timed."""
+        pool = ReplicaPool.build(cfg, params, policy="duo", stats=stats, predictor=pred,
+                                 max_batch=8, max_seq=2048, temperature=0.0, **kw)
+        rows = {}
+        for eng in pool.engines:
+            def record(req, row, sample=eng._sample_req):
+                rows.setdefault(req.prompt.tobytes(), []).append(row)
+                return sample(req, row)
+            eng._sample_req = record
+        return pool, rows, [timed_copies(eng.cache) for eng in pool.engines]
+
+    def shares_slabs(pool) -> bool:
+        names = ("w1", "w3", "w2")
+        return all(moe[n].is_pinned() for n in names) and all(
+            eng.store.get((l, e))[i].data_ptr() == moe[n][l, e].data_ptr()
+            for eng in pool.engines for l in range(cfg.n_layers)
+            for e in range(cfg.n_experts) for i, n in enumerate(names))
+
+    def check_tokens(run, handles, rows):
+        for i, h in enumerate(handles):
+            got, want = list(h.tokens), reference["tokens"][i]
+            if got == want:
+                continue
+            j = first_divergence(got, want)
+            j = min(len(got), len(want)) if j is None else j
+            mine = rows[prompts[i].tobytes()]
+            print(json.dumps(dict(
+                phase="cluster", run=run, request=i, first_divergence=j,
+                batch_top2_margin=top2_margin(reference["rows"][i][j]),
+                cluster_top2_margin=top2_margin(mine[j]),
+                max_abs_logit_diff=float(np.abs(mine[j] - reference["rows"][i][j]).max()))),
+                flush=True)
+            raise AssertionError(f"cluster run {run}: request {i}'s tokens part from "
+                                 f"the batch phase's at index {j}")
+
+    def run_report(pool, handles, copies, wall):
+        torch.cuda.synchronize()
+        results = [h.result() for h in handles]
+        if any(h.status != "done" for h in handles):
+            raise AssertionError(f"a request ended {[h.status for h in handles]}")
+        hops = []
+        for h in handles:
+            for hop in h.handoffs:
+                t_tok = next(ev.t for ev in h.events
+                             if isinstance(ev, TokenEvent) and ev.t > hop["t_snapshot"])
+                hops.append(dict(src=hop["src"], dst=hop["dst"],
+                                 restore_ms=(hop["t_restore"] - hop["t_snapshot"]) * 1e3,
+                                 handoff_ms=(t_tok - hop["t_snapshot"]) * 1e3))
+        ms = [[s.elapsed_time(e) for s, e in pairs] for pairs in copies]
+        return dict(
+            wall_s=wall, ttft_s=[r.ttft_wall for r in results],
+            e2e_s=[r.e2e_wall for r in results], replica=[h.replica for h in handles],
+            hops=hops, handoff_bytes=pool.handoff_bytes,
+            kv_row_bytes=kv_row_bytes(pool.engines[0]),
+            handoff_mb_per_s=(pool.handoff_bytes / 1e6
+                              / max(sum(x["restore_ms"] for x in hops) / 1e3, 1e-9)
+                              if hops else None),
+            replicas=[dict(role=eng.role, expert_copies=len(eng.cache.transfer_log),
+                           copy_ms_per_slab_median=float(np.median(m)) if m else None,
+                           copy_ms_per_slab_max=max(m) if m else None,
+                           finished=len(eng.finished),
+                           decode_steps=len(eng.decode_batch_hist),
+                           expert_pool_bytes=eng.cache.device_bytes,
+                           kv_pool_bytes=2 * sum(k.nbytes for k in eng._K),
+                           hbm_bound_ok=eng.cache.hbm_bound_ok)
+                      for eng, m in zip(pool.engines, ms)],
+            max_memory_allocated=torch.cuda.max_memory_allocated(),
+            launches={fn.__name__: fn.launches for fn in kernels})
+
+    # run A: prefill -> decode handoff of every request
+    pool, rows, copies = build(prefill_budget=512, prefill_fairness="rr",
+                               overrides=[{"role": "prefill"}, {"role": "decode"}])
+    fe = ClusterFrontend(pool, router="disagg")
+    t0 = time.perf_counter()
+    handles = [fe.submit(p, params=sp) for p in prompts[:4]]
+    for _ in range(4):
+        fe.poll()
+    handles += [fe.submit(p, params=sp) for p in prompts[4:]]
+    fe.drain()
+    torch.cuda.synchronize()
+    disagg = run_report(pool, handles, copies, time.perf_counter() - t0)
+    disagg.update(n_handoffs=pool.n_handoffs, shares_host_slabs=shares_slabs(pool))
+    check_tokens("disagg", handles, rows)
+    ok = disagg["shares_host_slabs"] and pool.n_handoffs == len(prompts) and all(
+        r["hbm_bound_ok"] for r in disagg["replicas"])
+    if not ok:
+        raise AssertionError(f"cluster run disagg: {disagg}")
+    del pool, fe, handles, rows, copies
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    # run B: replica 0 drained mid-decode, monolithic prefill, spans on
+    pool, rows, copies = build(n_replicas=2, prefill_budget=None, spans=True)
+    fe = ClusterFrontend(pool, router="least_loaded")
+    t0 = time.perf_counter()
+    handles = [fe.submit(p, params=sp) for p in prompts]
+    for _ in range(6):
+        fe.poll()
+    moved_at_drain = pool.drain(0)
+    fe.drain()
+    torch.cuda.synchronize()
+    drain = run_report(pool, handles, copies, time.perf_counter() - t0)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "cluster_trace.json")
+        write_trace(path, pool.recorders())
+        with open(path) as f:
+            trace = json.load(f)
+    flows = [e["ph"] for e in trace["traceEvents"] if e["ph"] in ("s", "f")]
+    drain.update(n_migrated=pool.n_migrated, moved_at_drain=moved_at_drain,
+                 n_tail_handoffs=pool.n_tail_handoffs,
+                 shares_host_slabs=shares_slabs(pool),
+                 trace_events=len(trace["traceEvents"]),
+                 trace_errors=validate_trace(trace),
+                 flow_pairs=min(flows.count("s"), flows.count("f")),
+                 metrics_errors=validate_metrics_snapshot(pool.metrics_snapshot()))
+    check_tokens("drain", handles, rows)
+    ok = (drain["shares_host_slabs"] and pool.n_migrated > 0
+          and not drain["trace_errors"] and not drain["metrics_errors"]
+          and flows.count("s") == flows.count("f") == pool.n_migrated
+          and all(r["hbm_bound_ok"] for r in drain["replicas"]))
+    if not ok:
+        raise AssertionError(f"cluster run drain: {drain}")
+    del pool, fe, handles, rows, copies
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    missing = [n for n, c in launches.items() if c == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched by the cluster: {missing}")
+    return dict(phase="cluster", model="mixtral-8x7b", layers=cfg.n_layers,
+                max_seq=2048, prompt_lens=[len(p) for p in prompts], new_tokens=new_tokens,
+                tokens_equal_batch_phase=True, row_drift=drift, disagg=disagg, drain=drain,
+                seconds=time.perf_counter() - t_phase, launches=launches)
 
 
 @contextlib.contextmanager
@@ -1118,7 +1382,7 @@ def device_profile(prof):
                 top_kernels_ms=[[n[:80], t] for n, t in top])
 
 
-# -- phase 8: the ssm bundle on the card vs on the CPU -------------------------
+# -- phase 9: the ssm bundle on the card vs on the CPU -------------------------
 
 def check_small_ssm(seed: int):
     from repro_torch.configs.base import get_config, reduced
@@ -1145,7 +1409,7 @@ def check_small_ssm(seed: int):
                 prompt=300, prefill_logit_max_abs_err=err, tol=5e-2)
 
 
-# -- phase 9: Mamba2-2.7B through the model bundle -------------------------------
+# -- phase 10: Mamba2-2.7B through the model bundle ------------------------------
 
 def serve_ssm(seed: int, ssd_scan):
     from repro_torch.configs.base import get_config
@@ -1296,9 +1560,13 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     emit(check_batch_small(args.seed))
-    bat = serve_batch(mixtral, args.seed, kernels + [flash_attention_chunk])
+    bat, reference = serve_batch(mixtral, args.seed, kernels + [flash_attention_chunk])
     emit(bat)
-    del mixtral
+    gc.collect()   # the batch phase's engines hold their pools until collected
+    torch.cuda.empty_cache()
+    clu = serve_cluster(mixtral, reference, kernels + [flash_attention_chunk])
+    emit(clu)
+    del mixtral, reference
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1308,7 +1576,7 @@ def main() -> int:
 
     # each kernel's launches from the paths that run it
     launches = {}
-    for phase in (srv, bat, ssm):
+    for phase in (srv, bat, clu, ssm):
         for n, c in phase["launches"].items():
             launches[n] = launches.get(n, 0) + c
     summary = [{k: r[k] for k in ("name", "route", "source", "replaces")}

@@ -101,9 +101,9 @@ def attention(q, k, v, *, q_pos, k_pos, window=None, causal=True,
 def _qkv(x, p, dims: AttnDims, positions, use_rope=True):
     B, S, _ = x.shape
     H, Hkv, hd = dims.n_heads, dims.n_kv_heads, dims.head_dim
-    q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
+    q = linear(x, p["wq"])
+    k = linear(x, p["wk"])
+    v = linear(x, p["wv"])
     if dims.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     q = q.reshape(B, S, H, hd)
@@ -130,7 +130,7 @@ def self_attn_full(x, p, dims: AttnDims, *, window=None, causal=True):
     else:
         o = attention(q, k, v, q_pos=positions, k_pos=positions,
                       window=window, causal=causal)
-    return o.reshape(B, S, -1) @ p["wo"], (k, v)
+    return linear(o.reshape(B, S, -1), p["wo"]), (k, v)
 
 
 def self_attn_decode(x, p, dims: AttnDims, cache_k, cache_v, slot_pos, slot: int,
@@ -158,7 +158,7 @@ def self_attn_decode(x, p, dims: AttnDims, cache_k, cache_v, slot_pos, slot: int
     else:
         o = attention(q, cache_k, cache_v, q_pos=positions,
                       k_pos=slot_pos[None], window=window, causal=True)
-    return o.reshape(B, 1, -1) @ p["wo"], cache_k, cache_v
+    return linear(o.reshape(B, 1, -1), p["wo"]), cache_k, cache_v
 
 
 def self_attn_prefill_chunk(x, p, dims: AttnDims, cache_k, cache_v, slot_pos,
@@ -186,7 +186,7 @@ def self_attn_prefill_chunk(x, p, dims: AttnDims, cache_k, cache_v, slot_pos,
     else:
         o = attention(q, cache_k, cache_v, q_pos=positions, k_pos=slot_pos,
                       window=window, causal=True)
-    return o.reshape(B, C, -1) @ p["wo"], cache_k, cache_v, slot_pos
+    return linear(o.reshape(B, C, -1), p["wo"]), cache_k, cache_v, slot_pos
 
 
 def self_attn_decode_batched(x, p, dims: AttnDims, cache_k, cache_v, slot_pos,
@@ -212,7 +212,32 @@ def self_attn_decode_batched(x, p, dims: AttnDims, cache_k, cache_v, slot_pos,
     else:
         o = attention(q, cache_k, cache_v, q_pos=positions, k_pos=slot_pos,
                       window=window, causal=True)
-    return o.reshape(B, 1, -1) @ p["wo"], cache_k, cache_v
+    return linear(o.reshape(B, 1, -1), p["wo"]), cache_k, cache_v
+
+
+ROW_BLOCK = 128   # rows of every product ``linear`` issues on the card
+
+
+def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` for x [..., K], w [K, N] whose every row is the same
+    whatever the rows beside it. On the card the product runs in calls of a
+    fixed ``ROW_BLOCK`` rows (the last block padded with zeros). cuBLAS
+    picks its algorithm, and with it the order of the sums, by the number
+    of rows: the plain product moves a row of ``x @ wk`` by bf16 ulps and
+    a router row in its last f32 bits with the row count (``chip_smoke.py``
+    measures both, ``row_drift``), which parted chunked from monolithic
+    prefill at Mixtral width and so one replica's tokens from another's.
+    On the CPU the plain product."""
+    if not x.is_cuda:
+        return x @ w
+    rows = x.reshape(-1, x.shape[-1])
+    n = rows.shape[0]
+    if n % ROW_BLOCK:
+        rows = torch.nn.functional.pad(rows, (0, 0, 0, -n % ROW_BLOCK))
+    out = rows.new_empty(rows.shape[0], w.shape[1])
+    for i in range(0, rows.shape[0], ROW_BLOCK):
+        torch.mm(rows[i:i + ROW_BLOCK], w, out=out[i:i + ROW_BLOCK])
+    return out[:n].reshape(*x.shape[:-1], w.shape[1])
 
 
 def matmul_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -6,6 +6,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models import layers as L
 
 
 def n_experts_padded(cfg: ArchConfig, n_model: int = 16) -> int:
@@ -20,10 +21,11 @@ def n_experts_padded(cfg: ArchConfig, n_model: int = 16) -> int:
 def route(x2d: torch.Tensor, router: torch.Tensor, n_real: int, top_k: int):
     """Router: returns (weights [T,k] f32, ids [T,k] int64, probs [T,E] f32).
 
-    f32 logits and softmax, pad experts masked to -1e9, top-k renormalised.
+    f32 logits (``linear``: a row's logits do not depend on the rows beside
+    it) and softmax, pad experts masked to -1e9, top-k renormalised.
     Ties go to the lower expert index, as ``lax.top_k`` breaks them: a
     stable descending sort keeps equal probabilities in index order."""
-    logits = x2d.float() @ router                       # [T, E_pad]
+    logits = L.linear(x2d.float(), router)              # [T, E_pad]
     e_pad = router.shape[1]
     if e_pad > n_real:
         pad = torch.arange(e_pad, device=logits.device) >= n_real

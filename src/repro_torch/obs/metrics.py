@@ -5,17 +5,24 @@ through a zero-arg ``fn`` evaluated at read time) and histograms
 (count/sum/min/max plus streaming P² quantiles). A registry hands out
 instruments keyed by ``(name, sorted(labels))``: asking twice returns the
 same object, so hot paths hold pre-bound handles. ``snapshot()`` returns a
-plain JSON-ready dict.
+plain JSON-ready dict and ``exposition()`` renders Prometheus text format.
+
+``METRICS_SCHEMA`` and the exposition text name a format, not a package:
+they are the reference's, so each package's ``validate_metrics_snapshot``
+accepts the other's snapshots.
 """
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 from repro_torch.core.qos import P2Quantile
 
 Number = Union[int, float]
 LabelKey = Tuple[Tuple[str, str], ...]
+
+# snapshot schema identifier, checked by validate_metrics_snapshot
+METRICS_SCHEMA = "repro.obs.metrics/1"
 
 
 def _label_key(labels: Dict[str, str]) -> LabelKey:
@@ -118,7 +125,7 @@ class Histogram:
 
 
 class MetricsRegistry:
-    """Get-or-create instrument factory plus snapshot."""
+    """Get-or-create instrument factory plus snapshot / exposition."""
 
     def __init__(self) -> None:
         self._meta: Dict[str, Tuple[str, str]] = {}   # name -> (kind, help)
@@ -156,6 +163,14 @@ class MetricsRegistry:
         return self._get("histogram", name, help, key,
                          lambda: Histogram(name, key, qs))
 
+    def names(self) -> List[str]:
+        return sorted(self._meta)
+
+    def series(self, name: str):
+        """All instruments registered under ``name`` (one per label set)."""
+        return [inst for (n, _), inst in sorted(self._instruments.items())
+                if n == name]
+
     def snapshot(self) -> Dict[str, Union[float, Dict[str, float]]]:
         """Flat dict: ``name{label="v"}`` -> value (hist -> summary dict)."""
         out: Dict[str, Union[float, Dict[str, float]]] = {}
@@ -164,3 +179,64 @@ class MetricsRegistry:
             out[full] = (inst.summary() if isinstance(inst, Histogram)
                          else inst.value)
         return out
+
+    def exposition(self) -> str:
+        """Prometheus text exposition (histograms as summaries)."""
+        lines: List[str] = []
+        for name in self.names():
+            kind, help = self._meta[name]
+            if help:
+                lines.append(f"# HELP {name} {help}")
+            lines.append(f"# TYPE {name} {'summary' if kind == 'histogram' else kind}")
+            for inst in self.series(name):
+                ls = _label_str(inst.labels)
+                if isinstance(inst, Histogram):
+                    for q in inst.qs:
+                        qk = list(inst.labels) + [("quantile", f"{q / 100.0:g}")]
+                        lines.append(f"{name}{_label_str(tuple(qk))} "
+                                     f"{_fmt(inst.quantile(q))}")
+                    lines.append(f"{name}_sum{ls} {_fmt(inst.sum)}")
+                    lines.append(f"{name}_count{ls} {inst.count}")
+                else:
+                    lines.append(f"{name}{ls} {_fmt(inst.value)}")
+        return "\n".join(lines) + "\n"
+
+
+def _fmt(v: float) -> str:
+    if v != v:  # NaN
+        return "NaN"
+    if v == int(v) and abs(v) < 1e15:
+        return str(int(v))
+    return repr(v)
+
+
+def validate_metrics_snapshot(obj) -> List[str]:
+    """Schema check for a dumped metrics snapshot (possibly nested:
+    ``{"schema": ..., "cluster": {...}, "replicas": [{...}, ...]}``).
+    Returns a list of error strings; empty means valid."""
+    errs: List[str] = []
+
+    def leaves(prefix: str, v) -> None:
+        if isinstance(v, dict):
+            for k, sub in v.items():
+                if not isinstance(k, str):
+                    errs.append(f"{prefix}: non-string key {k!r}")
+                else:
+                    leaves(f"{prefix}.{k}" if prefix else k, sub)
+        elif isinstance(v, list):
+            for i, sub in enumerate(v):
+                leaves(f"{prefix}[{i}]", sub)
+        elif isinstance(v, bool) or v is None:
+            errs.append(f"{prefix}: metric value must be a number, got {v!r}")
+        elif isinstance(v, (int, float)):
+            if isinstance(v, float) and math.isinf(v):
+                errs.append(f"{prefix}: non-finite value {v!r}")
+        elif not isinstance(v, str):   # strings: schema tag / annotations
+            errs.append(f"{prefix}: unsupported type {type(v).__name__}")
+
+    if not isinstance(obj, dict):
+        return [f"snapshot must be a dict, got {type(obj).__name__}"]
+    if obj.get("schema") != METRICS_SCHEMA:
+        errs.append(f"schema must be {METRICS_SCHEMA!r}, got {obj.get('schema')!r}")
+    leaves("", obj)
+    return errs

@@ -1,11 +1,15 @@
-"""Engine-phase span recorder (the part of ``repro.obs.spans`` the
-serving engines use).
+"""Request-lifecycle and engine-phase span recorder (port of
+``repro.obs.spans``).
 
-One :class:`SpanRecorder` per engine (``engine.obs``): ``begin``/``end``
-spans and ``instant`` marks on four lanes (lifecycle, prefill, decode,
-prefetch), and one ``terminal`` record per request id. Off by default — every method starts with an ``enabled`` check —
+One :class:`SpanRecorder` per engine (``engine.obs``, stamped with its
+replica index by ``ReplicaPool``): ``begin``/``end`` spans and ``instant``
+marks on the four ``SPAN_LANES``, and one ``terminal`` record per request
+id. Off by default — every method starts with an ``enabled`` check —
 bounded by a ring of closed spans, with open spans kept apart so ring
 eviction cannot orphan one, and rid-sampled by a deterministic hash.
+``monotonic()`` is the one clock of spans, ``RequestSnapshot.t_snapshot``
+and ``RequestHandle.handoffs``' ``t_restore``, so a handoff latency is a
+difference of one clock.
 """
 from __future__ import annotations
 
@@ -14,8 +18,11 @@ import time
 from dataclasses import dataclass, field
 from typing import Deque, Dict, List, Optional
 
-# one monotonic clock for every span
+# one monotonic clock for every span and handoff stamp
 monotonic = time.perf_counter
+
+# lane taxonomy: one Perfetto track-thread per lane, per replica-process
+SPAN_LANES = ("lifecycle", "prefill", "decode", "prefetch")
 
 # Knuth multiplicative hash for deterministic rid sampling
 _HASH_K = 2654435761
@@ -38,13 +45,14 @@ class Span:
 
 
 class SpanRecorder:
-    """Ring-buffer-bounded span sink for one engine."""
+    """Ring-buffer-bounded span sink for one engine/replica."""
 
     def __init__(self, enabled: bool = False, capacity: int = 8192,
-                 sample: float = 1.0):
+                 sample: float = 1.0, replica: int = 0):
         self.enabled = bool(enabled)
         self.capacity = int(capacity)
         self.sample = float(sample)
+        self.replica = int(replica)
         self.closed: Deque[Span] = collections.deque(maxlen=self.capacity)
         self._open: Dict[int, Span] = {}
         self._next_token = 0
@@ -114,3 +122,16 @@ class SpanRecorder:
     def spans(self) -> List[Span]:
         """Closed spans, oldest first."""
         return list(self.closed)
+
+    def open_spans(self) -> List[Span]:
+        return list(self._open.values())
+
+    def terminal_reasons(self) -> Dict[int, str]:
+        return dict(self._terminal)
+
+    def clear(self) -> None:
+        self.closed.clear()
+        self._open.clear()
+        self._terminal.clear()
+        self._terminal_order.clear()
+        self.n_dropped = 0

@@ -543,3 +543,183 @@ def test_mm_f32_on_card(cuda):
     assert got.dtype == torch.float32
     torch.testing.assert_close(got.cpu(), mm_f32(x.cpu(), w.cpu()), rtol=1e-4, atol=1e-4)
     assert torch.equal(mm_f32(x[:1], w), got[:1])
+
+
+# -- the serving surface on the card: cluster, handoff, drain, pause ----------
+
+# a window at which flash_decode's split count does not depend on the batch
+# for the small model (Hkv = 1): W // 32 = 16 ranges for B = 1 and B = 8
+CLUSTER_W = 512
+
+
+def _small_engine_params(cuda):
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.models.params import init_params
+    cfg = dataclasses.replace(reduced(get_config("mixtral_8x7b")),
+                              head_dim=64, n_kv_heads=1)
+    return cfg, init_params(cfg, 0, device=cuda)
+
+
+def _prompts(cfg, n=5, seed=4):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, cfg.vocab, int(s)).astype(np.int32)
+            for s in rng.integers(12, 120, n)]
+
+
+def _recording(eng, rows):
+    """Keep every logits row ``eng`` samples, by prompt, in order."""
+    sample = eng._sample_req
+
+    def record(req, row):
+        rows.setdefault(req.prompt.tobytes(), []).append(np.array(row))
+        return sample(req, row)
+
+    eng._sample_req = record
+    return eng
+
+
+def _frontend_tokens(cfg, params, prompts, rows=None, **kw):
+    from repro_torch.serving import SamplingParams, ServingFrontend
+    from repro_torch.serving.batching import BatchedServingEngine
+    eng = BatchedServingEngine(cfg, params, policy="duo", max_seq=CLUSTER_W,
+                               temperature=0.0, **kw)
+    if rows is not None:
+        _recording(eng, rows)
+    fe = ServingFrontend(eng)
+    hs = [fe.submit(p, params=SamplingParams(max_new_tokens=8)) for p in prompts]
+    fe.drain()
+    assert eng.cache.hbm_bound_ok
+    return [list(h.tokens) for h in hs]
+
+
+@pytest.mark.cuda
+def test_flash_decode_split_count_batch_invariant_window(cuda):
+    """At a window where ``n_splits`` is the same for B = 1 and B = 8, a
+    request's decode logits on the card are bit-equal alone and in a batch
+    of 8 (monolithic prefill, so only the decode batch differs)."""
+    from repro_torch.kernels.flash_decode import n_splits
+    cfg, params = _small_engine_params(cuda)
+    assert n_splits(1, cfg.n_kv_heads, CLUSTER_W) == n_splits(8, cfg.n_kv_heads, CLUSTER_W)
+    prompts = _prompts(cfg, n=8)
+    batched, alone = {}, {}
+    _frontend_tokens(cfg, params, prompts, batched, max_batch=8)
+    for p in prompts:
+        _frontend_tokens(cfg, params, [p], alone, max_batch=1)
+    assert batched.keys() == alone.keys()
+    for k, rows in batched.items():
+        assert len(rows) == len(alone[k]) == 9
+        assert all(np.array_equal(a, b) for a, b in zip(rows, alone[k]))
+
+
+@pytest.mark.cuda
+def test_disagg_cluster_on_card_matches_one_frontend(cuda):
+    """A 1-prefill + 1-decode cluster on the card: every request is handed
+    off once and its tokens equal one ServingFrontend's."""
+    from repro_torch.kernels.flash_decode import flash_decode as fd
+    from repro_torch.serving import ClusterFrontend, ReplicaPool, SamplingParams
+    cfg, params = _small_engine_params(cuda)
+    prompts = _prompts(cfg)
+    want = _frontend_tokens(cfg, params, prompts, max_batch=4)
+    pool = ReplicaPool.build(cfg, params, policy="duo", max_batch=4, max_seq=CLUSTER_W,
+                             temperature=0.0,
+                             overrides=[{"role": "prefill"}, {"role": "decode"}])
+    fe = ClusterFrontend(pool, router="disagg")
+    before = fd.launches
+    hs = [fe.submit(p, params=SamplingParams(max_new_tokens=8)) for p in prompts]
+    fe.drain()
+    assert fd.launches > before
+    assert [list(h.tokens) for h in hs] == want
+    assert pool.n_handoffs == len(prompts) and all(h.replica == 1 for h in hs)
+    assert pool.handoff_bytes > 0
+    assert all(e.cache.hbm_bound_ok for e in pool.engines)
+
+
+@pytest.mark.cuda
+def test_drain_mid_decode_on_card_keeps_tokens(cuda):
+    """``drain(0)`` while replica 0 decodes: its requests migrate to replica
+    1 and every stream equals the same cluster's run without the drain."""
+    from repro_torch.serving import ClusterFrontend, ReplicaPool, SamplingParams
+    cfg, params = _small_engine_params(cuda)
+    prompts = _prompts(cfg, n=4)
+    out = {}
+    for drain in (False, True):
+        pool = ReplicaPool.build(cfg, params, 2, policy="duo", max_batch=4,
+                                 max_seq=CLUSTER_W, temperature=0.0)
+        fe = ClusterFrontend(pool, router="round_robin")
+        hs = [fe.submit(p, params=SamplingParams(max_new_tokens=8)) for p in prompts]
+        for _ in range(3):
+            fe.poll()
+        if drain:
+            assert any(h.replica == 0 and h.status == "running" for h in hs)
+            assert pool.drain(0) > 0
+        fe.drain()
+        assert all(h.status == "done" for h in hs)
+        out[drain] = [list(h.tokens) for h in hs]
+    assert out[True] == out[False]
+    assert pool.n_migrated > 0 and pool.engines[0].idle
+
+
+@pytest.mark.cuda
+def test_pause_resume_on_card_bit_equal_logits(cuda):
+    """Pause a request mid-decode (its KV rows to host tensors), let another
+    request use the slot, resume: every logits row equals the run without
+    the pause, bit for bit."""
+    from repro_torch.serving import SamplingParams, ServingFrontend
+    from repro_torch.serving.batching import BatchedServingEngine
+    cfg, params = _small_engine_params(cuda)
+    prompt, other = _prompts(cfg, n=2)
+    want, got = {}, {}
+    _frontend_tokens(cfg, params, [prompt], want, max_batch=1)
+    eng = _recording(BatchedServingEngine(cfg, params, policy="duo", max_batch=1,
+                                          max_seq=CLUSTER_W, temperature=0.0), got)
+    fe = ServingFrontend(eng)
+    h = fe.submit(prompt, params=SamplingParams(max_new_tokens=8))
+    while len(h.tokens) < 3:
+        fe.poll()
+    snap = fe.pause(h)
+    assert snap.kv_k[0].device.type == "cpu" and snap.kv_bytes > 0
+    fe.submit(other, params=SamplingParams(max_new_tokens=2))
+    fe.drain()
+    fe.resume(snap, handle=h)
+    fe.drain()
+    key = prompt.tobytes()
+    assert len(got[key]) == len(want[key]) == 9
+    assert all(np.array_equal(a, b) for a, b in zip(got[key], want[key]))
+
+
+@pytest.mark.cuda
+def test_replica_host_stores_share_pinned_slabs(cuda):
+    """Every replica's HostExpertStore views the params' pinned expert
+    tensors: no replica copies the host weights."""
+    from repro_torch.serving import ReplicaPool
+    cfg, params = _small_engine_params(cuda)
+    pool = ReplicaPool.build(cfg, params, 3, policy="duo", max_batch=2,
+                             max_seq=CLUSTER_W, temperature=0.0)
+    moe = params["layers"]["moe"]
+    for l in range(cfg.n_layers):
+        for e in range(cfg.n_experts):
+            want = [moe[n][l, e] for n in ("w1", "w3", "w2")]
+            assert all(w.is_pinned() for w in want)
+            for eng in pool.engines:
+                got = eng.store.get((l, e))
+                assert [g.data_ptr() for g in got] == [w.data_ptr() for w in want]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,N,dtype", [(512, 128, torch.bfloat16), (4096, 1024, torch.bfloat16),
+                                       (4096, 8, torch.float32)])
+def test_linear_rows_independent_of_row_count(cuda, K, N, dtype):
+    """``layers.linear`` on the card: a row's product is bit-equal whatever
+    the number of rows and their offset, and agrees with the CPU's."""
+    from repro_torch.models.layers import linear
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(300, K, generator=g, device=cuda).to(dtype)
+    w = (torch.randn(K, N, generator=g, device=cuda) * K ** -0.5).to(dtype)
+    full = linear(x, w)
+    for m in (1, 7, 64, 128, 129, 300):
+        for off in (0, 5):
+            if off + m <= 300:
+                assert torch.equal(linear(x[off:off + m], w), full[off:off + m])
+    assert torch.equal(linear(x.reshape(3, 100, K), w).reshape(300, N), full)
+    torch.testing.assert_close(full.float().cpu(), (x.cpu().float() @ w.cpu().float()),
+                               rtol=2e-2, atol=2e-2)
