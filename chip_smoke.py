@@ -127,6 +127,34 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                must be > 0 just after. Then a ``torch.profiler`` window over
                one prefill and 8 decode steps: device busy time by kernel,
                and ``ssd_scan``'s three kernels' share of it.
+ 11. paper_check — trace-scale Qwen3-30B-A3B (top-8 of 128, ``qk_norm``) and
+               DeepSeekMoE-16B (top-6 of 64, a shared expert) at head_dim 64,
+               2 layers, served on the card and on the CPU: prefill logits
+               within 5e-2, greedy tokens equal.
+ 12. paper   — the paper's Table I models at their published widths, random
+               weights from ``--seed``, one after another, each released
+               before the next: DeepSeekMoE-16B at all 28 layers,
+               Qwen3-30B-A3B at 24 of 48, Mixtral-8x22B at 4 of 56 (host
+               RAM). Per model: its kernel shapes held against their plain
+               versions and timed (uncounted), ODF traces over 3 squad-like
+               prompts and the ExpertMLP trained on the card, then
+               ``BatchedServingEngine`` under ``duo`` (``max_batch=8``,
+               budget 256, rr, 4 squad-like and 4 orca-like prompts, 4 of
+               them after step 4, 16 greedy new tokens): TTFT, E2E, decode
+               tokens/s, step wall by batch size, copies per decode step, ms
+               per slab, the fused prefill's rows launched against rows
+               routed, peak memory, ``hbm_bound_ok``; the first 4 requests
+               each alone at ``max_batch=1`` and all 8 in a monolithic run
+               must give the same tokens. On DeepSeekMoE-16B also ``hw_h100`` (the latencies
+               ``HW.h100`` takes, measured) and the policy comparison:
+               ``MoEServingEngine`` under odf / lfp / mif / duo over 4
+               squad-like prompts (8 new tokens), tokens equal across
+               policies, each policy's ledger replayed by
+               ``simulate_request`` (events,
+               peak residency, hits, misses equal), simulated TTFT and step
+               under ``HW.h100`` beside the measured ones. The four MoE
+               kernels' counts are reset before the phase and must each be
+               > 0 after it.
 
 The last three lines are the card's ``nvidia-smi`` name and power limit,
 the kernels' JSON summary, and ``{"ok": true, "device": {...}}``.
@@ -223,11 +251,14 @@ def kernel_ms(fn, reps: int = 20, opening: int = 10) -> list:
     most: once in a whole run the profiler returned none (NVIDIA H100 80GB
     HBM3, torch 2.11), where the same calls measured fine before and
     after; so is one that returns too few to end in ``reps`` equal runs
-    (once, 5 of a window's 30 ``flash_attention`` calls, same card)."""
+    (once, 5 of a window's 30 ``flash_attention`` calls, same card; three
+    windows in a row, 14 of 30 ``flash_attention_chunk`` calls at W=4096).
+    After six such windows the calls are timed by CUDA events instead
+    (``event_ms``, host issue included), and a ``note`` line says so."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for _ in range(6):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps + opening):
                 fn()
@@ -243,8 +274,9 @@ def kernel_ms(fn, reps: int = 20, opening: int = 10) -> list:
     names = {}
     for e in work:
         names[e.name[:40]] = names.get(e.name[:40], 0) + 1
-    raise AssertionError(f"profiler saw {len(work)} device events in {reps + opening} "
-                         f"calls, no {reps} equal runs at the end: {names}")
+    emit(dict(note=f"profiler saw {len(work)} device events in {reps + opening} calls, "
+                   f"no {reps} equal runs at the end: {names}; CUDA event times used"))
+    return event_ms(fn, reps)
 
 
 def in_turns(kernel, library, timer) -> tuple:
@@ -343,38 +375,42 @@ def attention_bound(B, S, H, Hkv, D):
 
 
 def kernel_flash_attention(g):
-    import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
-    H, Hkv, D = 32, 8, 128
-    mk = lambda s, h: torch.randn(1, s, h, D, generator=g, device="cuda").to(torch.bfloat16)
-
-    def shape(S):
-        q, k, v = mk(S, H), mk(S, Hkv), mk(S, Hkv)
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        err = max_err(flash_attention(q, k, v), flash_attention_plain(q, k, v))
-        timed = device_vs_library(lambda: flash_attention(q, k, v),
-                                  lambda: F.scaled_dot_product_attention(
-                                      qt, kt, vt, is_causal=True, enable_gqa=True))
-        bms, by = attention_bound(1, S, H, Hkv, D)
-        return (q, k, v), dict(shape=dict(B=1, S=S, H=H, Hkv=Hkv, D=D), max_abs_err=err,
-                               bound_ms=bms, bound_by=by,
-                               bound_share=bms / timed["device_ms"], **timed)
-
-    (q, k, v), main = shape(512)
+    (q, k, v), main = prefill_attention(32, 8, 128, 512, g)
     err = main["max_abs_err"]
     for s, causal, window in ((512, True, 128), (500, True, -1), (200, False, -1)):
         qs, ks, vs = q[:, :s], k[:, :s], v[:, :s]   # strided views, ragged S
         err = max(err, max_err(
             flash_attention(qs, ks, vs, causal=causal, window=window),
             flash_attention_plain(qs, ks, vs, causal=causal, window=window)))
-    plain_ms = time_ms(lambda: flash_attention_plain(q, k, v))
-    _, long = shape(4096)
+    del q, k, v
+    _, long = prefill_attention(32, 8, 128, 4096, g)
     torch.cuda.empty_cache()
     return dict(name="flash_attention", route="cuda",
                 source="src/repro_torch/csrc/flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention.py:96",
-                plain_ms=plain_ms, long=long, **(main | dict(max_abs_err=err)))
+                long=long, **(main | dict(max_abs_err=err)))
+
+
+def prefill_attention(H, Hkv, D, S, g):
+    """Monolithic causal prefill attention of one S-token prompt: held
+    against the plain version, timed beside it and beside SDPA. Returns
+    the inputs and the record."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+    mk = lambda h: torch.randn(1, S, h, D, generator=g, device="cuda").to(torch.bfloat16)
+    q, k, v = mk(H), mk(Hkv), mk(Hkv)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    err = max_err(flash_attention(q, k, v), flash_attention_plain(q, k, v))
+    timed = device_vs_library(lambda: flash_attention(q, k, v),
+                              lambda: F.scaled_dot_product_attention(
+                                  qt, kt, vt, is_causal=True, enable_gqa=True))
+    plain_ms = time_ms(lambda: flash_attention_plain(q, k, v), reps=5)
+    bms, by = attention_bound(1, S, H, Hkv, D)
+    return (q, k, v), dict(shape=dict(B=1, S=S, H=H, Hkv=Hkv, D=D), max_abs_err=err,
+                           plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                           bound_share=bms / timed["device_ms"], **timed)
 
 
 def kernel_flash_decode(g):
@@ -524,11 +560,14 @@ def small_moe(seed: int):
     cfg = dataclasses.replace(reduced(get_config("mixtral_8x7b")),
                               head_dim=64, n_kv_heads=1)
     gpu = init_params(cfg, seed, device="cuda")
-    cpu = {k: (v.cpu() if torch.is_tensor(v) else v) for k, v in gpu.items()}
-    cpu["layers"] = {k: ({kk: vv.cpu() for kk, vv in v.items()}
-                         if isinstance(v, dict) else v.cpu())
-                     for k, v in gpu["layers"].items()}
-    return cfg, gpu, cpu
+    return cfg, gpu, to_cpu(gpu)
+
+
+def to_cpu(tree):
+    """A param tree's tensors on the CPU (host slabs stay the same tensors)."""
+    if isinstance(tree, dict):
+        return {k: to_cpu(v) for k, v in tree.items()}
+    return tree.cpu()
 
 
 def check_small(seed: int):
@@ -1338,19 +1377,25 @@ def decode_attention(cfg, W: int, pos):
 
 def decode_expert_ffn(cfg):
     """The grouped decode sweep's launch at B=8: U=8 experts of C=8 bucketed
-    rows, read by slot (in a mixed order) out of pools of 8 slabs, held
-    against the plain version and timed beside it and the cuBLAS yardstick
-    of the kernel phase."""
+    rows out of pools of 8 slabs."""
+    return expert_ffn_check(8, 8, cfg.d_model, cfg.d_expert, [3, 0, 7, 1, 6, 2, 5, 4])
+
+
+def expert_ffn_check(U, C, d, f, slots=None):
+    """One ``expert_ffn_from_pool`` launch of U groups of C rows, read by
+    slot (``slots``, or a random order) out of pools of U slabs: held against
+    the plain version and timed beside it and the cuBLAS yardstick of the
+    kernel phase."""
     from repro_torch.kernels.expert_ffn import (expert_ffn_from_pool,
                                                 expert_ffn_from_pool_plain)
-    U, C, d, f = 8, 8, cfg.d_model, cfg.d_expert
     g = torch.Generator(device="cuda").manual_seed(2)
     r = lambda *s: torch.randn(s, generator=g, device="cuda").to(torch.bfloat16)
     x = r(U, C, d)
     w1 = r(U, d, f) * d ** -0.5
     w3 = r(U, d, f) * d ** -0.5
     w2 = r(U, f, d) * f ** -0.5
-    slots = torch.tensor([3, 0, 7, 1, 6, 2, 5, 4], dtype=torch.int32, device="cuda")
+    slots = (torch.randperm(U, generator=g, device="cuda") if slots is None
+             else torch.tensor(slots, device="cuda")).to(torch.int32)
     args = (x, w1, w3, w2, slots)
     err = max_err(expert_ffn_from_pool(*args), expert_ffn_from_pool_plain(*args))
     ms = time_ms(lambda: expert_ffn_from_pool(*args))
@@ -1511,6 +1556,394 @@ def profile_ssm(bundle, params, prompt, vocab: int):
     return out
 
 
+# -- phase 11: the paper's models, small, on the card vs on the CPU ------------
+
+def check_paper_small(seed: int):
+    """Trace-scale Qwen3-30B-A3B (top-8 of 128 experts, ``qk_norm``) and
+    DeepSeekMoE-16B (top-6 of 64, a shared expert), 2 layers, head_dim 64
+    (``trace_scale``'s 32 is outside the kernels), GQA G = 2: served by the
+    same engine on the card and on the CPU (plain versions). Prefill logits
+    must agree within 5e-2 (the check phase's limit), greedy tokens must be
+    equal."""
+    from repro_torch.configs.paper_models import DEEPSEEKMOE_16B, QWEN3_30B_A3B, trace_scale
+    from repro_torch.models.params import init_params
+    from repro_torch.serving.engine import MoEServingEngine
+    res = dict(phase="paper_check", tol=5e-2)
+    for base in (QWEN3_30B_A3B, DEEPSEEKMOE_16B):
+        cfg = dataclasses.replace(trace_scale(base), head_dim=64, n_layers=2)
+        gpu = init_params(cfg, seed, device="cuda")
+        cpu = to_cpu(gpu)
+        prompt = np.random.default_rng(seed).integers(0, cfg.vocab, 40).astype(np.int32)
+        out = {}
+        for name, p in (("cuda", gpu), ("cpu", cpu)):
+            eng = MoEServingEngine(cfg, p, policy="lfp", temperature=0.0)
+            logits = eng.prefill_layers(prompt[None])[0]
+            out[name] = (logits.cpu(), eng.serve(prompt, max_new=8).tokens)
+        (lg_g, tok_g), (lg_c, tok_c) = out["cuda"], out["cpu"]
+        err = float((lg_g[0, :cfg.vocab] - lg_c[0, :cfg.vocab]).abs().max())
+        r = dict(layers=cfg.n_layers, head_dim=cfg.hd, n_heads=cfg.n_heads,
+                 n_kv_heads=cfg.n_kv_heads, n_experts=cfg.n_experts, top_k=cfg.top_k,
+                 n_shared_experts=cfg.n_shared_experts, qk_norm=cfg.qk_norm,
+                 prefill_logit_max_abs_err=err, tokens_cuda=tok_g.tolist(),
+                 tokens_cpu=tok_c.tolist())
+        res[base.name] = r
+        if not (torch.isfinite(lg_g).all() and err < 5e-2 and np.array_equal(tok_g, tok_c)):
+            i = first_divergence(tok_g.tolist(), tok_c.tolist())
+            if i is not None:
+                seq = np.concatenate([prompt, tok_c[:i].astype(np.int32)])[None]
+                lg = MoEServingEngine(cfg, cpu, policy="lfp").prefill_layers(seq)[0]
+                r.update(first_divergence=i, cpu_top2_margin=top2_margin(lg[0, :cfg.vocab]))
+            emit(res)
+            raise AssertionError(f"paper_check {base.name}: card vs CPU logits differ by "
+                                 f"{err} or tokens part")
+        del gpu, cpu, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+# -- phase 12: the paper's Table I models at their published widths -------------
+
+# (model, layers, max_seq): DeepSeekMoE-16B at all 28 layers (31.0 GB of
+# pinned host expert slabs), Qwen3-30B-A3B at 24 of 48 (29.0 GB), Mixtral-
+# 8x22B at 4 of 56 (19.3 GB). max_seq: flash_decode's split count must not
+# depend on the batch (kernels/flash_decode.py n_splits): 32 ranges at W=2048
+# for every B when Hkv >= 5, and Qwen3's Hkv = 4 needs W=4096 (64 for every B)
+PAPER_RUNS = (("deepseekmoe-16b", 28, 2048), ("qwen3-30b-a3b", 24, 4096),
+              ("mixtral-8x22b", 4, 2048))
+PAPER_NEW_TOKENS = 16
+# the policy comparison's new tokens: LFP stages every expert of the next
+# layer at each decode step (0.59 s a step at 28 layers, NVIDIA H100 80GB
+# HBM3, 700.00 W), so 16 tokens cost it 40 s of the phase
+PAPER_POLICY_NEW_TOKENS = 8
+PAPER_POLICIES = ("odf", "lfp", "mif", "duo")
+
+
+def host_memory() -> dict:
+    """The caching host allocator's pinned bytes and the machine's memory."""
+    with open("/proc/meminfo") as f:
+        mem = {k: int(v.split()[0]) * 1024 for k, v in (ln.split(":", 1) for ln in f)}
+    stats = torch.cuda.host_memory_stats()
+    return dict(pinned={k: v for k, v in stats.items()
+                        if "bytes" in k and k.endswith(".current")},
+                mem_available=mem["MemAvailable"], mem_total=mem["MemTotal"])
+
+
+def release() -> None:
+    """Return what the dropped engines and params held: device memory to the
+    driver, pinned host blocks to the OS (the caching host allocator keeps
+    freed blocks otherwise; the engines' reference cycles hold their pools
+    until collected)."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch._C._host_emptyCache()
+
+
+def paper_kernel_checks(cfg, max_seq: int, prompts):
+    """The model's kernel shapes held against their plain versions and
+    timed: the fused prefill's ``expert_ffn`` (U up to the groups a 256-token
+    chunk routes to, C the bucketed group), prefill attention over the
+    longest prompt, chunked prefill attention (a 256-token chunk after a
+    256-token prefix) and decode attention at B=8 over the phase's
+    positions."""
+    ffn = {"deepseekmoe-16b": (64, 64), "qwen3-30b-a3b": (128, 32),
+           "mixtral-8x22b": (8, 128)}[cfg.name]
+    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    out = dict(expert_ffn=expert_ffn_check(*ffn, cfg.d_model, cfg.d_expert),
+               flash_attention=prefill_attention(
+                   H, Hkv, D, max(len(p) for p in prompts),
+                   torch.Generator(device="cuda").manual_seed(0))[1],
+               flash_attention_chunk=chunk_attention(H, Hkv, D, max_seq, start=256, C=256),
+               flash_decode=decode_attention(
+                   cfg, max_seq, [len(p) + PAPER_NEW_TOKENS - 1 for p in prompts]))
+    release()
+    return out
+
+
+def hw_latencies(pred, stats, top_k: int) -> dict:
+    """What ``HW.h100`` takes besides the data sheet, measured here: the
+    fixed cost of one host->device copy (4 KiB pinned, on a side stream,
+    CUDA events), the host's cost of one small kernel launch (2000
+    launches back to back, then a sync) and one ExpertMLP top-k prediction
+    (host wall: features to the card, the top-k back)."""
+    from repro_torch.core.state import StateConstructor
+    src = torch.empty(4096, dtype=torch.uint8, pin_memory=True)
+    dst = torch.empty(4096, dtype=torch.uint8, device="cuda")
+    stream = torch.cuda.Stream()
+    copies = []
+    for _ in range(55):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        with torch.cuda.stream(stream):
+            a.record()
+            dst.copy_(src, non_blocking=True)
+            b.record()
+        b.synchronize()
+        copies.append(a.elapsed_time(b) / 1e3)
+    x = torch.zeros(1, device="cuda")
+    for _ in range(100):
+        x.add_(1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(2000):
+        x.add_(1)
+    torch.cuda.synchronize()
+    kernel_lat = (time.perf_counter() - t0) / 2000
+    feat = StateConstructor(stats).features([np.arange(top_k)], 1)[None]
+    preds = []
+    for _ in range(55):
+        t0 = time.perf_counter()
+        pred.predict_topk(feat, k=top_k)
+        preds.append(time.perf_counter() - t0)
+    return dict(host_lat=float(np.median(copies[5:])), kernel_lat=kernel_lat,
+                pred_lat=float(np.median(preds[5:])))
+
+
+def policy_comparison(cfg, params, stats, pred, prompts, host_bw: float, lat: dict):
+    """The paper's Figs. 5-6 measured: ``MoEServingEngine`` under each policy
+    serves the same prompts greedily (tokens must be equal across
+    policies); then each policy's requests are replayed in order through
+    ``simulate_request`` with a fresh scheduler at the engine's capacity
+    and the same stats and predictor, which must give the engine's
+    hit / miss / evict sequence, peak residency, hits and misses; the
+    simulated TTFT and decode step under ``HW.h100`` (this run's slab rate
+    and latencies) are reported beside the measured ones."""
+    from repro_torch.core.scheduler import make_scheduler
+    from repro_torch.core.simulator import HW, ModelCosts, simulate_request
+    from repro_torch.core.state import StateConstructor
+    from repro_torch.serving.engine import MoEServingEngine
+    hw = HW.h100(host_bw=host_bw, **lat)
+    costs = ModelCosts(cfg, quant_bytes=2.0)    # served in bf16
+    out, tokens = {}, {}
+    for policy in PAPER_POLICIES:
+        torch.cuda.reset_peak_memory_stats()
+        eng = MoEServingEngine(cfg, params, policy=policy, stats=stats, predictor=pred,
+                               temperature=0.0)
+        per_req = []
+        res = []
+        for p in prompts:
+            n0 = len(eng.cache.transfer_log)
+            res.append(eng.serve(p, max_new=PAPER_POLICY_NEW_TOKENS))
+            per_req.append(len(eng.cache.transfer_log) - n0)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        tokens[policy] = [r.tokens.tolist() for r in res]
+        sched = make_scheduler(policy, cfg.n_layers, cfg.n_experts, cfg.top_k,
+                               eng.store.bytes_per_expert, stats=stats, predictor=pred,
+                               state_constructor=StateConstructor(stats),
+                               capacity=eng.cache.capacity)
+        sims = [simulate_request(sched, costs, hw, r.prefill_active, r.decode_trace,
+                                 seq_len=len(p)) for r, p in zip(res, prompts)]
+        ledger_equal = dict(
+            events=[(e.kind, e.key) for e in sched.cache.events]
+            == [(e.kind, e.key) for e in eng.cache.events],
+            peak_resident=sched.cache.peak_resident == eng.cache.peak_resident,
+            hits_misses=(sched.cache.hits, sched.cache.misses)
+            == (eng.cache.hits, eng.cache.misses),
+            decode_hits_misses=(sched.decode_hits, sched.decode_misses)
+            == (eng.sched.decode_hits, eng.sched.decode_misses))
+        steps = [(r.e2e_wall - r.ttft_wall) / max(len(r.decode_trace), 1) for r in res]
+        out[policy] = dict(
+            cache_capacity=eng.cache.capacity, expert_pool_bytes=eng.cache.device_bytes,
+            ttft_s=[r.ttft_wall for r in res], e2e_s=[r.e2e_wall for r in res],
+            decode_step_s=steps, expert_copies=per_req,
+            decode_hit_rate=eng.sched.decode_hit_rate,
+            hits=eng.cache.hits, misses=eng.cache.misses,
+            peak_resident=eng.cache.peak_resident, max_memory_allocated=peak,
+            hbm_bound_ok=eng.cache.hbm_bound_ok, ledger_equal=ledger_equal,
+            sim_ttft_s=[x.ttft for x in sims],
+            sim_decode_step_s=[float(x.step_latencies.mean()) for x in sims],
+            sim_over_measured_ttft=[x.ttft / r.ttft_wall for x, r in zip(sims, res)],
+            sim_over_measured_step=[float(x.step_latencies.mean()) / st
+                                    for x, st in zip(sims, steps)],
+            sim_hit_rate=[x.hit_rate for x in sims])
+        del eng, res, sched
+        release()
+        if not (all(ledger_equal.values()) and out[policy]["hbm_bound_ok"]):
+            raise AssertionError(f"policy {policy}: engine vs simulator ledger "
+                                 f"{ledger_equal}, hbm_bound_ok "
+                                 f"{out[policy]['hbm_bound_ok']}")
+    parted = [p for p in PAPER_POLICIES if tokens[p] != tokens["odf"]]
+    if parted:
+        raise AssertionError(f"policies {parted} change the tokens: {tokens}")
+    return dict(prompt_lens=[len(p) for p in prompts], new_tokens=PAPER_POLICY_NEW_TOKENS,
+                hw=dataclasses.asdict(hw), tokens_equal=True, policies=out)
+
+
+def paper_model(name: str, layers: int, max_seq: int, seed: int, kernels, policies: bool):
+    """One Table I model at its published widths, depth cut to ``layers``,
+    random weights from ``seed``: kernel checks at its shapes (uncounted),
+    ODF traces and the ExpertMLP trained on the card, the batched engine
+    under ``duo`` over squad-like and orca-like prompts with mid-flight
+    admission, each request alone at ``max_batch=1`` and a monolithic run
+    (tokens must equal), and with ``policies`` the policy comparison."""
+    from repro_torch.configs.paper_models import PAPER_MODELS
+    from repro_torch.core.predictor import train_predictor
+    from repro_torch.core.state import StateConstructor
+    from repro_torch.data.pipeline import PromptWorkload, orca_like, squad_like
+    from repro_torch.models.params import init_params
+    from repro_torch.serving import engine as engine_mod
+    from repro_torch.serving.batching import BatchedServingEngine
+    from repro_torch.serving.engine import collect_traces
+    t_model = time.perf_counter()
+    cfg = dataclasses.replace(PAPER_MODELS[name], n_layers=layers)
+    squad = PromptWorkload(squad_like(cfg.vocab), seed=seed)
+    orca = PromptWorkload(orca_like(cfg.vocab), seed=seed + 1)
+    trace_prompts = [p for p, _ in squad.prompts(3)]
+    pairs = zip((p for p, _ in squad.prompts(4)), (p for p, _ in orca.prompts(4)))
+    prompts = [p for pair in pairs for p in pair]    # squad, orca, squad, ...
+    policy_prompts = [p for p, _ in squad.prompts(4)]
+    with uncounted(kernels):
+        checks = paper_kernel_checks(cfg, max_seq, prompts)
+
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed, device="cuda")
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    host_after_init = host_memory()
+    t0 = time.perf_counter()
+    tracer, _ = collect_traces(cfg, params, trace_prompts, max_new=PAPER_NEW_TOKENS)
+    stats = tracer.stats()
+    X, Y = StateConstructor(stats).build_dataset(tracer.as_array())
+    pred, hist = train_predictor(seed, X, Y, cfg.top_k, epochs=20, batch=64, device="cuda")
+    t_pre = time.perf_counter() - t0
+    release()
+
+    def run(max_batch: int, budget, staged: bool, n: int = 8):
+        """The first ``n`` requests through one engine (``staged``: 4 before
+        the first step, 4 after step 4); the expert copies of each decode
+        step, every copy timed on the copy stream, every sampled row
+        checked finite."""
+        eng = BatchedServingEngine(cfg, params, policy="duo", stats=stats, predictor=pred,
+                                   max_batch=max_batch, max_seq=max_seq,
+                                   prefill_budget=budget, prefill_fairness="rr",
+                                   temperature=0.0)
+        finite, steps = [], []
+        sample, decode = eng._sample_req, eng._decode_step
+
+        def record(req, row):
+            finite.append(bool(np.isfinite(row).all()))
+            return sample(req, row)
+
+        def counted(batch):
+            n0 = len(eng.cache.transfer_log)
+            decode(batch)
+            steps.append(len(eng.cache.transfer_log) - n0)
+
+        eng._sample_req, eng._decode_step = record, counted
+        copies = timed_copies(eng.cache)
+        t0 = time.perf_counter()
+        reqs = [eng.submit(p, max_new=PAPER_NEW_TOKENS) for p in prompts[:4 if staged else n]]
+        if staged:
+            for _ in range(4):
+                eng.step()
+            reqs += [eng.submit(p, max_new=PAPER_NEW_TOKENS) for p in prompts[4:]]
+        eng.run_until_drained()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        results = [r.result() for r in reqs]
+        if not (all(finite) and eng.cache.hbm_bound_ok):
+            raise AssertionError(f"{name}: non-finite logits or the expert pool grew")
+        if any(len(r.tokens) != PAPER_NEW_TOKENS + 1
+               or not all(0 <= t < cfg.vocab for t in r.tokens) for r in results):
+            raise AssertionError(f"{name}: a request's tokens are out of range or short")
+        slab_ms = [a.elapsed_time(b) for a, b in copies]
+        walls, hist_b = np.array(eng.decode_step_wall), np.array(eng.decode_batch_hist)
+        report = dict(
+            max_batch=max_batch, prefill_budget=budget, wall_s=wall,
+            ttft_s=[r.ttft_wall for r in results], e2e_s=[r.e2e_wall for r in results],
+            decode_tok_per_s=sum(len(r.tokens) - 1 for r in results) / float(walls.sum()),
+            decode_step_ms_median_by_batch={int(b): float(np.median(walls[hist_b == b]) * 1e3)
+                                            for b in np.unique(hist_b)},
+            expert_copies_per_decode_step=dict(median=float(np.median(steps)),
+                                               max=int(max(steps)), total=int(sum(steps))),
+            expert_copies_total=len(eng.cache.transfer_log),
+            copy_ms_per_slab_median=float(np.median(slab_ms)),
+            copy_ms_per_slab_max=float(max(slab_ms)),
+            cache_capacity=eng.cache.capacity, expert_pool_bytes=eng.cache.device_bytes,
+            hits=eng.cache.hits, misses=eng.cache.misses, hbm_bound_ok=eng.cache.hbm_bound_ok)
+        tokens = [list(r.tokens) for r in results]
+        bytes_per_slab = eng.store.bytes_per_expert
+        del eng, reqs, copies
+        release()
+        return report, tokens, bytes_per_slab
+
+    # the fused prefill's dispatch: rows launched (every group padded to the
+    # largest group's power of two, the group count to its power of two)
+    # against the rows the gate routed
+    dispatch = []
+    group = engine_mod.group_by_expert
+
+    def recorded(*a, **kw):
+        d = group(*a, **kw)
+        dispatch.append((d.n_rows, d.n_launched, d.row_idx.shape[0], d.row_idx.shape[1]))
+        return d
+
+    torch.cuda.reset_peak_memory_stats()
+    engine_mod.group_by_expert = recorded
+    try:
+        chunked, tokens, slab_bytes = run(8, 256, staged=True)
+    finally:
+        engine_mod.group_by_expert = group
+    chunked["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    routed, launched = sum(d[0] for d in dispatch), sum(d[1] for d in dispatch)
+    chunked["prefill_dispatch"] = dict(
+        launches=len(dispatch), rows_routed=routed, rows_launched=launched,
+        launched_over_routed=launched / routed,
+        max_launched_over_routed=max(d[1] / d[0] for d in dispatch),
+        max_groups=max(d[2] for d in dispatch), max_group_rows=max(d[3] for d in dispatch))
+    host_bw = slab_bytes / (chunked["copy_ms_per_slab_median"] / 1e3)
+    # batch invariance on the 4 requests submitted first (2 squad-like, 2
+    # orca-like): served one after another they take 5 s each at 28 layers
+    # (NVIDIA H100 80GB HBM3, 700.00 W)
+    alone, tok_alone, _ = run(1, 256, staged=False, n=4)
+    mono, tok_mono, _ = run(8, None, staged=False)
+    res = dict(phase="paper", model=name, layers=layers, published_layers=PAPER_MODELS[name].n_layers,
+               widths=dict(d_model=cfg.d_model, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+                           head_dim=cfg.hd, n_experts=cfg.n_experts, top_k=cfg.top_k,
+                           d_expert=cfg.d_expert, n_shared_experts=cfg.n_shared_experts,
+                           qk_norm=cfg.qk_norm, vocab=cfg.vocab),
+               max_seq=max_seq, prompt_lens=[len(p) for p in prompts],
+               new_tokens=PAPER_NEW_TOKENS, init_s=t_init, traces_and_training_s=t_pre,
+               predictor_val_topk=hist["val_topk"][-1], predictor_val_half=hist["val_half"][-1],
+               host_expert_bytes=slab_bytes * cfg.n_layers * cfg.n_experts,
+               host_after_init=host_after_init, slab_bytes=slab_bytes,
+               host_gb_per_s=host_bw / 1e9, chunked=chunked, alone=alone, monolithic=mono,
+               batch_invariant=tok_alone == tokens[:4], chunked_vs_monolithic=tok_mono == tokens,
+               kernel_checks=checks)
+    if policies:
+        lat = hw_latencies(pred, stats, cfg.top_k)
+        res["hw_h100"] = dict(host_bw=host_bw, **lat)
+        res["policy_comparison"] = policy_comparison(cfg, params, stats, pred,
+                                                     policy_prompts, host_bw, lat)
+    del params, pred, tracer
+    release()
+    res["host_after_release"] = host_memory()
+    res["seconds"] = time.perf_counter() - t_model
+    for what, ok in (("batch invariance", res["batch_invariant"]),
+                     ("chunked vs monolithic", res["chunked_vs_monolithic"])):
+        if not ok:
+            emit(res)
+            raise AssertionError(f"{name}: {what}: tokens part")
+    return res
+
+
+def serve_paper(seed: int, kernels):
+    """The three Table I models one after another, each released before the
+    next; the kernels' launch counts are reset before and must each be > 0
+    after."""
+    for fn in kernels:
+        fn.launches = 0
+    for name, layers, max_seq in PAPER_RUNS:
+        emit(paper_model(name, layers, max_seq, seed, kernels,
+                         policies=name == "deepseekmoe-16b"))
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    missing = [n for n, c in launches.items() if c == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched by the paper phase: {missing}")
+    return dict(phase="paper", launches=launches)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=4,
@@ -1567,16 +2000,20 @@ def main() -> int:
     clu = serve_cluster(mixtral, reference, kernels + [flash_attention_chunk])
     emit(clu)
     del mixtral, reference
-    gc.collect()
-    torch.cuda.empty_cache()
+    release()
 
     emit(check_small_ssm(args.seed))
     ssm = serve_ssm(args.seed, ssd_scan)
     emit(ssm)
+    release()
+
+    emit(check_paper_small(args.seed))
+    paper = serve_paper(args.seed, kernels + [flash_attention_chunk])
+    emit(paper)
 
     # each kernel's launches from the paths that run it
     launches = {}
-    for phase in (srv, bat, clu, ssm):
+    for phase in (srv, bat, clu, ssm, paper):
         for n, c in phase["launches"].items():
             launches[n] = launches.get(n, 0) + c
     summary = [{k: r[k] for k in ("name", "route", "source", "replaces")}

@@ -273,4 +273,8 @@ def swiglu_hidden(x, w1, w3):
 
 
 def swiglu(x, w1, w3, w2):
-    return swiglu_hidden(x, w1, w3) @ w2
+    """The shared-expert FFN. Its three products go through ``linear``, so
+    a row's output does not depend on the rows beside it on the card (a
+    decode batch, a prefill chunk or a whole prompt); on the CPU the plain
+    products, as before."""
+    return linear(silu(linear(x, w1)) * linear(x, w3), w2)

@@ -74,14 +74,20 @@ def init_params(cfg: ArchConfig, seed: int = 0, device="cuda") -> Dict:
     if cfg.qk_norm:
         attn.update(q_norm=zeros(n_l, hd), k_norm=zeros(n_l, hd))
     moe = {"router": normal((n_l, d, ep), d ** -0.5, torch.float32)}
-    for name, shape, scale in (("w1", (d, de), d ** -0.5),
-                               ("w3", (d, de), d ** -0.5),
-                               ("w2", (de, d), de ** -0.5)):
-        host = torch.empty((n_l, ep) + shape, dtype=L.PDT, pin_memory=pin)
+    # w1, w3 and w2 are views of ONE host buffer: PyTorch's caching host
+    # allocator rounds each pinned allocation up to a power of two and keeps
+    # it when freed (ATen/core/CachingHostAllocator.h), so three buffers of
+    # 10.3 GB (DeepSeekMoE-16B) would pin 3 x 16 GiB where one pins 32 GiB
+    n = n_l * ep * d * de
+    host = torch.empty(3 * n, dtype=L.PDT, pin_memory=pin)
+    for i, (name, shape, scale) in enumerate((("w1", (d, de), d ** -0.5),
+                                              ("w3", (d, de), d ** -0.5),
+                                              ("w2", (de, d), de ** -0.5))):
+        slabs = host[i * n:(i + 1) * n].view((n_l, ep) + shape)
         for l in range(n_l):
             for e in range(ep):   # one slab at a time bounds device scratch
-                host[l, e].copy_(normal(shape, scale))
-        moe[name] = host
+                slabs[l, e].copy_(normal(shape, scale))
+        moe[name] = slabs
     if cfg.n_shared_experts:
         sh = cfg.n_shared_experts * de
         moe.update(sw1=normal((n_l, d, sh), d ** -0.5),

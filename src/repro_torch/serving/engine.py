@@ -340,6 +340,7 @@ class EngineCore:
                 self.cache.prefetch((l, e))
         elif plan.overlap_first and order:
             self.cache.prefetch((l, order[0]))
+        outs = {}
         for i, e in enumerate(order):
             if not plan.prefetch_all_first:
                 if plan.pipelined and i + 1 < len(order):
@@ -349,15 +350,22 @@ class EngineCore:
                     self.cache.prefetch((l, e))
             eslot = self.cache.slot((l, e))
             gate_w = (w * (ids == e)).sum(-1).reshape(-1)
-            acc = acc + self._expert(xn, *self.cache.pools, eslot, gate_w)
+            outs[e] = self._expert(xn, *self.cache.pools, eslot, gate_w)
             self.cache.mark_used([eslot])
+        for e in sorted(outs):   # expert order, as the fused path: not the plan's
+            acc = acc + outs[e]
         return acc.reshape(xn.shape)
 
     def _run_experts_prefill_fused(self, l, xn, w, ids, plan, ids_np, acc):
         """Fused PrefillPlan execution: the plan's prefetches are issued
         verbatim (all ahead of the single launch), then one grouped FFN
         launch; gate weights are folded in on scatter-back one expert at a
-        time IN PLAN ORDER, as the reference accumulates."""
+        time in ascending expert order. The reference accumulates in plan
+        order, which is ascending under odf / lfp / duo but puts MIF's
+        trace prior first, and a bf16 sum in another order moves the
+        output (by 0.018 in the prefill logits of a 2-layer model with
+        DeepSeekMoE-16B's routing at d_model 512, tests/test_torch_paper.py):
+        the policy would change the tokens."""
         order = plan.order
         if plan.prefetch_all_first:
             for e in plan.fetches:
@@ -378,7 +386,7 @@ class EngineCore:
         self.perf.max_update("max_prefill_launches_per_layer", 1)
         zeros = torch.zeros((T, raw.shape[-1]), dtype=torch.float32,
                             device=raw.device)
-        for u, e in enumerate(order):
+        for u, e in sorted(enumerate(order), key=lambda ue: ue[1]):
             gate_w = (w * (ids == e)).sum(-1).reshape(-1)
             n = disp.counts[u]
             y = zeros.index_copy(0, rows[u, :n], raw[u, :n]) if n else zeros

@@ -723,3 +723,96 @@ def test_linear_rows_independent_of_row_count(cuda, K, N, dtype):
     assert torch.equal(linear(x.reshape(3, 100, K), w).reshape(300, N), full)
     torch.testing.assert_close(full.float().cpu(), (x.cpu().float() @ w.cpu().float()),
                                rtol=2e-2, atol=2e-2)
+
+
+# -- the paper models' shapes (Table I: DeepSeekMoE-16B, Qwen3-30B-A3B,
+# Mixtral-8x22B) ----------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("U,C,d,f", [(128, 4, 2048, 768), (64, 8, 2048, 1408)])
+def test_expert_ffn_kernel_paper_groups(cuda, U, C, d, f):
+    """The fused prefill's launch at Qwen3-30B-A3B (U=128 groups, f=768:
+    12 K-steps in the down pass) and DeepSeekMoE-16B (U=64, f=1408: 11
+    column tiles of 128) widths, slots in a random order."""
+    x, w1, w3, w2 = _ffn_case(cuda, U, C, d, f, U, seed=5)
+    g = torch.Generator(device=cuda).manual_seed(6)
+    slots = torch.randperm(U, generator=g, device=cuda).to(torch.int32)
+    torch.testing.assert_close(expert_ffn_from_pool(x, w1, w3, w2, slots),
+                               expert_ffn_from_pool_plain(x, w1, w3, w2, slots),
+                               rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,Hkv", [(48, 8), (16, 16)])
+def test_attention_kernels_paper_groups(cuda, H, Hkv):
+    """The three attention kernels at Mixtral-8x22B's G = 6 (48 / 8: not a
+    power of two, ``flash_decode`` pads its registers to 8) and
+    DeepSeekMoE-16B's G = 1 at 16 heads, head_dim 128."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    r = lambda *s: torch.randn(s, generator=g, device=cuda).to(torch.bfloat16)
+    D, S = 128, 200
+    q, k, v = r(2, S, H, D), r(2, S, Hkv, D), r(2, S, Hkv, D)
+    torch.testing.assert_close(flash_attention(q, k, v), flash_attention_plain(q, k, v),
+                               rtol=2e-2, atol=2e-2)
+    W, start, C = 640, 300, 100
+    cq, ck, cv = r(1, C, H, D), r(1, W, Hkv, D), r(1, W, Hkv, D)
+    j = torch.arange(W, device=cuda)
+    sp = torch.where(j < start + C, j, -1).to(torch.int32)[None]
+    torch.testing.assert_close(flash_attention_chunk(cq, ck, cv, sp, start),
+                               flash_attention_chunk_plain(cq, ck, cv, sp, start),
+                               rtol=2e-2, atol=2e-2)
+    dq, dk, dv = r(3, H, D), r(3, W, Hkv, D), r(3, W, Hkv, D)
+    pos = torch.tensor([10, 300, 639], dtype=torch.int32, device=cuda)
+    dsp = torch.where(j[None] <= pos[:, None], j[None], -1).to(torch.int32)
+    torch.testing.assert_close(flash_decode(dq, dk, dv, pos, dsp),
+                               flash_decode_plain(dq, dk, dv, pos, dsp),
+                               rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+def test_qk_norm_attention_on_card_matches_cpu(cuda):
+    """Qwen3's attention layer (``qk_norm``, 32 / 4 heads of 128) on the
+    card (flash_attention, then flash_decode) against the CPU (the
+    reference attention), the same bf16 weights."""
+    from repro_torch.models import layers as L
+    dims = L.AttnDims(2048, 32, 4, 128, qk_norm=True, rope_theta=1_000_000.0)
+    g = torch.Generator(device=cuda).manual_seed(8)
+    r = lambda *s, sc=1.0: (torch.randn(s, generator=g, device=cuda) * sc).to(torch.bfloat16)
+    p = {"wq": r(2048, 4096, sc=2048 ** -0.5), "wk": r(2048, 512, sc=2048 ** -0.5),
+         "wv": r(2048, 512, sc=2048 ** -0.5), "wo": r(4096, 2048, sc=4096 ** -0.5),
+         "q_norm": r(128, sc=0.1), "k_norm": r(128, sc=0.1)}
+    x = r(1, 120, 2048)
+    pc = {k: v.cpu() for k, v in p.items()}
+    out, (k, v) = L.self_attn_full(x, p, dims)
+    ref, (kr, vr) = L.self_attn_full(x.cpu(), pc, dims)
+    torch.testing.assert_close(out.cpu().float(), ref.float(), rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(k.cpu().float(), kr.float(), rtol=2e-2, atol=2e-2)
+    W = 128
+    ck = torch.zeros(1, W, 4, 128, dtype=torch.bfloat16, device=cuda)
+    cv = torch.zeros_like(ck)
+    ck[:, :120], cv[:, :120] = k, v
+    sp = torch.full((W,), -1, dtype=torch.int32, device=cuda)
+    sp[:121] = torch.arange(121, dtype=torch.int32, device=cuda)
+    xd = r(1, 1, 2048)
+    got = L.self_attn_decode(xd, p, dims, ck, cv, sp, 120, 120)[0]
+    want = L.self_attn_decode(xd.cpu(), pc, dims, ck.cpu(), cv.cpu(), sp.cpu(), 120, 120)[0]
+    torch.testing.assert_close(got.cpu().float(), want.float(), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+def test_shared_expert_rows_independent_of_row_count(cuda):
+    """DeepSeekMoE-16B's shared experts (2 x 1408 at d=2048) on the card: a
+    row's output is bit-equal alone, in a decode batch, in a chunk or in a
+    whole prompt, and agrees with the CPU's."""
+    from repro_torch.serving.engine import EngineCore
+    g = torch.Generator(device=cuda).manual_seed(9)
+    r = lambda *s, sc=1.0: (torch.randn(s, generator=g, device=cuda) * sc).to(torch.bfloat16)
+    d, sh = 2048, 2 * 1408
+    moe = {"sw1": r(d, sh, sc=d ** -0.5), "sw3": r(d, sh, sc=d ** -0.5),
+           "sw2": r(sh, d, sc=sh ** -0.5)}
+    x = r(600, d)
+    full = EngineCore._shared(moe, x)
+    for m in (1, 8, 100, 256):
+        assert torch.equal(EngineCore._shared(moe, x[:m]), full[:m])
+    cpu = EngineCore._shared({k: v.cpu() for k, v in moe.items()}, x[:64].cpu())
+    torch.testing.assert_close(full[:64].cpu().float(), cpu.float(), rtol=2e-2, atol=2e-2)

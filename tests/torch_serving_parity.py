@@ -111,10 +111,10 @@ def _build():
 
 
 @contextlib.contextmanager
-def reference_setup():
-    """Both packages' config, weights, trace stats and predictor (a fresh
-    dict over the process's one build); the JAX environment stays set
-    while the context is open."""
+def parity_env():
+    """The environment both packages' engines are compared in: the grouped
+    Pallas sweeps in interpret mode, JAX engine jits shared per config
+    object, torch on one intra-op thread."""
     threads = torch.get_num_threads()
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("REPRO_OPT_GROUPED_FFN", "1")
@@ -122,11 +122,20 @@ def reference_setup():
         _share_jits(mp, _BUILT.setdefault("jits", {}))
         torch.set_num_threads(1)
         try:
-            if "setup" not in _BUILT:
-                _BUILT["setup"] = _build()
-            yield dict(_BUILT["setup"])
+            yield
         finally:
             torch.set_num_threads(threads)
+
+
+@contextlib.contextmanager
+def reference_setup():
+    """Both packages' config, weights, trace stats and predictor (a fresh
+    dict over the process's one build); the JAX environment stays set
+    while the context is open."""
+    with parity_env():
+        if "setup" not in _BUILT:
+            _BUILT["setup"] = _build()
+        yield dict(_BUILT["setup"])
 
 
 def event_rows(events):
