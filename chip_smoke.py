@@ -155,6 +155,47 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                under ``HW.h100`` beside the measured ones. The four MoE
                kernels' counts are reset before the phase and must each be
                > 0 after it.
+ 13. bundle_check — a small model (Kimi-K2-shaped, 2 layers: a dense0 and
+               a MoE layer of 4 experts, f = 128, a shared expert;
+               d_model 512, head_dim 128) through the model bundle
+               (``build_dense``) on the card and on the CPU: forward
+               logits, prefill's last logits and 8 greedy decode steps (both
+               fed the CPU's tokens), within rtol = atol = 5e-2; a card
+               token may differ only where the CPU's logits tie it within
+               ``TIE``. Both runs' routers are recorded: a token whose
+               experts differ must sit at a CPU near-tie (``ROUTER_TIE``),
+               and values are compared only where no such token reaches.
+               Then decode at each of positions S-7..S against forward
+               there, on the card.
+ 14. bundle  — first ``bundle_kernels`` (uncounted): ``expert_ffn`` (the
+               capacity buffer's entry) at Qwen2-MoE-A2.7B's forward shape,
+               E=64, C=T=4096, d=2048, f=1408, beside the cuBLAS yardstick
+               (16 rows launched per routed row), ``flash_attention`` with
+               its lse output at B=2, S=2048, 16/16 heads (o bit-equal to
+               the call without lse) beside SDPA, ``flash_decode`` at the
+               bundle's cache (B=2, W=2064). Then Qwen2-MoE-A2.7B at all 24
+               layers (29.7 GB of params on the card) and Qwen3-1.7B at all
+               28, random weights from ``--seed``: 2 ``SyntheticLM`` prompts
+               of 2048 tokens, a teacher-forced ``forward`` over 2049,
+               ``prefill``, ``pad_cache`` and 16 greedy ``decode_step``s;
+               forward, prefill and decode step times, peak memory, the
+               kernels' launches (reset just before, each > 0 after); then
+               decode at S-7..S against forward (5e-2 of the row's largest
+               logit, rows routed alike).
+ 15. train_check — ``FlashAttentionFn`` and ``ExpertFFNFn`` against
+               autograd through their plain versions (2e-2 of each
+               gradient's largest entry) at a small and the full-width
+               layer shape, ``linear`` / ``mm_f32`` against the plain
+               product; one train step of the small bundle on the card
+               against the CPU (loss within 2e-2, grad norm 5e-2, every
+               parameter within 2.5 lr plus bf16 rounding); a checkpoint
+               save / load round trip on the card, bit-equal.
+ 16. train   — Qwen2-MoE-A2.7B at published widths, 4 of 24 layers, B=2 x
+               S=2048 (chunked attention), AdamW under
+               ``cosine_schedule(2e-3, warmup=10)``: 10 steps, then 2 with
+               ``microbatches=2``; loss, grad norm, wall and tokens/s per
+               step, peak memory. Every loss finite, the last below the
+               first; ``expert_ffn`` and ``flash_attention`` launched.
 
 The last three lines are the card's ``nvidia-smi`` name and power limit,
 the kernels' JSON summary, and ``{"ok": true, "device": {...}}``.
@@ -393,24 +434,37 @@ def kernel_flash_attention(g):
                 long=long, **(main | dict(max_abs_err=err)))
 
 
-def prefill_attention(H, Hkv, D, S, g):
-    """Monolithic causal prefill attention of one S-token prompt: held
-    against the plain version, timed beside it and beside SDPA. Returns
-    the inputs and the record."""
+def prefill_attention(H, Hkv, D, S, g, B: int = 1, lse: bool = False):
+    """Monolithic causal prefill attention of B S-token prompts: held
+    against the plain version, timed beside it and beside SDPA. With
+    ``lse`` the call returns the log-sum-exp too: ``o`` must be bit-equal
+    to the call without it and the lse is held against the plain lse
+    (TOL_F32). Returns the inputs and the record."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
-    mk = lambda h: torch.randn(1, S, h, D, generator=g, device="cuda").to(torch.bfloat16)
+    mk = lambda h: torch.randn(B, S, h, D, generator=g, device="cuda").to(torch.bfloat16)
     q, k, v = mk(H), mk(Hkv), mk(Hkv)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    err = max_err(flash_attention(q, k, v), flash_attention_plain(q, k, v))
-    timed = device_vs_library(lambda: flash_attention(q, k, v),
+    o = flash_attention(q, k, v)
+    extra = {}
+    if lse:
+        o2, l2 = flash_attention(q, k, v, return_lse=True)
+        if not torch.equal(o, o2):
+            raise AssertionError("flash_attention: o moved with the lse output")
+        po, plse = flash_attention_plain(q, k, v, return_lse=True)
+        extra = dict(lse=True, o_bit_equal=True, lse_max_abs_err=max_err(l2, plse, TOL_F32))
+    else:
+        po = flash_attention_plain(q, k, v)
+    err = max_err(o, po)
+    del o, po
+    timed = device_vs_library(lambda: flash_attention(q, k, v, return_lse=lse),
                               lambda: F.scaled_dot_product_attention(
                                   qt, kt, vt, is_causal=True, enable_gqa=True))
-    plain_ms = time_ms(lambda: flash_attention_plain(q, k, v), reps=5)
-    bms, by = attention_bound(1, S, H, Hkv, D)
-    return (q, k, v), dict(shape=dict(B=1, S=S, H=H, Hkv=Hkv, D=D), max_abs_err=err,
+    plain_ms = time_ms(lambda: flash_attention_plain(q, k, v, return_lse=lse), reps=5)
+    bms, by = attention_bound(B, S, H, Hkv, D)
+    return (q, k, v), dict(shape=dict(B=B, S=S, H=H, Hkv=Hkv, D=D), max_abs_err=err,
                            plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                           bound_share=bms / timed["device_ms"], **timed)
+                           bound_share=bms / timed["device_ms"], **extra, **timed)
 
 
 def kernel_flash_decode(g):
@@ -1381,34 +1435,39 @@ def decode_expert_ffn(cfg):
     return expert_ffn_check(8, 8, cfg.d_model, cfg.d_expert, [3, 0, 7, 1, 6, 2, 5, 4])
 
 
-def expert_ffn_check(U, C, d, f, slots=None):
+def expert_ffn_check(U, C, d, f, slots=None, pool: bool = True):
     """One ``expert_ffn_from_pool`` launch of U groups of C rows, read by
-    slot (``slots``, or a random order) out of pools of U slabs: held against
-    the plain version and timed beside it and the cuBLAS yardstick of the
-    kernel phase."""
-    from repro_torch.kernels.expert_ffn import (expert_ffn_from_pool,
-                                                expert_ffn_from_pool_plain)
+    slot (``slots``, or a random order) out of pools of U slabs, or with
+    ``pool`` False one ``expert_ffn`` launch (the capacity buffer's entry:
+    group e on slab e): held against the plain version and timed beside it
+    and the cuBLAS yardstick of the kernel phase."""
+    from repro_torch.kernels import expert_ffn as K
     g = torch.Generator(device="cuda").manual_seed(2)
     r = lambda *s: torch.randn(s, generator=g, device="cuda").to(torch.bfloat16)
     x = r(U, C, d)
     w1 = r(U, d, f) * d ** -0.5
     w3 = r(U, d, f) * d ** -0.5
     w2 = r(U, f, d) * f ** -0.5
-    slots = (torch.randperm(U, generator=g, device="cuda") if slots is None
-             else torch.tensor(slots, device="cuda")).to(torch.int32)
-    args = (x, w1, w3, w2, slots)
-    err = max_err(expert_ffn_from_pool(*args), expert_ffn_from_pool_plain(*args))
-    ms = time_ms(lambda: expert_ffn_from_pool(*args))
-    plain_ms = time_ms(lambda: expert_ffn_from_pool_plain(*args), reps=5)
-    idx = slots.long()
-    g1, g3, g2 = w1[idx], w3[idx], w2[idx]
+    if pool:
+        slots = (torch.randperm(U, generator=g, device="cuda") if slots is None
+                 else torch.tensor(slots, device="cuda")).to(torch.int32)
+        args, fn, plain = (x, w1, w3, w2, slots), K.expert_ffn_from_pool, \
+            K.expert_ffn_from_pool_plain
+        idx = slots.long()
+        g1, g3, g2 = w1[idx], w3[idx], w2[idx]
+    else:
+        args, fn, plain = (x, w1, w3, w2), K.expert_ffn, K.expert_ffn_plain
+        g1, g3, g2 = w1, w3, w2
+    err = max_err(fn(*args), plain(*args))
+    ms = time_ms(lambda: fn(*args))
+    plain_ms = time_ms(lambda: plain(*args), reps=5)
     cublas = lambda: torch.bmm(torch.nn.functional.silu(torch.bmm(x, g1)) * torch.bmm(x, g3), g2)
-    device_ms, cublas_device_ms = in_turns(lambda: expert_ffn_from_pool(*args), cublas,
-                                           kernel_ms)
-    bms, by = bound(2 * (2 * U * C * d + 3 * U * d * f) + 4 * U, 2 * 3 * U * C * d * f)
-    return dict(U=U, C=C, d=d, f=f, slots=slots.tolist(), max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, device_ms=device_ms, cublas_device_ms=cublas_device_ms,
-                bound_ms=bms, bound_by=by, bound_share=bms / device_ms)
+    device_ms, cublas_device_ms = in_turns(lambda: fn(*args), cublas, kernel_ms)
+    bms, by = bound(2 * (2 * U * C * d + 3 * U * d * f) + 4 * U * pool, 2 * 3 * U * C * d * f)
+    return dict(U=U, C=C, d=d, f=f, slots=slots.tolist() if pool else None,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, device_ms=device_ms,
+                cublas_device_ms=cublas_device_ms, bound_ms=bms, bound_by=by,
+                bound_share=bms / device_ms)
 
 
 def device_profile(prof):
@@ -1944,6 +2003,523 @@ def serve_paper(seed: int, kernels):
     return dict(phase="paper", launches=launches)
 
 
+# -- phases 13-16: the dense / MoE model bundles and training on them ----------
+
+# the bundle phases' comparison limits. Logits: rtol = atol = 5e-2
+# (tests/test_models_smoke.py's decode-vs-forward tolerance) through the
+# small model's 2 layers. At published widths and 24-28 layers decode at p
+# against forward at p within DECODE_TOL absolute: the two run different
+# kernels (flash_decode against flash_attention, capacity T·k against T)
+# whose bf16 roundings grow with depth (NVIDIA H100 80GB HBM3: largest 0.079
+# and 0.091 over logits of RMS 1.0, mean 0.011-0.014; the phase records the
+# gap at depths 1..L and a planted control, decode at p against forward at
+# p + 1, that must exceed the limit wherever the two tokens differ). A greedy token may
+# differ from the CPU's only where the CPU's logits tie it to within TIE
+# (two bf16 ulps of logits of magnitude 4-8: the bundles return bf16
+# logits, as the reference's do). A token's own choice of experts may
+# differ from the reference run's only where the reference's k-th and
+# (k+1)-th router probabilities sit within ROUTER_TIE (an ulp of difference
+# in the router's input picks the other); the compared run then takes the
+# reference's experts (``routes(replay=)``), so every row and position is
+# compared.
+BUNDLE_TOL = 5e-2
+DECODE_TOL = 0.15
+TIE = 1 / 16
+ROUTER_TIE = 2e-2
+# train_check: gradients of the kernels' autograd.Functions against autograd
+# through their plain versions, relative to each gradient's largest entry
+# (bf16 backward products against f32 ones; tests/test_torch_moe_ffn.py's);
+# the small train step's gradients, card against CPU, leaf by leaf relative
+# to the leaf's largest entry (tests/test_torch_training.py's STEP_GRAD_TOL)
+GRAD_TOL = 2e-2
+STEP_GRAD_TOL = 5e-2
+
+
+def logit_err(got, want) -> tuple:
+    """(max abs difference, whether every entry is within BUNDLE_TOL
+    absolute plus BUNDLE_TOL relative) of two [..., V] logit tensors."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    return float(err.max()), bool((err <= BUNDLE_TOL * (1 + want.abs())).all())
+
+
+@contextlib.contextmanager
+def routes(replay=None):
+    """Record (expert ids, router probabilities) of every MoE router call.
+    With ``replay`` (another run's record, call for call) each call takes
+    that run's experts, weighted by this call's own probabilities, and the
+    record keeps this call's own choice (for ``flips``)."""
+    from repro_torch.models import moe_layer as M
+    rec, orig = [], M.route
+
+    def route(*a):
+        w, ids, probs = orig(*a)
+        rec.append((ids.cpu(), probs.detach().float().cpu()))
+        if replay is not None:
+            ids = replay[len(rec) - 1][0].to(ids.device)
+            w = probs.gather(1, ids)
+            w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
+        return w, ids, probs
+
+    M.route = route
+    try:
+        yield rec
+    finally:
+        M.route = orig
+
+
+def flips(rec, ref) -> int:
+    """Tokens whose expert set differs between two runs' router calls; each
+    must sit at a near-tie of ``ref``'s probabilities."""
+    if len(rec) != len(ref):
+        raise AssertionError(f"{len(rec)} router calls against {len(ref)}")
+    n = 0
+    for (ids, _), (rids, probs) in zip(rec, ref):
+        k = ids.shape[1]
+        diff = (ids.sort(1).values != rids.sort(1).values).any(1).numpy()
+        p = probs.sort(1, descending=True).values
+        gap = (p[:, k - 1] - p[:, k]).numpy()
+        if (gap[diff] >= ROUTER_TIE).any():
+            raise AssertionError(f"a token routed differently off a tie: gaps {gap[diff]}")
+        n += int(diff.sum())
+    return n
+
+
+def decode_vs_forward(bundle, params, toks, at, rf, S: int, first: int, tol: float):
+    """Decode at each position p in first..S against the forward's logits
+    there (``at[:, p - first]``, on the CPU), from one prefill of S tokens:
+    for p < S the prefill's cache with slots p.. marked empty and ``pos``
+    p, so each position is an independent prefill-to-p-then-decode. Each
+    decode step takes the experts the forward used at p (``rf``: its router
+    calls over B rows of S + 1 tokens; the step's own choice may differ
+    only at a near-tie). Every (row, position) pair is held to ``tol``
+    absolute; a planted control, decode at p against forward at p + 1 (a
+    position off by one), must exceed ``tol`` in every pair whose tokens at
+    p and p + 1 differ. Returns (max abs difference, smallest control
+    difference, pairs, flips)."""
+    from repro_torch.models.model import pad_cache
+    B, vocab = toks.shape[0], bundle.cfg.vocab
+    _, cache = bundle.prefill(params, {"tokens": toks[:, :S]})
+    cache = pad_cache(cache, S + 8, bundle.ring_axes)
+    slots = torch.arange(cache["slot_pos"].shape[0], device=toks.device)
+    errs, ctl, n_flips = [], [], 0
+    for p in range(first, S + 1):
+        c = dict(cache, slot_pos=torch.where(slots < p, cache["slot_pos"], -1),
+                 pos=torch.tensor(p, dtype=torch.int32, device=toks.device))
+        used = [(i[p::S + 1], q[p::S + 1]) for i, q in rf]
+        with routes(replay=used or None) as rd:
+            lg, _ = bundle.decode_step(params, {"token": toks[:, p:p + 1]}, c)
+        n_flips += flips(rd, used)
+        lg = lg.float().cpu()[:, :vocab]
+        errs += (lg - at[:, p - first, :vocab]).abs().amax(-1).tolist()
+        if p < S:
+            moved = (toks[:, p] != toks[:, p + 1]).cpu()
+            ctl += (lg - at[:, p - first + 1, :vocab]).abs().amax(-1)[moved].tolist()
+    err, low = max(errs), min(ctl)
+    if not (np.isfinite(errs).all() and err <= tol < low):
+        raise AssertionError(f"decode vs forward: {err} (limit {tol}, control {low})")
+    return err, low, len(errs), n_flips
+
+
+def small_bundle_cfg():
+    """A 2-layer Kimi-K2-shaped model at the kernels' widths: one dense0
+    layer, one MoE layer (4 experts, top-2, a shared expert, f = 128),
+    d_model 512, 4 heads of 128."""
+    from repro_torch.configs.base import get_config, reduced
+    return dataclasses.replace(reduced(get_config("kimi_k2_1t_a32b")), d_model=512,
+                               head_dim=128, d_expert=128, dense_d_ff=256)
+
+
+def check_bundle_small(seed: int):
+    """The small bundle on the CPU (plain versions), then on the card with
+    every router call taking the CPU's experts: forward logits, prefill's
+    last logits, then 8 greedy decode steps, both fed the CPU's tokens,
+    every row and position compared; decode at S-7..S against forward
+    there on the card."""
+    from repro_torch.models.model import build, pad_cache
+    cfg = small_bundle_cfg()
+    bundle = build(cfg)
+    gpu = bundle.init(seed, device="cuda")
+    cpu = to_cpu(gpu)
+    B, S, NEW = 2, 40, 8
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(0, cfg.vocab, (B, S + 1)))
+    real = slice(0, cfg.vocab)
+    with torch.no_grad():
+        # the CPU: forward, prefill, NEW greedy steps, every router call recorded
+        with routes() as rf:
+            full_c, aux_c = bundle.forward(cpu, {"tokens": toks})
+        with routes() as rp:
+            lg, cc = bundle.prefill(cpu, {"tokens": toks[:, :S]})
+        cc = pad_cache(cc, S + NEW, bundle.ring_axes)
+        logits_c, steps_c, rd = [lg.float()], [], []
+        for _ in range(NEW):
+            steps_c.append(logits_c[-1][:, real].argmax(-1)[:, None].to(torch.int32))
+            with routes() as r:
+                lg, cc = bundle.decode_step(cpu, {"token": steps_c[-1]}, cc)
+            rd.append(r)
+            logits_c.append(lg.float())
+        # the card, each router call on the CPU's experts
+        t = toks.cuda()
+        with routes(replay=rf) as own:
+            full_g, aux_g = bundle.forward(gpu, {"tokens": t})
+        n_flips = flips(own, rf)
+        fwd_err, within = logit_err(full_g.float().cpu()[..., real], full_c[..., real])
+        with routes(replay=rp) as own:
+            lg, cg = bundle.prefill(gpu, {"tokens": t[:, :S]})
+        n_flips += flips(own, rp)
+        cg = pad_cache(cg, S + NEW, bundle.ring_axes)
+        logits_g = [lg.float().cpu()]
+        for i in range(NEW):
+            with routes(replay=rd[i]) as own:
+                lg, cg = bundle.decode_step(gpu, {"token": steps_c[i].cuda()}, cg)
+            n_flips += flips(own, rd[i])
+            logits_g.append(lg.float().cpu())
+        errs, toks_g, toks_c, ties = [], [], [], []
+        for i, (lgg, lc) in enumerate(zip(logits_g, logits_c)):
+            lgg, lc = lgg[:, real], lc[:, real]
+            err, w = logit_err(lgg, lc)
+            errs.append(err)
+            within &= w
+            want, got = lc.argmax(-1), lgg.argmax(-1)
+            for b in np.flatnonzero((got != want).numpy()):
+                gap = float(lc[b, want[b]] - lc[b, got[b]])
+                ties.append(dict(step=i, row=int(b), cuda=int(got[b]), cpu=int(want[b]),
+                                 cpu_logit_gap=gap))
+                if gap > TIE:
+                    raise AssertionError(f"bundle_check: card tokens {got.tolist()} "
+                                         f"against the CPU's {want.tolist()}")
+            toks_g.append(got.tolist())
+            toks_c.append(want.tolist())
+        # on the card: decode at positions S-7..S against forward there
+        dec_err, dec_ctl, n_dec, dec_flips = decode_vs_forward(
+            bundle, gpu, t, full_g[:, S - 7:].float().cpu(), rf, S, S - 7, BUNDLE_TOL)
+    res = dict(phase="bundle_check", layers=cfg.n_layers, d_model=cfg.d_model,
+               head_dim=cfg.hd, n_experts=cfg.n_experts, d_expert=cfg.d_expert,
+               tol=BUNDLE_TOL, forward_logit_max_abs_err=fwd_err,
+               aux_cuda=float(aux_g), aux_cpu=float(aux_c),
+               own_route_flips_at_ties=n_flips, decode_logit_max_abs_err=errs,
+               decode_vs_forward_max_abs_err=dec_err, decode_vs_forward_control=dec_ctl,
+               decode_vs_forward_pairs=n_dec, decode_vs_forward_flips=dec_flips,
+               tokens_cuda=toks_g, tokens_cpu=toks_c, tokens_equal=toks_g == toks_c,
+               token_ties=ties)
+    if not within:
+        emit(res)
+        raise AssertionError("bundle_check: card vs CPU logits differ beyond the limit")
+    return res
+
+
+# (config id, layers): Qwen2-MoE-A2.7B at all 24 layers (29.7 GB of bf16
+# params on the card), Qwen3-1.7B (dense) at all 28
+BUNDLE_RUNS = (("qwen2_moe_a2_7b", 24), ("qwen3_1_7b", 28))
+BUNDLE_B, BUNDLE_S, BUNDLE_NEW = 2, 2048, 16
+BUNDLE_DEPTHS = (1, 2, 4, 8, 16)
+
+
+def bundle_model(arch: str, seed: int, kernels):
+    """One model at published widths through the bundle: B x S prompts from
+    ``SyntheticLM``, a teacher-forced ``forward`` over S + 1 tokens, then
+    ``prefill`` of S, ``pad_cache`` and BUNDLE_NEW greedy ``decode_step``s;
+    decode at S-7..S against forward there (``decode_vs_forward``), and the
+    same at the depths of BUNDLE_DEPTHS. The kernels' counts are reset just
+    before and read just after the main run."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models.model import build, greedy_token, pad_cache
+    from repro_torch.training.optimizer import tree_leaves, tree_map
+    cfg = get_config(arch)
+    B, S, NEW = BUNDLE_B, BUNDLE_S, BUNDLE_NEW
+    bundle = build(cfg)
+    t0 = time.perf_counter()
+    params = bundle.init(seed, device="cuda")
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    leaves = tree_leaves(params)
+    toks = torch.from_numpy(next(SyntheticLM(cfg.vocab, seed=seed).batches(B, S + 1))).cuda()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels:
+        fn.launches = 0
+    with torch.no_grad():
+        with routes() as rf:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            full, aux = bundle.forward(params, {"tokens": toks})
+            at = full[:, S - 7:].float().cpu()
+            t_fwd = time.perf_counter() - t0
+        del full
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        last, cache = bundle.prefill(params, {"tokens": toks[:, :S]})
+        tok = greedy_token(last, cfg.vocab)
+        torch.cuda.synchronize()
+        t_prefill = time.perf_counter() - t0
+        cache = pad_cache(cache, S + NEW, bundle.ring_axes)
+        out, finite = [tok], bool(torch.isfinite(last).all())
+        steps = []
+        for _ in range(NEW):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, cache = bundle.decode_step(params, {"token": tok}, cache)
+            tok = greedy_token(lg, cfg.vocab)
+            torch.cuda.synchronize()
+            steps.append((time.perf_counter() - t0) * 1e3)
+            out.append(tok)
+            finite &= bool(torch.isfinite(lg).all())
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    peak = torch.cuda.max_memory_allocated()
+    tokens = torch.cat(out, 1).cpu()
+    del cache
+    with torch.no_grad(), uncounted(kernels):
+        dec_err, dec_ctl, n_dec, dec_flips = decode_vs_forward(bundle, params, toks, at, rf,
+                                                               S, S - 7, DECODE_TOL)
+        del at, rf
+        # the witness that the gap is rounding: its growth with depth, over
+        # the first n layers of the same weights
+        depth = {}
+        for n in (d for d in BUNDLE_DEPTHS if d < cfg.n_layers):
+            cut = build(dataclasses.replace(cfg, n_layers=n))
+            pc = dict(params, layers=tree_map(lambda t: t[:n], params["layers"]))
+            with routes() as r:
+                full, _ = cut.forward(pc, {"tokens": toks})
+            at = full[:, S - 7:].float().cpu()
+            del full
+            depth[n] = decode_vs_forward(cut, pc, toks, at, r, S, S - 7, DECODE_TOL)[0]
+            del at, r
+        depth[cfg.n_layers] = dec_err
+    res = dict(phase="bundle", model=cfg.name, layers=cfg.n_layers,
+               widths=dict(d_model=cfg.d_model, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+                           head_dim=cfg.hd, d_ff=cfg.d_ff, n_experts=cfg.n_experts,
+                           top_k=cfg.top_k, n_shared_experts=cfg.n_shared_experts,
+                           d_expert=cfg.d_expert, vocab=cfg.vocab),
+               n_params=sum(t.numel() for t in leaves),
+               param_bytes=sum(t.numel() * t.element_size() for t in leaves), init_s=t_init,
+               batch=B, prompt_tokens=S, new_tokens=NEW, forward_s=t_fwd,
+               prefill_s=t_prefill, decode_step_ms=steps,
+               decode_step_ms_median=float(np.median(steps)), aux=float(aux),
+               decode_vs_forward_max_abs_err=dec_err, decode_vs_forward_control=dec_ctl,
+               decode_vs_forward_pairs=n_dec, decode_vs_forward_flips=dec_flips,
+               decode_vs_forward_by_depth=depth, tol=DECODE_TOL,
+               tokens_head=tokens[:, :8].tolist(), max_memory_allocated=peak,
+               launches=launches)
+    if not finite:
+        emit(res)
+        raise AssertionError(f"bundle {cfg.name}: logits not finite")
+    missing = [n for n, c in launches.items() if c == 0 and (cfg.is_moe or n != "expert_ffn")]
+    if missing:
+        raise AssertionError(f"kernels never launched by the bundle phase: {missing}")
+    return res
+
+
+def serve_bundles(seed: int, kernels):
+    """Phase 14: the kernel checks at the bundles' shapes (uncounted), then
+    each of ``BUNDLE_RUNS``, released in between. ``expert_ffn`` at
+    Qwen2-MoE-A2.7B's capacity buffers: forward (C = T) and decode (C =
+    T·k, below one row tile); ``flash_attention`` with the lse output and
+    ``flash_decode`` at the bundle's cache shape, for Qwen2-MoE-A2.7B (16
+    heads of 16) and Qwen3-1.7B (16 of 8)."""
+    from repro_torch.configs.base import get_config
+    moe, dense = get_config("qwen2_moe_a2_7b"), get_config("qwen3_1_7b")
+    B, S, W = BUNDLE_B, BUNDLE_S, BUNDLE_S + BUNDLE_NEW
+    E, d, f, k = 64, moe.d_model, moe.d_expert, moe.top_k
+    rec = dict(phase="bundle_kernels")
+    with uncounted(kernels):
+        for name, C, T in (("forward", B * S, B * S), ("decode", B * k, B)):
+            r = expert_ffn_check(E, C, d, f, pool=False)
+            rec[f"expert_ffn_{name}"] = r | dict(rows_per_routed_row=E * C / (T * k))
+            release()
+        for cfg in (moe, dense):
+            _, r = prefill_attention(cfg.n_heads, cfg.n_kv_heads, cfg.hd, S,
+                                     torch.Generator(device="cuda").manual_seed(4), B=B,
+                                     lse=True)
+            rec[f"flash_attention_{cfg.name}"] = r
+            release()
+            rec[f"flash_decode_{cfg.name}"] = decode_attention(cfg, W, [W - 1] * B)
+            release()
+    emit(rec)
+    ffn = dict(name="expert_ffn", route="cuda", source="src/repro_torch/csrc/expert_ffn.cu",
+               replaces="src/repro/kernels/expert_ffn.py:64", library_ms=None,
+               **rec["expert_ffn_forward"])
+    launches = {}
+    for arch, layers in BUNDLE_RUNS:
+        r = bundle_model(arch, seed, kernels)
+        if r["layers"] != layers:
+            raise AssertionError(f"{arch}: {r['layers']} layers, not {layers}")
+        emit(r)
+        for n, c in r["launches"].items():
+            launches[n] = launches.get(n, 0) + c
+        release()
+    return ffn, dict(phase="bundle", launches=launches)
+
+
+TRAIN_LAYERS, TRAIN_STEPS, TRAIN_MICRO_STEPS = 4, 10, 2
+
+
+def grad_check(fn, plain, args, upstream):
+    """Largest gradient difference of ``fn`` against autograd through
+    ``plain``, relative to each gradient's largest entry (raises beyond
+    GRAD_TOL), and the time of ``fn``'s backward alone (CUDA events,
+    median of 5). Returns (relative differences, backward ms)."""
+    a = [t.detach().clone().requires_grad_(True) for t in args]
+    b = [t.detach().clone().requires_grad_(True) for t in args]
+    out = fn(*a)
+    up = upstream.to(out.dtype)
+    bwd_ms = time_ms(lambda: torch.autograd.grad(out, a, up, retain_graph=True),
+                     reps=5, warmup=1)
+    out.backward(up)
+    plain(*b).backward(upstream)
+    rel = []
+    for ta, tb in zip(a, b):
+        scale = float(tb.grad.float().abs().max())
+        rel.append(float((ta.grad.float() - tb.grad.float()).abs().max()) / max(scale, 1e-30))
+        if not torch.isfinite(ta.grad.float()).all() or rel[-1] > GRAD_TOL:
+            raise AssertionError(f"gradient off its plain version's by {rel[-1]} of its max")
+    del a, b, out
+    release()
+    return rel, bwd_ms
+
+
+def check_train(seed: int):
+    """Phase 15: the autograd.Functions against autograd through their plain
+    versions at a small and the full-width layer shape, ``linear`` /
+    ``mm_f32`` against the plain product, one train step of the small
+    bundle on the card against the CPU, and a checkpoint round trip on the
+    card."""
+    import tempfile
+    from repro_torch.kernels.expert_ffn import ExpertFFNFn, expert_ffn_plain
+    from repro_torch.kernels.flash_attention import FlashAttentionFn, flash_attention_plain
+    from repro_torch.models.layers import linear, mm_f32
+    from repro_torch.models.model import build
+    from repro_torch.training import checkpoint
+    from repro_torch.training.optimizer import AdamW, tree_leaves
+    from repro_torch.training.train_loop import make_train_step
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    r = lambda *s, sc=1.0: (torch.randn(s, generator=g, device="cuda") * sc).to(torch.bfloat16)
+    res = dict(phase="train_check", grad_tol=GRAD_TOL)
+    for name, (B, S, H, Hkv, D) in (("small", (2, 256, 8, 2, 128)),
+                                    ("full", (2, 2048, 16, 16, 128))):
+        rel, ms = grad_check(
+            lambda q, k, v: FlashAttentionFn.apply(q, k, v, True, -1), flash_attention_plain,
+            (r(B, S, H, D), r(B, S, Hkv, D), r(B, S, Hkv, D)), r(B, S, H, D))
+        res[f"flash_attention_{name}"] = dict(shape=[B, S, H, Hkv, D], rel_err=rel,
+                                              backward_ms=ms)
+    for name, (E, C, d, f) in (("small", (4, 200, 256, 128)), ("full", (64, 4096, 2048, 1408))):
+        rel, ms = grad_check(
+            ExpertFFNFn.apply, expert_ffn_plain,
+            (r(E, C, d), r(E, d, f, sc=d ** -0.5), r(E, d, f, sc=d ** -0.5),
+             r(E, f, d, sc=f ** -0.5)), r(E, C, d))
+        res[f"expert_ffn_{name}"] = dict(shape=[E, C, d, f], rel_err=rel, backward_ms=ms)
+    # the plain backwards of one train-phase step: one of each a layer
+    res["plain_backward_ms_per_train_step"] = TRAIN_LAYERS * (
+        res["flash_attention_full"]["backward_ms"] + res["expert_ffn_full"]["backward_ms"])
+    x, w, dy = r(4096, 2048), r(2048, 2048, sc=2048 ** -0.5), r(4096, 2048)
+    res["linear"] = grad_check(linear, torch.matmul, (x, w), dy)[0]
+    res["mm_f32"] = grad_check(mm_f32, torch.matmul, (x, w), dy)[0]
+
+    cfg = small_bundle_cfg()
+    bundle = build(cfg)
+    gpu = bundle.init(seed, device="cuda")
+    cpu = to_cpu(gpu)
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(0, cfg.vocab, (4, 64)))
+
+    def step(p, tokens, replay=None):
+        """One train step; (params, loss, grad norm, raw gradient leaves
+        from the first moment: m = (1 - b1) * clip scale * g) and the
+        step's own router record."""
+        opt = AdamW(lr=1e-3)
+        with routes(replay=replay) as rec:
+            p, st, m = make_train_step(bundle, opt)(p, opt.init(p), {"tokens": tokens})
+        gn = float(m["grad_norm"])
+        scale = (1 - opt.b1) * min(1.0, opt.grad_clip / max(gn, 1e-9))
+        return p, float(m["loss"]), gn, [t.cpu() / scale for t in tree_leaves(st.m)], rec
+
+    # the control keeps only the first half of the batch (one microbatch's
+    # gradient of two) on the CPU; then the CPU, then the card, whose router
+    # calls take the CPU's experts (its own choice may differ only at a
+    # near-tie). Each step updates its params in place.
+    grad_h = step(to_cpu(gpu), toks[:2])[3]
+    _, lc, gc_, grad_c, rec_c = step(cpu, toks)
+    pg, lg, gg, grad_g, own = step(gpu, toks.cuda(), replay=rec_c)
+    n_flips = flips(own, rec_c)
+
+    def rel(a, b):
+        return [float((x - y).abs().max()) / max(float(y.abs().max()), 1e-30)
+                for x, y in zip(a, b)]
+
+    rel_g, rel_h = rel(grad_g, grad_c), rel(grad_h, grad_c)
+    res["train_step"] = dict(loss_cuda=lg, loss_cpu=lc, grad_norm_cuda=gg, grad_norm_cpu=gc_,
+                             grad_rel_err_max=max(rel_g), grad_tol=STEP_GRAD_TOL,
+                             control_half_batch_rel_err_min=min(rel_h),
+                             own_route_flips_at_ties=n_flips)
+    if not (np.isfinite([lg, gg]).all() and abs(lg - lc) <= 2e-2 * abs(lc)
+            and abs(gg - gc_) <= 5e-2 * abs(gc_) and max(rel_g) <= STEP_GRAD_TOL
+            < min(rel_h)):
+        emit(res)
+        raise AssertionError("train_check: the card's train step parts from the CPU's")
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        path = os.path.join(tmp, "small.npz")
+        checkpoint.save(path, pg, extra={"step": 1})
+        loaded, extra = checkpoint.load(path, like=pg)
+        same = all(torch.equal(a, b) and a.device == b.device
+                   for a, b in zip(tree_leaves(pg), tree_leaves(loaded)))
+    res["checkpoint_round_trip_bit_equal"] = same and extra == {"step": 1}
+    if not res["checkpoint_round_trip_bit_equal"]:
+        raise AssertionError("checkpoint round trip on the card is not bit-equal")
+    del gpu, cpu, pg, loaded
+    release()
+    return res
+
+
+def train_model(seed: int, kernels):
+    """Phase 16: Qwen2-MoE-A2.7B at published widths, TRAIN_LAYERS of 24,
+    B=2 x S=2048 from ``SyntheticLM``, AdamW under examples/train_moe.py's
+    ``cosine_schedule(2e-3, warmup=10)``: TRAIN_STEPS steps, then
+    TRAIN_MICRO_STEPS with ``microbatches=2``. Every loss finite, the last
+    below the first; the kernels' counts reset just before, > 0 after."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models.model import build
+    from repro_torch.training.optimizer import AdamW, cosine_schedule, tree_leaves
+    from repro_torch.training.train_loop import make_train_step
+    cfg = dataclasses.replace(get_config("qwen2_moe_a2_7b"), n_layers=TRAIN_LAYERS)
+    bundle = build(cfg)
+    params = bundle.init(seed, device="cuda")
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    total = TRAIN_STEPS + TRAIN_MICRO_STEPS
+    opt = AdamW(lr=cosine_schedule(2e-3, warmup=10, total=total))
+    state = opt.init(params)
+    it = SyntheticLM(cfg.vocab, seed=seed).batches(BUNDLE_B, BUNDLE_S)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels:
+        fn.launches = 0
+    rows = []
+    for i in range(total):
+        mb = 1 if i < TRAIN_STEPS else 2
+        step = make_train_step(bundle, opt, microbatches=mb)
+        batch = {"tokens": torch.from_numpy(next(it)).cuda()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        loss, gn = float(m["loss"]), float(m["grad_norm"])
+        wall = time.perf_counter() - t0
+        rows.append(dict(step=i, microbatches=mb, loss=loss, grad_norm=gn, wall_s=wall,
+                         tokens_per_s=BUNDLE_B * BUNDLE_S / wall))
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    losses = [r["loss"] for r in rows]
+    res = dict(phase="train", model=cfg.name, layers=cfg.n_layers, n_params=n_params,
+               batch=BUNDLE_B, seq=BUNDLE_S, steps=rows,
+               step_wall_s_median=float(np.median([r["wall_s"] for r in rows[1:TRAIN_STEPS]])),
+               max_memory_allocated=torch.cuda.max_memory_allocated(), launches=launches)
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        emit(res)
+        raise AssertionError(f"train: losses {losses}")
+    missing = [n for n, c in launches.items() if c == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched by the train phase: {missing}")
+    del params, state
+    release()
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=4,
@@ -1956,7 +2532,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _build
-    from repro_torch.kernels.expert_ffn import expert_ffn_from_pool
+    from repro_torch.kernels.expert_ffn import expert_ffn, expert_ffn_from_pool
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_chunk
     from repro_torch.kernels.flash_decode import flash_decode
     from repro_torch.kernels.ssd_scan import ssd_scan
@@ -2010,10 +2586,21 @@ def main() -> int:
     emit(check_paper_small(args.seed))
     paper = serve_paper(args.seed, kernels + [flash_attention_chunk])
     emit(paper)
+    release()
+
+    bundle_kernels = [expert_ffn, flash_attention, flash_decode]
+    emit(check_bundle_small(args.seed))
+    release()
+    ffn_record, bundles = serve_bundles(args.seed, bundle_kernels)
+    emit(bundles)
+    results.append(ffn_record)
+    emit(check_train(args.seed))
+    train = train_model(args.seed, [expert_ffn, flash_attention])
+    emit(train)
 
     # each kernel's launches from the paths that run it
     launches = {}
-    for phase in (srv, bat, clu, ssm, paper):
+    for phase in (srv, bat, clu, ssm, paper, bundles, train):
         for n, c in phase["launches"].items():
             launches[n] = launches.get(n, 0) + c
     summary = [{k: r[k] for k in ("name", "route", "source", "replaces")}

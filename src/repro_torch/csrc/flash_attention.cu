@@ -35,6 +35,10 @@
 //     registers (a pipelined softmax made ptxas serialize or guard them).
 //     O (64 x D f32) stays in registers for the whole loop and is written
 //     once, divided by l.
+//   - with an lse pointer, the thread of lane % 4 == 0 that holds a row also
+//     writes its log-sum-exp, m ln 2 + ln l (natural log of the scaled
+//     logits' exp-sum, what a flash backward recomputes its tiles from),
+//     to lse[b, h, row]; o is computed and written as without it.
 //   - D is a template parameter; tiles hold D padded to whole 64-column
 //     boxes (TMA zero-fills the columns past D), so any multiple of 16 fits
 //     the same layout. D = 64 and 128 are instantiated. (Two consumer
@@ -77,6 +81,7 @@ constexpr int BOX = 64;                    // bf16 columns per TMA box: one 128-
 constexpr int BOX_BYTES = 64 * BOX * 2;    // a box of 64 rows
 constexpr int SP_BYTES = BKV * 4;          // a tile's int32 slot positions
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 template <int D>
 struct Smem {
@@ -114,8 +119,9 @@ template <int D, bool CHUNK>
 __global__ void __launch_bounds__(THREADS, 2)
     flash_attn_kernel(__grid_constant__ const CUtensorMap tq, __grid_constant__ const CUtensorMap tk,
                       __grid_constant__ const CUtensorMap tv, __grid_constant__ const CUtensorMap tsp,
-                      bf16* __restrict__ o, int Sq, int Sk, int q_start, int G, long long sob,
-                      long long sos, long long soh, int causal, int window, float scale_log2) {
+                      bf16* __restrict__ o, float* __restrict__ lse, int Sq, int Sk, int q_start,
+                      int G, long long sob, long long sos, long long soh, int causal, int window,
+                      float scale_log2) {
   typedef Smem<D> Lay;
   constexpr int DP = Lay::DP, NBOX = Lay::NBOX, TILE = Lay::TILE;
   extern __shared__ unsigned char smem_raw[];
@@ -288,6 +294,13 @@ __global__ void __launch_bounds__(THREADS, 2)
             pack_bf16(acc[4 * j + 2 * i] / den[i], acc[4 * j + 2 * i + 1] / den[i]);
     }
   }
+  if (lse != nullptr && lane % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int qi = q0 + row0 + 8 * i;
+      if (qi < Sq) lse[((long long)b * gridDim.x + h) * Sq + qi] = m[i] * LN2 + logf(den[i]);
+    }
+  }
 }
 
 // tensor map of a bf16 [B, S, heads, D] view with element strides (sb, ss, sh):
@@ -316,7 +329,8 @@ bool slot_map(CUtensorMap* map, const int* ptr, int B, int W, long long spb) {
 
 // st: q b,s,h; k b,s,h; v b,s,h; o b,s,h (elements); slot_pos (chunk only)
 template <int D, bool CHUNK>
-int launch(const void* q, const void* k, const void* v, const int* slot_pos, void* o, int B,
+int launch(const void* q, const void* k, const void* v, const int* slot_pos, void* o, float* lse,
+           int B,
            int Sq, int Sk, int H, int Hkv, const long long* st, long long spb, int q_start,
            int causal, int window, float scale, cudaStream_t s) {
   CUtensorMap tq, tk, tv, tsp = {};
@@ -331,7 +345,7 @@ int launch(const void* q, const void* k, const void* v, const int* slot_pos, voi
   if (e != cudaSuccess) return e;
   dim3 grid(H, B, (Sq + BQ - 1) / BQ);
   flash_attn_kernel<D, CHUNK><<<grid, THREADS, bytes, s>>>(
-      tq, tk, tv, tsp, static_cast<bf16*>(o), Sq, Sk, q_start, H / Hkv, st[9], st[10], st[11],
+      tq, tk, tv, tsp, static_cast<bf16*>(o), lse, Sq, Sk, q_start, H / Hkv, st[9], st[10], st[11],
       causal, window, scale * LOG2E);
   return cudaGetLastError();
 }
@@ -339,17 +353,19 @@ int launch(const void* q, const void* k, const void* v, const int* slot_pos, voi
 }  // namespace
 
 // strides (elements): q b,s,h; k b,s,h; v b,s,h; o b,s,h — 12 values.
-// D must be 64 or 128; every stride and pointer 16-byte aligned.
-extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, int B,
-                                   int S, int H, int Hkv, int D, const long long* strides,
-                                   int causal, int window, float scale, void* stream) {
+// D must be 64 or 128; every stride and pointer 16-byte aligned. lse:
+// [B, H, S] f32 contiguous, or null for none.
+extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
+                                   float* lse, int B, int S, int H, int Hkv, int D,
+                                   const long long* strides, int causal, int window, float scale,
+                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 128)
-    return launch<128, false>(q, k, v, nullptr, o, B, S, S, H, Hkv, strides, 0, 0, causal, window,
-                              scale, s);
+    return launch<128, false>(q, k, v, nullptr, o, lse, B, S, S, H, Hkv, strides, 0, 0, causal,
+                              window, scale, s);
   if (D == 64)
-    return launch<64, false>(q, k, v, nullptr, o, B, S, S, H, Hkv, strides, 0, 0, causal, window,
-                             scale, s);
+    return launch<64, false>(q, k, v, nullptr, o, lse, B, S, S, H, Hkv, strides, 0, 0, causal,
+                             window, scale, s);
   return cudaErrorInvalidValue;
 }
 
@@ -363,10 +379,10 @@ extern "C" int flash_attention_chunk_fwd(const void* q, const void* k, const voi
                                          int q_start, int window, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 128)
-    return launch<128, true>(q, k, v, slot_pos, o, B, C, W, H, Hkv, strides, spb, q_start, 1,
-                             window, scale, s);
+    return launch<128, true>(q, k, v, slot_pos, o, nullptr, B, C, W, H, Hkv, strides, spb,
+                             q_start, 1, window, scale, s);
   if (D == 64)
-    return launch<64, true>(q, k, v, slot_pos, o, B, C, W, H, Hkv, strides, spb, q_start, 1,
-                            window, scale, s);
+    return launch<64, true>(q, k, v, slot_pos, o, nullptr, B, C, W, H, Hkv, strides, spb,
+                            q_start, 1, window, scale, s);
   return cudaErrorInvalidValue;
 }

@@ -19,6 +19,16 @@ and TMA, for Hopper; the chunk form is a second entry point of the same
 device code); on a CPU tensor it runs its plain version.
 ``flash_attention.launches`` and ``flash_attention_chunk.launches`` count
 kernel launches.
+
+``flash_attention(..., return_lse=True)`` also gives each query row's
+log-sum-exp of its scaled logits, ``[B,H,S]`` f32 in natural log; ``o`` is
+the same with or without it. ``FlashAttentionFn`` is the monolithic form
+with a gradient: its forward is ``flash_attention`` (the kernel on the card,
+the plain version on the CPU) and its backward recomputes the probability
+tiles from (q, k, v, o, lse) block by block in plain PyTorch
+(``flash_attention_bwd_plain``), as the reference's custom VJP
+``repro.models.layers._fa_bwd`` does in XLA. The Pallas kernel has no
+backward; a kernel for this one is later work.
 """
 from __future__ import annotations
 
@@ -29,8 +39,8 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
-# q, k, v, o, B, S, H, Hkv, D, strides, causal, window, scale, stream
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+# q, k, v, o, lse, B, S, H, Hkv, D, strides, causal, window, scale, stream
+_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
              + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
                 ctypes.c_void_p])
 # q, k, v, slot_pos, o, B, C, W, H, Hkv, D, strides, spb, q_start, window,
@@ -40,27 +50,37 @@ _CHUNK_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                       ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
 
 
-def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = -1):
+def _valid(qi, ki, causal: bool, window: int):
+    """[Sq, Sk] validity of query positions qi against key positions ki."""
+    ok = torch.ones((qi.shape[0], ki.shape[0]), dtype=torch.bool, device=qi.device)
+    if causal:
+        ok &= ki[None] <= qi[:, None]
+    if window > 0:
+        ok &= ki[None] > qi[:, None] - window
+    return ok
+
+
+def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = -1,
+                          return_lse: bool = False):
     """Plain PyTorch version: one softmax over all keys, the kernel's
-    arithmetic (unnormalised p rounded to bf16, divided by the f32 sum)."""
+    arithmetic (unnormalised p rounded to bf16, divided by the f32 sum).
+    With ``return_lse`` also the rows' log-sum-exp, [B,H,S] f32."""
     B, S, H, D = q.shape
     Hkv = k.shape[2]
     G = H // Hkv
     qg = q.reshape(B, S, Hkv, G, D).float()
     s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * D ** -0.5
-    qi = torch.arange(S, device=q.device)[:, None]
-    ki = torch.arange(S, device=q.device)[None, :]
-    ok = torch.ones((S, S), dtype=torch.bool, device=q.device)
-    if causal:
-        ok &= ki <= qi
-    if window > 0:
-        ok &= ki > qi - window
-    s = s.masked_fill(~ok, NEG_INF)
-    p = torch.exp(s - s.amax(-1, keepdim=True))
+    pos = torch.arange(S, device=q.device)
+    s = s.masked_fill(~_valid(pos, pos, causal, window), NEG_INF)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
     l = p.sum(-1, keepdim=True)
     o = torch.einsum("bhgqk,bkhd->bhgqd", p.to(v.dtype).float(), v.float())
     o = o / torch.clamp(l, min=1e-20)
-    return o.permute(0, 3, 1, 2, 4).reshape(B, S, H, D).to(q.dtype)
+    o = o.permute(0, 3, 1, 2, 4).reshape(B, S, H, D).to(q.dtype)
+    if not return_lse:
+        return o
+    return o, (m + torch.log(torch.clamp(l, min=1e-20)))[..., 0].reshape(B, H, S)
 
 
 def _check_qkv(q, k, v):
@@ -76,12 +96,15 @@ def _check_qkv(q, k, v):
             raise ValueError("need a contiguous last dim and 16-byte strides")
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int = -1):
-    """q: [B,S,H,D]; k, v: [B,S,Hkv,D] -> [B,S,H,D]."""
+def flash_attention(q, k, v, *, causal: bool = True, window: int = -1,
+                    return_lse: bool = False):
+    """q: [B,S,H,D]; k, v: [B,S,Hkv,D] -> o [B,S,H,D], and with
+    ``return_lse`` (o, lse [B,H,S] f32)."""
     if not q.is_cuda:
         if k.is_cuda or v.is_cuda:
             raise ValueError("flash_attention: mixed CPU/CUDA tensors")
-        return flash_attention_plain(q, k, v, causal=causal, window=window)
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     return_lse=return_lse)
     B, S, H, D = q.shape
     Hkv = k.shape[2]
     if k.shape != (B, S, Hkv, D) or v.shape != k.shape or H % Hkv:
@@ -89,18 +112,83 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = -1):
                          f"v {tuple(v.shape)}")
     _check_qkv(q, k, v)
     o = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     strides = (ctypes.c_longlong * 12)(*(
         s for t in (q, k, v, o) for s in t.stride()[:3]))
     fn = _build.function("flash_attention", "flash_attention_fwd", _ARGTYPES)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            B, S, H, Hkv, D, strides, int(causal), int(window), D ** -0.5,
-            _build.stream_ptr(q))
+            None if lse is None else lse.data_ptr(), B, S, H, Hkv, D, strides,
+            int(causal), int(window), D ** -0.5, _build.stream_ptr(q))
     _build.check(_build.load("flash_attention"), rc, "flash_attention")
     flash_attention.launches += 1
-    return o
+    return (o, lse) if return_lse else o
 
 
 flash_attention.launches = 0
+
+
+def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
+                              window: int = -1, q_block: int = 512,
+                              kv_block: int = 512):
+    """Gradients (dq, dk, dv) of attention o = softmax(q k^T D^-0.5) v, in
+    f32 from the saved (o, lse) without the S x S probabilities: for each
+    KV block (outer) and query block (inner) the tile p = exp(s - lse) is
+    recomputed, ds = p (do v^T - rowsum(do o)) D^-0.5, dv += p^T do,
+    dk += ds^T q, dq += ds k; the port of ``repro.models.layers._fa_bwd``,
+    block for block. Tiles that the mask empties are skipped (they add
+    exact zeros). q, o, do: [B,S,H,D]; k, v: [B,S,Hkv,D]; lse [B,H,S]."""
+    B, S, H, D = q.shape
+    Hkv = k.shape[2]
+    G = H // Hkv
+    scale = D ** -0.5
+    grp = lambda t: t.float().reshape(B, S, Hkv, G, D)
+    qf, dof = grp(q), grp(do)
+    kf, vf = k.float(), v.float()
+    delta = (dof * grp(o)).sum(-1).permute(0, 2, 3, 1)    # [B,Hkv,G,S]
+    lse = lse.float().reshape(B, Hkv, G, S)
+    pos = torch.arange(S, device=q.device)
+    dq = torch.zeros_like(qf)
+    dk = torch.zeros_like(kf)
+    dv = torch.zeros_like(vf)
+    for j0 in range(0, S, kv_block):
+        j1 = min(S, j0 + kv_block)
+        kb, vb = kf[:, j0:j1], vf[:, j0:j1]
+        for i0 in range(0, S, q_block):
+            i1 = min(S, i0 + q_block)
+            if (causal and i1 - 1 < j0) or (window > 0 and j1 - 1 <= i0 - window):
+                continue
+            qb, dob = qf[:, i0:i1], dof[:, i0:i1]
+            s = torch.einsum("bqhgd,bkhd->bhgqk", qb, kb) * scale
+            s = s.masked_fill(~_valid(pos[i0:i1], pos[j0:j1], causal, window), NEG_INF)
+            p = torch.exp(s - lse[..., i0:i1, None])
+            dp = torch.einsum("bqhgd,bkhd->bhgqk", dob, vb)
+            ds = p * (dp - delta[..., i0:i1, None]) * scale
+            dv[:, j0:j1] += torch.einsum("bhgqk,bqhgd->bkhd", p, dob)
+            dk[:, j0:j1] += torch.einsum("bhgqk,bqhgd->bkhd", ds, qb)
+            dq[:, i0:i1] += torch.einsum("bhgqk,bkhd->bqhgd", ds, kb)
+    return (dq.reshape(B, S, H, D).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """``flash_attention`` with a gradient: the forward is the kernel on the
+    card (the plain version on the CPU) with its lse output, the backward
+    ``flash_attention_bwd_plain``. ``apply(q, k, v, causal, window)``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool = True, window: int = -1):
+        o, lse = flash_attention(q, k, v, causal=causal, window=window,
+                                 return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.window = causal, window
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd_plain(q, k, v, o, lse, do, causal=ctx.causal,
+                                               window=ctx.window)
+        return dq, dk, dv, None, None
 
 
 def flash_attention_chunk_plain(q, k, v, slot_pos, q_start: int, *,

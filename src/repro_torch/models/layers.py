@@ -5,13 +5,18 @@ and numerics: bf16 weights and activations, norm / rope / softmax statistics
 in f32, and attention probabilities rounded to the V dtype before PV.
 
 Prefill and decode attention take the hand-written kernels on a CUDA tensor
-(``kernels/flash_attention.py``, ``kernels/flash_decode.py``). On the CPU
-they take the reference's full ``attention`` instead, the function the JAX
-serving engine itself runs, so the CPU parity tests hold the port to the
-engine's own numbers. Chunked prefill runs ``flash_attention_chunk`` on the
-card: the chunk's C queries at their absolute positions over the request's
-KV row, masked by its slot positions (the reference mask's valid-key set
-``0 <= slot_pos <= pos``); decode runs ``flash_decode``.
+(``kernels/flash_attention.py``, ``kernels/flash_decode.py``; under autograd
+``FlashAttentionFn``, the kernel's forward with a plain blockwise backward).
+On the CPU they take the reference's full ``attention`` instead, the
+function the JAX serving engine itself runs, so the CPU parity tests hold
+the port to the engine's own numbers; at and above the reference's
+``CHUNKED_MIN_SEQ`` a training or prefill bundle asks for the chunked path
+(``chunked=True``), which on the CPU is the reference's own
+``flash_attention_xla``: a blockwise online softmax with a flash backward.
+Chunked prefill runs ``flash_attention_chunk`` on the card: the chunk's C
+queries at their absolute positions over the request's KV row, masked by
+its slot positions (the reference mask's valid-key set ``0 <= slot_pos <=
+pos``); decode runs ``flash_decode``.
 """
 from __future__ import annotations
 
@@ -20,8 +25,11 @@ from typing import Optional, Union
 
 import torch
 
-from repro_torch.kernels.flash_attention import flash_attention, flash_attention_chunk
+from repro_torch.kernels.flash_attention import (FlashAttentionFn, flash_attention,
+                                                 flash_attention_bwd_plain,
+                                                 flash_attention_chunk)
 from repro_torch.kernels.flash_decode import flash_decode
+from repro_torch.models import opt_flags
 
 PDT = torch.bfloat16  # param / activation dtype
 
@@ -98,6 +106,91 @@ def attention(q, k, v, *, q_pos, k_pos, window=None, causal=True,
     return out.reshape(B, Sq, H, D)
 
 
+def _chunked_fwd_with_lse(q, k, v, *, window, causal, q_block, kv_block, scale,
+                          bf16_tiles=False):
+    """Blockwise online-softmax attention over position-aligned q/k (the
+    reference's ``attention_chunked`` and ``_chunked_fwd_with_lse``): per
+    query block a scan over key blocks with a running max, sum and f32
+    accumulator; masked entries -1e9. Returns (o [B,S,H,D] in q's dtype,
+    each row's log-sum-exp [B,H,S] f32)."""
+    B, S, H, D = q.shape
+    Hkv = k.shape[2]
+    G = H // Hkv
+    qb, kb = min(q_block, S), min(kv_block, S)
+    pos = torch.arange(S, device=q.device)
+    kf, vf = k.float().transpose(1, 2), v.float().transpose(1, 2)   # [B,Hkv,S,D]
+    outs, lses = [], []
+    for i0 in range(0, S, qb):
+        i1 = min(S, i0 + qb)
+        qblk = q[:, i0:i1].float().reshape(B, i1 - i0, Hkv, G, D).permute(0, 2, 3, 1, 4)
+        m = torch.full((B, Hkv, G, i1 - i0), NEG_INF, device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((B, Hkv, G, i1 - i0, D), device=q.device)
+        for j0 in range(0, S, kb):
+            j1 = min(S, j0 + kb)
+            lg = torch.einsum("bhgqd,bhkd->bhgqk", qblk, kf[:, :, j0:j1]) * scale
+            msk = _mask(pos[i0:i1], pos[j0:j1], window, causal)
+            lg = lg.masked_fill(~msk, NEG_INF)
+            m_cur = torch.maximum(m, lg.amax(-1))
+            p = torch.exp(lg - m_cur[..., None])
+            corr = torch.exp(m - m_cur)
+            l = l * corr + p.sum(-1)
+            vblk = vf[:, :, j0:j1]
+            if bf16_tiles:
+                pv = torch.einsum("bhgqk,bhkd->bhgqd", p.to(torch.bfloat16),
+                                  vblk.to(torch.bfloat16)).float()
+            else:
+                pv = torch.einsum("bhgqk,bhkd->bhgqd", p, vblk)
+            acc = acc * corr[..., None] + pv
+            m = m_cur
+        outs.append(acc / torch.clamp(l, min=1e-20)[..., None])
+        lses.append(m + torch.log(torch.clamp(l, min=1e-20)))
+    o = torch.cat(outs, 3).permute(0, 3, 1, 2, 4).reshape(B, S, H, D)
+    return o.to(q.dtype), torch.cat(lses, 3).reshape(B, H, S)
+
+
+def attention_chunked(q, k, v, *, window=None, causal=True, q_block=512,
+                      kv_block=512, scale: Optional[float] = None,
+                      bf16_tiles: Optional[bool] = None) -> torch.Tensor:
+    """Flash-style online-softmax attention over position-aligned q/k.
+    q: [B,S,H,D]; k,v: [B,S,Hkv,D]. Peak memory O(q_block * kv_block)
+    logits. bf16_tiles (REPRO_OPT_ATTN_BF16): probability tiles rounded to
+    bf16 before the PV product (running stats stay f32)."""
+    if bf16_tiles is None:
+        bf16_tiles = opt_flags.attn_bf16_tiles()
+    return _chunked_fwd_with_lse(
+        q, k, v, window=window, causal=causal, q_block=q_block, kv_block=kv_block,
+        bf16_tiles=bf16_tiles, scale=scale if scale is not None else q.shape[-1] ** -0.5)[0]
+
+
+class _FlashAttentionXLA(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, window, causal, q_block, kv_block):
+        o, lse = _chunked_fwd_with_lse(q, k, v, window=window, causal=causal,
+                                       q_block=q_block, kv_block=kv_block,
+                                       scale=q.shape[-1] ** -0.5)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.args = (window, causal, q_block, kv_block)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        window, causal, q_block, kv_block = ctx.args
+        dq, dk, dv = flash_attention_bwd_plain(
+            *ctx.saved_tensors, do, causal=causal,
+            window=-1 if window is None else window, q_block=q_block, kv_block=kv_block)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention_xla(q, k, v, window, causal=True, q_block=512, kv_block=512):
+    """Chunked attention with a flash backward (the reference's custom-VJP
+    ``flash_attention_xla``): the forward keeps only (o, lse), the backward
+    recomputes probability tiles block by block
+    (``kernels.flash_attention.flash_attention_bwd_plain``), so residuals
+    are O(S) rather than the scan's every carry."""
+    return _FlashAttentionXLA.apply(q, k, v, window, causal, q_block, kv_block)
+
+
 def _qkv(x, p, dims: AttnDims, positions, use_rope=True):
     B, S, _ = x.shape
     H, Hkv, hd = dims.n_heads, dims.n_kv_heads, dims.head_dim
@@ -118,15 +211,27 @@ def _qkv(x, p, dims: AttnDims, positions, use_rope=True):
     return q, k, v
 
 
-def self_attn_full(x, p, dims: AttnDims, *, window=None, causal=True):
-    """Full-sequence self attention (prefill). x: [B,S,d].
-    Returns (out [B,S,d], (k, v) each [B,S,Hkv,hd])."""
+def self_attn_full(x, p, dims: AttnDims, *, window=None, causal=True,
+                   chunked: bool = False):
+    """Full-sequence self attention (train / prefill). x: [B,S,d].
+    Returns (out [B,S,d], (k, v) each [B,S,Hkv,hd]).
+
+    On the card the kernel, whatever ``chunked`` says; where autograd
+    records, ``FlashAttentionFn`` (the kernel's forward, a plain flash
+    backward). On the CPU the reference's choice: ``flash_attention_xla``
+    when ``chunked`` (the bundles set it at S >= 2048), else the full
+    ``attention``, differentiated by autograd."""
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None, :]
     q, k, v = _qkv(x, p, dims, positions)
+    win = -1 if window is None else int(window)
     if x.is_cuda:
-        o = flash_attention(q, k, v, causal=causal,
-                            window=-1 if window is None else int(window))
+        if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+            o = FlashAttentionFn.apply(q, k, v, causal, win)
+        else:
+            o = flash_attention(q, k, v, causal=causal, window=win)
+    elif chunked:
+        o = flash_attention_xla(q, k, v, win, causal)
     else:
         o = attention(q, k, v, q_pos=positions, k_pos=positions,
                       window=window, causal=causal)
@@ -218,6 +323,41 @@ def self_attn_decode_batched(x, p, dims: AttnDims, cache_k, cache_v, slot_pos,
 ROW_BLOCK = 128   # rows of every product ``linear`` issues on the card
 
 
+def _row_blocks(rows: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """rows [n, K] @ w [K, N] in calls of ``ROW_BLOCK`` rows (the last
+    block padded with zeros)."""
+    n = rows.shape[0]
+    if n % ROW_BLOCK:
+        rows = torch.nn.functional.pad(rows, (0, 0, 0, -n % ROW_BLOCK))
+    out = rows.new_empty(rows.shape[0], w.shape[1])
+    for i in range(0, rows.shape[0], ROW_BLOCK):
+        torch.mm(rows[i:i + ROW_BLOCK], w, out=out[i:i + ROW_BLOCK])
+    return out[:n]
+
+
+class _Linear(torch.autograd.Function):
+    """``linear`` on the card with a gradient: dx = dy w^T in the same
+    fixed row blocks (a row's gradient does not depend on the rows beside
+    it either), dw = x^T dy in one product."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        rows = x.reshape(-1, x.shape[-1])
+        return _row_blocks(rows, w).reshape(*x.shape[:-1], w.shape[1])
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dy2 = dy.reshape(-1, dy.shape[-1]).to(x.dtype)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = _row_blocks(dy2, w.t().to(x.dtype)).reshape(x.shape)
+        if ctx.needs_input_grad[1]:
+            dw = (x.reshape(-1, x.shape[-1]).t() @ dy2).to(w.dtype)
+        return dx, dw
+
+
 def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` for x [..., K], w [K, N] whose every row is the same
     whatever the rows beside it. On the card the product runs in calls of a
@@ -227,17 +367,13 @@ def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     a router row in its last f32 bits with the row count (``chip_smoke.py``
     measures both, ``row_drift``), which parted chunked from monolithic
     prefill at Mixtral width and so one replica's tokens from another's.
-    On the CPU the plain product."""
+    Differentiable (``_Linear``; ``torch.mm(out=)`` alone is not). On the
+    CPU the plain product."""
     if not x.is_cuda:
         return x @ w
-    rows = x.reshape(-1, x.shape[-1])
-    n = rows.shape[0]
-    if n % ROW_BLOCK:
-        rows = torch.nn.functional.pad(rows, (0, 0, 0, -n % ROW_BLOCK))
-    out = rows.new_empty(rows.shape[0], w.shape[1])
-    for i in range(0, rows.shape[0], ROW_BLOCK):
-        torch.mm(rows[i:i + ROW_BLOCK], w, out=out[i:i + ROW_BLOCK])
-    return out[:n].reshape(*x.shape[:-1], w.shape[1])
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _Linear.apply(x, w)
+    return _row_blocks(x.reshape(-1, x.shape[-1]), w).reshape(*x.shape[:-1], w.shape[1])
 
 
 def matmul_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -251,13 +387,30 @@ def matmul_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(torch.cat([a, torch.zeros_like(a)], -2), b)[..., :1, :]
 
 
+class _MmF32(torch.autograd.Function):
+    """``mm_f32`` on the card with a gradient (``torch.mm(out_dtype=)`` has
+    none): da = dy b^T, db = a^T dy, in the operands' dtype."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return torch.mm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, dy):
+        a, b = ctx.saved_tensors
+        dy = dy.to(a.dtype)
+        return dy @ b.t(), a.t() @ dy
+
+
 def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """bf16 ``a @ b`` [M,K] x [K,N] with an f32 result, as XLA computes a
     bf16 product whose f32 cast it folds in (the JAX engine's head and
-    ``expert_raw``): on the card one cuBLAS product with an f32 output, on
-    the CPU the f32 product of the bf16 values, row-invariant."""
+    ``expert_raw``): on the card one cuBLAS product with an f32 output
+    (differentiable, ``_MmF32``), on the CPU the f32 product of the bf16
+    values, row-invariant."""
     if a.is_cuda:
-        return torch.mm(a, b, out_dtype=torch.float32)
+        return _MmF32.apply(a, b)
     return matmul_rows(a.float(), b.float())
 
 

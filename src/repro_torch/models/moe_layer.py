@@ -1,12 +1,34 @@
-"""MoE router (port of ``repro.models.moe_layer.route`` and
-``n_experts_padded``). The serving engine runs the experts themselves
-(serving/engine.py), so only the gate lives here."""
+"""Mixture-of-Experts FFN (port of ``repro.models.moe_layer``): the router,
+the single-device sort + capacity dispatch ``moe_ffn`` of the model
+bundles, the exact per-expert path and the dense-loop oracle.
+
+Dispatch: the token-expert assignments are sorted by expert (a stable
+sort, as ``jnp.argsort`` is), each assignment's position within its
+expert's run gives its row in a capacity buffer [E, C, d], the grouped
+expert FFN runs on the buffer, and the rows are gathered back and summed
+with the router weights in f32. Assignments at a position >= C (or, with
+``active_gather``, to an expert outside the busiest A) are dropped: their
+rows are neither written nor read, as the reference's ``mode="drop"`` /
+``mode="fill"`` scatter and gather drop them. The expert GEMMs run
+``kernels.expert_ffn.ExpertFFNFn``: the hand-written kernel on the card
+(the reference's ``REPRO_MOE_PALLAS=1`` route), its plain version on the
+CPU, with a gradient. The reference's ``shard_map`` branch (expert or
+hidden sharding over a pod's model axis) is pod tooling and not ported.
+
+The serving engines run the experts themselves (serving/engine.py) and
+take only ``route`` and ``n_experts_padded`` from here.
+"""
 from __future__ import annotations
 
+from typing import Callable, Optional
+
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.expert_ffn import ExpertFFNFn
 from repro_torch.models import layers as L
+from repro_torch.models import opt_flags
 
 
 def n_experts_padded(cfg: ArchConfig, n_model: int = 16) -> int:
@@ -16,6 +38,32 @@ def n_experts_padded(cfg: ArchConfig, n_model: int = 16) -> int:
     if e >= n_model and e % n_model:
         return -(-e // n_model) * n_model
     return e
+
+
+def moe_params(cfg: ArchConfig, normal: Callable, n: int, slabs=None) -> dict:
+    """A stack of ``n`` MoE FFNs' params, in the reference's draw order:
+    router [n,d,E_pad] f32, w1/w3 [n,E_pad,d,de], w2 [n,E_pad,de,d], and
+    for shared experts sw1/sw3 [n,d,S·de], sw2 [n,S·de,d]. ``normal(shape,
+    scale, dtype=bf16)`` draws one tensor; the slabs are drawn one expert
+    at a time (bounding the draw's scratch) into ``slabs[name]`` where
+    given (the serving engines' pinned host buffer), else into tensors on
+    the router's device."""
+    d, de = cfg.d_model, cfg.d_expert
+    ep = n_experts_padded(cfg)
+    p = {"router": normal((n, d, ep), d ** -0.5, torch.float32)}
+    for name, shape, scale in (("w1", (d, de), d ** -0.5), ("w3", (d, de), d ** -0.5),
+                               ("w2", (de, d), de ** -0.5)):
+        out = (slabs[name] if slabs is not None else
+               torch.empty((n, ep) + shape, dtype=L.PDT, device=p["router"].device))
+        for l in range(n):
+            for e in range(ep):
+                out[l, e].copy_(normal(shape, scale))
+        p[name] = out
+    if cfg.n_shared_experts:
+        sh = cfg.n_shared_experts * de
+        p.update(sw1=normal((n, d, sh), d ** -0.5), sw3=normal((n, d, sh), d ** -0.5),
+                 sw2=normal((n, sh, d), sh ** -0.5))
+    return p
 
 
 def route(x2d: torch.Tensor, router: torch.Tensor, n_real: int, top_k: int):
@@ -35,3 +83,126 @@ def route(x2d: torch.Tensor, router: torch.Tensor, n_real: int, top_k: int):
     w, ids = w[:, :top_k], ids[:, :top_k]
     w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
     return w, ids, probs
+
+
+def _dispatch_compute_combine(x2d, w, ids, w1, w3, w2, *, capacity: int,
+                              e_start: int = 0,
+                              active_max: Optional[int] = None) -> torch.Tensor:
+    """Capacity dispatch against an expert slice [E_loc, d, de] whose first
+    global id is ``e_start``. ``active_max`` (REPRO_OPT_ACTIVE_GATHER):
+    only the A most-loaded experts' weights are gathered and computed;
+    assignments to the others drop. Returns the combined output [T, d]."""
+    T, d = x2d.shape
+    k = ids.shape[1]
+    e_loc = w1.shape[0]
+    flat = ids.reshape(-1)
+    order = torch.argsort(flat, stable=True)
+    sid = flat[order]
+    stok = order // k
+    # position of each assignment within its expert's run (sorted => runs)
+    pos = torch.arange(T * k, device=x2d.device) - torch.searchsorted(sid, sid, side="left")
+    lid = sid - e_start
+    keep = (lid >= 0) & (lid < e_loc) & (pos < capacity)
+
+    if active_max is not None and active_max < e_loc:
+        loads = torch.bincount(lid[keep], minlength=e_loc)
+        # the A busiest, ties to the lower id (lax.top_k's order)
+        sel = torch.sort(loads, descending=True, stable=True)[1][:active_max]
+        inv_sel = torch.full((e_loc,), -1, dtype=torch.long, device=x2d.device)
+        inv_sel[sel] = torch.arange(active_max, device=x2d.device)
+        lid = inv_sel[lid.clamp(0, e_loc - 1)]
+        keep = keep & (lid >= 0)
+        w1, w3, w2 = w1[sel], w3[sel], w2[sel]
+        e_loc = active_max
+
+    rows, slot = lid[keep], pos[keep]
+    buf = x2d.new_zeros((e_loc, capacity, d)).index_put((rows, slot), x2d[stok[keep]])
+    y = ExpertFFNFn.apply(buf, w1, w3, w2)                        # [E_loc, C, d]
+    g = y.new_zeros((T * k, d)).index_put((keep.nonzero()[:, 0],), y[rows, slot])
+    g = g[torch.argsort(order)].reshape(T, k, d)
+    return (g.float() * w[..., None]).sum(1).to(x2d.dtype)
+
+
+def active_gather_max(t_loc: int, top_k: int, e_loc: int, e_pad: int) -> Optional[int]:
+    """A = 2x the expected active local experts, floor top_k — None if the
+    dense path is already as cheap (large-T training / prefill)."""
+    if not opt_flags.active_gather() or t_loc * top_k > 512:
+        return None
+    expected = t_loc * top_k * e_loc / max(e_pad, 1)
+    a = int(max(top_k, -(-2 * expected // 1)))
+    a = min(a, e_loc)
+    return a if a < e_loc else None
+
+
+def load_balance_loss(probs: torch.Tensor, ids: torch.Tensor, n_real: int) -> torch.Tensor:
+    """Switch-style aux loss: E * sum_e f_e * p_e (over real experts)."""
+    k = ids.shape[1]
+    sel = F.one_hot(ids, probs.shape[1]).float().sum(1)   # [T, E]
+    f = sel.mean(0)                       # fraction routed (counts / T, sums to k)
+    p = probs.mean(0)
+    return n_real * (f[:n_real] * p[:n_real]).sum() / k
+
+
+def moe_ffn_local(x2d, p, cfg: ArchConfig, *, capacity: int, e_start: int = 0):
+    """The MoE FFN on [T, d]: route, dispatch at ``capacity``, shared
+    experts. Returns (y [T, d], aux)."""
+    w, ids, probs = route(x2d, p["router"], cfg.n_experts, cfg.top_k)
+    amax = active_gather_max(x2d.shape[0], cfg.top_k, p["w1"].shape[0],
+                             n_experts_padded(cfg))
+    y = _dispatch_compute_combine(x2d, w, ids, p["w1"], p["w3"], p["w2"],
+                                  capacity=capacity, e_start=e_start, active_max=amax)
+    if "sw1" in p:
+        y = y + L.swiglu(x2d, p["sw1"], p["sw3"], p["sw2"])
+    return y, load_balance_loss(probs, ids, cfg.n_experts)
+
+
+def capacity_for(t_local: int, cfg: ArchConfig, e_pad: int,
+                 factor: Optional[float] = None) -> int:
+    f = cfg.capacity_factor if factor is None else factor
+    c = int(t_local * cfg.top_k * f / max(e_pad, 1)) + 1
+    c = min(-(-c // 8) * 8, t_local * cfg.top_k)
+    return max(c, 8) if t_local >= 8 else max(c, cfg.top_k)
+
+
+def moe_ffn(x, p, cfg: ArchConfig, *, capacity_factor: Optional[float] = None):
+    """MoE FFN on [B, S, d] (or [T, d]), on one device. Exact by default:
+    top-k ids are distinct per token, so capacity T drops nothing, and
+    prefill, decode and teacher-forced forward agree; an explicit
+    ``capacity_factor`` bounds the buffer (``capacity_for``). Returns
+    (y in x's shape, aux)."""
+    shp = x.shape
+    x2d = x.reshape(-1, shp[-1])
+    t_loc = x2d.shape[0]
+    cap = t_loc if capacity_factor is None else capacity_for(
+        t_loc, cfg, p["w1"].shape[0], capacity_factor)
+    y, aux = moe_ffn_local(x2d, p, cfg, capacity=cap)
+    return y.reshape(shp), aux
+
+
+# ---------------------------------------------------------------------------
+# exact per-expert path and the dense-loop oracle
+# ---------------------------------------------------------------------------
+
+
+def expert_ffn_exact(x2d, w, ids, expert_weights):
+    """Sequential exact MoE: each expert's FFN over every row, weighted by
+    the row's gate for it (no drops). expert_weights: [(w1, w3, w2)] per
+    real expert."""
+    T, d = x2d.shape
+    y = torch.zeros((T, d), dtype=torch.float32, device=x2d.device)
+    for e, (w1, w3, w2) in enumerate(expert_weights):
+        gate = (w * (ids == e)).sum(-1)
+        h = L.silu(x2d @ w1) * (x2d @ w3)
+        y = y + (h @ w2).float() * gate[:, None]
+    return y.to(x2d.dtype)
+
+
+def moe_ffn_ref(x2d, p, cfg: ArchConfig):
+    """Dense-loop oracle (no capacity drops) for tests."""
+    w, ids, probs = route(x2d, p["router"], cfg.n_experts, cfg.top_k)
+    ew = [(p["w1"][e], p["w3"][e], p["w2"][e]) for e in range(cfg.n_experts)]
+    y = expert_ffn_exact(x2d, w, ids, ew)
+    if "sw1" in p:
+        h = L.silu(x2d @ p["sw1"]) * (x2d @ p["sw3"])
+        y = y + h @ p["sw2"]
+    return y, load_balance_loss(probs, ids, cfg.n_experts)

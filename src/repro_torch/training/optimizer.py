@@ -1,52 +1,131 @@
 """AdamW with the reference's own update (port of
-``repro.training.optimizer.AdamW``).
+``repro.training.optimizer``: ``AdamW``, ``AdamWState``,
+``cosine_schedule``).
 
 It differs from ``torch.optim.AdamW``'s defaults, so the port carries the
 update itself: b2 = 0.95, a global-norm gradient clip before the moments,
-f32 moments whatever the parameter dtype, and weight decay added to the
-update of matrices only (norms and biases exempt).
+f32 moments whatever the parameter dtype, weight decay added to the update
+of matrices only (norms and biases exempt), and ``lr`` a float or a
+function of the step (1 for the first update).
+
+Two interfaces over one update:
+
+* the reference's functional one over a parameter tree (nested dicts of
+  tensors, as the model bundles hold them): ``state = opt.init(params)``,
+  ``params, state, grad_norm = opt.update(grads, state, params)``. To keep
+  one copy of the parameters and moments on the card, ``update`` writes the
+  new values into the parameter and moment tensors it was given and
+  returns those same tensors (the reference returns new arrays);
+* the torch one the ExpertMLP predictor trains with: ``AdamW(params,
+  ...)``, ``zero_grad()``, ``step()`` from the parameters' ``.grad``.
 """
 from __future__ import annotations
 
-from typing import Iterable, List
+import math
+from typing import Callable, Dict, Iterable, List, NamedTuple, Optional, Union
 
 import torch
 
 
+class AdamWState(NamedTuple):
+    step: int
+    m: Dict
+    v: Dict
+
+
+def tree_leaves(tree) -> List[torch.Tensor]:
+    """Leaves of a nested dict in ``jax.tree_util``'s order (sorted keys)."""
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in tree_leaves(tree[k])]
+    return [tree]
+
+
+def tree_unflatten(like, leaves):
+    """A tree of ``like``'s keys whose leaves are ``leaves`` in
+    ``tree_leaves`` order."""
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, dict):
+            built = {k: build(node[k]) for k in sorted(node)}
+            return {k: built[k] for k in node}
+        return next(it)
+
+    return build(like)
+
+
+def tree_map(fn, tree, *rest):
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
 class AdamW:
-    def __init__(self, params: Iterable[torch.Tensor], lr: float = 3e-4,
-                 b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
-                 weight_decay: float = 0.1, grad_clip: float = 1.0):
-        self.params: List[torch.Tensor] = list(params)
+    def __init__(self, params: Optional[Iterable[torch.Tensor]] = None,
+                 lr: Union[float, Callable[[int], float]] = 3e-4, b1: float = 0.9,
+                 b2: float = 0.95, eps: float = 1e-8, weight_decay: float = 0.1,
+                 grad_clip: float = 1.0):
         self.lr, self.b1, self.b2, self.eps = lr, b1, b2, eps
         self.weight_decay = weight_decay
         self.grad_clip = grad_clip
-        self.step_count = 0
-        self.m = [torch.zeros_like(p, dtype=torch.float32) for p in self.params]
-        self.v = [torch.zeros_like(p, dtype=torch.float32) for p in self.params]
+        self.params: List[torch.Tensor] = list(params) if params is not None else []
+        self.state = self.init(dict(enumerate(self.params)))
 
-    def zero_grad(self) -> None:
-        for p in self.params:
-            p.grad = None
+    # -- the reference's functional interface --------------------------------
+
+    def init(self, params) -> AdamWState:
+        zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)
+        return AdamWState(0, tree_map(zeros, params), tree_map(zeros, params))
 
     @torch.no_grad()
-    def step(self) -> torch.Tensor:
-        """Apply one update from the parameters' ``.grad``; returns the
-        global gradient norm (before clipping)."""
-        self.step_count += 1
-        grads = [p.grad.float() if p.grad is not None
-                 else torch.zeros_like(p, dtype=torch.float32)
-                 for p in self.params]
-        gn = torch.sqrt(sum((g * g).sum() for g in grads))
+    def update(self, grads, state: AdamWState, params):
+        """One AdamW step over matching trees; returns (params, state,
+        global gradient norm before clipping), the tensors updated in
+        place."""
+        step = state.step + 1
+        lr = self.lr(step) if callable(self.lr) else self.lr
+        g_leaves = tree_leaves(grads)
+        gn = torch.sqrt(sum((g.float() * g.float()).sum() for g in g_leaves))
         scale = torch.clamp(self.grad_clip / torch.clamp(gn, min=1e-9), max=1.0)
-        bc1 = 1 - self.b1 ** self.step_count
-        bc2 = 1 - self.b2 ** self.step_count
-        for p, g, m, v in zip(self.params, grads, self.m, self.v):
-            g = g * scale
+        bc1 = 1 - self.b1 ** step
+        bc2 = 1 - self.b2 ** step
+        for p, g, m, v in zip(tree_leaves(params), g_leaves, tree_leaves(state.m),
+                              tree_leaves(state.v)):
+            g = g.float() * scale
             m.mul_(self.b1).add_((1 - self.b1) * g)
             v.mul_(self.b2).add_((1 - self.b2) * g * g)
             u = (m / bc1) / (torch.sqrt(v / bc2) + self.eps)
             if p.ndim >= 2:
                 u = u + self.weight_decay * p.float()
-            p.copy_((p.float() - self.lr * u).to(p.dtype))
+            p.copy_((p.float() - lr * u).to(p.dtype))
+        return params, AdamWState(step, state.m, state.v), gn
+
+    # -- the torch interface (parameters with .grad) -------------------------
+
+    @property
+    def step_count(self) -> int:
+        return self.state.step
+
+    def zero_grad(self) -> None:
+        for p in self.params:
+            p.grad = None
+
+    def step(self) -> torch.Tensor:
+        """Apply one update from the parameters' ``.grad``; returns the
+        global gradient norm (before clipping)."""
+        grads = {i: p.grad if p.grad is not None else torch.zeros_like(p)
+                 for i, p in enumerate(self.params)}
+        _, self.state, gn = self.update(grads, self.state, dict(enumerate(self.params)))
         return gn
+
+
+def cosine_schedule(peak: float, warmup: int, total: int, floor: float = 0.1):
+    """Linear warm-up to ``peak`` over ``warmup`` steps, then a cosine decay
+    to ``floor * peak`` at ``total``."""
+    def lr(step: int) -> float:
+        s = float(step)
+        if s < warmup:
+            return peak * s / max(warmup, 1)
+        prog = min(max((s - warmup) / max(total - warmup, 1), 0.0), 1.0)
+        return peak * (floor + (1 - floor) * 0.5 * (1 + math.cos(math.pi * prog)))
+    return lr

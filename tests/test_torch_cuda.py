@@ -816,3 +816,105 @@ def test_shared_expert_rows_independent_of_row_count(cuda):
         assert torch.equal(EngineCore._shared(moe, x[:m]), full[:m])
     cpu = EngineCore._shared({k: v.cpu() for k, v in moe.items()}, x[:64].cpu())
     torch.testing.assert_close(full[:64].cpu().float(), cpu.float(), rtol=2e-2, atol=2e-2)
+
+
+# -- the model bundles and training on them --------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,H,Hkv,D,window", [(300, 8, 2, 128, -1), (130, 4, 4, 64, 48)])
+def test_flash_attention_lse_on_card(cuda, S, H, Hkv, D, window):
+    """The lse output leaves o bit-equal to the call without it, and equals
+    the plain version's lse."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    r = lambda *s: torch.randn(s, generator=g, device=cuda).to(torch.bfloat16)
+    q, k, v = r(2, S, H, D), r(2, S, Hkv, D), r(2, S, Hkv, D)
+    o = flash_attention(q, k, v, window=window)
+    o2, lse = flash_attention(q, k, v, window=window, return_lse=True)
+    assert torch.equal(o, o2) and lse.shape == (2, H, S) and lse.dtype == torch.float32
+    _, want = flash_attention_plain(q, k, v, window=window, return_lse=True)
+    torch.testing.assert_close(lse, want, rtol=1e-4, atol=1e-4)
+
+
+def _rel_close(got, want, rel=2e-2):
+    got, want = got.float(), want.float()
+    assert float((got - want).abs().max()) <= rel * float(want.abs().max())
+
+
+@pytest.mark.cuda
+def test_autograd_functions_on_card_match_plain(cuda):
+    """FlashAttentionFn and ExpertFFNFn (the kernels' forwards) against
+    autograd through their plain versions, 2e-2 of each gradient's largest
+    entry (bf16 backward products against f32 ones)."""
+    from repro_torch.kernels.expert_ffn import ExpertFFNFn, expert_ffn, expert_ffn_plain
+    from repro_torch.kernels.flash_attention import FlashAttentionFn
+    g = torch.Generator(device=cuda).manual_seed(6)
+    r = lambda *s, sc=1.0: (torch.randn(s, generator=g, device=cuda) * sc).to(torch.bfloat16)
+    q, k, v, do = r(2, 256, 8, 128), r(2, 256, 2, 128), r(2, 256, 2, 128), r(2, 256, 8, 128)
+    a = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    b = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    n = flash_attention.launches
+    FlashAttentionFn.apply(*a, True, -1).backward(do)
+    assert flash_attention.launches == n + 1
+    flash_attention_plain(*b).backward(do)
+    for ta, tb in zip(a, b):
+        _rel_close(ta.grad, tb.grad)
+    x, w1, w3, w2 = r(4, 200, 256), r(4, 256, 128, sc=1 / 16), r(4, 256, 128, sc=1 / 16), \
+        r(4, 128, 256, sc=128 ** -0.5)
+    dy = r(4, 200, 256)
+    a = [t.clone().requires_grad_(True) for t in (x, w1, w3, w2)]
+    b = [t.clone().requires_grad_(True) for t in (x, w1, w3, w2)]
+    n = expert_ffn.launches
+    ExpertFFNFn.apply(*a).backward(dy)
+    assert expert_ffn.launches == n + 1
+    expert_ffn_plain(*b).backward(dy)
+    for ta, tb in zip(a, b):
+        _rel_close(ta.grad, tb.grad)
+
+
+@pytest.mark.cuda
+def test_linear_gradient_on_card_matches_plain_product(cuda):
+    from repro_torch.models.layers import linear, mm_f32
+    g = torch.Generator(device=cuda).manual_seed(7)
+    x = torch.randn(300, 512, generator=g, device=cuda).to(torch.bfloat16)
+    w = (torch.randn(512, 256, generator=g, device=cuda) / 16).to(torch.bfloat16)
+    dy = torch.randn(300, 256, generator=g, device=cuda).to(torch.bfloat16)
+    for fn in (linear, mm_f32):
+        a = [x.clone().requires_grad_(True), w.clone().requires_grad_(True)]
+        b = [x.clone().requires_grad_(True), w.clone().requires_grad_(True)]
+        out = fn(*a)
+        out.backward(dy.to(out.dtype))
+        (b[0] @ b[1]).backward(dy)
+        for ta, tb in zip(a, b):
+            _rel_close(ta.grad, tb.grad)
+    # a row's input gradient does not depend on the rows beside it
+    xa = x.clone().requires_grad_(True)
+    linear(xa, w).backward(dy)
+    xb = x[:1].clone().requires_grad_(True)
+    linear(xb, w).backward(dy[:1])
+    assert torch.equal(xa.grad[:1], xb.grad)
+
+
+@pytest.mark.cuda
+def test_bundle_decode_matches_forward_on_card(cuda):
+    """A small MoE bundle (head_dim 64, dense0 layer, shared expert) on the
+    card: decode at position S equals forward at S within 5e-2; its
+    attention and expert GEMMs went through the kernels."""
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.kernels.expert_ffn import expert_ffn
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.models.model import build, pad_cache
+    cfg = dataclasses.replace(reduced(get_config("kimi_k2_1t_a32b")), head_dim=64,
+                              d_model=256, d_expert=128, dense_d_ff=256)
+    bundle = build(cfg)
+    params = bundle.init(0, device=cuda)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (2, 41))).to(cuda)
+    n = (flash_attention.launches, flash_decode.launches, expert_ffn.launches)
+    with torch.no_grad():
+        full, _ = bundle.forward(params, {"tokens": toks})
+        _, cache = bundle.prefill(params, {"tokens": toks[:, :40]})
+        cache = pad_cache(cache, 48, bundle.ring_axes)
+        lg, _ = bundle.decode_step(params, {"token": toks[:, 40:]}, cache)
+    torch.testing.assert_close(lg.float(), full[:, 40].float(), rtol=5e-2, atol=5e-2)
+    assert flash_attention.launches > n[0] and flash_decode.launches > n[1] \
+        and expert_ffn.launches > n[2]
