@@ -40,7 +40,22 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                ``flash_decode`` route it replaces (``folded_device_ms``).
                Tolerance: bf16 outputs rtol = atol = 2e-2 (the repo's
                kernel-test tolerance), ``ssd_scan``'s f32 outputs 1e-3
-               (tests/test_kernels.py's for that kernel).
+               (tests/test_kernels.py's for that kernel). Then one
+               ``kernel_variant`` line per shape that only the families
+               phase runs, held and timed the same way, and held at the
+               families' forward length S + 1 too: ``flash_attention``
+               at D=112 (Zamba2-7B, 32 / 32 heads, window 4096, S=4096, and
+               S=5120 where the window skips key tiles) and
+               D=256 (gemma3-1b, 4 / 1, B=2 x S=2048, and its window 512),
+               ``flash_attention_cross`` (Llama-3.2-Vision-90B: 2 x 2048
+               queries over 1601 patch keys, 64 / 8; SeamlessM4T-medium: 2 x
+               2048 over 2048 frames, 16 / 16, D=64; rows bit-equal to the
+               monolithic kernel where the lengths match), ``flash_decode``
+               at D=112 (a full 4096-slot ring; held over the wrapped ring
+               of a 5120-token prompt too), D=256 and G=48 (granite-34b,
+               48 / 1) at B=2, W=2064, and the cross decode (1601 slots at
+               position 0), ``ssd_scan`` at (P, N) = (64, 64) (112 heads,
+               S=4096 and S=5120).
   4. check   — a small MoE model served by the same engine on the card and
                on the CPU (plain versions): the prefill logits must agree.
   5. serve   — Mixtral-8x7B at full width, depth cut to ``--layers``, random
@@ -126,7 +141,10 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                device memory. ``ssd_scan``'s count is reset just before and
                must be > 0 just after. Then a ``torch.profiler`` window over
                one prefill and 8 decode steps: device busy time by kernel,
-               and ``ssd_scan``'s three kernels' share of it.
+               and ``ssd_scan``'s three kernels' share of it. Then, as a
+               witness for the hybrid's limit, decode vs forward over one
+               prompt (``decode_vs_forward``, not held), and again with the
+               decode conv summed in the forward's order.
  11. paper_check — trace-scale Qwen3-30B-A3B (top-8 of 128, ``qk_norm``) and
                DeepSeekMoE-16B (top-6 of 64, a shared expert) at head_dim 64,
                2 layers, served on the card and on the CPU: prefill logits
@@ -158,15 +176,16 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
  13. bundle_check — a small model (Kimi-K2-shaped, 2 layers: a dense0 and
                a MoE layer of 4 experts, f = 128, a shared expert;
                d_model 512, head_dim 128) through the model bundle
-               (``build_dense``) on the card and on the CPU: forward
-               logits, prefill's last logits and 8 greedy decode steps (both
-               fed the CPU's tokens), within rtol = atol = 5e-2; a card
-               token may differ only where the CPU's logits tie it within
-               ``TIE``. Both runs' routers are recorded: a token whose
-               experts differ must sit at a CPU near-tie (``ROUTER_TIE``),
-               and values are compared only where no such token reaches.
-               Then decode at each of positions S-7..S against forward
-               there, on the card.
+               (``build_dense``) on the card and on the CPU
+               (``check_model_small``): forward logits, prefill's last
+               logits and 8 greedy decode steps (both fed the CPU's
+               tokens), within rtol = atol = 5e-2; a card token may differ
+               only where the CPU's logits tie it within ``TIE``; the card's
+               step i against the CPU's step i + 1 must exceed the limit.
+               The card's router calls take the CPU's experts: a token whose
+               own choice differs must sit at a CPU near-tie
+               (``ROUTER_TIE``). Then decode at the last 8 positions against
+               forward there, on the card (``decode_vs_forward``).
  14. bundle  — first ``bundle_kernels`` (uncounted): ``expert_ffn`` (the
                capacity buffer's entry) at Qwen2-MoE-A2.7B's forward shape,
                E=64, C=T=4096, d=2048, f=1408, beside the cuBLAS yardstick
@@ -180,8 +199,11 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                ``prefill``, ``pad_cache`` and 16 greedy ``decode_step``s;
                forward, prefill and decode step times, peak memory, the
                kernels' launches (reset just before, each > 0 after); then
-               decode at S-7..S against forward (5e-2 of the row's largest
-               logit, rows routed alike).
+               decode at the last 8 positions (a prefill of S - 8 tokens,
+               then steps fed the true tokens, each on the forward's
+               experts) against forward there within ``DECODE_TOL``, and the
+               control, decode at p against forward at p + 1, beyond it;
+               the same at depths 1-16 of the same weights (``drive``).
  15. train_check — ``FlashAttentionFn`` and ``ExpertFFNFn`` against
                autograd through their plain versions (2e-2 of each
                gradient's largest entry) at a small and the full-width
@@ -197,8 +219,41 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                step, peak memory. Every loss finite, the last below the
                first; ``expert_ffn`` and ``flash_attention`` launched.
 
+ 17. families_check — each remaining family's reduced config at the
+               kernels' widths (the hybrid: 3 layers, head_dim 112, (P, N) =
+               (64, 64), a 100-token prompt past its window of 64; the
+               enc-dec at 1 + 1 layers, head_dim 64; the vlm at 2 layers,
+               head_dim 128, gates 0.5 / -0.7; the pattern stack at 2
+               layers, head_dim 256;
+               a granite-shaped model with 48 query heads on one KV head)
+               through ``check_model_small`` as ``bundle_check``, decode vs
+               forward within the family's full-width limit; a further
+               control for the vlm (its CPU run with its gates at zero); the
+               pattern stack's logits equal to ``build_dense``'s on the
+               card. Then ``rounding_witness``: the enc-dec, vlm and pattern
+               stack at these depths and at 2 + 2, 4 and 5 layers, seeds
+               0-2, forward logits card vs CPU (bf16) and each against the
+               CPU in f32; the card at most ``F32_RATIO`` times as far from
+               f32 as the CPU's bf16, the vlm without its cross path beyond.
+ 18. families — published widths, every weight on the card, random from
+               ``--seed``: Zamba2-7B at all 81 layers (one prompt of 5120
+               tokens, past its 4096-token window), SeamlessM4T-medium at
+               all 12 + 12 (2 x 2048 tokens over 2 x 2048 stub frames of
+               width 1024), Llama-3.2-Vision-90B at 20 of 100 layers (2 x
+               2048 tokens over 1601 stub patch embeddings of width 1280,
+               gates 0.5 / -0.7; all 100 layers are 180 GB), gemma3-1b at
+               all 26 through ``build_dense_pattern`` (logits equal to
+               ``build_dense``'s on the same weights) and granite-34b at 8 of
+               88 (2 x 2048). Each: forward over S + 1 tokens, prefill, 16
+               greedy decode steps through ``drive`` as ``bundle``; decode
+               vs forward within ``DECODE_TOL`` (the hybrid:
+               ``HYBRID_DECODE_TOL``, with the gap at 6, 12, 24 and 48
+               layers of the same weights, with the decode conv summed in
+               the forward's order, and at seeds 1-3, each held).
+
 The last three lines are the card's ``nvidia-smi`` name and power limit,
-the kernels' JSON summary, and ``{"ok": true, "device": {...}}``.
+the kernels' JSON summary (with each kernel's ``variants``), and
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -407,11 +462,12 @@ def device_vs_library(kernel, library):
                 device_ratio=device_ms / library_device_ms)
 
 
-def attention_bound(B, S, H, Hkv, D):
+def attention_bound(B, S, H, Hkv, D, window: int = -1):
     """Causal prefill: q, k, v read once and o written once (bf16); 4 D
-    operations for each of the S (S + 1) / 2 live (query, key) pairs of
-    each head."""
-    pairs = S * (S + 1) // 2
+    operations for each live (query, key) pair of each head: S (S + 1) / 2,
+    or under a window w the min(q + 1, w) keys of each query q."""
+    w = window if 0 < window < S else S
+    pairs = w * (w + 1) // 2 + (S - w) * w
     return bound(2 * (2 * B * S * H * D + 2 * B * S * Hkv * D), 4 * B * H * D * pairs)
 
 
@@ -434,35 +490,45 @@ def kernel_flash_attention(g):
                 long=long, **(main | dict(max_abs_err=err)))
 
 
-def prefill_attention(H, Hkv, D, S, g, B: int = 1, lse: bool = False):
-    """Monolithic causal prefill attention of B S-token prompts: held
-    against the plain version, timed beside it and beside SDPA. With
-    ``lse`` the call returns the log-sum-exp too: ``o`` must be bit-equal
-    to the call without it and the lse is held against the plain lse
-    (TOL_F32). Returns the inputs and the record."""
+def prefill_attention(H, Hkv, D, S, g, B: int = 1, lse: bool = False, window: int = -1):
+    """Monolithic causal prefill attention of B S-token prompts (under
+    ``window`` where > 0): held against the plain version, timed beside it
+    and beside SDPA (with the window's mask where it cuts). With ``lse``
+    the call returns the log-sum-exp too: ``o`` must be bit-equal to the
+    call without it and the lse is held against the plain lse (TOL_F32).
+    Returns the inputs and the record."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
     mk = lambda h: torch.randn(B, S, h, D, generator=g, device="cuda").to(torch.bfloat16)
     q, k, v = mk(H), mk(Hkv), mk(Hkv)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    o = flash_attention(q, k, v)
+    o = flash_attention(q, k, v, window=window)
     extra = {}
     if lse:
-        o2, l2 = flash_attention(q, k, v, return_lse=True)
+        o2, l2 = flash_attention(q, k, v, return_lse=True, window=window)
         if not torch.equal(o, o2):
             raise AssertionError("flash_attention: o moved with the lse output")
-        po, plse = flash_attention_plain(q, k, v, return_lse=True)
+        po, plse = flash_attention_plain(q, k, v, return_lse=True, window=window)
         extra = dict(lse=True, o_bit_equal=True, lse_max_abs_err=max_err(l2, plse, TOL_F32))
     else:
-        po = flash_attention_plain(q, k, v)
+        po = flash_attention_plain(q, k, v, window=window)
     err = max_err(o, po)
     del o, po
-    timed = device_vs_library(lambda: flash_attention(q, k, v, return_lse=lse),
-                              lambda: F.scaled_dot_product_attention(
-                                  qt, kt, vt, is_causal=True, enable_gqa=True))
-    plain_ms = time_ms(lambda: flash_attention_plain(q, k, v, return_lse=lse), reps=5)
-    bms, by = attention_bound(B, S, H, Hkv, D)
-    return (q, k, v), dict(shape=dict(B=B, S=S, H=H, Hkv=Hkv, D=D), max_abs_err=err,
+    if 0 < window < S:
+        i = torch.arange(S, device="cuda")
+        band = (i[None] <= i[:, None]) & (i[None] > i[:, None] - window)
+        library = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band,
+                                                         enable_gqa=True)
+    else:
+        library = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                         enable_gqa=True)
+    timed = device_vs_library(
+        lambda: flash_attention(q, k, v, return_lse=lse, window=window), library)
+    plain_ms = time_ms(lambda: flash_attention_plain(q, k, v, return_lse=lse, window=window),
+                       reps=5)
+    bms, by = attention_bound(B, S, H, Hkv, D, window)
+    return (q, k, v), dict(shape=dict(B=B, S=S, H=H, Hkv=Hkv, D=D, window=window),
+                           max_abs_err=err,
                            plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                            bound_share=bms / timed["device_ms"], **extra, **timed)
 
@@ -566,25 +632,34 @@ def ssd_scan_work(B, S, H, G, P, N, in_bytes, chunk=256):
     return n_bytes, 2 * B * H * chunked, 2 * B * H * recurrence
 
 
+def ssd_scan_shape(g, S, H, G, P, N):
+    """``ssd_scan`` on one S-token bf16 prompt of H heads (f32 da / dt):
+    held against the plain version (TOL_F32), timed by device time, by
+    events and beside the plain version. Returns the inputs and the
+    record."""
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+    args = ssd_inputs(g, 1, S, H, G, P, N, torch.bfloat16)
+    (y, h), (y0, h0) = ssd_scan(*args), ssd_scan_plain(*args)
+    err = max(max_err(y, y0, TOL_F32), max_err(h, h0, TOL_F32))
+    del y, h, y0, h0
+    n_bytes, chunked, recurrence = ssd_scan_work(1, S, H, G, P, N, 2)
+    bms, by = bound(n_bytes, chunked)
+    device_ms = float(np.median(kernel_ms(lambda: ssd_scan(*args))))
+    return args, dict(shape=dict(B=1, S=S, H=H, G=G, P=P, N=N, chunk=256),
+                      max_abs_err=err, device_ms=device_ms, bound_ms=bms,
+                      ms=time_ms(lambda: ssd_scan(*args)),
+                      plain_ms=time_ms(lambda: ssd_scan_plain(*args)),
+                      bound_by=by, bound_share=bms / device_ms,
+                      bound_f32_recurrence_ms=bound(n_bytes, recurrence,
+                                                    PEAK_F32_OPS_PER_S)[0])
+
+
 def kernel_ssd_scan(g):
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
     # Mamba2-2.7B's prefill of a 2048-token prompt: bf16 x/b/c, f32 da/dt
     H, G, P, N = 80, 1, 64, 128
-
-    def shape(S):
-        args = ssd_inputs(g, 1, S, H, G, P, N, torch.bfloat16)
-        (y, h), (y0, h0) = ssd_scan(*args), ssd_scan_plain(*args)
-        err = max(max_err(y, y0, TOL_F32), max_err(h, h0, TOL_F32))
-        n_bytes, chunked, recurrence = ssd_scan_work(1, S, H, G, P, N, 2)
-        bms, by = bound(n_bytes, chunked)
-        device_ms = float(np.median(kernel_ms(lambda: ssd_scan(*args))))
-        return args, dict(shape=dict(B=1, S=S, H=H, G=G, P=P, N=N, chunk=256),
-                          max_abs_err=err, device_ms=device_ms, bound_ms=bms,
-                          bound_by=by, bound_share=bms / device_ms,
-                          bound_f32_recurrence_ms=bound(n_bytes, recurrence,
-                                                        PEAK_F32_OPS_PER_S)[0])
-
-    args, main = shape(2048)
+    shape = lambda S: ssd_scan_shape(g, S, H, G, P, N)
+    _, main = shape(2048)
     err = main["max_abs_err"]
     # a ragged S, two rows, two groups, f32 inputs
     for case in ((1, 1000, H, G, P, N, torch.bfloat16),
@@ -593,15 +668,11 @@ def kernel_ssd_scan(g):
         a = ssd_inputs(g, *case)
         (y, h), (y0, h0) = ssd_scan(*a), ssd_scan_plain(*a)
         err = max(err, max_err(y, y0, TOL_F32), max_err(h, h0, TOL_F32))
-    ms = time_ms(lambda: ssd_scan(*args))
-    plain_ms = time_ms(lambda: ssd_scan_plain(*args))
-    del args
     _, long = shape(8192)
     return dict(name="ssd_scan", route="cuda",
                 source="src/repro_torch/csrc/ssd_scan.cu",
-                replaces="src/repro/kernels/ssd_scan.py:81", tol=TOL_F32, ms=ms,
-                plain_ms=plain_ms, library_ms=None, long=long,
-                **(main | dict(max_abs_err=err)))
+                replaces="src/repro/kernels/ssd_scan.py:81", tol=TOL_F32,
+                library_ms=None, long=long, **(main | dict(max_abs_err=err)))
 
 
 # -- phase 4: engine on the card vs the same engine on the CPU ---------------
@@ -1564,6 +1635,16 @@ def serve_ssm(seed: int, ssd_scan):
             raise AssertionError("ssm logits not finite")
     if launches == 0:
         raise AssertionError("ssd_scan never launched while serving Mamba2")
+    # a witness for the hybrid's decode-vs-forward limit: the gap of a pure
+    # Mamba stack over one prompt, and with its decode conv summed in the
+    # forward's order
+    batch = model_batch(cfg, 1, prompts.shape[1], seed, "cuda")
+    with torch.no_grad():
+        at = bundle.forward(params, batch)[0][:, -DECODE_STEPS - 1:].float().cpu()
+        err, low, pairs, _ = decode_vs_forward(bundle, params, batch, at)
+        with conv_in_forward_order():
+            conv = decode_vs_forward(bundle, params, batch, at)[0]
+    gap = dict(max_abs_err=err, control=low, pairs=pairs, conv_in_forward_order=conv)
     return dict(
         phase="ssm", model="mamba2-2.7b", layers=cfg.n_layers,
         widths=dict(d_model=cfg.d_model, d_inner=cfg.ssm_expand * cfg.d_model,
@@ -1577,6 +1658,7 @@ def serve_ssm(seed: int, ssd_scan):
         tokens_head=[r[2][:8].tolist() for r in runs],
         memory_allocated_before_init=held_before, max_memory_allocated=peak,
         launches={"ssd_scan": launches},
+        decode_vs_forward=gap,
         profile=profile_ssm(bundle, params, prompts[0], cfg.vocab))
 
 
@@ -2024,6 +2106,21 @@ def serve_paper(seed: int, kernels):
 # compared.
 BUNDLE_TOL = 5e-2
 DECODE_TOL = 0.15
+# The hybrid (Zamba2-7B: 81 Mamba layers, 13 attention applications) parts
+# decode from forward further, as a pure Mamba stack does: the Mamba layer
+# decodes by a different computation than its forward (an f32 recurrence
+# against the chunked scan, its causal conv one reduction of the conv state
+# against a running bf16 sum of shifted products, projections of 1 row
+# against S rows), and the bf16 differences grow with depth (in f32 the
+# port's hybrid decode equals its forward to 2e-4:
+# tests/test_torch_families.py). Measured, NVIDIA H100 80GB HBM3, logits of
+# RMS 1.0: Zamba2-7B at 81 layers 0.388, 0.345, 0.383 and 0.371 at seeds
+# 0-3 (0.094 at 6 layers, 0.141, 0.203, 0.266 at 48), 0.292 with the
+# decode conv summed in the forward's order (so the conv is a quarter of
+# it); Mamba2-2.7B's 64 layers 0.319 (0.279). The limit was set after
+# readings of this kind: 1.29 times the largest of four seeds, whose spread
+# is 12%, and under a tenth of the smallest control, 5.45
+HYBRID_DECODE_TOL = 0.5
 TIE = 1 / 16
 ROUTER_TIE = 2e-2
 # train_check: gradients of the kernels' autograd.Functions against autograd
@@ -2085,40 +2182,194 @@ def flips(rec, ref) -> int:
     return n
 
 
-def decode_vs_forward(bundle, params, toks, at, rf, S: int, first: int, tol: float):
-    """Decode at each position p in first..S against the forward's logits
-    there (``at[:, p - first]``, on the CPU), from one prefill of S tokens:
-    for p < S the prefill's cache with slots p.. marked empty and ``pos``
-    p, so each position is an independent prefill-to-p-then-decode. Each
-    decode step takes the experts the forward used at p (``rf``: its router
-    calls over B rows of S + 1 tokens; the step's own choice may differ
-    only at a near-tie). Every (row, position) pair is held to ``tol``
-    absolute; a planted control, decode at p against forward at p + 1 (a
-    position off by one), must exceed ``tol`` in every pair whose tokens at
-    p and p + 1 differ. Returns (max abs difference, smallest control
-    difference, pairs, flips)."""
+def model_batch(cfg, B: int, S: int, seed: int, dev):
+    """B x (S + 1) tokens from ``SyntheticLM`` and the stub frontend's
+    inputs (numpy normals): the vlm's ``patch_embeds`` [B, n_frontend_tokens,
+    frontend_dim], the enc-dec's ``frames`` [B, S, frontend_dim]."""
+    from repro_torch.data.pipeline import SyntheticLM
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": torch.from_numpy(
+        next(SyntheticLM(cfg.vocab, seed=seed).batches(B, S + 1)))}
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = torch.from_numpy(rng.standard_normal(
+            (B, cfg.n_frontend_tokens, cfg.frontend_dim), dtype=np.float32))
+    if cfg.family == "encdec":
+        batch["frames"] = torch.from_numpy(rng.standard_normal(
+            (B, S, cfg.frontend_dim), dtype=np.float32))
+    return {k: v.to(dev) for k, v in batch.items()}
+
+
+def ring(cfg, n: int) -> int:
+    """Slots a cache needs to hold n positions: the hybrid's window ring
+    holds at most its window (prefill past it keeps a full, rolled ring)."""
+    return min(n, cfg.sliding_window) if cfg.family == "hybrid" and cfg.sliding_window else n
+
+
+def teacher_forced(bundle, params, batch, first: int, n: int, rf=()):
+    """Prefill of the first ``first`` tokens, then n decode steps each fed
+    the next true token. Each step takes the experts that a forward over
+    the batch's T tokens used at its position (``rf``: that forward's
+    router calls over B rows of T tokens; the step's own choice may differ
+    only at a near-tie). Returns the steps' logits [B, n, V] (f32, on the
+    CPU) and the count of tokens routed differently."""
     from repro_torch.models.model import pad_cache
-    B, vocab = toks.shape[0], bundle.cfg.vocab
-    _, cache = bundle.prefill(params, {"tokens": toks[:, :S]})
-    cache = pad_cache(cache, S + 8, bundle.ring_axes)
-    slots = torch.arange(cache["slot_pos"].shape[0], device=toks.device)
-    errs, ctl, n_flips = [], [], 0
-    for p in range(first, S + 1):
-        c = dict(cache, slot_pos=torch.where(slots < p, cache["slot_pos"], -1),
-                 pos=torch.tensor(p, dtype=torch.int32, device=toks.device))
-        used = [(i[p::S + 1], q[p::S + 1]) for i, q in rf]
+    toks = batch["tokens"]
+    T = toks.shape[1]
+    _, cache = bundle.prefill(params, dict(batch, tokens=toks[:, :first]))
+    cache = pad_cache(cache, ring(bundle.cfg, first + n), bundle.ring_axes)
+    out, n_flips = [], 0
+    for p in range(first, first + n):
+        used = [(i[p::T], q[p::T]) for i, q in rf]
         with routes(replay=used or None) as rd:
-            lg, _ = bundle.decode_step(params, {"token": toks[:, p:p + 1]}, c)
+            lg, cache = bundle.decode_step(params, {"token": toks[:, p:p + 1]}, cache)
         n_flips += flips(rd, used)
-        lg = lg.float().cpu()[:, :vocab]
-        errs += (lg - at[:, p - first, :vocab]).abs().amax(-1).tolist()
-        if p < S:
-            moved = (toks[:, p] != toks[:, p + 1]).cpu()
-            ctl += (lg - at[:, p - first + 1, :vocab]).abs().amax(-1)[moved].tolist()
-    err, low = max(errs), min(ctl)
-    if not (np.isfinite(errs).all() and err <= tol < low):
+        out.append(lg.float().cpu())
+    return torch.stack(out, 1), n_flips
+
+
+def decode_vs_forward(bundle, params, batch, at, rf=(), tol=None):
+    """Decode at the last n positions S - n .. S - 1 of the batch's S + 1
+    tokens (``teacher_forced``, ``rf`` as there) against a forward's logits
+    there (``at`` = forward[:, S - n:], n + 1 columns, on the CPU). Every
+    (row, position) pair is held to ``tol`` absolute; a planted control,
+    decode at p against forward at p + 1 (a position off by one), must
+    exceed ``tol`` in every pair whose tokens at p and p + 1 differ. With
+    no ``tol`` nothing is held (a diagnosis). Returns (max abs difference,
+    smallest control difference, pairs, flips)."""
+    toks = batch["tokens"]
+    S, n, vocab = toks.shape[1] - 1, at.shape[1] - 1, bundle.cfg.vocab
+    dec, n_flips = teacher_forced(bundle, params, batch, S - n, n, rf)
+    dec, at = dec[..., :vocab], at[..., :vocab]
+    errs = (dec - at[:, :n]).abs().amax(-1)                      # [B, n]
+    moved = (toks[:, S - n:S] != toks[:, S - n + 1:]).cpu()
+    err, low = float(errs.max()), float((dec - at[:, 1:]).abs().amax(-1)[moved].min())
+    if tol is not None and not (bool(torch.isfinite(errs).all()) and err <= tol < low):
         raise AssertionError(f"decode vs forward: {err} (limit {tol}, control {low})")
-    return err, low, len(errs), n_flips
+    return err, low, errs.numel(), n_flips
+
+
+# the vlm's gate_attn and gate_mlp: zero at init (a fresh cross layer is the
+# identity), so the runs set them nonzero
+FAMILY_GATES = (0.5, -0.7)
+
+
+def set_gates(params, values=FAMILY_GATES):
+    for key, val in zip(("gate_attn", "gate_mlp"), values):
+        params["blocks"]["cross"][key].fill_(val)
+    return params
+
+
+def timed_init(bundle, seed: int):
+    """The bundle's params on the card from ``seed`` (a vlm's gates set to
+    FAMILY_GATES), and the seconds that took."""
+    t0 = time.perf_counter()
+    params = bundle.init(seed, device="cuda")
+    if bundle.cfg.family == "vlm":
+        set_gates(params)
+    torch.cuda.synchronize()
+    return params, time.perf_counter() - t0
+
+
+def widths(cfg) -> dict:
+    """The config's nonzero widths."""
+    w = dict(d_model=cfg.d_model, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+             head_dim=cfg.hd, d_ff=cfg.d_ff, n_experts=cfg.n_experts, top_k=cfg.top_k,
+             n_shared_experts=cfg.n_shared_experts, d_expert=cfg.d_expert, vocab=cfg.vocab,
+             ssm_state=cfg.ssm_state, ssm_head_dim=cfg.ssm_head_dim, enc_layers=cfg.enc_layers,
+             window=cfg.sliding_window, frontend_tokens=cfg.n_frontend_tokens,
+             frontend_dim=cfg.frontend_dim)
+    if not cfg.ssm_state:
+        del w["ssm_head_dim"]
+    return {k: v for k, v in w.items() if v}
+
+
+SMALL_STEPS = 8    # greedy decode steps of a small check
+DECODE_STEPS = 8   # positions at which decode is held against forward
+
+
+def run_small(bundle, params, batch, ref=None):
+    """Forward over the batch's S + 1 tokens, prefill of S, then
+    SMALL_STEPS greedy decode steps, on the params' device. Alone, each
+    step is fed the run's own greedy token; with ``ref`` (another run's
+    record) the ref's, and every router call takes the ref's experts
+    (``routes(replay=)``). Returns the record: logits over the real
+    vocabulary (f32, on the CPU), aux, each call's router record and the
+    tokens routed differently from the ref's."""
+    from repro_torch.models.model import pad_cache
+    cfg, toks = bundle.cfg, batch["tokens"]
+    S, real = toks.shape[1] - 1, slice(0, cfg.vocab)
+    rec = dict(routes={}, flips=0)
+
+    def call(key, fn, *args):
+        want = ref["routes"][key] if ref else None
+        with routes(replay=want) as r:
+            out = fn(params, *args)
+        if ref:
+            rec["flips"] += flips(r, want)
+        rec["routes"][key] = r
+        return out
+
+    full, aux = call("forward", bundle.forward, batch)
+    last, cache = call("prefill", bundle.prefill, dict(batch, tokens=toks[:, :S]))
+    cache = pad_cache(cache, ring(cfg, S + SMALL_STEPS), bundle.ring_axes)
+    logits = [last.float().cpu()[:, real]]
+    for i in range(SMALL_STEPS):
+        tok = (ref or {"logits": logits})["logits"][i].argmax(-1)[:, None]
+        lg, cache = call(i, bundle.decode_step, {"token": tok.to(toks)}, cache)
+        logits.append(lg.float().cpu()[:, real])
+    rec.update(full=full.float().cpu()[..., real], aux=float(aux), logits=logits)
+    return rec
+
+
+def check_model_small(bundle, gpu, batch, tol: float, controls=None):
+    """One small model through the same port code on the CPU (plain
+    versions), then on the card with every router call taking the CPU's
+    experts (``run_small``): forward logits, prefill's last logits and
+    SMALL_STEPS greedy decode steps fed the CPU's tokens, every row and
+    position within BUNDLE_TOL (``logit_err``); a card token may differ
+    from the CPU's only at a CPU co-maximum within TIE. Controls that must
+    exceed the limit: the card's step i against the CPU's step i + 1 (a
+    position off by one), and the pairs of logits that ``controls(card
+    run, CPU run)`` returns. On the card, decode at the last DECODE_STEPS
+    positions against forward there within ``tol`` (``decode_vs_forward``)."""
+    cfg = bundle.cfg
+    c = run_small(bundle, to_cpu(gpu), batch)
+    on = {k: v.cuda() for k, v in batch.items()}
+    g = run_small(bundle, gpu, on, ref=c)
+    fwd_err, within = logit_err(g["full"], c["full"])
+    errs, ties, ctl = [], [], []
+    for i, (lg, lc) in enumerate(zip(g["logits"], c["logits"])):
+        err, w = logit_err(lg, lc)
+        errs.append(err)
+        within &= w
+        want, got = lc.argmax(-1), lg.argmax(-1)
+        for b in np.flatnonzero((got != want).numpy()):
+            gap = float(lc[b, want[b]] - lc[b, got[b]])
+            ties.append(dict(step=i, row=int(b), cuda=int(got[b]), cpu=int(want[b]),
+                             cpu_logit_gap=gap))
+            if gap > TIE:
+                raise AssertionError(f"{cfg.name}: card tokens {got.tolist()} against the "
+                                     f"CPU's {want.tolist()}")
+        if i + 1 < len(c["logits"]):
+            ctl.append(logit_err(lg, c["logits"][i + 1]))
+    ctl += [logit_err(a, b) for a, b in (controls(g, c) if controls else ())]
+    S = batch["tokens"].shape[1] - 1
+    dec = decode_vs_forward(bundle, gpu, on, g["full"][:, S - DECODE_STEPS:],
+                            c["routes"]["forward"], tol)
+    res = dict(config=cfg.name, layers=cfg.n_layers, widths=widths(cfg), prompt=S,
+               tol=BUNDLE_TOL, forward_logit_max_abs_err=fwd_err,
+               decode_logit_max_abs_err=errs, aux_cuda=g["aux"], aux_cpu=c["aux"],
+               own_route_flips_at_ties=g["flips"], control_max_abs_err=[e for e, _ in ctl],
+               token_ties=ties, tokens_equal=not ties, decode_vs_forward_max_abs_err=dec[0],
+               decode_vs_forward_control=dec[1], decode_vs_forward_pairs=dec[2],
+               decode_vs_forward_flips=dec[3], decode_vs_forward_tol=tol)
+    if not within:
+        emit(res)
+        raise AssertionError(f"{cfg.name}: card vs CPU logits differ beyond the limit")
+    if any(w for _, w in ctl):
+        emit(res)
+        raise AssertionError(f"{cfg.name}: a control stayed within the limit")
+    return res
 
 
 def small_bundle_cfg():
@@ -2131,81 +2382,15 @@ def small_bundle_cfg():
 
 
 def check_bundle_small(seed: int):
-    """The small bundle on the CPU (plain versions), then on the card with
-    every router call taking the CPU's experts: forward logits, prefill's
-    last logits, then 8 greedy decode steps, both fed the CPU's tokens,
-    every row and position compared; decode at S-7..S against forward
-    there on the card."""
-    from repro_torch.models.model import build, pad_cache
+    """Phase 13: ``check_model_small`` on ``small_bundle_cfg``, 2 x 40
+    tokens, decode vs forward within BUNDLE_TOL."""
+    from repro_torch.models.model import build
     cfg = small_bundle_cfg()
     bundle = build(cfg)
-    gpu = bundle.init(seed, device="cuda")
-    cpu = to_cpu(gpu)
-    B, S, NEW = 2, 40, 8
-    toks = torch.from_numpy(np.random.default_rng(seed).integers(0, cfg.vocab, (B, S + 1)))
-    real = slice(0, cfg.vocab)
     with torch.no_grad():
-        # the CPU: forward, prefill, NEW greedy steps, every router call recorded
-        with routes() as rf:
-            full_c, aux_c = bundle.forward(cpu, {"tokens": toks})
-        with routes() as rp:
-            lg, cc = bundle.prefill(cpu, {"tokens": toks[:, :S]})
-        cc = pad_cache(cc, S + NEW, bundle.ring_axes)
-        logits_c, steps_c, rd = [lg.float()], [], []
-        for _ in range(NEW):
-            steps_c.append(logits_c[-1][:, real].argmax(-1)[:, None].to(torch.int32))
-            with routes() as r:
-                lg, cc = bundle.decode_step(cpu, {"token": steps_c[-1]}, cc)
-            rd.append(r)
-            logits_c.append(lg.float())
-        # the card, each router call on the CPU's experts
-        t = toks.cuda()
-        with routes(replay=rf) as own:
-            full_g, aux_g = bundle.forward(gpu, {"tokens": t})
-        n_flips = flips(own, rf)
-        fwd_err, within = logit_err(full_g.float().cpu()[..., real], full_c[..., real])
-        with routes(replay=rp) as own:
-            lg, cg = bundle.prefill(gpu, {"tokens": t[:, :S]})
-        n_flips += flips(own, rp)
-        cg = pad_cache(cg, S + NEW, bundle.ring_axes)
-        logits_g = [lg.float().cpu()]
-        for i in range(NEW):
-            with routes(replay=rd[i]) as own:
-                lg, cg = bundle.decode_step(gpu, {"token": steps_c[i].cuda()}, cg)
-            n_flips += flips(own, rd[i])
-            logits_g.append(lg.float().cpu())
-        errs, toks_g, toks_c, ties = [], [], [], []
-        for i, (lgg, lc) in enumerate(zip(logits_g, logits_c)):
-            lgg, lc = lgg[:, real], lc[:, real]
-            err, w = logit_err(lgg, lc)
-            errs.append(err)
-            within &= w
-            want, got = lc.argmax(-1), lgg.argmax(-1)
-            for b in np.flatnonzero((got != want).numpy()):
-                gap = float(lc[b, want[b]] - lc[b, got[b]])
-                ties.append(dict(step=i, row=int(b), cuda=int(got[b]), cpu=int(want[b]),
-                                 cpu_logit_gap=gap))
-                if gap > TIE:
-                    raise AssertionError(f"bundle_check: card tokens {got.tolist()} "
-                                         f"against the CPU's {want.tolist()}")
-            toks_g.append(got.tolist())
-            toks_c.append(want.tolist())
-        # on the card: decode at positions S-7..S against forward there
-        dec_err, dec_ctl, n_dec, dec_flips = decode_vs_forward(
-            bundle, gpu, t, full_g[:, S - 7:].float().cpu(), rf, S, S - 7, BUNDLE_TOL)
-    res = dict(phase="bundle_check", layers=cfg.n_layers, d_model=cfg.d_model,
-               head_dim=cfg.hd, n_experts=cfg.n_experts, d_expert=cfg.d_expert,
-               tol=BUNDLE_TOL, forward_logit_max_abs_err=fwd_err,
-               aux_cuda=float(aux_g), aux_cpu=float(aux_c),
-               own_route_flips_at_ties=n_flips, decode_logit_max_abs_err=errs,
-               decode_vs_forward_max_abs_err=dec_err, decode_vs_forward_control=dec_ctl,
-               decode_vs_forward_pairs=n_dec, decode_vs_forward_flips=dec_flips,
-               tokens_cuda=toks_g, tokens_cpu=toks_c, tokens_equal=toks_g == toks_c,
-               token_ties=ties)
-    if not within:
-        emit(res)
-        raise AssertionError("bundle_check: card vs CPU logits differ beyond the limit")
-    return res
+        res = check_model_small(bundle, bundle.init(seed, device="cuda"),
+                                model_batch(cfg, 2, 40, seed, "cpu"), BUNDLE_TOL)
+    return dict(phase="bundle_check", **res)
 
 
 # (config id, layers): Qwen2-MoE-A2.7B at all 24 layers (29.7 GB of bf16
@@ -2215,26 +2400,21 @@ BUNDLE_B, BUNDLE_S, BUNDLE_NEW = 2, 2048, 16
 BUNDLE_DEPTHS = (1, 2, 4, 8, 16)
 
 
-def bundle_model(arch: str, seed: int, kernels):
-    """One model at published widths through the bundle: B x S prompts from
-    ``SyntheticLM``, a teacher-forced ``forward`` over S + 1 tokens, then
-    ``prefill`` of S, ``pad_cache`` and BUNDLE_NEW greedy ``decode_step``s;
-    decode at S-7..S against forward there (``decode_vs_forward``), and the
-    same at the depths of BUNDLE_DEPTHS. The kernels' counts are reset just
-    before and read just after the main run."""
-    from repro_torch.configs.base import get_config
-    from repro_torch.data.pipeline import SyntheticLM
-    from repro_torch.models.model import build, greedy_token, pad_cache
-    from repro_torch.training.optimizer import tree_leaves, tree_map
-    cfg = get_config(arch)
-    B, S, NEW = BUNDLE_B, BUNDLE_S, BUNDLE_NEW
-    bundle = build(cfg)
-    t0 = time.perf_counter()
-    params = bundle.init(seed, device="cuda")
-    torch.cuda.synchronize()
-    t_init = time.perf_counter() - t0
-    leaves = tree_leaves(params)
-    toks = torch.from_numpy(next(SyntheticLM(cfg.vocab, seed=seed).batches(B, S + 1))).cuda()
+def drive(bundle, params, batch, kernels, need, tol: float, cuts=()):
+    """One model's main path at published widths, the kernels' counts
+    reset just before and read just after: a teacher-forced ``forward``
+    over the batch's S + 1 tokens, ``prefill`` of S, ``pad_cache`` and
+    BUNDLE_NEW greedy ``decode_step``s, with walls and peak memory; every
+    kernel named in ``need`` must have launched. Then, uncounted, decode
+    at the last DECODE_STEPS positions against the forward there within
+    ``tol`` (``decode_vs_forward``, each step on the forward's experts),
+    and the same for each of ``cuts`` ((depth, bundle, params) over the
+    first layers of the same weights): the gap's growth with depth, the
+    witness that it is rounding. Returns the record."""
+    from repro_torch.models.model import greedy_token, pad_cache
+    from repro_torch.training.optimizer import tree_leaves
+    cfg, toks, n = bundle.cfg, batch["tokens"], DECODE_STEPS
+    B, S = toks.shape[0], toks.shape[1] - 1
     torch.cuda.reset_peak_memory_stats()
     for fn in kernels:
         fn.launches = 0
@@ -2242,20 +2422,20 @@ def bundle_model(arch: str, seed: int, kernels):
         with routes() as rf:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            full, aux = bundle.forward(params, {"tokens": toks})
-            at = full[:, S - 7:].float().cpu()
+            full, aux = bundle.forward(params, batch)
+            at = full[:, S - n:].float().cpu()
             t_fwd = time.perf_counter() - t0
+        finite = bool(torch.isfinite(full).all())
         del full
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        last, cache = bundle.prefill(params, {"tokens": toks[:, :S]})
+        last, cache = bundle.prefill(params, dict(batch, tokens=toks[:, :S]))
         tok = greedy_token(last, cfg.vocab)
         torch.cuda.synchronize()
         t_prefill = time.perf_counter() - t0
-        cache = pad_cache(cache, S + NEW, bundle.ring_axes)
-        out, finite = [tok], bool(torch.isfinite(last).all())
-        steps = []
-        for _ in range(NEW):
+        cache = pad_cache(cache, ring(cfg, S + BUNDLE_NEW), bundle.ring_axes)
+        out, steps = [tok], []
+        for _ in range(BUNDLE_NEW):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             lg, cache = bundle.decode_step(params, {"token": tok}, cache)
@@ -2268,45 +2448,53 @@ def bundle_model(arch: str, seed: int, kernels):
     peak = torch.cuda.max_memory_allocated()
     tokens = torch.cat(out, 1).cpu()
     del cache
-    with torch.no_grad(), uncounted(kernels):
-        dec_err, dec_ctl, n_dec, dec_flips = decode_vs_forward(bundle, params, toks, at, rf,
-                                                               S, S - 7, DECODE_TOL)
-        del at, rf
-        # the witness that the gap is rounding: its growth with depth, over
-        # the first n layers of the same weights
-        depth = {}
-        for n in (d for d in BUNDLE_DEPTHS if d < cfg.n_layers):
-            cut = build(dataclasses.replace(cfg, n_layers=n))
-            pc = dict(params, layers=tree_map(lambda t: t[:n], params["layers"]))
-            with routes() as r:
-                full, _ = cut.forward(pc, {"tokens": toks})
-            at = full[:, S - 7:].float().cpu()
-            del full
-            depth[n] = decode_vs_forward(cut, pc, toks, at, r, S, S - 7, DECODE_TOL)[0]
-            del at, r
-        depth[cfg.n_layers] = dec_err
-    res = dict(phase="bundle", model=cfg.name, layers=cfg.n_layers,
-               widths=dict(d_model=cfg.d_model, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-                           head_dim=cfg.hd, d_ff=cfg.d_ff, n_experts=cfg.n_experts,
-                           top_k=cfg.top_k, n_shared_experts=cfg.n_shared_experts,
-                           d_expert=cfg.d_expert, vocab=cfg.vocab),
-               n_params=sum(t.numel() for t in leaves),
-               param_bytes=sum(t.numel() * t.element_size() for t in leaves), init_s=t_init,
-               batch=B, prompt_tokens=S, new_tokens=NEW, forward_s=t_fwd,
-               prefill_s=t_prefill, decode_step_ms=steps,
-               decode_step_ms_median=float(np.median(steps)), aux=float(aux),
-               decode_vs_forward_max_abs_err=dec_err, decode_vs_forward_control=dec_ctl,
-               decode_vs_forward_pairs=n_dec, decode_vs_forward_flips=dec_flips,
-               decode_vs_forward_by_depth=depth, tol=DECODE_TOL,
-               tokens_head=tokens[:, :8].tolist(), max_memory_allocated=peak,
-               launches=launches)
     if not finite:
-        emit(res)
-        raise AssertionError(f"bundle {cfg.name}: logits not finite")
-    missing = [n for n, c in launches.items() if c == 0 and (cfg.is_moe or n != "expert_ffn")]
+        raise AssertionError(f"{cfg.name}: logits not finite")
+    missing = [k for k in need if launches[k] == 0]
     if missing:
-        raise AssertionError(f"kernels never launched by the bundle phase: {missing}")
-    return res
+        raise AssertionError(f"kernels never launched by {cfg.name}: {missing}")
+    with torch.no_grad(), uncounted(kernels):
+        err, low, pairs, n_flips = decode_vs_forward(bundle, params, batch, at, rf, tol)
+        rms = float(at.pow(2).mean().sqrt())
+        del at, rf
+        depth = {}
+        for d, cut, pc in cuts:
+            with routes() as r:
+                full, _ = cut.forward(pc, batch)
+            at = full[:, S - n:].float().cpu()
+            del full
+            depth[d] = decode_vs_forward(cut, pc, batch, at, r, tol)[0]
+            del at, r
+        depth[cfg.n_layers] = err
+    leaves = tree_leaves(params)
+    return dict(layers=cfg.n_layers, widths=widths(cfg), n_params=sum(t.numel() for t in leaves),
+                param_bytes=sum(t.numel() * t.element_size() for t in leaves), batch=B,
+                prompt_tokens=S, new_tokens=BUNDLE_NEW, forward_s=t_fwd, prefill_s=t_prefill,
+                decode_step_ms=steps, decode_step_ms_median=float(np.median(steps)),
+                aux=float(aux), logit_rms=rms, decode_vs_forward_max_abs_err=err,
+                decode_vs_forward_control=low, decode_vs_forward_pairs=pairs,
+                decode_vs_forward_flips=n_flips, decode_vs_forward_by_depth=depth, tol=tol,
+                tokens_head=tokens[:, :8].tolist(), max_memory_allocated=peak,
+                launches=launches)
+
+
+def bundle_model(arch: str, seed: int, kernels):
+    """One model of BUNDLE_RUNS at published widths through ``drive``:
+    BUNDLE_B x BUNDLE_S prompts from ``SyntheticLM``, decode vs forward
+    within DECODE_TOL, the witness over BUNDLE_DEPTHS."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.model import build
+    from repro_torch.training.optimizer import tree_map
+    cfg = get_config(arch)
+    bundle = build(cfg)
+    params, t_init = timed_init(bundle, seed)
+    cuts = ((d, build(dataclasses.replace(cfg, n_layers=d)),
+             dict(params, layers=tree_map(lambda t: t[:d], params["layers"])))
+            for d in BUNDLE_DEPTHS if d < cfg.n_layers)
+    need = [fn.__name__ for fn in kernels if cfg.is_moe or fn.__name__ != "expert_ffn"]
+    res = drive(bundle, params, model_batch(cfg, BUNDLE_B, BUNDLE_S, seed, "cuda"), kernels,
+                need, DECODE_TOL, cuts)
+    return dict(phase="bundle", model=cfg.name, init_s=t_init, **res)
 
 
 def serve_bundles(seed: int, kernels):
@@ -2519,6 +2707,417 @@ def train_model(seed: int, kernels):
     release()
     return res
 
+# -- phase 3, continued: the kernel variants of the remaining families --------
+
+def cross_attention(B, Sq, Sk, H, Hkv, D, g):
+    """``flash_attention_cross``, Sq queries over Sk memory keys (no mask):
+    held against the plain version, the rows of a call with Sk = Sq
+    bit-equal to the monolithic kernel's without a mask, timed beside the
+    plain version and beside SDPA. Bound: q, k, v read and o written once;
+    4 D operations per (query, key) pair of each head."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_cross,
+                                                     flash_attention_plain)
+    r = lambda *s: torch.randn(s, generator=g, device="cuda").to(torch.bfloat16)
+    q, k, v = r(B, Sq, H, D), r(B, Sk, Hkv, D), r(B, Sk, Hkv, D)
+    err = max_err(flash_attention_cross(q, k, v), flash_attention_plain(q, k, v, causal=False))
+    n = min(Sq, Sk)
+    if not torch.equal(flash_attention_cross(q[:, :n], k[:, :n], v[:, :n]),
+                       flash_attention(q[:, :n], k[:, :n], v[:, :n], causal=False)):
+        raise AssertionError("flash_attention_cross: rows differ from the monolithic kernel's")
+    timed = device_vs_library(lambda: flash_attention_cross(q, k, v),
+                              lambda: F.scaled_dot_product_attention(
+                                  q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                  enable_gqa=True))
+    plain_ms = time_ms(lambda: flash_attention_plain(q, k, v, causal=False), reps=5)
+    bms, by = bound(2 * (2 * B * Sq * H * D + 2 * B * Sk * Hkv * D), 4 * B * H * D * Sq * Sk)
+    return dict(shape=dict(B=B, Sq=Sq, Sk=Sk, H=H, Hkv=Hkv, D=D), max_abs_err=err,
+                bit_equal_to_monolithic=True, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                bound_share=bms / timed["device_ms"], **timed)
+
+
+def cross_decode(B, M, H, Hkv, D, g):
+    """The cross-attention decode as the port runs it: ``flash_decode`` with
+    pos 0 and every memory slot at position 0 (all valid), against the
+    plain version, timed beside SDPA without a mask."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_decode import flash_decode, flash_decode_plain
+    r = lambda *s: torch.randn(s, generator=g, device="cuda").to(torch.bfloat16)
+    q, k, v = r(B, H, D), r(B, M, Hkv, D), r(B, M, Hkv, D)
+    args = (q, k, v, torch.zeros(B, dtype=torch.int32, device="cuda"),
+            torch.zeros(M, dtype=torch.int32, device="cuda")[None].expand(B, M))
+    err = max_err(flash_decode(*args), flash_decode_plain(*args))
+    timed = device_vs_library(lambda: flash_decode(*args),
+                              lambda: F.scaled_dot_product_attention(
+                                  q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+                                  enable_gqa=True))
+    plain_ms = time_ms(lambda: flash_decode_plain(*args), reps=5)
+    bms, by = decode_bound(H, Hkv, D, B * M, B, M)
+    return dict(B=B, W=M, cross=True, max_abs_err=err, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, bound_share=bms / timed["device_ms"], **timed)
+
+
+def attention_err(B, Sq, Sk, H, Hkv, D, g, cross: bool = False, window: int = -1):
+    """The largest error of one attention call against its plain version on
+    fresh inputs: ``flash_attention`` (causal, under ``window``) where Sq =
+    Sk, else ``flash_attention_cross``."""
+    from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_cross,
+                                                     flash_attention_plain)
+    r = lambda *s: torch.randn(s, generator=g, device="cuda").to(torch.bfloat16)
+    q, k, v = r(B, Sq, H, D), r(B, Sk, Hkv, D), r(B, Sk, Hkv, D)
+    if cross:
+        return max_err(flash_attention_cross(q, k, v),
+                       flash_attention_plain(q, k, v, causal=False))
+    return max_err(flash_attention(q, k, v, window=window),
+                   flash_attention_plain(q, k, v, window=window))
+
+
+def ring_decode_err(cfg, W: int, pos: int, g):
+    """``flash_decode`` at one row over a ring of W slots that has wrapped
+    (slot s holds the latest position up to ``pos`` that is s mod W, as the
+    hybrid's rolled prefill leaves it), under the config's window: the
+    largest error against the plain version."""
+    from repro_torch.kernels.flash_decode import flash_decode, flash_decode_plain
+    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    r = lambda *s: torch.randn(s, generator=g, device="cuda").to(torch.bfloat16)
+    q, k, v = r(1, H, D), r(1, W, Hkv, D), r(1, W, Hkv, D)
+    slots = torch.arange(W, dtype=torch.int32, device="cuda")
+    sp = (pos - (pos - slots) % W).to(torch.int32)[None]
+    p = torch.tensor([pos], dtype=torch.int32, device="cuda")
+    w = cfg.sliding_window or -1
+    return max_err(flash_decode(q, k, v, p, sp, window=w),
+                   flash_decode_plain(q, k, v, p, sp, window=w))
+
+
+def family_kernel_variants(g):
+    """The kernel shapes no earlier path runs, held against their plain
+    versions and timed beside them, beside SDPA where SDPA computes the
+    same function, and beside the bound. Each record is timed at one
+    shape; ``forward_max_abs_err`` is the error at the families phase's
+    own forward length (S + 1 tokens, a ragged last tile or chunk) where
+    the record's shape is the prefill's (S). Zamba2's attention and scan
+    are timed at a full window (S = 4096) and at the families phase's
+    5120-token prefill, where the window masks keys and whole key tiles
+    are skipped; its decode is checked over the wrapped ring that prompt
+    leaves. Returns {kernel name: [variant records]}."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+    zamba, gemma, granite = (get_config(a) for a in ("zamba2_7b", "gemma3_1b", "granite_34b"))
+    vision, seamless = get_config("llama_3_2_vision_90b"), get_config("seamless_m4t_medium")
+    out = {"flash_attention": [], "flash_attention_cross": [], "flash_decode": [],
+           "ssd_scan": []}
+
+    def add(kernel, variant, rec):
+        rec = dict(variant=variant, **rec)
+        emit(dict(phase="kernel_variant", name=kernel, tol=TOL_F32 if kernel == "ssd_scan"
+                  else TOL, **rec))
+        out[kernel].append(rec)
+        release()
+
+    # Zamba2's shared block (D = 112, 32 / 32) under its 4096-token window
+    zw, S = zamba.sliding_window, FAMILY_HYBRID_S
+    zh = (zamba.n_heads, zamba.n_kv_heads, zamba.hd)
+    _, rec = prefill_attention(*zh, zw, g, window=zw)
+    add("flash_attention", "D=112 (Zamba2-7B, S=4096)", rec)
+    _, rec = prefill_attention(*zh, S, g, window=zw)
+    rec["forward_max_abs_err"] = attention_err(1, S + 1, S + 1, *zh, g, window=zw)
+    add("flash_attention", f"D=112 (Zamba2-7B, S={S}, window {zw})", rec)
+    # gemma3-1b: D = 256, 4 / 1, a global layer; a local layer's window checked too
+    (q, k, v), rec = prefill_attention(gemma.n_heads, gemma.n_kv_heads, gemma.hd, BUNDLE_S,
+                                       g, B=2)
+    w = gemma.sliding_window
+    rec["window_max_abs_err"] = max_err(flash_attention(q, k, v, window=w),
+                                        flash_attention_plain(q, k, v, window=w))
+    del q, k, v
+    rec["forward_max_abs_err"] = attention_err(2, BUNDLE_S + 1, BUNDLE_S + 1, gemma.n_heads,
+                                               gemma.n_kv_heads, gemma.hd, g)
+    add("flash_attention", "D=256 (gemma3-1b)", rec)
+    for name, cfg, Sk in (("Llama-3.2-Vision-90B", vision, vision.n_frontend_tokens),
+                          ("SeamlessM4T-medium", seamless, BUNDLE_S)):
+        heads = (cfg.n_heads, cfg.n_kv_heads, cfg.hd)
+        rec = cross_attention(2, BUNDLE_S, Sk, *heads, g)
+        rec["forward_max_abs_err"] = attention_err(2, BUNDLE_S + 1, Sk, *heads, g, cross=True)
+        add("flash_attention_cross", f"cross, {name}", rec)
+    W = BUNDLE_S + BUNDLE_NEW
+    rec = decode_attention(zamba, zw, [zw - 1])
+    rec["wrapped_ring_max_abs_err"] = max(ring_decode_err(zamba, zw, p, g)
+                                          for p in (S, S + BUNDLE_NEW - 1))
+    add("flash_decode", "D=112 (Zamba2-7B, a full 4096-slot ring)", rec)
+    add("flash_decode", "D=256 (gemma3-1b)", decode_attention(gemma, W, [W - 1] * 2))
+    add("flash_decode", "G=48 (granite-34b)", decode_attention(granite, W, [W - 1] * 2))
+    add("flash_decode", "cross decode (Llama-3.2-Vision-90B)",
+        cross_decode(2, vision.n_frontend_tokens, vision.n_heads, vision.n_kv_heads,
+                     vision.hd, g))
+    scan = (zamba.ssm_expand * zamba.d_model // zamba.ssm_head_dim, zamba.ssm_groups,
+            zamba.ssm_head_dim, zamba.ssm_state)
+    _, rec = ssd_scan_shape(g, zw, *scan)
+    add("ssd_scan", "(P, N) = (64, 64) (Zamba2-7B, S=4096)", rec)
+    _, rec = ssd_scan_shape(g, S, *scan)
+    a = ssd_inputs(g, 1, S + 1, scan[0], *scan[1:], torch.bfloat16)
+    (y, h), (y0, h0) = ssd_scan(*a), ssd_scan_plain(*a)
+    rec["forward_max_abs_err"] = max(max_err(y, y0, TOL_F32), max_err(h, h0, TOL_F32))
+    del a, y, h, y0, h0
+    add("ssd_scan", f"(P, N) = (64, 64) (Zamba2-7B, S={S})", rec)
+    return out
+
+
+# -- phases 17-18: the remaining model families -------------------------------
+
+# each family's reduced config at the kernels' widths, as (config id,
+# overrides): the hybrid at 3 layers (a block of two Mamba layers and the
+# shared block, a tail of one; head_dim 112, (P, N) = (64, 64), window 64),
+# the enc-dec at 1 + 1 (head_dim 64), the vlm at 2 (a self and a cross
+# layer; head_dim 128, G = 4), the pattern stack at 2 (a local and a global
+# layer, window 8; head_dim 256, G = 4) and a granite-shaped dense model
+# with 48 query heads on one KV head
+SMALL_FAMILIES = {
+    "hybrid": ("zamba2_7b", dict(n_layers=3, head_dim=112, ssm_head_dim=64, ssm_state=64)),
+    "encdec": ("seamless_m4t_medium", dict(n_layers=1, enc_layers=1, head_dim=64)),
+    "vlm": ("llama_3_2_vision_90b", dict(n_layers=2, head_dim=128, n_kv_heads=1)),
+    "pattern": ("gemma3_1b", dict(n_layers=2, local_global_pattern=1, sliding_window=8,
+                                  head_dim=256)),
+    "dense_g48": ("granite_34b", dict(n_heads=48, head_dim=64)),
+}
+# the depths at which the gated check first ran these three. There card
+# and CPU part by up to 1.44 times BUNDLE_TOL x (1 + |logit|) (6 of 9
+# draws past it, NVIDIA H100 80GB HBM3), while the card's logits are 0.52
+# to 1.17 times as far from the f32 logits as the CPU's bf16 ones: both
+# part from exact by bf16 rounding alike. ``rounding_witness`` holds them
+# so, and the gated check runs the shallower stacks above
+SMALL_DEEP = {"encdec": dict(n_layers=2, enc_layers=2), "vlm": dict(n_layers=4),
+              "pattern": dict(n_layers=5)}
+WITNESS_SEEDS = (0, 1, 2)
+# the card's forward logits may be at most this many times as far from the
+# CPU's f32 logits as the CPU's bf16 logits are
+F32_RATIO = 2.0
+
+
+def small_family(name: str, deep: bool = False):
+    """The bundle of one of SMALL_FAMILIES (at its SMALL_DEEP depth with
+    ``deep``); the pattern stack through ``build_dense_pattern``."""
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.models.model import build, build_dense_pattern
+    arch, kw = SMALL_FAMILIES[name]
+    cfg = dataclasses.replace(reduced(get_config(arch)),
+                              **(kw | (SMALL_DEEP[name] if deep else {})))
+    return (build_dense_pattern if name == "pattern" else build)(cfg)
+
+
+def decode_tol(cfg) -> float:
+    return HYBRID_DECODE_TOL if cfg.family == "hybrid" else DECODE_TOL
+
+
+def check_families_small(seed: int):
+    """Phase 17: each of SMALL_FAMILIES through ``check_model_small`` on
+    2 x 40 tokens (the hybrid 2 x 100, past its window of 64), decode vs
+    forward within the family's full-width limit. The vlm adds a control
+    that drops its cross path (the CPU with its gates at zero); the pattern
+    stack's logits must equal ``build_dense``'s on the card. Then
+    ``rounding_witness``."""
+    from repro_torch.models.model import build_dense
+    from repro_torch.models.params import init_params
+    rows = []
+    with torch.no_grad():
+        for name in SMALL_FAMILIES:
+            bundle = small_family(name)
+            cfg = bundle.cfg
+            gpu, _ = timed_init(bundle, seed)
+            batch = model_batch(cfg, 2, 100 if cfg.family == "hybrid" else 40, seed, "cpu")
+            controls = None
+            if cfg.family == "vlm":
+                dropped = set_gates(to_cpu(gpu), (0.0, 0.0))
+                controls = lambda g, c: [(g["full"], bundle.forward(dropped, batch)[0]
+                                          .float()[..., :cfg.vocab])]
+            res = dict(family=name, **check_model_small(bundle, gpu, batch, decode_tol(cfg),
+                                                         controls))
+            if cfg.family == "vlm":
+                res["gates"] = FAMILY_GATES
+            if name == "pattern":
+                t = {"tokens": batch["tokens"].cuda()}
+                fd, _ = build_dense(cfg).forward(init_params(cfg, seed, "cuda"), t)
+                if not torch.equal(bundle.forward(gpu, t)[0], fd):
+                    raise AssertionError("families_check: build_dense_pattern's logits differ "
+                                         "from build_dense's on the card")
+                res["pattern_equals_build_dense"] = True
+            rows.append(res)
+        witness = rounding_witness()
+    release()
+    return dict(phase="families_check", tol=BUNDLE_TOL, tie=TIE, models=rows,
+                rounding=witness)
+
+
+@contextlib.contextmanager
+def activations_f32():
+    """The port's activation type set to f32 (tests/test_torch_families.py
+    sets it so for its f32 cases)."""
+    from repro_torch.models import layers as L
+    saved, L.PDT = L.PDT, torch.float32
+    try:
+        yield
+    finally:
+        L.PDT = saved
+
+
+def rounding_witness():
+    """Where the card and the CPU part, and why. Each family of SMALL_DEEP
+    at its gated depth and its deeper one, at WITNESS_SEEDS: forward logits
+    over 2 x 41 tokens on the card (bf16, kernels) and on the CPU (bf16,
+    plain versions), the card-vs-CPU gap as the share of BUNDLE_TOL x (1 +
+    |logit|) it takes, and each run's distance from the CPU in f32 (the
+    same weights, activations in f32). The card may be at most F32_RATIO
+    times as far from the f32 logits as the CPU's bf16 run is: then both
+    part from exact by bf16 rounding alike, and so from each other. A
+    control: the vlm on the card with its cross path dropped (gates zero)
+    must be further than that."""
+    from repro_torch.training.optimizer import tree_map
+    rows = []
+    for name in SMALL_DEEP:
+        for deep in (False, True):
+            bundle = small_family(name, deep)
+            cfg, real = bundle.cfg, slice(0, bundle.cfg.vocab)
+            fwd = lambda p, b: bundle.forward(p, b)[0].float().cpu()[..., real]
+            for seed in WITNESS_SEEDS:
+                gpu, _ = timed_init(bundle, seed)
+                batch = model_batch(cfg, 2, 40, seed, "cpu")
+                on = {k: v.cuda() for k, v in batch.items()}
+                card, cpu = fwd(gpu, on), fwd(to_cpu(gpu), batch)
+                with activations_f32():
+                    exact = fwd(tree_map(lambda t: t.float().cpu(), gpu), batch)
+                dist = lambda a: float((a - exact).abs().max())
+                err = (card - cpu).abs()
+                row = dict(family=name, layers=cfg.n_layers, enc_layers=cfg.enc_layers,
+                           seed=seed, card_vs_cpu=float(err.max()),
+                           limit_share=float((err / (BUNDLE_TOL * (1 + cpu.abs()))).max()),
+                           card_vs_f32=dist(card), cpu_vs_f32=dist(cpu))
+                row["ratio"] = row["card_vs_f32"] / row["cpu_vs_f32"]
+                if cfg.family == "vlm":
+                    row["control_ratio"] = dist(fwd(set_gates(gpu, (0.0, 0.0)), on)) / row[
+                        "cpu_vs_f32"]
+                rows.append(row)
+    res = dict(seeds=WITNESS_SEEDS, f32_ratio=F32_RATIO, rows=rows)
+    if any(r["ratio"] > F32_RATIO or r.get("control_ratio", np.inf) <= F32_RATIO
+           for r in rows):
+        emit(res)
+        raise AssertionError("families_check: the card parts from the f32 logits further "
+                             "than bf16 rounding, or the control does not")
+    return res
+
+
+# (family, config id, layers, batch, prompt tokens): Zamba2-7B at all 81
+# layers, one prompt past its 4096-token window; SeamlessM4T-medium at all 12
+# + 12 (2 x 2048 text tokens over 2 x 2048 frames); Llama-3.2-Vision-90B at 20
+# of 100 layers (4 of 20 blocks, 36 GB of bf16 params; all 100 would be 180
+# GB); gemma3-1b at all 26, through build_dense and build_dense_pattern;
+# granite-34b at 8 of 88 (9 GB), for its 48 query heads per KV head
+FAMILY_HYBRID_S = 5120
+FAMILY_RUNS = (("hybrid", "zamba2_7b", 81, 1, FAMILY_HYBRID_S),
+               ("encdec", "seamless_m4t_medium", 12, 2, BUNDLE_S),
+               ("vlm", "llama_3_2_vision_90b", 20, 2, BUNDLE_S),
+               ("pattern", "gemma3_1b", 26, 2, BUNDLE_S),
+               ("dense", "granite_34b", 8, 2, BUNDLE_S))
+HYBRID_DEPTHS = (6, 12, 24, 48)
+HYBRID_SEEDS = (1, 2, 3)
+
+
+@contextlib.contextmanager
+def conv_in_forward_order():
+    """The Mamba layer's decode conv summed as its forward sums it, a
+    running bf16 sum of the K shifted products in order, in place of one
+    reduction over the conv state: a diagnosis of the decode-vs-forward
+    gap, never the port's path."""
+    from repro_torch.models import ssm
+    orig = ssm._conv_step
+
+    def step(state, new, w):
+        state = torch.cat([state[:, :, 1:], new[:, :, None]], dim=2)
+        return sum(state[:, :, i] * w[None, :, i] for i in range(w.shape[1])), state
+
+    ssm._conv_step = step
+    try:
+        yield
+    finally:
+        ssm._conv_step = orig
+
+
+def hybrid_cut(cfg, params, d: int):
+    """(bundle, params) of a hybrid's first d layers (whole blocks), no tail."""
+    from repro_torch.models.model import build
+    from repro_torch.training.optimizer import tree_map
+    n = d // cfg.hybrid_attn_every
+    return build(dataclasses.replace(cfg, n_layers=d)), dict(
+        {k: params[k] for k in ("embed", "ln_f", "shared")},
+        mamba=tree_map(lambda t: t[:n], params["mamba"]))
+
+
+def family_model(family: str, arch: str, layers: int, B: int, S: int, seed: int, kernels):
+    """One model of FAMILY_RUNS at published widths through ``drive``,
+    every weight on the card (random, from ``seed``), decode vs forward
+    within the family's limit. The hybrid also records the gap at
+    HYBRID_DEPTHS, with its decode conv summed in the forward's order
+    (``conv_in_forward_order``), and at HYBRID_SEEDS (weights and tokens
+    drawn anew, each held to the limit); the pattern stack's logits must
+    equal ``build_dense``'s on the same seed's weights."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.model import build, build_dense, build_dense_pattern
+    from repro_torch.models.params import init_params
+    full_cfg = get_config(arch)
+    cfg = dataclasses.replace(full_cfg, n_layers=layers)
+    bundle = (build_dense_pattern if family == "pattern" else build)(cfg)
+    params, t_init = timed_init(bundle, seed)
+    batch = model_batch(cfg, B, S, seed, "cuda")
+    tol = decode_tol(cfg)
+    need = {"hybrid": ("flash_attention", "flash_decode", "ssd_scan"),
+            "encdec": ("flash_attention", "flash_attention_cross", "flash_decode"),
+            "vlm": ("flash_attention", "flash_attention_cross", "flash_decode")
+            }.get(cfg.family, ("flash_attention", "flash_decode"))
+    cuts = ((d, *hybrid_cut(cfg, params, d)) for d in HYBRID_DEPTHS) if family == "hybrid" else ()
+    res = dict(phase="families", family=family, model=cfg.name,
+               published_layers=full_cfg.n_layers, init_s=t_init,
+               **drive(bundle, params, batch, kernels, need, tol, cuts))
+    if cfg.family == "vlm":
+        res["gates"] = FAMILY_GATES
+    if layers < full_cfg.n_layers:
+        res["cut"] = f"depth: {layers} of {full_cfg.n_layers} layers"
+    with torch.no_grad(), uncounted(kernels):
+        if family == "hybrid":
+            at = bundle.forward(params, batch)[0][:, S - DECODE_STEPS:].float().cpu()
+            with conv_in_forward_order():
+                res["decode_vs_forward_conv_in_forward_order"] = decode_vs_forward(
+                    bundle, params, batch, at)[0]
+            del params, at
+            release()
+            gaps = {seed: [res["decode_vs_forward_max_abs_err"],
+                           res["decode_vs_forward_control"]]}
+            for s in HYBRID_SEEDS:
+                params, _ = timed_init(bundle, s)
+                b = model_batch(cfg, B, S, s, "cuda")
+                at = bundle.forward(params, b)[0][:, S - DECODE_STEPS:].float().cpu()
+                gaps[s] = list(decode_vs_forward(bundle, params, b, at, tol=tol)[:2])
+                del params, at
+                release()
+            res["decode_vs_forward_by_seed"] = gaps
+        if family == "pattern":
+            fd, _ = build_dense(cfg).forward(init_params(cfg, seed, "cuda"), batch)
+            if not torch.equal(bundle.forward(params, batch)[0], fd):
+                raise AssertionError("families: build_dense_pattern's logits differ from "
+                                     "build_dense's")
+            res["pattern_equals_build_dense"] = True
+    return res
+
+
+def serve_families(seed: int, kernels):
+    """Phase 18: each of ``FAMILY_RUNS``, released in between; the
+    launches summed over them."""
+    launches = {}
+    for family, arch, layers, B, S in FAMILY_RUNS:
+        r = family_model(family, arch, layers, B, S, seed, kernels)
+        emit(r)
+        for n, c in r["launches"].items():
+            launches[n] = launches.get(n, 0) + c
+        release()
+    return dict(phase="families", launches=launches)
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2533,7 +3132,8 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _build
     from repro_torch.kernels.expert_ffn import expert_ffn, expert_ffn_from_pool
-    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_chunk
+    from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_chunk,
+                                                     flash_attention_cross)
     from repro_torch.kernels.flash_decode import flash_decode
     from repro_torch.kernels.ssd_scan import ssd_scan
 
@@ -2558,6 +3158,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     for r in results:
         emit(dict(phase="kernel", **({"tol": TOL} | r)))
+    variants = family_kernel_variants(g)
 
     emit(check_small(args.seed))
     torch.cuda.empty_cache()
@@ -2597,18 +3198,34 @@ def main() -> int:
     emit(check_train(args.seed))
     train = train_model(args.seed, [expert_ffn, flash_attention])
     emit(train)
+    release()
+
+    emit(check_families_small(args.seed))
+    families = serve_families(args.seed, [flash_attention, flash_attention_cross,
+                                          flash_decode, ssd_scan])
+    emit(families)
+    cross = variants["flash_attention_cross"][0]
+    results.append(dict(name="flash_attention_cross", route="cuda",
+                        source="src/repro_torch/csrc/flash_attention.cu",
+                        replaces="src/repro/kernels/flash_attention.py:96",
+                        **{k: v for k, v in cross.items() if k != "variant"}))
 
     # each kernel's launches from the paths that run it
     launches = {}
-    for phase in (srv, bat, clu, ssm, paper, bundles, train):
+    for phase in (srv, bat, clu, ssm, paper, bundles, train, families):
         for n, c in phase["launches"].items():
             launches[n] = launches.get(n, 0) + c
+    compact = ("variant", "shape", "B", "W", "max_abs_err", "ms", "device_ms", "plain_ms",
+               "bound_ms", "bound_by", "library_ms", "library_device_ms")
     summary = [{k: r[k] for k in ("name", "route", "source", "replaces")}
                | {"launches": launches[r["name"]]}
                | {k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                     "bound_by", "library_ms")}
                | {k: r[k] for k in ("device_ms", "library_device_ms", "cublas_device_ms",
                                     "folded_device_ms") if k in r}
+               | ({"variants": [{k: v[k] for k in compact if k in v}
+                                for v in variants[r["name"]]]}
+                  if variants.get(r["name"]) else {})
                for r in results]
     print(card, flush=True)
     emit({"kernels": summary})

@@ -80,14 +80,24 @@ class ArchConfig:
                       == self.local_global_pattern) else self.sliding_window
 
 
-# the configs the port builds: the paper's headline model, the dense and MoE
-# families of ``build_dense`` and mamba2 (the ssm family)
-ARCH_IDS = ("qwen3_1_7b", "granite_34b", "mamba2_2_7b", "qwen1_5_110b",
-            "qwen2_moe_a2_7b", "gemma3_1b", "kimi_k2_1t_a32b", "mixtral_8x7b")
+ARCH_IDS = (
+    "qwen3_1_7b",
+    "granite_34b",
+    "llama_3_2_vision_90b",
+    "seamless_m4t_medium",
+    "mamba2_2_7b",
+    "qwen1_5_110b",
+    "qwen2_moe_a2_7b",
+    "zamba2_7b",
+    "gemma3_1b",
+    "kimi_k2_1t_a32b",
+    "mixtral_8x7b",
+)
 
 _ALIASES = {a.replace("_", "-"): a for a in ARCH_IDS}
 _ALIASES.update({
     "qwen3-1.7b": "qwen3_1_7b",
+    "llama-3.2-vision-90b": "llama_3_2_vision_90b",
     "qwen1.5-110b": "qwen1_5_110b",
     "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
     "mamba2-2.7b": "mamba2_2_7b",

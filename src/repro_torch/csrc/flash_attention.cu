@@ -41,8 +41,20 @@
 //     to lse[b, h, row]; o is computed and written as without it.
 //   - D is a template parameter; tiles hold D padded to whole 64-column
 //     boxes (TMA zero-fills the columns past D), so any multiple of 16 fits
-//     the same layout. D = 64 and 128 are instantiated. (Two consumer
-//     warpgroups sharing a deeper ring, 128 rows a block, measured slower.)
+//     the same layout. D = 64, 112, 128 and 256 are instantiated. At D = 112
+//     (Zamba2-7B) the tensor maps' rows are 112 wide (224 bytes), so the
+//     second box's columns 112-127 arrive as zeros, add nothing to S and
+//     are never written; the scale is 112^-0.5. At D = 256 (gemma3-1b) Q
+//     and the 2-stage K / V ring take 160 KB of shared memory and O is 128
+//     f32 registers a thread, so the kernel runs one block an SM, and
+//     O += P V is two m64n128 products a step, one per half of O's columns.
+//     (Two consumer warpgroups sharing a deeper ring, 128 rows a block,
+//     measured slower.)
+//
+// Cross attention (`flash_attention_fwd` with Sk != Sq and causal = 0): Sq
+// queries over Sk memory keys, every key valid; the last key tile is
+// masked past Sk (1601 patch keys of Llama-3.2-Vision are 25 tiles and a
+// key).
 //
 // Chunked prefill (`flash_attention_chunk_fwd`, the same device code with
 // CHUNK = true): C queries at absolute positions q_start .. q_start + C - 1
@@ -93,6 +105,7 @@ struct Smem {
   static constexpr int sp = kv + 2 * STAGES * TILE;     // stage s: BKV slot positions (chunk)
   static constexpr int bar = sp + STAGES * SP_BYTES;    // q, full[STAGES], empty[STAGES]
   static constexpr int bytes = bar + 8 * (1 + 2 * STAGES) + 1024;  // + room to align to 1024
+  static constexpr int BLOCKS = DP > 128 ? 1 : 2;       // blocks an SM: shared memory, registers
 };
 
 // 2^x by the SFU (ex2.approx, relative error ~2^-22; -1e30 gives 0)
@@ -112,11 +125,12 @@ __device__ __forceinline__ void qk_tile(float (&sc)[32], uint32_t sq, uint32_t s
   }
 }
 
-// Sq query rows against Sk keys (Sq == Sk == S but in CHUNK mode); in
+// Sq query rows against Sk keys (Sq == Sk but in CHUNK mode and cross
+// attention, which is not causal); in
 // CHUNK mode query row r sits at position q_start + r, and the keys are
 // masked by the slot positions of tensor map tsp (causal is implied)
 template <int D, bool CHUNK>
-__global__ void __launch_bounds__(THREADS, 2)
+__global__ void __launch_bounds__(THREADS, Smem<D>::BLOCKS)
     flash_attn_kernel(__grid_constant__ const CUtensorMap tq, __grid_constant__ const CUtensorMap tk,
                       __grid_constant__ const CUtensorMap tv, __grid_constant__ const CUtensorMap tsp,
                       bf16* __restrict__ o, float* __restrict__ lse, int Sq, int Sk, int q_start,
@@ -263,8 +277,17 @@ __global__ void __launch_bounds__(THREADS, 2)
 #pragma unroll
     for (int k = 0; k < BKV / 16; ++k) {
       const uint64_t dv = sw128_desc(sv + k * 16 * 128, BOX_BYTES, 1024);
-      if constexpr (DP == 128) wgmma_rs_n128(acc, pa[k], dv, 1);
-      else wgmma_rs_n64(acc, pa[k], dv, 1);
+      if constexpr (DP == 256) {
+        // columns 0-127 from boxes 0-1, 128-255 from boxes 2-3: element
+        // 64 + 4j + ... of acc is the second product's element 4j + ...
+        const uint64_t dv2 = sw128_desc(sv + 2 * BOX_BYTES + k * 16 * 128, BOX_BYTES, 1024);
+        wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(acc), pa[k], dv, 1);
+        wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(acc + 64), pa[k], dv2, 1);
+      } else if constexpr (DP == 128) {
+        wgmma_rs_n128(acc, pa[k], dv, 1);
+      } else {
+        wgmma_rs_n64(acc, pa[k], dv, 1);
+      }
     }
     qk_tile<DP>(sc, sq, base + Lay::kv + 2 * s1 * TILE);
     wgmma_commit();
@@ -353,26 +376,32 @@ int launch(const void* q, const void* k, const void* v, const int* slot_pos, voi
 }  // namespace
 
 // strides (elements): q b,s,h; k b,s,h; v b,s,h; o b,s,h — 12 values.
-// D must be 64 or 128; every stride and pointer 16-byte aligned. lse:
-// [B, H, S] f32 contiguous, or null for none.
+// q, o [B, Sq, H, D]; k, v [B, Sk, Hkv, D]; Sk != Sq only with causal = 0
+// (cross attention). D must be 64, 112, 128 or 256; every stride and
+// pointer 16-byte aligned. lse: [B, H, Sq] f32 contiguous, or null for none.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                   float* lse, int B, int S, int H, int Hkv, int D,
+                                   float* lse, int B, int Sq, int Sk, int H, int Hkv, int D,
                                    const long long* strides, int causal, int window, float scale,
                                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 128)
-    return launch<128, false>(q, k, v, nullptr, o, lse, B, S, S, H, Hkv, strides, 0, 0, causal,
+  if (causal && Sk != Sq) return cudaErrorInvalidValue;
+#define FA_LAUNCH(DIM)                                                                          \
+  if (D == DIM)                                                                               \
+    return launch<DIM, false>(q, k, v, nullptr, o, lse, B, Sq, Sk, H, Hkv, strides, 0, 0, causal, \
                               window, scale, s);
-  if (D == 64)
-    return launch<64, false>(q, k, v, nullptr, o, lse, B, S, S, H, Hkv, strides, 0, 0, causal,
-                             window, scale, s);
+  FA_LAUNCH(128)
+  FA_LAUNCH(64)
+  FA_LAUNCH(112)
+  FA_LAUNCH(256)
+#undef FA_LAUNCH
   return cudaErrorInvalidValue;
 }
 
 // Chunked prefill: q, o [B, C, H, D]; k, v [B, W, Hkv, D]; slot_pos [B, W]
 // int32, row stride spb (elements), its pointer 16-byte aligned and, for
-// B > 1, spb a multiple of 4. strides as flash_attention_fwd's. The caller
-// guarantees q_start + C <= W and that slot j holds position j or -1.
+// B > 1, spb a multiple of 4. strides as flash_attention_fwd's; D 64 or
+// 128 (the serving engines' models). The caller guarantees q_start + C <= W
+// and that slot j holds position j or -1.
 extern "C" int flash_attention_chunk_fwd(const void* q, const void* k, const void* v,
                                          const int* slot_pos, void* o, int B, int C, int W, int H,
                                          int Hkv, int D, const long long* strides, long long spb,

@@ -14,39 +14,47 @@
 // 128 x 2 tensors x 2 B = 2.2 MB, under a microsecond at 3.35 TB/s), so the
 // card has to be filled with blocks even at B=1, and each block's copies
 // have to be in flight together. Two launches:
-//   - split: grid (Hkv, n_split, B). Each block takes one contiguous range of
-//     at most 64 slots (the host picks n_split: kernels/flash_decode.py
-//     `n_splits`) for one KV head and serves its G query heads (register
-//     arrays sized by G rounded up to a power of two). The range's K rows
-//     and V rows are issued at once through a cp.async double buffer, 16
-//     bytes a lane, D / 8 lanes to a row, so a warp reads whole rows of
-//     several slots at once. Scores of all G heads are reduced over a row's
-//     lanes by a reduce-scatter (log2(D/8) shuffle steps for all heads),
+//   - split: grid (Hkv x head groups, n_split, B). Each block takes one
+//     contiguous range of at most 64 slots (the host picks n_split:
+//     kernels/flash_decode.py `n_splits`) for one KV head and serves a
+//     group of at most 8 of its G query heads (register arrays sized by the
+//     group rounded up to a power of two); with G > 8 (granite-34b: 48)
+//     the ceil(G / 8) groups are blocks of their own that read the same
+//     K / V range again. The range's K rows and V rows are issued at once
+//     through a cp.async double buffer (chunks of 64 slots, 32 at D = 256,
+//     so two stages stay in 32 KB of static shared memory), 16 bytes a
+//     lane; a row takes D / 8 lanes rounded up to a power of two (D = 112:
+//     16 lanes, the last two idle), so a warp reads whole rows of several
+//     slots at once. Scores of the group's heads are reduced over a row's
+//     lanes by a reduce-scatter (log2(lanes) shuffle steps for all heads),
 //     kept in shared memory, and turned into p = exp(s - m) rounded to bf16
 //     with the range's own max m. The PV sum runs over the staged V rows in
 //     f32 registers and is summed across the block's slot groups. The block
-//     writes its partial (m, l, acc[G][D]).
+//     writes its heads' partial (m, l, acc[D]).
 //   - combine: one block per (b, query head), D x 4 threads each taking a
 //     quarter of the ranges, rescales the partials by exp(m_i - m) and
 //     divides by max(l, 1e-20). A range with no valid slot has m = -1e30 and weight 0 beside any range
 //     that has one; if no range has one, every p is 1, as in the plain
 //     version (the mean of V).
+// D = 64, 112, 128 and 256 are instantiated.
 #include "common.cuh"
 
 namespace {
 
 constexpr int THREADS = 128;
-constexpr int MAXG = 8;        // query heads per KV head
-constexpr int CH = 64;         // slots per staged chunk
+constexpr int MAXG = 8;        // query heads a block serves
 constexpr int MAX_SPLIT = 64;  // slots per block (kernels/flash_decode.py MAX_SPLIT_SLOTS)
 constexpr float LOG2E = 1.4426950408889634f;
 
+constexpr int pow2_at_least(int n) { return n <= 1 ? 1 : 2 * pow2_at_least((n + 1) / 2); }
+
 template <int D, int GP>
 struct Dec {
-  static constexpr int LPS = D / 8;        // lanes per slot row, 16 bytes each
-  static constexpr int NG = THREADS / LPS; // slot groups in the block
-  static constexpr int STAGE = CH * D;     // bf16 of one staged chunk
-  static constexpr int RED = NG * GP * D;  // f32 of the cross-group sum
+  static constexpr int LPS = pow2_at_least(D / 8);  // lanes per slot row, 16 bytes each
+  static constexpr int NG = THREADS / LPS;          // slot groups in the block
+  static constexpr int CH = D > 128 ? 32 : 64;      // slots per staged chunk
+  static constexpr int STAGE = CH * D;              // bf16 of one staged chunk
+  static constexpr int RED = NG * GP * D;           // f32 of the cross-group sum
   static constexpr int BUF_BYTES = 2 * STAGE * 2 > RED * 4 ? 2 * STAGE * 2 : RED * 4;
 };
 
@@ -86,26 +94,33 @@ __device__ __forceinline__ void unpack8(uint4 raw, float (&f)[8]) {
   }
 }
 
-// GP: G rounded up to a power of two, the register arrays' size
+// GP: the block's head count rounded up to a power of two, the register
+// arrays' size. The block serves query heads g0 .. g0 + Gb - 1 of KV head hk,
+// Gb = min(MAXG, G - g0), in the ceil(G / MAXG) head groups of blockIdx.x.
 template <int D, int GP>
 __global__ void __launch_bounds__(THREADS)
     decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v, const int* __restrict__ pos,
                         const int* __restrict__ slot_pos, float* __restrict__ part,
-                        float* __restrict__ stats, int W, int G, int n_split, long long sqb,
-                        long long sqh, long long skb, long long skw, long long skh, long long svb,
-                        long long svw, long long svh, long long spb, int window, float scale_log2) {
+                        float* __restrict__ stats, int W, int Hkv, int G, int n_split,
+                        long long sqb, long long sqh, long long skb, long long skw, long long skh,
+                        long long svb, long long svw, long long svh, long long spb, int window,
+                        float scale_log2) {
   typedef Dec<D, GP> C;
-  constexpr int LPS = C::LPS, NG = C::NG;
+  constexpr int LPS = C::LPS, NG = C::NG, CH = C::CH, RPL = D / 8;  // RPL: lanes a row fills
   __shared__ __align__(16) unsigned char buf[C::BUF_BYTES];  // staged chunks, then the sum
   __shared__ float s_p[GP][MAX_SPLIT];                       // scores, then bf16-rounded p
   bf16* stage_buf = reinterpret_cast<bf16*>(buf);
 
-  const int hk = blockIdx.x, split = blockIdx.y, b = blockIdx.z;
+  const int ngroups = gridDim.x / Hkv;
+  const int hk = blockIdx.x / ngroups, g0 = (blockIdx.x % ngroups) * MAXG;
+  const int Gb = min(MAXG, G - g0);
+  const int split = blockIdx.y, b = blockIdx.z;
   const int w0 = (int)((long long)split * W / n_split);
   const int L = (int)((long long)(split + 1) * W / n_split) - w0;
   const int nc = (L + CH - 1) / CH;
   const int tid = threadIdx.x, grp = tid / LPS, sub = tid % LPS, col = sub * 8;
+  const bool live = col < D;  // a lane of the row's padding holds zeros
   const int p = pos[b];
   const int* sp = slot_pos + b * spb + w0;
   const bf16* kb = k + b * skb + hk * skh + (long long)w0 * skw;
@@ -118,8 +133,8 @@ __global__ void __launch_bounds__(THREADS)
     const long long sw = is_k ? skw : svw;
     const int j0 = (is_k ? c : c - nc) * CH, n = min(CH, L - j0);
     bf16* dst = stage_buf + (c & 1) * C::STAGE;
-    for (int i = tid; i < n * LPS; i += THREADS) {
-      const int j = i / LPS, e = (i % LPS) * 8;
+    for (int i = tid; i < n * RPL; i += THREADS) {
+      const int j = i / RPL, e = (i % RPL) * 8;
       cp_async16(dst + j * D + e, src + (j0 + j) * sw + e, true);
     }
     cp_async_commit();
@@ -129,8 +144,8 @@ __global__ void __launch_bounds__(THREADS)
   float qr[GP][8];
 #pragma unroll
   for (int g = 0; g < GP; ++g) {
-    if (g < G) {
-      unpack8(*reinterpret_cast<const uint4*>(q + b * sqb + (hk * G + g) * sqh + col), qr[g]);
+    if (g < Gb && live) {
+      unpack8(*reinterpret_cast<const uint4*>(q + b * sqb + (hk * G + g0 + g) * sqh + col), qr[g]);
     } else {
 #pragma unroll
       for (int e = 0; e < 8; ++e) qr[g][e] = 0.0f;
@@ -159,7 +174,7 @@ __global__ void __launch_bounds__(THREADS)
       for (int jb = 0; jb < n; jb += NG) {
         const int j = jb + grp;
         float kv[8], dg[GP];
-        if (j < n) {
+        if (j < n && live) {
           unpack8(*reinterpret_cast<const uint4*>(cur + j * D + col), kv);
         } else {
 #pragma unroll
@@ -173,7 +188,7 @@ __global__ void __launch_bounds__(THREADS)
           dg[g] = s;
         }
         const float dot = reduce_scatter<LPS, GP>(dg, sub);
-        if (j < n && head < G && sub % (LPS / GP) == 0) {
+        if (j < n && head < Gb && sub % (LPS / GP) == 0) {
           const int s = sp[j0 + j];
           const bool ok = s >= 0 && s <= p && (window <= 0 || s > p - window);
           s_p[head][j0 + j] = ok ? dot * scale_log2 : KERNEL_NEG_INF;
@@ -182,7 +197,7 @@ __global__ void __launch_bounds__(THREADS)
     } else {
       if (c == nc) {
         // the range's softmax: one warp per head; s_p becomes p rounded to bf16
-        for (int g = tid / 32; g < G; g += THREADS / 32) {
+        for (int g = tid / 32; g < Gb; g += THREADS / 32) {
           const int lane = tid % 32;
           float mx = KERNEL_NEG_INF;
           for (int j = lane; j < L; j += 32) mx = fmaxf(mx, s_p[g][j]);
@@ -195,7 +210,8 @@ __global__ void __launch_bounds__(THREADS)
           }
           sum = warp_sum(sum);
           if (lane == 0) {
-            float* st = stats + ((((long long)b * gridDim.x + hk) * n_split + split) * G + g) * 2;
+            float* st =
+                stats + ((((long long)b * Hkv + hk) * n_split + split) * G + g0 + g) * 2;
             st[0] = mx;
             st[1] = sum;
           }
@@ -204,12 +220,12 @@ __global__ void __launch_bounds__(THREADS)
       }
       // PV over this chunk's rows: slot group grp takes rows grp, grp + NG, ...
       const int j0 = (c - nc) * CH, n = min(CH, L - j0);
-      for (int j = grp; j < n; j += NG) {
+      for (int j = grp; live && j < n; j += NG) {
         float vv[8];
         unpack8(*reinterpret_cast<const uint4*>(cur + j * D + col), vv);
 #pragma unroll
         for (int g = 0; g < GP; ++g) {
-          if (g < G) {
+          if (g < Gb) {
             const float pj = s_p[g][j0 + j];
 #pragma unroll
             for (int e = 0; e < 8; ++e) acc[g][e] += pj * vv[e];
@@ -220,19 +236,19 @@ __global__ void __launch_bounds__(THREADS)
     __syncthreads();  // the buffer is free for the chunk after next
   }
 
-  // sum the slot groups' partial PV and write acc[G][D]
+  // sum the slot groups' partial PV and write acc[Gb][D]
   float* red = reinterpret_cast<float*>(buf);
 #pragma unroll
   for (int g = 0; g < GP; ++g) {
-    if (g < G) {
+    if (g < Gb && live) {
       float4* dst = reinterpret_cast<float4*>(red + (grp * GP + g) * D + col);
       dst[0] = make_float4(acc[g][0], acc[g][1], acc[g][2], acc[g][3]);
       dst[1] = make_float4(acc[g][4], acc[g][5], acc[g][6], acc[g][7]);
     }
   }
   __syncthreads();
-  float* out = part + (((long long)b * gridDim.x + hk) * n_split + split) * G * D;
-  for (int i = tid; i < G * D; i += THREADS) {
+  float* out = part + ((((long long)b * Hkv + hk) * n_split + split) * G + g0) * D;
+  for (int i = tid; i < Gb * D; i += THREADS) {
     const int g = i / D, d = i % D;
     float s = 0.0f;
 #pragma unroll
@@ -287,24 +303,26 @@ template <int D, int GP>
 void launch_split(const void* q, const void* k, const void* v, const void* pos,
                   const void* slot_pos, float* part, float* stats, int B, int Hkv, int W, int G,
                   const long long* st, int window, float scale, int n_split, cudaStream_t s) {
-  decode_split_kernel<D, GP><<<dim3(Hkv, n_split, B), THREADS, 0, s>>>(
+  const int ngroups = (G + MAXG - 1) / MAXG;
+  decode_split_kernel<D, GP><<<dim3(Hkv * ngroups, n_split, B), THREADS, 0, s>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const int*>(pos), static_cast<const int*>(slot_pos), part, stats, W, G, n_split,
-      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], window, scale * LOG2E);
+      static_cast<const int*>(pos), static_cast<const int*>(slot_pos), part, stats, W, Hkv, G,
+      n_split, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], window,
+      scale * LOG2E);
 }
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, const void* pos, const void* slot_pos,
            void* o, float* scratch, int B, int H, int Hkv, int W, const long long* st,
            int window, float scale, int n_split, cudaStream_t s) {
-  const int G = H / Hkv;
+  const int G = H / Hkv, Gb = G < MAXG ? G : MAXG;  // heads a block serves
   float* part = scratch;
   float* stats = scratch + (long long)B * Hkv * n_split * G * D;
-  if (G == 1)
+  if (Gb == 1)
     launch_split<D, 1>(q, k, v, pos, slot_pos, part, stats, B, Hkv, W, G, st, window, scale, n_split, s);
-  else if (G == 2)
+  else if (Gb == 2)
     launch_split<D, 2>(q, k, v, pos, slot_pos, part, stats, B, Hkv, W, G, st, window, scale, n_split, s);
-  else if (G <= 4)
+  else if (Gb <= 4)
     launch_split<D, 4>(q, k, v, pos, slot_pos, part, stats, B, Hkv, W, G, st, window, scale, n_split, s);
   else
     launch_split<D, 8>(q, k, v, pos, slot_pos, part, stats, B, Hkv, W, G, st, window, scale, n_split, s);
@@ -318,14 +336,15 @@ int launch(const void* q, const void* k, const void* v, const void* pos, const v
 // q [B,H,D]; k, v [B,W,Hkv,D]; pos [B] int32; slot_pos [B,W] int32; o [B,H,D];
 // scratch: B*Hkv*n_split*G*(D + 2) floats (partial acc, then (m, l) pairs).
 // strides (elements): q b,h; k b,w,h; v b,w,h; slot_pos b; o b,h — 11 values
-// (slot_pos may have batch stride 0). D must be 64 or 128, H/Hkv <= 8, the
-// q/k/v pointers and strides 16-byte aligned, and ceil(W / n_split) <= 64.
+// (slot_pos may have batch stride 0). D must be 64, 112, 128 or 256, any
+// G = H / Hkv, the q/k/v pointers and strides 16-byte aligned, and
+// ceil(W / n_split) <= 64.
 extern "C" int flash_decode_fwd(const void* q, const void* k, const void* v, const void* pos,
                                 const void* slot_pos, void* o, void* scratch, int B, int H,
                                 int Hkv, int W, int D, const long long* strides, int window,
                                 float scale, int n_split, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (H / Hkv > MAXG || n_split < 1 || (W + n_split - 1) / n_split > MAX_SPLIT)
+  if (Hkv < 1 || H % Hkv != 0 || n_split < 1 || (W + n_split - 1) / n_split > MAX_SPLIT)
     return cudaErrorInvalidValue;
   float* f = static_cast<float*>(scratch);
   if (D == 128)
@@ -334,5 +353,11 @@ extern "C" int flash_decode_fwd(const void* q, const void* k, const void* v, con
   if (D == 64)
     return launch<64>(q, k, v, pos, slot_pos, o, f, B, H, Hkv, W, strides, window, scale,
                       n_split, s);
+  if (D == 112)
+    return launch<112>(q, k, v, pos, slot_pos, o, f, B, H, Hkv, W, strides, window, scale,
+                       n_split, s);
+  if (D == 256)
+    return launch<256>(q, k, v, pos, slot_pos, o, f, B, H, Hkv, W, strides, window, scale,
+                       n_split, s);
   return cudaErrorInvalidValue;
 }

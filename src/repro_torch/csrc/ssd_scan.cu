@@ -565,6 +565,9 @@ int dispatch(const void* x, const void* b, const void* c, const void* da, const 
   if (P == 64 && N == 128)
     return launch<In, 64, 128>(x, b, c, da, dt, y, state, sc, cs_last, hin, B, S, H, G, cl, st,
                                s);
+  if (P == 64 && N == 64)
+    return launch<In, 64, 64>(x, b, c, da, dt, y, state, sc, cs_last, hin, B, S, H, G, cl, st,
+                              s);
   if (P == 16 && N == 16)
     return launch<In, 16, 16>(x, b, c, da, dt, y, state, sc, cs_last, hin, B, S, H, G, cl, st,
                              s);
@@ -578,7 +581,7 @@ int dispatch(const void* x, const void* b, const void* c, const void* da, const 
 // and state [B,H,N,P] f32, contiguous; scratch sc [B,H,nc,N,P] f32,
 // cs_last [B,H,nc] f32 and hin [B,H,nc,2,N,P] bf16 with nc = ceil(S / cl).
 // strides (elements): x b,s,h; b b,s,g; c b,s,g; da b,s,h; dt b,s,h — 15
-// values. (P, N) is (64, 128) or
+// values. (P, N) is (64, 128) (Mamba2-2.7B), (64, 64) (Zamba2-7B) or
 // (16, 16); 1 <= cl <= 256. Three launches on `stream`.
 extern "C" int ssd_scan_fwd(const void* x, const void* b, const void* c, const void* da,
                             const void* dt, void* y, void* state, void* sc, void* cs_last,

@@ -14,11 +14,18 @@ request's KV row of W slots, masked by the slots' positions (``slot_pos``,
 them; it has no Pallas counterpart (the Pallas kernel takes no query
 offset), the JAX engine runs XLA ``attention`` there.
 
+``flash_attention_cross`` is cross attention to a fixed memory (the vlm's
+image patches, the enc-dec decoder's encoder output): Sq queries over Sk
+keys, no mask; the Pallas kernel has no such form (the reference runs XLA
+``attention`` with ``causal=False`` there).
+
 On a CUDA tensor each wrapper launches ``csrc/flash_attention.cu`` (wgmma
 and TMA, for Hopper; the chunk form is a second entry point of the same
-device code); on a CPU tensor it runs its plain version.
-``flash_attention.launches`` and ``flash_attention_chunk.launches`` count
-kernel launches.
+device code, the cross form the monolithic entry with its own key length),
+head_dim 64, 112, 128 or 256 (the chunk form 64 or 128); on a CPU tensor it
+runs its plain version. ``flash_attention.launches``,
+``flash_attention_chunk.launches`` and ``flash_attention_cross.launches``
+count kernel launches.
 
 ``flash_attention(..., return_lse=True)`` also gives each query row's
 log-sum-exp of its scaled logits, ``[B,H,S]`` f32 in natural log; ``o`` is
@@ -39,8 +46,10 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
-# q, k, v, o, lse, B, S, H, Hkv, D, strides, causal, window, scale, stream
-_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+HEAD_DIMS = (64, 112, 128, 256)
+CHUNK_HEAD_DIMS = (64, 128)
+# q, k, v, o, lse, B, Sq, Sk, H, Hkv, D, strides, causal, window, scale, stream
+_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
              + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
                 ctypes.c_void_p])
 # q, k, v, slot_pos, o, B, C, W, H, Hkv, D, strides, spb, q_start, window,
@@ -64,14 +73,17 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = -1,
                           return_lse: bool = False):
     """Plain PyTorch version: one softmax over all keys, the kernel's
     arithmetic (unnormalised p rounded to bf16, divided by the f32 sum).
-    With ``return_lse`` also the rows' log-sum-exp, [B,H,S] f32."""
+    With ``return_lse`` also the rows' log-sum-exp, [B,H,S] f32. Without a
+    causal mask k and v may hold another number of keys than q of queries
+    (cross attention)."""
     B, S, H, D = q.shape
     Hkv = k.shape[2]
     G = H // Hkv
     qg = q.reshape(B, S, Hkv, G, D).float()
     s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * D ** -0.5
-    pos = torch.arange(S, device=q.device)
-    s = s.masked_fill(~_valid(pos, pos, causal, window), NEG_INF)
+    s = s.masked_fill(~_valid(torch.arange(S, device=q.device),
+                              torch.arange(k.shape[1], device=q.device), causal, window),
+                      NEG_INF)
     m = s.amax(-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(-1, keepdim=True)
@@ -84,16 +96,37 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = -1,
 
 
 def _check_qkv(q, k, v):
-    """What the kernel's tensor maps take: bf16 on one device, head_dim 64
-    or 128, a contiguous last dim, 16-byte strides and pointers."""
-    if q.shape[-1] not in (64, 128):
-        raise ValueError(f"head_dim {q.shape[-1]}: the kernel is built for 64 and 128")
+    """What the kernel's tensor maps take: bf16 on one device, head_dim in
+    ``HEAD_DIMS``, a contiguous last dim, 16-byte strides and pointers."""
+    if q.shape[-1] not in HEAD_DIMS:
+        raise ValueError(f"head_dim {q.shape[-1]}: the kernel is built for {HEAD_DIMS}")
     for t in (q, k, v):
         if t.device != q.device or t.dtype != torch.bfloat16:
             raise ValueError("q, k, v must be bf16 on one device")
         if t.stride(3) != 1 or any(s % 8 for s in t.stride()[:3]) \
                 or t.data_ptr() % 16:
             raise ValueError("need a contiguous last dim and 16-byte strides")
+
+
+def _launch(q, k, v, causal: bool, window: int, return_lse: bool):
+    """The monolithic kernel on q [B,Sq,H,D] over k, v [B,Sk,Hkv,D]."""
+    B, Sq, H, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    if k.shape != (B, Sk, Hkv, D) or v.shape != k.shape or H % Hkv or (causal and Sk != Sq):
+        raise ValueError(f"shapes: q {tuple(q.shape)} k {tuple(k.shape)} "
+                         f"v {tuple(v.shape)}")
+    _check_qkv(q, k, v)
+    o = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
+    strides = (ctypes.c_longlong * 12)(*(
+        s for t in (q, k, v, o) for s in t.stride()[:3]))
+    fn = _build.function("flash_attention", "flash_attention_fwd", _ARGTYPES)
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            None if lse is None else lse.data_ptr(), B, Sq, Sk, H, Hkv, D, strides,
+            int(causal), int(window), D ** -0.5, _build.stream_ptr(q))
+    _build.check(_build.load("flash_attention"), rc, "flash_attention")
+    return o, lse
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = -1,
@@ -105,27 +138,30 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = -1,
             raise ValueError("flash_attention: mixed CPU/CUDA tensors")
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      return_lse=return_lse)
-    B, S, H, D = q.shape
-    Hkv = k.shape[2]
-    if k.shape != (B, S, Hkv, D) or v.shape != k.shape or H % Hkv:
-        raise ValueError(f"shapes: q {tuple(q.shape)} k {tuple(k.shape)} "
-                         f"v {tuple(v.shape)}")
-    _check_qkv(q, k, v)
-    o = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
-    lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-           if return_lse else None)
-    strides = (ctypes.c_longlong * 12)(*(
-        s for t in (q, k, v, o) for s in t.stride()[:3]))
-    fn = _build.function("flash_attention", "flash_attention_fwd", _ARGTYPES)
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            None if lse is None else lse.data_ptr(), B, S, H, Hkv, D, strides,
-            int(causal), int(window), D ** -0.5, _build.stream_ptr(q))
-    _build.check(_build.load("flash_attention"), rc, "flash_attention")
+    if k.shape[1] != q.shape[1]:
+        raise ValueError(f"shapes: q {tuple(q.shape)} k {tuple(k.shape)}: one length")
+    o, lse = _launch(q, k, v, causal, window, return_lse)
     flash_attention.launches += 1
     return (o, lse) if return_lse else o
 
 
 flash_attention.launches = 0
+
+
+def flash_attention_cross(q, k, v):
+    """Cross attention: q [B,Sq,H,D] over a memory's k, v [B,Sk,Hkv,D],
+    every key valid -> [B,Sq,H,D]. The reference's ``attention(causal=False,
+    window=None)`` over the memory."""
+    if not q.is_cuda:
+        if k.is_cuda or v.is_cuda:
+            raise ValueError("flash_attention_cross: mixed CPU/CUDA tensors")
+        return flash_attention_plain(q, k, v, causal=False)
+    o, _ = _launch(q, k, v, False, -1, False)
+    flash_attention_cross.launches += 1
+    return o
+
+
+flash_attention_cross.launches = 0
 
 
 def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
@@ -231,6 +267,8 @@ def flash_attention_chunk(q, k, v, slot_pos, q_start: int, *, window: int = -1):
                          f"v {tuple(v.shape)} slot_pos {tuple(slot_pos.shape)}")
     if not 0 <= q_start <= W - C:
         raise ValueError(f"chunk at {q_start} of {C} queries past the {W} slots")
+    if D not in CHUNK_HEAD_DIMS:
+        raise ValueError(f"head_dim {D}: the chunk kernel is built for {CHUNK_HEAD_DIMS}")
     _check_qkv(q, k, v)
     if slot_pos.device != q.device or slot_pos.dtype != torch.int32:
         raise ValueError("slot_pos must be int32 on q's device")

@@ -10,7 +10,10 @@ f32 softmax statistics, probabilities rounded to the V dtype before PV.
 
 On a CUDA tensor the wrapper launches ``csrc/flash_decode.cu``: a split-K
 pass over ``n_splits(...)`` contiguous slot ranges, then a combine pass, both
-from one C call; on a CPU tensor it runs ``flash_decode_plain``.
+from one C call; on a CPU tensor it runs ``flash_decode_plain``. The kernel
+takes head_dim 64, 112, 128 and 256 and any number of query heads per KV
+head (a block serves at most ``MAX_GROUP`` of them; more are split into
+groups of blocks that read the same slots).
 ``flash_decode.launches`` counts wrapper calls that launched the kernels.
 """
 from __future__ import annotations
@@ -25,6 +28,8 @@ NEG_INF = -1e30
 H100_SMS = 132
 MIN_SPLIT_SLOTS = 32    # slots a range holds at least, where W allows
 MAX_SPLIT_SLOTS = 64    # the kernel's score buffer (csrc/flash_decode.cu MAX_SPLIT)
+MAX_GROUP = 8           # query heads a block serves (csrc/flash_decode.cu MAXG)
+HEAD_DIMS = (64, 112, 128, 256)
 # q, k, v, pos, slot_pos, o, scratch, B, H, Hkv, W, D, strides, window,
 # scale, n_split, stream
 _ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
@@ -75,9 +80,8 @@ def flash_decode(q, k, v, pos, slot_pos, *, window: int = -1):
             or pos.shape != (B,) or slot_pos.shape != (B, W)):
         raise ValueError(f"shapes: q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"pos {tuple(pos.shape)} slot_pos {tuple(slot_pos.shape)}")
-    if D not in (64, 128) or H // Hkv > 8:
-        raise ValueError(f"the kernel is built for head_dim 64/128 and at most "
-                         f"8 query heads per KV head (D={D}, G={H // Hkv})")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"the kernel is built for head_dim in {HEAD_DIMS} (D={D})")
     if any(t.device != q.device for t in tensors):
         raise ValueError("flash_decode: tensors on different devices")
     for t in (q, k, v):
@@ -91,6 +95,8 @@ def flash_decode(q, k, v, pos, slot_pos, *, window: int = -1):
     pos = pos.contiguous()   # the kernel reads pos[b] at stride 1
     if q.device not in _SMS:
         _SMS[q.device] = torch.cuda.get_device_properties(q.device).multi_processor_count
+    # the slot ranges do not depend on G: a head's ranges, and so its sums,
+    # are those of the same head in a call of MAX_GROUP heads
     n = n_splits(B, Hkv, W, _SMS[q.device])
     o = torch.empty((B, H, D), dtype=q.dtype, device=q.device)
     scratch = torch.empty(B * H * n * (D + 2), dtype=torch.float32, device=q.device)

@@ -37,9 +37,9 @@ MAX_CHUNK = 256
 # incoming states; B, S, H, G, P, N, chunk, in_bf16; strides; stream
 _ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
              + [ctypes.c_void_p, ctypes.c_void_p])
-# (P, N) pairs the kernel is instantiated for: Mamba2-2.7B's, and the
-# reduced configs' (tests)
-KERNEL_SHAPES = ((64, 128), (16, 16))
+# (P, N) pairs the kernel is instantiated for: Mamba2-2.7B's, Zamba2-7B's,
+# and the reduced configs' (tests)
+KERNEL_SHAPES = ((64, 128), (64, 64), (16, 16))
 
 
 def ssd_scan_plain(x, b, c, da, dt, *, chunk: int = 256):

@@ -16,7 +16,12 @@ the port to the engine's own numbers; at and above the reference's
 Chunked prefill runs ``flash_attention_chunk`` on the card: the chunk's C
 queries at their absolute positions over the request's KV row, masked by
 its slot positions (the reference mask's valid-key set ``0 <= slot_pos <=
-pos``); decode runs ``flash_decode``.
+pos``); decode runs ``flash_decode``. Cross attention to a fixed memory
+(the vlm's image patches, the enc-dec decoder's encoder output) runs
+``flash_attention_cross`` over the whole sequence and ``flash_decode`` with
+every memory slot at position 0 for one token (the reference's
+``cross_attn_decode`` masks nothing: ``q_pos = k_pos = 0``); on the CPU the
+reference's ``attention`` with ``causal=False``.
 """
 from __future__ import annotations
 
@@ -27,7 +32,8 @@ import torch
 
 from repro_torch.kernels.flash_attention import (FlashAttentionFn, flash_attention,
                                                  flash_attention_bwd_plain,
-                                                 flash_attention_chunk)
+                                                 flash_attention_chunk,
+                                                 flash_attention_cross)
 from repro_torch.kernels.flash_decode import flash_decode
 from repro_torch.models import opt_flags
 
@@ -163,6 +169,50 @@ def attention_chunked(q, k, v, *, window=None, causal=True, q_block=512,
         bf16_tiles=bf16_tiles, scale=scale if scale is not None else q.shape[-1] ** -0.5)[0]
 
 
+def attention_chunked_windowed(q, k, v, *, window: int, q_block=512, kv_block=512,
+                               scale: Optional[float] = None) -> torch.Tensor:
+    """Causal chunked attention restricted to a static window > 0 (the
+    reference's ``attention_chunked_windowed``, REPRO_OPT_STATIC_WINDOW):
+    query block i visits only the ``min(nk, (window + q_block - 1) //
+    kv_block + 2)`` key blocks from ``clip((i q_block - window) //
+    kv_block, 0, nk - trips)`` that can meet its band, in order, with the
+    online softmax of ``attention_chunked`` (f32 probabilities); keys
+    outside the band or past the causal frontier are masked."""
+    B, S, H, D = q.shape
+    Hkv = k.shape[2]
+    G = H // Hkv
+    scale = scale if scale is not None else D ** -0.5
+    qb, kb = min(q_block, S), min(kv_block, S)
+    nq, nk = -(-S // qb), -(-S // kb)
+    trips = min(nk, (window + qb - 1) // kb + 2)
+    kpos = torch.arange(nk * kb, device=q.device)
+    kpos = torch.where(kpos < S, kpos, -1)
+    kf = torch.nn.functional.pad(k.float(), (0, 0, 0, 0, 0, nk * kb - S)).transpose(1, 2)
+    vf = torch.nn.functional.pad(v.float(), (0, 0, 0, 0, 0, nk * kb - S)).transpose(1, 2)
+    qf = torch.nn.functional.pad(q.float(), (0, 0, 0, 0, 0, nq * qb - S))
+    outs = []
+    for qi in range(nq):
+        qblk = qf[:, qi * qb:(qi + 1) * qb].reshape(B, qb, Hkv, G, D).permute(0, 2, 3, 1, 4)
+        qpos = qi * qb + torch.arange(qb, device=q.device)
+        j0 = min(max((qi * qb - window) // kb, 0), max(nk - trips, 0))
+        m = torch.full((B, Hkv, G, qb), NEG_INF, device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((B, Hkv, G, qb, D), device=q.device)
+        for j in range(j0, j0 + trips):
+            ks = slice(j * kb, (j + 1) * kb)
+            lg = torch.einsum("bhgqd,bhkd->bhgqk", qblk, kf[:, :, ks]) * scale
+            lg = lg.masked_fill(~_mask(qpos, kpos[ks], window, True), NEG_INF)
+            m_cur = torch.maximum(m, lg.amax(-1))
+            p = torch.exp(lg - m_cur[..., None])
+            corr = torch.exp(m - m_cur)
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + torch.einsum("bhgqk,bhkd->bhgqd", p, vf[:, :, ks])
+            m = m_cur
+        outs.append(acc / torch.clamp(l, min=1e-20)[..., None])
+    o = torch.cat(outs, 3).permute(0, 3, 1, 2, 4).reshape(B, nq * qb, H, D)
+    return o[:, :S].to(q.dtype)
+
+
 class _FlashAttentionXLA(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, window, causal, q_block, kv_block):
@@ -212,15 +262,18 @@ def _qkv(x, p, dims: AttnDims, positions, use_rope=True):
 
 
 def self_attn_full(x, p, dims: AttnDims, *, window=None, causal=True,
-                   chunked: bool = False):
+                   chunked: bool = False, static_window: bool = False):
     """Full-sequence self attention (train / prefill). x: [B,S,d].
     Returns (out [B,S,d], (k, v) each [B,S,Hkv,hd]).
 
-    On the card the kernel, whatever ``chunked`` says; where autograd
-    records, ``FlashAttentionFn`` (the kernel's forward, a plain flash
-    backward). On the CPU the reference's choice: ``flash_attention_xla``
-    when ``chunked`` (the bundles set it at S >= 2048), else the full
-    ``attention``, differentiated by autograd."""
+    On the card the kernel, whatever ``chunked`` says (it skips the key
+    tiles a window masks); where autograd records, ``FlashAttentionFn``
+    (the kernel's forward, a plain flash backward). On the CPU the
+    reference's choice: when ``chunked`` (the bundles set it at S >= 2048)
+    ``attention_chunked_windowed`` for a causal ``static_window`` > 0 (the
+    reference takes it for a window that is a Python int, as
+    ``build_dense_pattern``'s are), else ``flash_attention_xla``; when not
+    chunked the full ``attention``, differentiated by autograd."""
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None, :]
     q, k, v = _qkv(x, p, dims, positions)
@@ -230,6 +283,8 @@ def self_attn_full(x, p, dims: AttnDims, *, window=None, causal=True,
             o = FlashAttentionFn.apply(q, k, v, causal, win)
         else:
             o = flash_attention(q, k, v, causal=causal, window=win)
+    elif chunked and static_window and win > 0 and causal:
+        o = attention_chunked_windowed(q, k, v, window=win)
     elif chunked:
         o = flash_attention_xla(q, k, v, win, causal)
     else:
@@ -318,6 +373,68 @@ def self_attn_decode_batched(x, p, dims: AttnDims, cache_k, cache_v, slot_pos,
         o = attention(q, cache_k, cache_v, q_pos=positions, k_pos=slot_pos,
                       window=window, causal=True)
     return linear(o.reshape(B, 1, -1), p["wo"]), cache_k, cache_v
+
+
+def _no_card_gradient(*ts):
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        raise NotImplementedError("cross attention has no backward on the card "
+                                  "(flash_attention_cross is forward only)")
+
+
+def cross_kv(mem, p, dims: AttnDims):
+    """Memory tokens [B,M,d] projected once to cross-attention K, V, each
+    [B,M,Hkv,hd] (k normed with ``qk_norm``); no rope."""
+    B, M, _ = mem.shape
+    k = linear(mem, p["wk"]).reshape(B, M, dims.n_kv_heads, dims.head_dim)
+    v = linear(mem, p["wv"]).reshape(B, M, dims.n_kv_heads, dims.head_dim)
+    if dims.qk_norm:
+        k = rms_norm(k, p["k_norm"], dims.rms_eps)
+    return k, v
+
+
+def _cross_q(x, p, dims: AttnDims):
+    B, S, _ = x.shape
+    q = linear(x, p["wq"]).reshape(B, S, dims.n_heads, dims.head_dim)
+    if dims.qk_norm:
+        q = rms_norm(q, p["q_norm"], dims.rms_eps)
+    return q
+
+
+def cross_attn_full(x, p, dims: AttnDims, mem_k, mem_v):
+    """Cross attention of x [B,S,d] to a fixed memory mem_k, mem_v
+    [B,M,Hkv,hd]: every memory key valid for every query, no rope. On the
+    card ``flash_attention_cross`` (forward only), on the CPU the
+    reference's ``attention(causal=False)``."""
+    B, S, _ = x.shape
+    q = _cross_q(x, p, dims)
+    if x.is_cuda:
+        _no_card_gradient(q, mem_k, mem_v)
+        o = flash_attention_cross(q, mem_k, mem_v)
+    else:
+        o = attention(q, mem_k, mem_v, q_pos=torch.arange(S, device=x.device)[None],
+                      k_pos=torch.arange(mem_k.shape[1], device=x.device)[None],
+                      causal=False)
+    return linear(o.reshape(B, S, -1), p["wo"])
+
+
+def cross_attn_decode(x, p, dims: AttnDims, mem_k, mem_v):
+    """One token x [B,1,d] against a cached memory mem_k, mem_v
+    [B,M,Hkv,hd]. The reference puts the query and every memory slot at
+    position 0 without a causal mask; on the card ``flash_decode`` with
+    ``pos`` 0 and every slot's position 0 computes the same."""
+    B = x.shape[0]
+    q = _cross_q(x, p, dims)
+    M = mem_k.shape[1]
+    zero = torch.zeros((B,), dtype=torch.int32, device=x.device)
+    if x.is_cuda:
+        _no_card_gradient(q, mem_k, mem_v)
+        sp = torch.zeros((M,), dtype=torch.int32, device=x.device)[None].expand(B, M)
+        o = flash_decode(q[:, 0], mem_k, mem_v, zero, sp)[:, None]
+    else:
+        o = attention(q, mem_k, mem_v, q_pos=zero[:, None],
+                      k_pos=torch.zeros((1, M), dtype=torch.int32, device=x.device),
+                      causal=False)
+    return linear(o.reshape(B, 1, -1), p["wo"])
 
 
 ROW_BLOCK = 128   # rows of every product ``linear`` issues on the card

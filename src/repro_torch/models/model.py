@@ -1,6 +1,9 @@
-"""Model bundles (port of ``repro.models.model``): ``build_dense`` for the
-dense and MoE decoder families (qwen3, granite, qwen1.5, gemma3, qwen2-moe,
-kimi-k2, mixtral) and ``build_ssm`` for the ssm family.
+"""Model bundles (port of ``repro.models.model``), every family of the
+reference: ``build_dense`` for the dense and MoE decoders (qwen3, granite,
+qwen1.5, gemma3, qwen2-moe, kimi-k2, mixtral), ``build_dense_pattern`` for
+a local:global stack under ``REPRO_OPT_STATIC_WINDOW`` (gemma3), ``build_vlm``
+(llama-3.2-vision), ``build_encdec`` (seamless-m4t), ``build_ssm`` (mamba2)
+and ``build_hybrid`` (zamba2).
 
 ``build(cfg)`` gives the reference's entry points:
 
@@ -10,8 +13,9 @@ kimi-k2, mixtral) and ``build_ssm`` for the ssm family.
   * ``decode_step(params, step, cache)`` -> (logits [B,Vp], cache)
   * ``init_cache(batch_size, ...)``  -> an empty cache
 
-``batch`` = {'tokens': [B,S]}, ``step`` = {'token': [B,1]}, int tensors on
-the params' device. Layers run in a Python loop (the reference's
+``batch`` = {'tokens': [B,S]} (+ 'patch_embeds' [B,P,frontend_dim] for
+the vlm, 'frames' [B,F,frontend_dim] for the enc-dec), ``step`` =
+{'token': [B,1]}, int tensors on the params' device. Layers run in a Python loop (the reference's
 ``lax.scan``); while autograd records, each block of ``forward`` runs under
 ``torch.utils.checkpoint`` (the reference's per-layer ``jax.checkpoint``:
 its activations are recomputed in the backward). ``decode_step`` returns a
@@ -21,11 +25,8 @@ Dense / MoE cache: ``k``, ``v`` [L,B,W,Hkv,hd] bf16 ring buffers (``k0``,
 ``v0`` for the leading dense layers), ``slot_pos`` [W] int32 absolute
 position per slot (-1 = empty) and ``pos``; ``pad_cache`` grows the ring
 after prefill. ssm cache: ``ssm [L,B,h,n,p]`` f32, ``conv_x/B/C
-[L,B,C,K]`` bf16 and ``pos``.
-
-The families with other builders (vlm, audio enc-dec, hybrid) and the
-pattern-block gemma3 variant (``REPRO_OPT_STATIC_WINDOW``) are not ported
-yet and raise.
+[L,B,C,K]`` bf16 and ``pos``. The other builders' caches are the
+reference's, key for key and shape for shape (each builder's docstring).
 """
 from __future__ import annotations
 
@@ -40,7 +41,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe_layer as M
 from repro_torch.models import opt_flags
 from repro_torch.models import ssm as S
-from repro_torch.models.params import attn_dims, init_params
+from repro_torch.models.params import attn_dims, init_params, pattern_params
 
 CHUNKED_MIN_SEQ = 2048  # the reference's switch to chunked (flash) attention
 
@@ -72,17 +73,16 @@ class ModelBundle:
 
 
 def build(cfg: ArchConfig) -> ModelBundle:
-    if cfg.family == "ssm":
-        return build_ssm(cfg)
-    if cfg.family in ("dense", "moe"):
-        if cfg.local_global_pattern and opt_flags.static_window():
-            raise NotImplementedError(
-                f"{cfg.name}: REPRO_OPT_STATIC_WINDOW needs build_dense_pattern, "
-                "not ported yet (ROADMAP Queue A5)")
-        return build_dense(cfg)
-    where = "A4" if cfg.family == "hybrid" else "A5"
-    raise NotImplementedError(
-        f"{cfg.name}: the {cfg.family} family is not ported yet (ROADMAP Queue {where})")
+    """The family's builder; a dense local:global stack under
+    ``REPRO_OPT_STATIC_WINDOW`` takes ``build_dense_pattern``, as the
+    reference's ``build`` does."""
+    if cfg.family == "dense" and cfg.local_global_pattern and opt_flags.static_window():
+        return build_dense_pattern(cfg)
+    builders = {"dense": build_dense, "moe": build_dense, "vlm": build_vlm,
+                "encdec": build_encdec, "ssm": build_ssm, "hybrid": build_hybrid}
+    if cfg.family not in builders:
+        raise KeyError(f"{cfg.name}: no builder for family {cfg.family!r}")
+    return builders[cfg.family](cfg)
 
 
 def pad_cache(cache, new_capacity: int, ring_axes: Dict[str, int]):
@@ -121,10 +121,12 @@ def _ffn_apply(xn, lp, cfg: ArchConfig, dropless: bool):
     return L.swiglu(xn, lp["mlp"]["w1"], lp["mlp"]["w3"], lp["mlp"]["w2"]), 0.0
 
 
-def _block_full(x, lp, win: int, cfg: ArchConfig, chunked: bool):
-    """One decoder block over a whole sequence. Returns (x, (k, v), aux)."""
+def _block_full(x, lp, win: int, cfg: ArchConfig, chunked: bool, static: bool = False):
+    """One decoder block over a whole sequence (``static``: the window is
+    the pattern stack's static one). Returns (x, (k, v), aux)."""
     h, kv = L.self_attn_full(L.rms_norm(x, lp["ln1"], cfg.rms_eps), lp["attn"],
-                             attn_dims(cfg), window=win, chunked=chunked)
+                             attn_dims(cfg), window=win, chunked=chunked,
+                             static_window=static)
     x = x + h
     y, aux = _ffn_apply(L.rms_norm(x, lp["ln2"], cfg.rms_eps), lp, cfg, dropless=False)
     return x + y, kv, aux
@@ -140,15 +142,30 @@ def _block_decode(x, lp, win: int, cfg: ArchConfig, ck, cv, sp, slot: int, pos):
     return x + y, aux
 
 
+def _at(node, l):
+    """Entry l of every leaf of a param (or cache) tree: a view."""
+    return {k: _at(v, l) for k, v in node.items()} if isinstance(node, dict) else node[l]
+
+
 def _stack(params, name: str):
     """The per-layer param dicts of stack ``name`` (views of its leaves)."""
     stack = params[name]
-    n = stack["ln1"].shape[0]
+    return [_at(stack, l) for l in range(_depth(stack))]
 
-    def at(node, l):
-        return {k: at(v, l) for k, v in node.items()} if isinstance(node, dict) else node[l]
 
-    return [at(stack, l) for l in range(n)]
+def _depth(stack) -> int:
+    """The leading (layer) size of a stacked param tree."""
+    while isinstance(stack, dict):
+        stack = next(iter(stack.values()))
+    return stack.shape[0]
+
+
+def _run(fn, x, *args):
+    """fn(x, *args), under ``torch.utils.checkpoint`` where autograd records
+    (the reference's per-layer ``jax.checkpoint``)."""
+    if _records(x, args[0]):
+        return checkpoint(fn, x, *args, use_reentrant=False)
+    return fn(x, *args)
 
 
 def _records(x, lp) -> bool:
@@ -157,6 +174,25 @@ def _records(x, lp) -> bool:
         return [t for v in node.values() for t in leaves(v)] if isinstance(node, dict) else [node]
     return torch.is_grad_enabled() and (x.requires_grad
                                         or any(t.requires_grad for t in leaves(lp)))
+
+
+def _ring(capacity: int, filled: int, device):
+    """``slot_pos`` of a ring of ``capacity`` slots whose first ``filled``
+    hold positions 0.. (-1 = empty) and ``pos`` = filled: a prefill's
+    cache (filled = capacity = S) or an empty one (filled = 0)."""
+    slots = torch.arange(capacity, dtype=torch.int32, device=device)
+    return {"slot_pos": torch.where(slots < filled, slots, -1),
+            "pos": torch.tensor(filled, dtype=torch.int32, device=device)}
+
+
+def _slot(cache, ring: torch.Tensor):
+    """(slot, new slot_pos) of the next decode step over a ring of
+    ``ring.shape[-3]`` slots: slot = pos % W, slot_pos[slot] = pos."""
+    pos = cache["pos"]
+    slot = int(pos) % ring.shape[-3]
+    sp = cache["slot_pos"].clone()
+    sp[slot] = pos
+    return slot, sp
 
 
 def build_dense(cfg: ArchConfig) -> ModelBundle:
@@ -177,11 +213,7 @@ def build_dense(cfg: ArchConfig) -> ModelBundle:
         chunked = tokens.shape[1] >= CHUNKED_MIN_SEQ
         aux = 0.0
         for _, lp, win in _stacks(params):
-            if _records(x, lp):
-                x, _, a = checkpoint(_block_full, x, lp, win, cfg, chunked,
-                                     use_reentrant=False)
-            else:
-                x, _, a = _block_full(x, lp, win, cfg, chunked)
+            x, _, a = _run(_block_full, x, lp, win, cfg, chunked)
             aux = aux + a
         x = L.rms_norm(x, params["ln_f"], cfg.rms_eps)
         return _logits(x, params["embed"]), aux / cfg.n_layers
@@ -200,20 +232,15 @@ def build_dense(cfg: ArchConfig) -> ModelBundle:
             if rows:
                 cache["k" + key] = torch.stack([k for k, _ in rows])
                 cache["v" + key] = torch.stack([v for _, v in rows])
-        dev = tokens.device
-        cache["slot_pos"] = torch.arange(Ssz, dtype=torch.int32, device=dev)
-        cache["pos"] = torch.tensor(Ssz, dtype=torch.int32, device=dev)
+        cache.update(_ring(Ssz, Ssz, tokens.device))
         x = L.rms_norm(x, params["ln_f"], cfg.rms_eps)
         return _logits(x[:, -1], params["embed"]), cache
 
     def decode_step(params, step, cache):
         x = _embed(params["embed"], step["token"])
         pos = cache["pos"]
-        W = cache["k"].shape[2]
-        slot = int(pos) % W
-        new = dict(cache)
-        new["slot_pos"] = cache["slot_pos"].clone()
-        new["slot_pos"][slot] = pos
+        slot, sp = _slot(cache, cache["k"])
+        new = dict(cache, slot_pos=sp, pos=pos + 1)
         for key in ("k", "v", "k0", "v0"):
             if key in cache:
                 new[key] = cache[key].clone()
@@ -222,16 +249,14 @@ def build_dense(cfg: ArchConfig) -> ModelBundle:
             l = count[key]
             count[key] += 1
             x, _ = _block_decode(x, lp, win, cfg, new["k" + key][l], new["v" + key][l],
-                                 new["slot_pos"], slot, pos)
-        new["pos"] = pos + 1
+                                 sp, slot, pos)
         x = L.rms_norm(x, params["ln_f"], cfg.rms_eps)
         return _logits(x[:, -1], params["embed"]), new
 
     def init_cache(batch_size: int, capacity: int, device="cuda"):
         shape = (batch_size, capacity, cfg.n_kv_heads, cfg.hd)
         c = {"k": torch.zeros((cfg.n_layers - n_dense,) + shape, dtype=L.PDT, device=device),
-             "slot_pos": torch.full((capacity,), -1, dtype=torch.int32, device=device),
-             "pos": torch.tensor(0, dtype=torch.int32, device=device)}
+             **_ring(capacity, 0, device)}
         c["v"] = torch.zeros_like(c["k"])
         if n_dense:
             c["k0"] = torch.zeros((n_dense,) + shape, dtype=L.PDT, device=device)
@@ -240,6 +265,305 @@ def build_dense(cfg: ArchConfig) -> ModelBundle:
 
     return ModelBundle(cfg, init, forward, prefill, decode_step, init_cache,
                        ring_axes={"k": 2, "v": 2, "k0": 2, "v0": 2})
+
+
+# ---------------------------------------------------------------------------
+# pattern-block dense variant (REPRO_OPT_STATIC_WINDOW): local:global stacks
+# (gemma3) as blocks of ``local_global_pattern + 1`` layers with static windows
+# ---------------------------------------------------------------------------
+
+
+def build_dense_pattern(cfg: ArchConfig) -> ModelBundle:
+    """The dense stack as ``n_pat`` blocks of ``per`` layers, then a tail:
+    params ``blocks`` [n_pat, per, ...] and ``tail`` [n_tail, ...]
+    (``models.params.pattern_params`` cuts them out of ``build_dense``'s
+    tree); cache ``k``, ``v`` [n_pat, per, B, W, Hkv, hd], ``kt``, ``vt``
+    [n_tail, B, W, Hkv, hd], ``slot_pos``, ``pos``. Each inner position's
+    window is static, so on the CPU a chunked local layer takes the
+    band-restricted ``attention_chunked_windowed``; on the card the kernel
+    skips the key tiles outside the window either way, and the logits equal
+    ``build_dense``'s."""
+    if not cfg.local_global_pattern or cfg.is_moe or cfg.n_dense_layers:
+        raise ValueError(f"{cfg.name}: build_dense_pattern takes a dense local:global stack")
+    per = cfg.local_global_pattern + 1
+    n_pat = cfg.n_layers // per
+    n_tail = cfg.n_layers - n_pat * per
+    win_in = [cfg.window_for_layer(i) for i in range(per)]
+    win_tail = [cfg.window_for_layer(n_pat * per + i) for i in range(n_tail)]
+
+    def init(seed: int = 0, device="cuda"):
+        return pattern_params(init_params(cfg, seed, device), cfg)
+
+    def _layers(params):
+        """(cache key, index, layer params, window) of every layer, in order."""
+        out = []
+        for b in range(n_pat):
+            blk = _at(params["blocks"], b)
+            out += [("", (b, i), _at(blk, i), win_in[i]) for i in range(per)]
+        if n_tail:
+            out += [("t", (i,), _at(params["tail"], i), win_tail[i]) for i in range(n_tail)]
+        return out
+
+    def _run_full(params, tokens, emit_kv):
+        chunked = tokens.shape[1] >= CHUNKED_MIN_SEQ
+        x = _embed(params["embed"], tokens)
+        kv = {"": [], "t": []}
+        for key, _, lp, win in _layers(params):
+            x, (k, v), _ = _run(_block_full, x, lp, win, cfg, chunked, True)
+            if emit_kv:
+                kv[key].append((k, v))
+        return L.rms_norm(x, params["ln_f"], cfg.rms_eps), kv
+
+    def forward(params, batch):
+        x, _ = _run_full(params, batch["tokens"], emit_kv=False)
+        return _logits(x, params["embed"]), 0.0
+
+    def prefill(params, batch):
+        tokens = batch["tokens"]
+        B, Ssz = tokens.shape
+        x, kv = _run_full(params, tokens, emit_kv=True)
+        shape = (B, Ssz, cfg.n_kv_heads, cfg.hd)
+
+        def stacked(rows, lead):   # n_pat may be 0 (fewer layers than a block)
+            t = (torch.stack(rows) if rows
+                 else torch.zeros((0,) + shape, dtype=L.PDT, device=tokens.device))
+            return t.reshape(lead + shape)
+
+        cache = {"k": stacked([k for k, _ in kv[""]], (n_pat, per)),
+                 "v": stacked([v for _, v in kv[""]], (n_pat, per)),
+                 **_ring(Ssz, Ssz, tokens.device)}
+        if n_tail:
+            cache["kt"] = stacked([k for k, _ in kv["t"]], (n_tail,))
+            cache["vt"] = stacked([v for _, v in kv["t"]], (n_tail,))
+        return _logits(x[:, -1], params["embed"]), cache
+
+    def decode_step(params, step, cache):
+        x = _embed(params["embed"], step["token"])
+        pos = cache["pos"]
+        slot, sp = _slot(cache, cache["k"])
+        new = dict(cache, slot_pos=sp, pos=pos + 1)
+        for key in ("k", "v", "kt", "vt"):
+            if key in cache:
+                new[key] = cache[key].clone()
+        for key, idx, lp, win in _layers(params):
+            x, _ = _block_decode(x, lp, win, cfg, new["k" + key][idx], new["v" + key][idx],
+                                 sp, slot, pos)
+        x = L.rms_norm(x, params["ln_f"], cfg.rms_eps)
+        return _logits(x[:, -1], params["embed"]), new
+
+    def init_cache(batch_size: int, capacity: int, extras=None, device="cuda"):
+        shape = (batch_size, capacity, cfg.n_kv_heads, cfg.hd)
+        c = {"k": torch.zeros((n_pat, per) + shape, dtype=L.PDT, device=device),
+             **_ring(capacity, 0, device)}
+        c["v"] = torch.zeros_like(c["k"])
+        if n_tail:
+            c["kt"] = torch.zeros((n_tail,) + shape, dtype=L.PDT, device=device)
+            c["vt"] = torch.zeros_like(c["kt"])
+        return c
+
+    return ModelBundle(cfg, init, forward, prefill, decode_step, init_cache,
+                       ring_axes={"k": 3, "v": 3, "kt": 2, "vt": 2})
+
+
+# ---------------------------------------------------------------------------
+# vlm family (llama-3.2-vision): blocks of [n_self self-attn + 1 cross-attn]
+# ---------------------------------------------------------------------------
+
+
+def _gate(g, like):
+    """tanh of a gate scalar, in f32, cast to the residual's type."""
+    return torch.tanh(g.float()).to(like.dtype)
+
+
+def build_vlm(cfg: ArchConfig) -> ModelBundle:
+    """``n_layers / cross_attn_every`` blocks of ``cross_attn_every - 1``
+    self-attention layers and one gated cross-attention layer over the
+    projected patch embeddings (``proj``: frontend_dim -> d_model). Params
+    ``blocks.self`` [n_blocks, n_self, ...], ``blocks.cross`` [n_blocks, ...]
+    with scalar ``gate_attn`` and ``gate_mlp`` (zero at init: a fresh cross
+    layer is the identity); cache ``k``, ``v`` [n_blocks, n_self, B, W, Hkv,
+    hd], the memory's ``mk``, ``mv`` [n_blocks, B, P, Hkv, hd], ``slot_pos``,
+    ``pos``."""
+    n_self = cfg.cross_attn_every - 1
+    n_blocks = cfg.n_layers // cfg.cross_attn_every
+    if n_blocks * cfg.cross_attn_every != cfg.n_layers:
+        raise ValueError(f"{cfg.name}: {cfg.n_layers} layers are not whole blocks")
+    dims = attn_dims(cfg)
+
+    def init(seed: int = 0, device="cuda"):
+        return init_params(cfg, seed, device)
+
+    def _cross_rest(x, cp, h):
+        """The cross layer after its attention h: both gated residuals."""
+        x = x + _gate(cp["gate_attn"], x) * h
+        y = L.swiglu(L.rms_norm(x, cp["ln2"], cfg.rms_eps),
+                     cp["mlp"]["w1"], cp["mlp"]["w3"], cp["mlp"]["w2"])
+        return x + _gate(cp["gate_mlp"], x) * y
+
+    def _cross_full(x, cp, mk, mv):
+        return _cross_rest(x, cp, L.cross_attn_full(L.rms_norm(x, cp["ln1"], cfg.rms_eps),
+                                                    cp["attn"], dims, mk, mv))
+
+    def _run_full(params, batch, emit_kv):
+        tokens = batch["tokens"]
+        chunked = tokens.shape[1] >= CHUNKED_MIN_SEQ
+        mem = L.linear(batch["patch_embeds"].to(L.PDT), params["proj"])
+        x = _embed(params["embed"], tokens)
+        self_kv, cross_kv = [], []
+        for b in range(n_blocks):
+            blk = _at(params["blocks"], b)
+            for i in range(n_self):
+                x, kv, _ = _run(_block_full, x, _at(blk["self"], i), -1, cfg, chunked)
+                if emit_kv:
+                    self_kv.append(kv)
+            mk, mv = L.cross_kv(mem, blk["cross"]["attn"], dims)
+            x = _run(_cross_full, x, blk["cross"], mk, mv)
+            if emit_kv:
+                cross_kv.append((mk, mv))
+        return L.rms_norm(x, params["ln_f"], cfg.rms_eps), self_kv, cross_kv
+
+    def forward(params, batch):
+        x, _, _ = _run_full(params, batch, emit_kv=False)
+        return _logits(x, params["embed"]), 0.0
+
+    def prefill(params, batch):
+        tokens = batch["tokens"]
+        Ssz = tokens.shape[1]
+        x, self_kv, cross_kv = _run_full(params, batch, emit_kv=True)
+        ks, vs = torch.stack([k for k, _ in self_kv]), torch.stack([v for _, v in self_kv])
+        cache = {"k": ks.reshape((n_blocks, n_self) + ks.shape[1:]),
+                 "v": vs.reshape((n_blocks, n_self) + vs.shape[1:]),
+                 "mk": torch.stack([k for k, _ in cross_kv]),
+                 "mv": torch.stack([v for _, v in cross_kv]),
+                 **_ring(Ssz, Ssz, tokens.device)}
+        return _logits(x[:, -1], params["embed"]), cache
+
+    def decode_step(params, step, cache):
+        x = _embed(params["embed"], step["token"])
+        pos = cache["pos"]
+        slot, sp = _slot(cache, cache["k"])
+        new = dict(cache, k=cache["k"].clone(), v=cache["v"].clone(), slot_pos=sp, pos=pos + 1)
+        for b in range(n_blocks):
+            blk = _at(params["blocks"], b)
+            for i in range(n_self):
+                x, _ = _block_decode(x, _at(blk["self"], i), -1, cfg, new["k"][b, i],
+                                     new["v"][b, i], sp, slot, pos)
+            cp = blk["cross"]
+            x = _cross_rest(x, cp, L.cross_attn_decode(
+                L.rms_norm(x, cp["ln1"], cfg.rms_eps), cp["attn"], dims, cache["mk"][b],
+                cache["mv"][b]))
+        x = L.rms_norm(x, params["ln_f"], cfg.rms_eps)
+        return _logits(x[:, -1], params["embed"]), new
+
+    def init_cache(batch_size: int, capacity: int, extras=None, device="cuda"):
+        hkv, hd = cfg.n_kv_heads, cfg.hd
+        z = lambda *shape: torch.zeros(shape, dtype=L.PDT, device=device)
+        return {"k": z(n_blocks, n_self, batch_size, capacity, hkv, hd),
+                "v": z(n_blocks, n_self, batch_size, capacity, hkv, hd),
+                "mk": z(n_blocks, batch_size, cfg.n_frontend_tokens, hkv, hd),
+                "mv": z(n_blocks, batch_size, cfg.n_frontend_tokens, hkv, hd),
+                **_ring(capacity, 0, device)}
+
+    return ModelBundle(cfg, init, forward, prefill, decode_step, init_cache,
+                       ring_axes={"k": 3, "v": 3})
+
+
+# ---------------------------------------------------------------------------
+# encoder-decoder family (seamless-m4t): audio frames -> encoder; text decoder
+# ---------------------------------------------------------------------------
+
+
+def build_encdec(cfg: ArchConfig) -> ModelBundle:
+    """A non-causal encoder of ``enc_layers`` over the projected frames
+    (``proj``, ``enc``, ``ln_enc``) and a causal decoder of ``n_layers``
+    whose blocks add cross attention to the encoder output (``dec`` with
+    ``ln_x`` / ``xattn``). Cache ``k``, ``v`` [L, B, W, Hkv, hd], the
+    encoder output's ``mk``, ``mv`` [L, B, M, Hkv, hd] (``init_cache`` takes
+    M from ``extras["mem_len"]``, else the capacity), ``slot_pos``, ``pos``."""
+    dims = attn_dims(cfg)
+
+    def init(seed: int = 0, device="cuda"):
+        return init_params(cfg, seed, device)
+
+    def _enc_block(x, lp, chunked):
+        h, _ = L.self_attn_full(L.rms_norm(x, lp["ln1"], cfg.rms_eps), lp["attn"], dims,
+                                causal=False, chunked=chunked)
+        x = x + h
+        return x + L.swiglu(L.rms_norm(x, lp["ln2"], cfg.rms_eps),
+                            lp["mlp"]["w1"], lp["mlp"]["w3"], lp["mlp"]["w2"])
+
+    def encode(params, frames):
+        x = L.linear(frames.to(L.PDT), params["proj"])
+        chunked = x.shape[1] >= CHUNKED_MIN_SEQ
+        for lp in _stack(params, "enc"):
+            x = _run(_enc_block, x, lp, chunked)
+        return L.rms_norm(x, params["ln_enc"], cfg.rms_eps)
+
+    def _dec_block(x, lp, enc_out, chunked):
+        h, kv = L.self_attn_full(L.rms_norm(x, lp["ln1"], cfg.rms_eps), lp["attn"], dims,
+                                 chunked=chunked)
+        x = x + h
+        mk, mv = L.cross_kv(enc_out, lp["xattn"], dims)
+        x = x + L.cross_attn_full(L.rms_norm(x, lp["ln_x"], cfg.rms_eps), lp["xattn"], dims,
+                                  mk, mv)
+        y = L.swiglu(L.rms_norm(x, lp["ln2"], cfg.rms_eps),
+                     lp["mlp"]["w1"], lp["mlp"]["w3"], lp["mlp"]["w2"])
+        return x + y, kv, (mk, mv)
+
+    def _dec_full(params, tokens, enc_out, emit_kv):
+        chunked = tokens.shape[1] >= CHUNKED_MIN_SEQ
+        x = _embed(params["embed"], tokens)
+        kvs = []
+        for lp in _stack(params, "dec"):
+            x, kv, mkv = _run(_dec_block, x, lp, enc_out, chunked)
+            if emit_kv:
+                kvs.append((kv, mkv))
+        return L.rms_norm(x, params["ln_f"], cfg.rms_eps), kvs
+
+    def forward(params, batch):
+        enc_out = encode(params, batch["frames"])
+        x, _ = _dec_full(params, batch["tokens"], enc_out, emit_kv=False)
+        return _logits(x, params["embed"]), 0.0
+
+    def prefill(params, batch):
+        tokens = batch["tokens"]
+        Ssz = tokens.shape[1]
+        enc_out = encode(params, batch["frames"])
+        x, kvs = _dec_full(params, tokens, enc_out, emit_kv=True)
+        cache = {name: torch.stack([pick(kv) for kv in kvs]) for name, pick in (
+            ("k", lambda e: e[0][0]), ("v", lambda e: e[0][1]),
+            ("mk", lambda e: e[1][0]), ("mv", lambda e: e[1][1]))}
+        cache.update(_ring(Ssz, Ssz, tokens.device))
+        return _logits(x[:, -1], params["embed"]), cache
+
+    def decode_step(params, step, cache):
+        x = _embed(params["embed"], step["token"])
+        pos = cache["pos"]
+        slot, sp = _slot(cache, cache["k"])
+        new = dict(cache, k=cache["k"].clone(), v=cache["v"].clone(), slot_pos=sp, pos=pos + 1)
+        for l, lp in enumerate(_stack(params, "dec")):
+            h, _, _ = L.self_attn_decode(L.rms_norm(x, lp["ln1"], cfg.rms_eps), lp["attn"],
+                                         dims, new["k"][l], new["v"][l], sp, slot, pos)
+            x = x + h
+            x = x + L.cross_attn_decode(L.rms_norm(x, lp["ln_x"], cfg.rms_eps), lp["xattn"],
+                                        dims, cache["mk"][l], cache["mv"][l])
+            x = x + L.swiglu(L.rms_norm(x, lp["ln2"], cfg.rms_eps),
+                             lp["mlp"]["w1"], lp["mlp"]["w3"], lp["mlp"]["w2"])
+        x = L.rms_norm(x, params["ln_f"], cfg.rms_eps)
+        return _logits(x[:, -1], params["embed"]), new
+
+    def init_cache(batch_size: int, capacity: int, extras=None, device="cuda"):
+        hkv, hd = cfg.n_kv_heads, cfg.hd
+        mem_len = extras["mem_len"] if extras else capacity
+        z = lambda *shape: torch.zeros(shape, dtype=L.PDT, device=device)
+        return {"k": z(cfg.n_layers, batch_size, capacity, hkv, hd),
+                "v": z(cfg.n_layers, batch_size, capacity, hkv, hd),
+                "mk": z(cfg.n_layers, batch_size, mem_len, hkv, hd),
+                "mv": z(cfg.n_layers, batch_size, mem_len, hkv, hd),
+                **_ring(capacity, 0, device)}
+
+    return ModelBundle(cfg, init, forward, prefill, decode_step, init_cache,
+                       ring_axes={"k": 2, "v": 2})
 
 
 # ---------------------------------------------------------------------------
@@ -306,3 +630,131 @@ def build_ssm(cfg: ArchConfig) -> ModelBundle:
         return cache
 
     return ModelBundle(cfg, init, forward, prefill, decode_step, init_cache)
+
+
+# ---------------------------------------------------------------------------
+# hybrid family (zamba2): mamba2 backbone + weight-shared attn block
+# ---------------------------------------------------------------------------
+
+def _tail_key(k: str) -> str:
+    """The tail's name of an ssm cache leaf: ssm -> ssm_t, conv_x -> conv_xt."""
+    return "ssm_t" if k == "ssm" else k + "t"
+
+
+def build_hybrid(cfg: ArchConfig) -> ModelBundle:
+    """``n_layers // hybrid_attn_every`` blocks of ``hybrid_attn_every`` Mamba2
+    layers, each followed by one application of a single weight-shared
+    attention + MLP block (``shared``) over the window ``sliding_window``,
+    then a Mamba2 tail of the remaining layers. Params ``mamba`` [n_blocks,
+    per, ...], ``shared`` (one block), ``tail`` [n_tail, ...]. Cache: the
+    Mamba layers' ``ssm``, ``conv_x/B/C`` [n_blocks, per, B, ...] (the tail's
+    as ``ssm_t``, ``conv_xt/Bt/Ct`` [n_tail, B, ...]) and, per application of
+    the shared block, its own ring ``ak``, ``av`` [n_blocks, B, W, Hkv, hd]
+    of W = min(S, window) slots, with one ``slot_pos`` [W] and ``pos``.
+    Prefill keeps the last W keys, rolled so that slot == pos % W."""
+    per = cfg.hybrid_attn_every
+    n_blocks = cfg.n_layers // per
+    n_tail = cfg.n_layers - n_blocks * per
+    win = cfg.sliding_window or -1
+
+    def init(seed: int = 0, device="cuda"):
+        return init_params(cfg, seed, device)
+
+    def _mamba_full(x, lp):
+        y, hfin, tails = S.ssd_forward(L.rms_norm(x, lp["ln"], cfg.rms_eps), lp["ssm"], cfg)
+        return x + y, hfin, tails
+
+    def _mamba_decode(x, lp, cache, idx, new, key):
+        """One Mamba layer for one token; its state at ``idx`` of the cache
+        leaves ``key(name)`` read from ``cache``, written into ``new``."""
+        conv = {k: cache[key(f"conv_{k}")][idx] for k in ("x", "B", "C")}
+        y, st, conv = S.ssd_decode_step(L.rms_norm(x, lp["ln"], cfg.rms_eps), lp["ssm"], cfg,
+                                        cache[key("ssm")][idx], conv)
+        new[key("ssm")][idx] = st
+        for k in ("x", "B", "C"):
+            new[key(f"conv_{k}")][idx] = conv[k]
+        return x + y
+
+    def _run_full(params, tokens, emit):
+        chunked = tokens.shape[1] >= CHUNKED_MIN_SEQ
+        x = _embed(params["embed"], tokens)
+        states, kvs, tail = [], [], []
+        for b in range(n_blocks):
+            blk = _at(params["mamba"], b)
+            for i in range(per):
+                x, hfin, tails = _run(_mamba_full, x, _at(blk, i))
+                if emit:
+                    states.append((hfin, tails))
+            x, kv, _ = _run(_block_full, x, params["shared"], win, cfg, chunked)
+            if emit:
+                kvs.append(kv)
+        for i in range(n_tail):
+            x, hfin, tails = _run(_mamba_full, x, _at(params["tail"], i))
+            if emit:
+                tail.append((hfin, tails))
+        return L.rms_norm(x, params["ln_f"], cfg.rms_eps), states, kvs, tail
+
+    def _ssm_cache(states, lead):
+        """ssm / conv_* leaves of a list of (final state, conv tails)."""
+        out = {"ssm": torch.stack([h for h, _ in states])}
+        for k in ("x", "B", "C"):
+            out[f"conv_{k}"] = torch.stack([t[k] for _, t in states])
+        return {k: v.reshape(lead + v.shape[1:]) for k, v in out.items()}
+
+    def forward(params, batch):
+        x, _, _, _ = _run_full(params, batch["tokens"], emit=False)
+        return _logits(x, params["embed"]), 0.0
+
+    def prefill(params, batch):
+        tokens = batch["tokens"]
+        Ssz = tokens.shape[1]
+        x, states, kvs, tail = _run_full(params, tokens, emit=True)
+        W = min(Ssz, cfg.sliding_window or Ssz)
+        shift = (Ssz - W) % W
+        roll = lambda t: torch.roll(t, shift, dims=2)
+        cache = _ssm_cache(states, (n_blocks, per))
+        cache["ak"] = roll(torch.stack([k for k, _ in kvs])[:, :, -W:])
+        cache["av"] = roll(torch.stack([v for _, v in kvs])[:, :, -W:])
+        cache["slot_pos"] = torch.roll(
+            torch.arange(Ssz - W, Ssz, dtype=torch.int32, device=tokens.device), shift)
+        cache["pos"] = torch.tensor(Ssz, dtype=torch.int32, device=tokens.device)
+        if n_tail:
+            cache.update({_tail_key(k): v for k, v in _ssm_cache(tail, (n_tail,)).items()})
+        return _logits(x[:, -1], params["embed"]), cache
+
+    def decode_step(params, step, cache):
+        x = _embed(params["embed"], step["token"])
+        pos = cache["pos"]
+        slot, sp = _slot(cache, cache["ak"])
+        new = dict(cache, ak=cache["ak"].clone(), av=cache["av"].clone(), slot_pos=sp,
+                   pos=pos + 1)
+        for k in ("ssm", "conv_x", "conv_B", "conv_C"):
+            new[k] = torch.empty_like(cache[k])
+            if n_tail:
+                new[_tail_key(k)] = torch.empty_like(cache[_tail_key(k)])
+        same = lambda k: k
+        for b in range(n_blocks):
+            blk = _at(params["mamba"], b)
+            for i in range(per):
+                x = _mamba_decode(x, _at(blk, i), cache, (b, i), new, same)
+            x, _ = _block_decode(x, params["shared"], win, cfg, new["ak"][b], new["av"][b],
+                                 sp, slot, pos)
+        for i in range(n_tail):
+            x = _mamba_decode(x, _at(params["tail"], i), cache, i, new, _tail_key)
+        x = L.rms_norm(x, params["ln_f"], cfg.rms_eps)
+        return _logits(x[:, -1], params["embed"]), new
+
+    def init_cache(batch_size: int, capacity: int, extras=None, device="cuda"):
+        one = S.init_ssm_cache(cfg, batch_size, device=device)
+        W = min(capacity, cfg.sliding_window or capacity)
+        z = lambda shape, dtype=L.PDT: torch.zeros(shape, dtype=dtype, device=device)
+        c = {k: z((n_blocks, per) + v.shape, v.dtype) for k, v in one.items()}
+        c["ak"] = z((n_blocks, batch_size, W, cfg.n_kv_heads, cfg.hd))
+        c["av"] = torch.zeros_like(c["ak"])
+        c.update(_ring(W, 0, device))
+        if n_tail:
+            c.update({_tail_key(k): z((n_tail,) + v.shape, v.dtype) for k, v in one.items()})
+        return c
+
+    return ModelBundle(cfg, init, forward, prefill, decode_step, init_cache,
+                       ring_axes={"ak": 2, "av": 2})

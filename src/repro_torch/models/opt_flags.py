@@ -3,8 +3,8 @@
 the reference.
 
   REPRO_OPT_STATIC_WINDOW  — local:global stacks (gemma3) as pattern blocks
-      with static windows (``build_dense_pattern``): not ported yet, so
-      ``models.model.build`` refuses it.
+      with static windows: ``models.model.build`` takes
+      ``build_dense_pattern``.
   REPRO_OPT_ATTN_BF16      — the plain chunked attention's probability tiles
       rounded to bf16 before the PV product (running stats stay f32).
   REPRO_OPT_ACTIVE_GATHER  — small-T (decode) MoE dispatch computes only the

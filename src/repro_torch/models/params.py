@@ -1,12 +1,16 @@
 """Model parameters (port of the ``init`` of ``repro.models.model``'s bundles).
 
 ``init_params`` builds the tree ``build(cfg).init`` builds — same keys,
-shapes, dtypes, scales, zero norms — from a ``torch.Generator``, for the
-families the port builds: ``build_dense``'s (dense stacks, MoE stacks and
-the ``dense0`` stack of leading dense layers) and the ssm family (Mamba2).
-``params_from_jax`` carries a JAX parameter tree of any of them across (as
-numpy arrays) so both packages can be held against each other on the same
-weights.
+shapes, dtypes, scales, zero norms — from a ``torch.Generator``, for every
+family: ``build_dense``'s (dense stacks, MoE stacks and the ``dense0``
+stack of leading dense layers), the ssm family (Mamba2), the hybrid
+(``mamba`` [n_blocks, per], ``shared``, ``tail``), the vlm
+(``blocks.self`` [n_blocks, n_self], ``blocks.cross``, ``proj``) and the
+enc-dec (``enc``, ``ln_enc``, ``dec`` with ``ln_x`` / ``xattn``, ``proj``);
+``pattern_params`` cuts ``build_dense_pattern``'s tree (``blocks``
+[n_pat, per], ``tail``) out of a dense one as views. ``params_from_jax``
+carries a JAX parameter tree of any of them across (as numpy arrays) so
+both packages can be held against each other on the same weights.
 
 Placement of the routed-expert slabs (``layers.moe.w1/w3/w2``):
 ``expert_slabs="host"`` (the serving engines' default) keeps them in host
@@ -50,53 +54,29 @@ def init_params(cfg: ArchConfig, seed: int = 0, device="cuda",
     g = torch.Generator(device=device).manual_seed(seed)
     if cfg.family == "ssm":
         return _init_ssm(cfg, g, device)
-    if cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet (ROADMAP Queue A)")
+    if cfg.family in ("hybrid", "vlm", "encdec"):
+        return {"hybrid": _init_hybrid, "vlm": _init_vlm,
+                "encdec": _init_encdec}[cfg.family](_Draw(cfg, g, device))
     return _init_dense(cfg, g, device, expert_slabs)
 
 
 def _init_dense(cfg: ArchConfig, g: torch.Generator, device, expert_slabs: str) -> Dict:
     """``build_dense``'s tree. Draw order: each stack's attention, then its
     FFN (``layers``, then ``dense0``), the embedding last."""
-    d, H, Hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    draw = _Draw(cfg, g, device)
     n_dense = cfg.n_dense_layers
     n_scan = cfg.n_layers - n_dense
-
-    def normal(shape, scale, dtype=L.PDT):
-        return (torch.randn(shape, generator=g, device=device) * scale).to(dtype)
-
-    def zeros(*shape):
-        return torch.zeros(shape, dtype=L.PDT, device=device)
-
-    def attn(n):
-        p = {"wq": normal((n, d, H * hd), d ** -0.5),
-             "wk": normal((n, d, Hkv * hd), d ** -0.5),
-             "wv": normal((n, d, Hkv * hd), d ** -0.5),
-             "wo": normal((n, H * hd, d), (H * hd) ** -0.5)}
-        if cfg.qkv_bias:
-            p.update(bq=zeros(n, H * hd), bk=zeros(n, Hkv * hd), bv=zeros(n, Hkv * hd))
-        if cfg.qk_norm:
-            p.update(q_norm=zeros(n, hd), k_norm=zeros(n, hd))
-        return p
-
-    def mlp(n, ff):
-        return {"w1": normal((n, d, ff), d ** -0.5), "w3": normal((n, d, ff), d ** -0.5),
-                "w2": normal((n, ff, d), ff ** -0.5)}
-
-    def block(n, ffn_key, ffn):
-        return {"ln1": zeros(n, d), "attn": attn(n), "ln2": zeros(n, d), ffn_key: ffn(n)}
-
     if cfg.is_moe:
-        layers = block(n_scan, "moe", lambda n: moe_params(
-            cfg, normal, n, _host_slabs(cfg, n, device) if expert_slabs == "host" else None))
+        slabs = _host_slabs(cfg, n_scan, device) if expert_slabs == "host" else None
+        layers = draw.block((n_scan,), ("moe", lambda: moe_params(cfg, draw.normal, n_scan,
+                                                                   slabs)))
     else:
-        layers = block(n_scan, "mlp", lambda n: mlp(n, cfg.d_ff))
+        layers = draw.block((n_scan,))
     p = {"layers": layers}
     if n_dense:
-        p["dense0"] = block(n_dense, "mlp", lambda n: mlp(n, cfg.dense_d_ff))
-    p["embed"] = normal((L.vocab_pad_of(cfg.vocab), d), d ** -0.5)
-    p["ln_f"] = zeros(d)
+        p["dense0"] = draw.block((n_dense,), ("mlp", lambda: draw.mlp((n_dense,),
+                                                                      cfg.dense_d_ff)))
+    p.update(draw.head())
     return p
 
 
@@ -117,23 +97,124 @@ def _host_slabs(cfg: ArchConfig, n: int, device) -> Dict:
 def _init_ssm(cfg: ArchConfig, g: torch.Generator, device) -> Dict:
     """Mamba2 params, stacked over layers: ``layers.ln`` and ``layers.ssm``
     (``ssm_param_shapes``), as ``build_ssm(cfg).init`` builds them."""
-    n_l, d = cfg.n_layers, cfg.d_model
-    vp = L.vocab_pad_of(cfg.vocab)
+    draw = _Draw(cfg, g, device)
+    layers = draw.mamba((cfg.n_layers,))
+    return dict(draw.head(), layers=layers)
 
-    def make(shape, dtype, init, scale):
-        if init == "normal":
-            return (torch.randn(shape, generator=g, device=device)
-                    * scale).to(dtype)
-        fill = {"zeros": 0.0, "ones": 1.0, "full": scale}[init]
-        return torch.full(shape, fill, dtype=dtype, device=device)
 
-    ssm = {k: make((n_l,) + shape, dtype, init, scale)
-           for k, (shape, dtype, init, scale) in ssm_param_shapes(cfg).items()}
-    return {
-        "embed": make((vp, d), L.PDT, "normal", d ** -0.5),
-        "ln_f": make((d,), L.PDT, "zeros", None),
-        "layers": {"ln": make((n_l, d), L.PDT, "zeros", None), "ssm": ssm},
-    }
+class _Draw:
+    """The leaves of a param tree, drawn from ``g`` on ``device`` in call
+    order: normal(0, 1) * scale weights (one draw per leaf), zero norms."""
+
+    def __init__(self, cfg: ArchConfig, g: torch.Generator, device):
+        self.cfg, self.g, self.device = cfg, g, device
+
+    def normal(self, shape, scale, dtype=L.PDT):
+        return torch.randn(shape, generator=self.g, device=self.device).mul_(scale).to(dtype)
+
+    def zeros(self, shape, dtype=L.PDT):
+        return torch.zeros(shape, dtype=dtype, device=self.device)
+
+    def attn(self, lead):
+        cfg = self.cfg
+        d, H, Hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        p = {"wq": self.normal(lead + (d, H * hd), d ** -0.5),
+             "wk": self.normal(lead + (d, Hkv * hd), d ** -0.5),
+             "wv": self.normal(lead + (d, Hkv * hd), d ** -0.5),
+             "wo": self.normal(lead + (H * hd, d), (H * hd) ** -0.5)}
+        if cfg.qkv_bias:
+            p.update(bq=self.zeros(lead + (H * hd,)), bk=self.zeros(lead + (Hkv * hd,)),
+                     bv=self.zeros(lead + (Hkv * hd,)))
+        if cfg.qk_norm:
+            p.update(q_norm=self.zeros(lead + (hd,)), k_norm=self.zeros(lead + (hd,)))
+        return p
+
+    def mlp(self, lead, ff: int):
+        d = self.cfg.d_model
+        return {"w1": self.normal(lead + (d, ff), d ** -0.5),
+                "w3": self.normal(lead + (d, ff), d ** -0.5),
+                "w2": self.normal(lead + (ff, d), ff ** -0.5)}
+
+    def block(self, lead, ffn=None):
+        """A decoder block (``ln1``, ``attn``, ``ln2`` and the FFN) stacked
+        over the leading dims ``lead``; ``ffn`` = (key, draw) for another FFN
+        than the ``d_ff`` MLP, drawn after the attention."""
+        key, ffn = ffn or ("mlp", lambda: self.mlp(lead, self.cfg.d_ff))
+        d = self.cfg.d_model
+        return {"ln1": self.zeros(lead + (d,)), "attn": self.attn(lead),
+                "ln2": self.zeros(lead + (d,)), key: ffn()}
+
+    def mamba(self, lead):
+        """Mamba2 layers (``ln``, ``ssm``) stacked over ``lead``."""
+        def make(shape, dtype, init, scale):
+            if init == "normal":
+                return self.normal(lead + shape, scale, dtype)
+            fill = {"zeros": 0.0, "ones": 1.0, "full": scale}[init]
+            return torch.full(lead + shape, fill, dtype=dtype, device=self.device)
+        return {"ln": self.zeros(lead + (self.cfg.d_model,)),
+                "ssm": {k: make(*v) for k, v in ssm_param_shapes(self.cfg).items()}}
+
+    def head(self):
+        """``embed`` and ``ln_f``."""
+        d = self.cfg.d_model
+        return {"embed": self.normal((L.vocab_pad_of(self.cfg.vocab), d), d ** -0.5),
+                "ln_f": self.zeros((d,))}
+
+    def proj(self):
+        fd = self.cfg.frontend_dim
+        return self.normal((fd, self.cfg.d_model), fd ** -0.5)
+
+
+def _init_hybrid(draw: _Draw) -> Dict:
+    cfg = draw.cfg
+    per = cfg.hybrid_attn_every
+    n_blocks = cfg.n_layers // per
+    n_tail = cfg.n_layers - n_blocks * per
+    p = draw.head()
+    p.update(mamba=draw.mamba((n_blocks, per)), shared=draw.block(()))
+    if n_tail:
+        p["tail"] = draw.mamba((n_tail,))
+    return p
+
+
+def _init_vlm(draw: _Draw) -> Dict:
+    cfg = draw.cfg
+    n_blocks = cfg.n_layers // cfg.cross_attn_every
+    cross = draw.block((n_blocks,))
+    cross.update(gate_attn=draw.zeros((n_blocks,)), gate_mlp=draw.zeros((n_blocks,)))
+    p = draw.head()
+    p.update(proj=draw.proj(),
+             blocks={"self": draw.block((n_blocks, cfg.cross_attn_every - 1)),
+                     "cross": cross})
+    return p
+
+
+def _init_encdec(draw: _Draw) -> Dict:
+    cfg = draw.cfg
+    dec = draw.block((cfg.n_layers,))
+    dec.update(ln_x=draw.zeros((cfg.n_layers, cfg.d_model)), xattn=draw.attn((cfg.n_layers,)))
+    p = draw.head()
+    p.update(proj=draw.proj(), enc=draw.block((cfg.enc_layers,)),
+             ln_enc=draw.zeros((cfg.d_model,)), dec=dec)
+    return p
+
+
+def pattern_params(params: Dict, cfg: ArchConfig) -> Dict:
+    """``build_dense_pattern``'s tree from ``build_dense``'s (views, no
+    copy): the first ``n_pat * per`` layers as ``blocks`` [n_pat, per, ...],
+    the rest as ``tail``, so both builders run on the same weights."""
+    per = cfg.local_global_pattern + 1
+    n_pat = cfg.n_layers // per
+
+    def cut(node, fn):
+        return {k: cut(v, fn) for k, v in node.items()} if isinstance(node, dict) else fn(node)
+
+    out = {"embed": params["embed"], "ln_f": params["ln_f"],
+           "blocks": cut(params["layers"],
+                         lambda t: t[:n_pat * per].view((n_pat, per) + t.shape[1:]))}
+    if cfg.n_layers > n_pat * per:
+        out["tail"] = cut(params["layers"], lambda t: t[n_pat * per:])
+    return out
 
 
 def _tensor(a: np.ndarray) -> torch.Tensor:
@@ -149,7 +230,8 @@ def params_from_jax(tree, device="cuda", expert_slabs: str = "host") -> Dict:
     layouts unchanged: for MoE ``layers.moe`` w1/w3 ``[L,E,d,de]``, w2
     ``[L,E,de,d]``, router ``[L,d,E_pad]`` f32, ``dense0`` and dense
     ``layers.mlp`` as ``build_dense`` stacks them; for the ssm family
-    ``layers.ssm`` stacked over layers. The expert slabs go where
+    ``layers.ssm`` stacked over layers; the other families' trees as the
+    module docstring lists them. The expert slabs go where
     ``expert_slabs`` says (module docstring); every other leaf to
     ``device``."""
     if expert_slabs not in PLACEMENTS:

@@ -265,7 +265,23 @@ def test_chunked_path_matches_reference():
 
 
 def test_build_refuses_what_is_not_ported(monkeypatch):
+    """Under REPRO_OPT_STATIC_WINDOW a local:global stack (gemma3) builds
+    ``build_dense_pattern``, as the reference's ``build`` does, and its
+    logits match the reference's pattern bundle on the reference's weights
+    (DEEP); a stack without the pattern keeps ``build_dense``; a family the
+    reference has no builder for is refused."""
+    import dataclasses
     monkeypatch.setenv("REPRO_OPT_STATIC_WINDOW", "1")
-    with pytest.raises(NotImplementedError, match="build_dense_pattern"):
-        build(reduced(get_config("gemma3_1b")))
-    build(reduced(get_config("qwen3_1_7b")))   # no pattern: build_dense
+    jcfg, cfg = jreduced(jget("gemma3_1b")), reduced(get_config("gemma3_1b"))
+    jb, tb = jbuild(jcfg), build(cfg)
+    assert tb.ring_axes == jb.ring_axes == {"k": 3, "v": 3, "kt": 2, "vt": 2}
+    jp = jb.init(jax.random.PRNGKey(0))
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
+    toks = _tokens(cfg, B, S)
+    with torch.no_grad():
+        tl, _ = tb.forward(tp, {"tokens": torch.from_numpy(toks)})
+    jl, _ = jb.forward(jp, {"tokens": jnp.asarray(toks)})
+    np.testing.assert_allclose(_np(tl), _np(jl), **DEEP)
+    assert build(reduced(get_config("qwen3_1_7b"))).ring_axes["k"] == 2   # build_dense
+    with pytest.raises(KeyError, match="no builder"):
+        build(dataclasses.replace(cfg, family="audio"))

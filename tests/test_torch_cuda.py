@@ -918,3 +918,145 @@ def test_bundle_decode_matches_forward_on_card(cuda):
     torch.testing.assert_close(lg.float(), full[:, 40].float(), rtol=5e-2, atol=5e-2)
     assert flash_attention.launches > n[0] and flash_decode.launches > n[1] \
         and expert_ffn.launches > n[2]
+
+
+# -- kernel variants of the remaining model families ----------------------
+
+
+def _nan_padded(g, cuda, *shape, D):
+    """A [..., D] view of a [..., 128]-wide bf16 tensor whose columns past
+    D hold NaN: a kernel that reads past column D returns NaN."""
+    full = torch.full(shape + (128,), float("nan"), device=cuda, dtype=torch.bfloat16)
+    full[..., :D] = torch.randn(shape + (D,), generator=g, device=cuda).to(torch.bfloat16)
+    return full[..., :D]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,Hkv,D,causal,window", [
+    (1, 300, 32, 32, 112, True, -1),    # Zamba2's heads, a ragged tile
+    (2, 200, 8, 8, 112, True, 64),      # D = 112 under a window
+    (1, 130, 4, 4, 112, False, -1),     # D = 112, the non-causal encoder form
+    (1, 300, 4, 1, 256, True, -1),      # gemma3's heads, G = 4
+    (2, 333, 4, 1, 256, True, 100),     # D = 256 under a window
+    (1, 100, 4, 2, 256, False, -1),     # D = 256, non-causal
+])
+def test_flash_attention_head_dims_112_256(cuda, B, S, H, Hkv, D, causal, window):
+    g = torch.Generator(device=cuda).manual_seed(11)
+    r = lambda *s: torch.randn(s, generator=g, device=cuda).to(torch.bfloat16)
+    q, k, v = r(B, S, H, D), r(B, S, Hkv, D), r(B, S, Hkv, D)
+    torch.testing.assert_close(flash_attention(q, k, v, causal=causal, window=window),
+                               flash_attention_plain(q, k, v, causal=causal, window=window),
+                               rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+def test_flash_attention_d112_reads_and_writes_112_columns(cuda):
+    """q, k, v as views of 128-wide rows holding NaN past column 112: the
+    kernel's tensor maps stop at 112 (the second box's columns 112-127
+    arrive as zeros), and its output has 112 columns, each equal to the
+    plain version's on the same values."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    B, S, H, Hkv, D = 2, 150, 4, 2, 112
+    q = _nan_padded(g, cuda, B, S, H, D=D)
+    k, v = _nan_padded(g, cuda, B, S, Hkv, D=D), _nan_padded(g, cuda, B, S, Hkv, D=D)
+    o = flash_attention(q, k, v)
+    assert o.shape == (B, S, H, D) and torch.isfinite(o.float()).all()
+    want = flash_attention_plain(q.contiguous(), k.contiguous(), v.contiguous())
+    torch.testing.assert_close(o, want, rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Sk,H,Hkv,D", [
+    (2, 300, 1601, 64, 8, 128),   # Llama-3.2-Vision: patch keys, a ragged last tile
+    (1, 64, 1, 8, 8, 128),        # one key
+    (2, 130, 200, 16, 16, 64),    # SeamlessM4T's heads over encoder frames
+    (1, 100, 77, 4, 1, 256),
+])
+def test_flash_attention_cross_on_card(cuda, B, Sq, Sk, H, Hkv, D):
+    from repro_torch.kernels.flash_attention import flash_attention_cross
+    g = torch.Generator(device=cuda).manual_seed(13)
+    r = lambda *s: torch.randn(s, generator=g, device=cuda).to(torch.bfloat16)
+    q, k, v = r(B, Sq, H, D), r(B, Sk, Hkv, D), r(B, Sk, Hkv, D)
+    n = flash_attention_cross.launches
+    got = flash_attention_cross(q, k, v)
+    assert flash_attention_cross.launches == n + 1
+    torch.testing.assert_close(got, flash_attention_plain(q, k, v, causal=False),
+                               rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,D", [(200, 128), (64, 64), (130, 112)])
+def test_flash_attention_cross_bit_equal_where_lengths_match(cuda, S, D):
+    """With as many keys as queries the cross form is the monolithic
+    kernel without a mask, bit for bit."""
+    from repro_torch.kernels.flash_attention import flash_attention_cross
+    g = torch.Generator(device=cuda).manual_seed(14)
+    r = lambda *s: torch.randn(s, generator=g, device=cuda).to(torch.bfloat16)
+    q, k, v = r(2, S, 8, D), r(2, S, 2, D), r(2, S, 2, D)
+    assert torch.equal(flash_attention_cross(q, k, v), flash_attention(q, k, v, causal=False))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,W,H,Hkv,D,window", [
+    (2, 545, 32, 32, 112, -1),     # Zamba2's heads
+    (1, 4096, 32, 32, 112, 4096),  # Zamba2's window over a full ring
+    (2, 545, 4, 1, 256, -1),       # gemma3's heads, G = 4
+    (2, 300, 4, 1, 256, 64),
+    (2, 545, 48, 1, 128, -1),      # granite-34b: G = 48, six head groups
+    (1, 300, 12, 1, 128, 32),      # G = 12: a full group and a group of 4
+    (2, 1601, 64, 8, 128, -1),     # Llama-3.2-Vision's cross decode shape
+])
+def test_flash_decode_new_shapes(cuda, B, W, H, Hkv, D, window):
+    q, k, v, sp = _decode_case(cuda, B, W, H, Hkv, D, seed=15)
+    sp[0, W // 3:W // 2] = -1
+    pos = torch.tensor([W - 1, W - 20][:B], dtype=torch.int32, device=cuda)
+    n = flash_decode.launches
+    got = flash_decode(q, k, v, pos, sp, window=window)
+    assert flash_decode.launches == n + 1
+    torch.testing.assert_close(got, flash_decode_plain(q, k, v, pos, sp, window=window),
+                               rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+def test_flash_decode_d112_reads_112_columns(cuda):
+    g = torch.Generator(device=cuda).manual_seed(16)
+    B, W, H, Hkv, D = 2, 300, 8, 4, 112
+    q = _nan_padded(g, cuda, B, H, D=D)
+    k, v = _nan_padded(g, cuda, B, W, Hkv, D=D), _nan_padded(g, cuda, B, W, Hkv, D=D)
+    sp = torch.arange(W, dtype=torch.int32, device=cuda).repeat(B, 1)
+    pos = torch.full((B,), W - 1, dtype=torch.int32, device=cuda)
+    o = flash_decode(q, k, v, pos, sp)
+    assert o.shape == (B, H, D) and torch.isfinite(o.float()).all()
+    torch.testing.assert_close(o, flash_decode_plain(q.contiguous(), k.contiguous(),
+                                                     v.contiguous(), pos, sp),
+                               rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+def test_flash_decode_g48_equals_six_calls_of_eight(cuda):
+    """granite-34b's 48 query heads of one KV head: each head's output is
+    bit-equal to the same head in a call of 8 (the slot ranges do not
+    depend on G, and a head's group position is the same)."""
+    q, k, v, sp = _decode_case(cuda, 2, 1000, 48, 1, 128, seed=17)
+    pos = torch.tensor([999, 700], dtype=torch.int32, device=cuda)
+    full = flash_decode(q, k, v, pos, sp)
+    for i in range(6):
+        part = flash_decode(q[:, 8 * i:8 * i + 8].contiguous(), k, v, pos, sp)
+        assert torch.equal(full[:, 8 * i:8 * i + 8], part), i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,chunk", [(1, 4096, 112, 256), (2, 300, 8, 256), (2, 70, 4, 17)])
+def test_ssd_scan_zamba2_widths(cuda, B, S, H, chunk):
+    """(P, N) = (64, 64), Zamba2-7B's Mamba layers: y and the final state
+    against the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(18)
+    P, N = 64, 64
+    r = lambda *s, sc=1.0: (torch.randn(s, generator=g, device=cuda) * sc).to(torch.bfloat16)
+    x, b, c = r(B, S, H, P), r(B, S, 1, N, sc=0.5), r(B, S, 1, N, sc=0.5)
+    dt = torch.nn.functional.softplus(torch.randn(B, S, H, generator=g, device=cuda)) * 0.5
+    da = -dt * torch.exp(torch.randn(B, S, H, generator=g, device=cuda) * 0.2)
+    y, h = ssd_scan(x, b, c, da, dt, chunk=chunk)
+    y0, h0 = ssd_scan_plain(x, b, c, da, dt, chunk=chunk)
+    torch.testing.assert_close(y, y0, rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(h, h0, rtol=1e-3, atol=1e-3)

@@ -250,9 +250,22 @@ def test_embedding_clips_and_final_norm(model):
 
 
 def test_build_refuses_families_not_ported():
+    """Every family of the reference now builds: the MoE family through
+    ``build_dense``, the hybrid (Zamba2) through ``build_hybrid``, whose
+    forward logits match the reference bundle's on its weights (DEEP, as
+    the ssm bundle's); only a family the reference has no builder for is
+    refused."""
     import dataclasses
     build(reduced(get_config("mixtral_8x7b")))   # the MoE family: build_dense
-    with pytest.raises(NotImplementedError, match="Queue A4"):
-        build(dataclasses.replace(reduced(get_config("mamba2_2_7b")), family="hybrid"))
-    with pytest.raises(NotImplementedError, match="Queue A5"):
-        build(dataclasses.replace(reduced(get_config("qwen3_1_7b")), family="vlm"))
+    jcfg, cfg = jreduced(jget("zamba2_7b")), reduced(get_config("zamba2_7b"))
+    jb, tb = jbuild(jcfg), build(cfg)
+    jp = jb.init(jax.random.PRNGKey(0))
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
+    assert set(tp) == {"embed", "ln_f", "mamba", "shared"}
+    toks = np.random.default_rng(9).integers(0, cfg.vocab, (2, 20)).astype(np.int32)
+    with torch.no_grad():
+        tl, _ = tb.forward(tp, {"tokens": torch.from_numpy(toks)})
+    jl, _ = jb.forward(jp, {"tokens": jnp.asarray(toks)})
+    np.testing.assert_allclose(_np(tl), _np(jl), **DEEP)
+    with pytest.raises(KeyError, match="no builder"):
+        build(dataclasses.replace(cfg, family="audio"))
