@@ -131,6 +131,15 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                both rows' top-2 margins, then a failure), every replica's
                host store must view the params' pinned slabs, and the MoE
                kernels' counts, reset just before, must each be > 0.
+  8b. analysis — ``python -m repro_torch.analysis``'s lint of the port's
+               sources (clean), then ``device_audit.run_audit`` on the batched
+               engine at Mixtral-8x7B width (the batch phase's params and
+               predictor, 8 prompts all decoding): the host syncs of one
+               decode step by call site (``callback``, printed), the device
+               bytes outside the residency ledger (``const``), in-place
+               pool writes (``donation``) and the grouped FFN's launch
+               shapes (``compile-keys``), the last three clean; then each
+               check against a planted fault, which it must catch.
   9. ssm_check — a small Mamba2 (2 layers, head_dim 64, state 128) through
                the model bundle on the card and on the CPU: the prefill
                logits must agree.
@@ -207,17 +216,46 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
  15. train_check — ``FlashAttentionFn`` and ``ExpertFFNFn`` against
                autograd through their plain versions (2e-2 of each
                gradient's largest entry) at a small and the full-width
-               layer shape, ``linear`` / ``mm_f32`` against the plain
-               product; one train step of the small bundle on the card
-               against the CPU (loss within 2e-2, grad norm 5e-2, every
-               parameter within 2.5 lr plus bf16 rounding); a checkpoint
-               save / load round trip on the card, bit-equal.
+               layer shape, ``SSDScanFn`` (a ragged S, H/G = 4, then
+               Mamba2-2.7B's B=1 x 2048, 80 heads, (64, 128) and
+               Zamba2-7B's 4096, 112 heads, (64, 64)) and
+               ``FlashAttentionCrossFn`` (a ragged key tile, then
+               Llama-3.2-Vision's 2 x 2048 over 1601, 64 / 8, D=128 and
+               SeamlessM4T's 2048 over 2048, 16 / 16, D=64; the kernel's
+               lse against the plain lse within 1e-3) the same way, each
+               with its backward's ms; ``linear`` / ``mm_f32`` against the
+               plain product; one train step of the small bundle on the
+               card against the CPU (``compare_train_step``: loss within
+               2e-2, grad norm 5e-2, each gradient leaf within
+               ``STEP_GRAD_TOL`` of the CPU leaf's largest entry, beside a
+               half-batch control); a checkpoint save / load round trip on
+               the card, bit-equal.
  16. train   — Qwen2-MoE-A2.7B at published widths, 4 of 24 layers, B=2 x
                S=2048 (chunked attention), AdamW under
                ``cosine_schedule(2e-3, warmup=10)``: 10 steps, then 2 with
                ``microbatches=2``; loss, grad norm, wall and tokens/s per
                step, peak memory. Every loss finite, the last below the
                first; ``expert_ffn`` and ``flash_attention`` launched.
+ 16b. train_families_check — one train step of a small bundle of each of
+               the ssm, hybrid, enc-dec, vlm and pattern families (the
+               ``ssm_check`` and ``families_check`` configs) on the card
+               against the CPU through ``compare_train_step``; every leaf
+               the CPU step moves must be nonzero on the card (the ssm's
+               ``A_log``, ``dt_bias``, ``conv_B`` and ``conv_C`` are named);
+               the vlm's gates, one cancelling bf16 sum each, held to the
+               CPU's f32 step by ``F32_RATIO``.
+ 16c. train_families — published widths, 4 AdamW steps each at lr 1e-5
+               on one batch: Mamba2-2.7B at all 64 layers,
+               SeamlessM4T-medium at 12 + 12 (2 x 2048 over 2 x 2048
+               frames), gemma3-1b at 26 (``build_dense_pattern``), Zamba2-7B
+               at ``TRAIN_HYBRID_LAYERS`` of 81 (B=1 x 4096; 12 bytes a
+               parameter do not fit whole), Llama-3.2-Vision-90B at one
+               block of 5 layers (4 self + 1 cross). Every loss finite, the
+               last below the first; ``ssd_scan``, ``flash_attention`` and
+               ``flash_attention_cross`` counts reset just before and > 0
+               after as each family needs them; step wall, tokens/s, peak
+               memory, and the plain backwards' ms and share of the last
+               step (CUDA events around each Function's backward).
 
  17. families_check — each remaining family's reduced config at the
                kernels' widths (the hybrid: 3 layers, head_dim 112, (P, N) =
@@ -807,6 +845,93 @@ def serve(layers: int, seed: int, kernels):
         expert_copy_gb_per_s=engine.store.bytes_per_expert / copy_ms / 1e6,
         host_ram_bytes=os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES"),
         launches=launches), (cfg, params, stats, pred))
+
+
+# -- phase 8b: the static and device analysis of the port -------------------------
+
+def plant_out_of_place(cache, key):
+    """A prefetch that writes a copy of each pool (the fault ``donation``
+    must catch)."""
+    slot = cache.slot_of[key]
+    for name, src in zip(("w1", "w3", "w2"), cache.store.get(key)):
+        cache._pools[name] = cache._pools[name].clone()
+        cache._pools[name][slot].copy_(src)
+    cache._loaded.add(key)
+    return False
+
+
+def plant_unbucketed(ids, union, bucket_cap, u_bucket_cap=None):
+    """A grouped dispatch that pads nothing: one launch shape per (U, C)
+    the selections give (the fault ``compile-keys`` must catch)."""
+    from repro_torch.serving.engine import group_by_expert
+    d = group_by_expert(ids, union, bucket_cap=1 << 30)
+    C = max(d.counts)
+    return dataclasses.replace(d, row_idx=d.row_idx[:len(union), :C])
+
+
+def analyse(mixtral, seed: int):
+    """Phase 8b: ``python -m repro_torch.analysis``'s lint of the port's
+    sources (no finding, no stale allowlist entry), then the device audit
+    (``device_audit.run_audit``) of the batched engine at Mixtral-8x7B width
+    on the batch phase's params and predictor (``duo``, ``max_batch=8``,
+    ``max_seq=2048``, budget 512): every request of 8 prompts of 64-512
+    tokens decoding, then one batched decode step under the sync debug
+    mode (``callback``: each sync's call site, allowed or not), the bytes
+    held outside the residency ledger (``const``), in-place pool writes
+    over 6 prefetches (``donation``) and the grouped FFN's launch shapes
+    (``compile-keys``). ``const``, ``donation`` and ``compile-keys`` must
+    find nothing; ``callback``'s findings are printed, not held. Then the
+    same audit with a planted fault per check (a ``.item()`` inside the
+    step, twice ``CONST_BYTES_LIMIT`` kept beside the ledger, an
+    out-of-place pool write, an unbucketed dispatch): each check must catch
+    its own."""
+    from repro_torch.analysis import ALL_RULES, load_allowlist, run_lint
+    from repro_torch.analysis.device_audit import CONST_BYTES_LIMIT, run_audit
+    from repro_torch.serving.batching import BatchedServingEngine
+    cfg, params, stats, pred = mixtral
+    root = ROOT / "src" / "repro_torch"
+    lint = run_lint(root, ALL_RULES, load_allowlist(root / "analysis" / "allowlist.toml"))
+    if lint.findings or lint.unused_allows:
+        raise AssertionError("lint: " + "; ".join(f.format() for f in lint.findings))
+    rng = np.random.default_rng(seed + 8)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
+               for n in (64, 96, 128, 192, 256, 320, 384, 512)]
+
+    def build():
+        return BatchedServingEngine(cfg, params, policy="duo", stats=stats, predictor=pred,
+                                    max_batch=8, max_seq=2048, prefill_budget=512,
+                                    temperature=0.0)
+
+    t0 = time.perf_counter()
+    clean = run_audit(build=build, given=params, prompts=prompts)
+    release()
+    probe = torch.ones(1, device="cuda")
+    planted = run_audit(build=build, given=params, prompts=prompts, extra={
+        "callback": [lambda: probe.item()],
+        "const": [lambda eng: setattr(eng, "_stray", torch.zeros(
+            2 * CONST_BYTES_LIMIT, dtype=torch.uint8, device="cuda"))],
+        "donation": plant_out_of_place, "compile-keys": plant_unbucketed})
+    release()
+    count = lambda rep, rule: sum(f.rule == rule for f in rep.findings)
+    caught = {c: count(planted, c) > count(clean, c) for c in clean.checks}
+    # the planted sync's own site: this file
+    caught["callback"] = any(f.rule == "callback" and "chip_smoke.py" in f.where
+                             for f in planted.findings)
+    res = dict(phase="analysis", model=cfg.name, layers=cfg.n_layers,
+               lint=dict(files=len(lint.scanned), findings=0,
+                         allowlisted=len(lint.suppressed)),
+               checks=clean.checks, readings=clean.readings,
+               findings=[f.format() for f in clean.findings],
+               planted_caught=caught,
+               seconds=time.perf_counter() - t0)
+    held = [f for f in clean.findings if f.rule != "callback"]
+    if sorted(clean.checks) != sorted(("callback", "const", "donation", "compile-keys")):
+        raise AssertionError(f"analysis: the audit ran {clean.checks}")
+    if held or not all(res["planted_caught"].values()):
+        emit(res)
+        raise AssertionError("analysis: a device audit check failed or missed its "
+                             "planted fault")
+    return res
 
 
 # -- phase 6: the batched engine on the card vs on the CPU ---------------------
@@ -1559,12 +1684,16 @@ def device_profile(prof):
 
 # -- phase 9: the ssm bundle on the card vs on the CPU -------------------------
 
-def check_small_ssm(seed: int):
+def small_ssm_cfg():
+    """Reduced Mamba2 at the kernel's widths: 8 heads of 64, state 128."""
     from repro_torch.configs.base import get_config, reduced
+    return dataclasses.replace(reduced(get_config("mamba2_2_7b")),
+                               ssm_head_dim=64, ssm_state=128)
+
+
+def check_small_ssm(seed: int):
     from repro_torch.models.model import build
-    # reduced mamba2 with the kernel's widths: 8 heads of 64, state 128
-    cfg = dataclasses.replace(reduced(get_config("mamba2_2_7b")),
-                              ssm_head_dim=64, ssm_state=128)
+    cfg = small_ssm_cfg()
     bundle = build(cfg)
     gpu = bundle.init(seed, device="cuda")
     cpu = {"embed": gpu["embed"].cpu(), "ln_f": gpu["ln_f"].cpu(),
@@ -2273,7 +2402,7 @@ def timed_init(bundle, seed: int):
 def widths(cfg) -> dict:
     """The config's nonzero widths."""
     w = dict(d_model=cfg.d_model, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-             head_dim=cfg.hd, d_ff=cfg.d_ff, n_experts=cfg.n_experts, top_k=cfg.top_k,
+             head_dim=cfg.hd if cfg.n_heads else 0, d_ff=cfg.d_ff, n_experts=cfg.n_experts, top_k=cfg.top_k,
              n_shared_experts=cfg.n_shared_experts, d_expert=cfg.d_expert, vocab=cfg.vocab,
              ssm_state=cfg.ssm_state, ssm_head_dim=cfg.ssm_head_dim, enc_layers=cfg.enc_layers,
              window=cfg.sliding_window, frontend_tokens=cfg.n_frontend_tokens,
@@ -2565,20 +2694,109 @@ def grad_check(fn, plain, args, upstream):
     return rel, bwd_ms
 
 
+def leaf_names(tree, prefix: str = "") -> list:
+    """Slash-joined key paths of a param tree, in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree) for n in leaf_names(tree[k], f"{prefix}{k}/")]
+    return [prefix[:-1]]
+
+
+def rel_errs(got, want) -> list:
+    """Each pair's largest difference relative to ``want``'s largest entry."""
+    return [float((x - y).abs().max()) / max(float(y.abs().max()), 1e-30)
+            for x, y in zip(got, want)]
+
+
+def train_step_record(bundle, p, batch, replay=None):
+    """One train step (``make_train_step``, AdamW at lr 1e-3) on ``p``,
+    updated in place: (params, loss, grad norm, the raw gradient leaves on
+    the CPU, read from the first moment m = (1 - b1) * clip scale * g, and
+    the step's own router record; with ``replay`` each router call takes
+    that record's experts)."""
+    from repro_torch.training.optimizer import AdamW, tree_leaves
+    from repro_torch.training.train_loop import make_train_step
+    opt = AdamW(lr=1e-3)
+    with routes(replay=replay) as rec:
+        p, st, m = make_train_step(bundle, opt)(p, opt.init(p), batch)
+    gn = float(m["grad_norm"])
+    scale = (1 - opt.b1) * min(1.0, opt.grad_clip / max(gn, 1e-9))
+    return p, float(m["loss"]), gn, [t.cpu() / scale for t in tree_leaves(st.m)], rec
+
+
+def compare_train_step(bundle, gpu, batch, exact=None):
+    """One train step of a small bundle on the card (``gpu``, updated in
+    place) against the CPU's from the same weights, ``batch`` on the CPU:
+    loss within 2e-2 and grad norm within 5e-2 relative, each raw gradient
+    leaf within STEP_GRAD_TOL of the CPU leaf's largest entry, and every
+    leaf the CPU step moves moved on the card (a nonzero gradient). The
+    control, the CPU's step on the first half of the batch (one microbatch
+    of two), must exceed STEP_GRAD_TOL. The card's router calls take the
+    CPU's experts (its own choice may differ only at a near-tie).
+    ``exact`` (leaf name -> the CPU's f32 step's gradient) names leaves held
+    instead as ``rounding_witness`` holds the deep stacks: at most
+    F32_RATIO times as far from the f32 gradient as the CPU's bf16 one.
+    Returns (the record, the card's updated params)."""
+    names = leaf_names(gpu)
+    half = {k: v[:v.shape[0] // 2] for k, v in batch.items()}
+    grad_h = train_step_record(bundle, to_cpu(gpu), half)[3]
+    _, lc, gc_, grad_c, rec_c = train_step_record(bundle, to_cpu(gpu), batch)
+    pg, lg, gg, grad_g, own = train_step_record(
+        bundle, gpu, {k: v.cuda() for k, v in batch.items()}, replay=rec_c)
+    n_flips = flips(own, rec_c)
+    exact = exact or {}
+    rel_g, rel_h = rel_errs(grad_g, grad_c), rel_errs(grad_h, grad_c)
+    leaves = {n: dict(rel_err=r, max_abs_cuda=float(g.abs().max()),
+                      max_abs_cpu=float(c.abs().max()))
+              for n, r, g, c in zip(names, rel_g, grad_g, grad_c)}
+    witness = {}
+    for n, g, c in zip(names, grad_g, grad_c):
+        if n in exact:
+            d_cpu = rel_errs([c], [exact[n]])[0]
+            witness[n] = dict(card_vs_f32=rel_errs([g], [exact[n]])[0], cpu_vs_f32=d_cpu)
+    held = [r for n, r in zip(names, rel_g) if n not in exact]
+    dead = [n for n, g, c in zip(names, grad_g, grad_c)
+            if float(c.abs().max()) > 0 and float(g.abs().max()) == 0]
+    res = dict(loss_cuda=lg, loss_cpu=lc, grad_norm_cuda=gg, grad_norm_cpu=gc_,
+               grad_rel_err_max=max(held), grad_tol=STEP_GRAD_TOL,
+               control_half_batch_rel_err_min=min(rel_h), own_route_flips_at_ties=n_flips,
+               zero_on_card=dead, leaves=leaves, f32_witness=witness)
+    if not (np.isfinite([lg, gg]).all() and abs(lg - lc) <= 2e-2 * abs(lc)
+            and abs(gg - gc_) <= 5e-2 * abs(gc_) and max(held) <= STEP_GRAD_TOL
+            < min(rel_h) and not dead
+            and all(w["card_vs_f32"] <= F32_RATIO * w["cpu_vs_f32"] for w in witness.values())):
+        emit(res)
+        raise AssertionError(f"{bundle.cfg.name}: the card's train step parts from the CPU's")
+    return res, pg
+
+
+def ssd_grad_inputs(r, B, S, H, G, P, N):
+    """bf16 x, b, c (as the Mamba layer hands them over, after its SiLU) and
+    f32 da, dt of a Mamba2 layer's scan, and an f32 upstream for y."""
+    dt = torch.nn.functional.softplus(r(B, S, H).float() - 2.0)
+    da = -dt * torch.rand(H, device="cuda")
+    return (r(B, S, H, P), r(B, S, G, N, sc=0.3), r(B, S, G, N, sc=0.3), da, dt), \
+        r(B, S, H, P).float()
+
+
 def check_train(seed: int):
     """Phase 15: the autograd.Functions against autograd through their plain
-    versions at a small and the full-width layer shape, ``linear`` /
+    versions at a small and the published layer shapes (``SSDScanFn`` at
+    Mamba2-2.7B's and Zamba2-7B's scans, ``FlashAttentionCrossFn`` at
+    Llama-3.2-Vision's and SeamlessM4T's cross attention, with the kernel's
+    lse over the ragged key tile held against the plain one), ``linear`` /
     ``mm_f32`` against the plain product, one train step of the small
-    bundle on the card against the CPU, and a checkpoint round trip on the
-    card."""
+    bundle on the card against the CPU (``compare_train_step``), and a
+    checkpoint round trip on the card."""
     import tempfile
     from repro_torch.kernels.expert_ffn import ExpertFFNFn, expert_ffn_plain
-    from repro_torch.kernels.flash_attention import FlashAttentionFn, flash_attention_plain
+    from repro_torch.kernels.flash_attention import (FlashAttentionCrossFn, FlashAttentionFn,
+                                                     flash_attention_cross,
+                                                     flash_attention_plain)
+    from repro_torch.kernels.ssd_scan import SSDScanFn, ssd_scan_plain
     from repro_torch.models.layers import linear, mm_f32
     from repro_torch.models.model import build
     from repro_torch.training import checkpoint
-    from repro_torch.training.optimizer import AdamW, tree_leaves
-    from repro_torch.training.train_loop import make_train_step
+    from repro_torch.training.optimizer import tree_leaves
     g = torch.Generator(device="cuda").manual_seed(seed)
     r = lambda *s, sc=1.0: (torch.randn(s, generator=g, device="cuda") * sc).to(torch.bfloat16)
     res = dict(phase="train_check", grad_tol=GRAD_TOL)
@@ -2598,50 +2816,42 @@ def check_train(seed: int):
     # the plain backwards of one train-phase step: one of each a layer
     res["plain_backward_ms_per_train_step"] = TRAIN_LAYERS * (
         res["flash_attention_full"]["backward_ms"] + res["expert_ffn_full"]["backward_ms"])
+    # (B, S, H, G, P, N): a ragged S over two chunks and H/G = 4, then
+    # Mamba2-2.7B's and Zamba2-7B's scans
+    for name, (B, S, H, G, P, N) in (("small", (2, 300, 8, 2, 64, 128)),
+                                     ("mamba2_2_7b", (1, 2048, 80, 1, 64, 128)),
+                                     ("zamba2_7b", (1, 4096, 112, 1, 64, 64))):
+        args, dy = ssd_grad_inputs(r, B, S, H, G, P, N)
+        rel, ms = grad_check(lambda *a: SSDScanFn.apply(*a, 256)[0],
+                             lambda *a: ssd_scan_plain(*a)[0], args, dy)
+        res[f"ssd_scan_fn_{name}"] = dict(shape=[B, S, H, G, P, N], rel_err=rel,
+                                          backward_ms=ms)
+    # (B, Sq, Sk, H, Hkv, D): a ragged key tile, then the vlm's and enc-dec's
+    for name, (B, Sq, Sk, H, Hkv, D) in (("small", (2, 256, 201, 8, 2, 128)),
+                                         ("llama_3_2_vision_90b", (2, 2048, 1601, 64, 8, 128)),
+                                         ("seamless_m4t_medium", (2, 2048, 2048, 16, 16, 64))):
+        q, k, v = r(B, Sq, H, D), r(B, Sk, Hkv, D), r(B, Sk, Hkv, D)
+        with torch.no_grad():
+            lse = flash_attention_cross(q, k, v, return_lse=True)[1]
+            lse_err = float((lse - flash_attention_plain(q, k, v, causal=False,
+                                                         return_lse=True)[1]).abs().max())
+        if not lse_err <= TOL_F32["atol"]:
+            raise AssertionError(f"flash_attention_cross lse off the plain one by {lse_err}")
+        rel, ms = grad_check(FlashAttentionCrossFn.apply,
+                             lambda *a: flash_attention_plain(*a, causal=False),
+                             (q, k, v), r(B, Sq, H, D))
+        res[f"cross_fn_{name}"] = dict(shape=[B, Sq, Sk, H, Hkv, D], rel_err=rel,
+                                       backward_ms=ms, lse_max_abs_err=lse_err)
+        release()
     x, w, dy = r(4096, 2048), r(2048, 2048, sc=2048 ** -0.5), r(4096, 2048)
     res["linear"] = grad_check(linear, torch.matmul, (x, w), dy)[0]
     res["mm_f32"] = grad_check(mm_f32, torch.matmul, (x, w), dy)[0]
 
     cfg = small_bundle_cfg()
     bundle = build(cfg)
-    gpu = bundle.init(seed, device="cuda")
-    cpu = to_cpu(gpu)
     toks = torch.from_numpy(np.random.default_rng(seed).integers(0, cfg.vocab, (4, 64)))
-
-    def step(p, tokens, replay=None):
-        """One train step; (params, loss, grad norm, raw gradient leaves
-        from the first moment: m = (1 - b1) * clip scale * g) and the
-        step's own router record."""
-        opt = AdamW(lr=1e-3)
-        with routes(replay=replay) as rec:
-            p, st, m = make_train_step(bundle, opt)(p, opt.init(p), {"tokens": tokens})
-        gn = float(m["grad_norm"])
-        scale = (1 - opt.b1) * min(1.0, opt.grad_clip / max(gn, 1e-9))
-        return p, float(m["loss"]), gn, [t.cpu() / scale for t in tree_leaves(st.m)], rec
-
-    # the control keeps only the first half of the batch (one microbatch's
-    # gradient of two) on the CPU; then the CPU, then the card, whose router
-    # calls take the CPU's experts (its own choice may differ only at a
-    # near-tie). Each step updates its params in place.
-    grad_h = step(to_cpu(gpu), toks[:2])[3]
-    _, lc, gc_, grad_c, rec_c = step(cpu, toks)
-    pg, lg, gg, grad_g, own = step(gpu, toks.cuda(), replay=rec_c)
-    n_flips = flips(own, rec_c)
-
-    def rel(a, b):
-        return [float((x - y).abs().max()) / max(float(y.abs().max()), 1e-30)
-                for x, y in zip(a, b)]
-
-    rel_g, rel_h = rel(grad_g, grad_c), rel(grad_h, grad_c)
-    res["train_step"] = dict(loss_cuda=lg, loss_cpu=lc, grad_norm_cuda=gg, grad_norm_cpu=gc_,
-                             grad_rel_err_max=max(rel_g), grad_tol=STEP_GRAD_TOL,
-                             control_half_batch_rel_err_min=min(rel_h),
-                             own_route_flips_at_ties=n_flips)
-    if not (np.isfinite([lg, gg]).all() and abs(lg - lc) <= 2e-2 * abs(lc)
-            and abs(gg - gc_) <= 5e-2 * abs(gc_) and max(rel_g) <= STEP_GRAD_TOL
-            < min(rel_h)):
-        emit(res)
-        raise AssertionError("train_check: the card's train step parts from the CPU's")
+    res["train_step"], pg = compare_train_step(bundle, bundle.init(seed, device="cuda"),
+                                               {"tokens": toks})
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         path = os.path.join(tmp, "small.npz")
         checkpoint.save(path, pg, extra={"step": 1})
@@ -2651,7 +2861,7 @@ def check_train(seed: int):
     res["checkpoint_round_trip_bit_equal"] = same and extra == {"step": 1}
     if not res["checkpoint_round_trip_bit_equal"]:
         raise AssertionError("checkpoint round trip on the card is not bit-equal")
-    del gpu, cpu, pg, loaded
+    del pg, loaded
     release()
     return res
 
@@ -2706,6 +2916,191 @@ def train_model(seed: int, kernels):
     del params, state
     release()
     return res
+
+# -- phases 16b-16c: training every family ---------------------------------
+
+TRAIN_FAMILIES = ("ssm", "hybrid", "encdec", "vlm", "pattern")
+# the ssm leaves that a scan without a gradient left at zero
+SCAN_LEAVES = ("A_log", "dt_bias", "conv_B", "conv_C")
+
+
+def check_train_families(seed: int):
+    """Phase 16b: one train step of each family's small bundle (the ssm of
+    ``ssm_check``; the others of SMALL_FAMILIES at their gated depths) on
+    the card against the CPU (``compare_train_step``), 4 x 41 tokens (the
+    hybrid 4 x 101, past its window of 64). The vlm's gates are one sum of
+    bf16 products over every position, which cancel, so they are held
+    against the CPU's f32 step (``activations_f32``) by F32_RATIO instead.
+    The ssm's record names SCAN_LEAVES."""
+    from repro_torch.models.model import build
+    from repro_torch.training.optimizer import tree_map
+    rows = []
+    for name in TRAIN_FAMILIES:
+        bundle = build(small_ssm_cfg()) if name == "ssm" else small_family(name)
+        cfg = bundle.cfg
+        gpu, _ = timed_init(bundle, seed)
+        batch = model_batch(cfg, 4, 100 if cfg.family == "hybrid" else 40, seed, "cpu")
+        exact = None
+        if cfg.family == "vlm":
+            with activations_f32():
+                g32 = train_step_record(bundle, tree_map(lambda t: t.float().cpu(), gpu),
+                                        batch)[3]
+            exact = {n: t for n, t in zip(leaf_names(gpu), g32) if "/gate_" in n}
+        res, _ = compare_train_step(bundle, gpu, batch, exact)
+        row = dict(family=name, config=cfg.name, layers=cfg.n_layers, widths=widths(cfg),
+                   tokens=list(batch["tokens"].shape), **res)
+        if name == "ssm":
+            row["scan_leaves"] = {k: res["leaves"][f"layers/ssm/{k}"] for k in SCAN_LEAVES}
+        rows.append(row)
+        del gpu
+        release()
+    return dict(phase="train_families_check", grad_tol=STEP_GRAD_TOL, models=rows)
+
+
+# (family, config id, layers, batch, tokens) at published widths, every
+# weight, gradient and AdamW moment on the card: 12 bytes a parameter (bf16
+# weights and gradients, f32 m and v). Mamba2-2.7B at all 64 layers (2.7 B
+# parameters, 32 GB), SeamlessM4T-medium at 12 + 12, gemma3-1b at all 26
+# through build_dense_pattern; Zamba2-7B at TRAIN_HYBRID_LAYERS of 81 (6.64 B
+# parameters whole, 80 GB: it does not fit), 12 whole blocks of 6 Mamba
+# layers and one application of the shared block (5.93 B, 71 GB; peak 79.2
+# GB of the card's 85 on NVIDIA H100 80GB HBM3: 13 blocks would need 5.6 GB
+# more); Llama-3.2-Vision-90B at one block of 5 (4 self + 1 cross layers,
+# 4.28 B, plus the tied 1.05 B embedding: 5.34 B, 64 GB)
+TRAIN_HYBRID_LAYERS = 72
+TRAIN_FAMILY_RUNS = (("ssm", "mamba2_2_7b", 64, 2, 2048),
+                     ("encdec", "seamless_m4t_medium", 12, 2, 2048),
+                     ("pattern", "gemma3_1b", 26, 2, 2048),
+                     ("hybrid", "zamba2_7b", TRAIN_HYBRID_LAYERS, 1, 4096),
+                     ("vlm", "llama_3_2_vision_90b", 5, 2, 2048))
+TRAIN_FAMILY_STEPS = 4
+# a constant learning rate on one batch. AdamW's first steps move every
+# weight by about the rate whatever its gradient's size, and at full width
+# that overshoots: at 1e-4 (and under the train phase's warm-up from 2e-4)
+# SeamlessM4T read 12.9, 11.6, 12.7 and Llama-3.2-Vision 12.2, 20.6, 16.8;
+# at 1e-5 four of the five fall at every step and the vlm reads 12.2, 14.1,
+# 9.5, 9.5 (NVIDIA H100 80GB HBM3)
+TRAIN_FAMILY_LR = 1e-5
+
+
+@contextlib.contextmanager
+def timed_backwards():
+    """CUDA events around every plain backward of the kernels' autograd
+    Functions inside the block; yields a dict that, after the block, holds
+    each Function's summed ms and count."""
+    from repro_torch.kernels.expert_ffn import ExpertFFNFn
+    from repro_torch.kernels.flash_attention import FlashAttentionCrossFn, FlashAttentionFn
+    from repro_torch.kernels.ssd_scan import SSDScanFn
+    fns = (SSDScanFn, FlashAttentionFn, FlashAttentionCrossFn, ExpertFFNFn)
+    events = {fn.__name__: [] for fn in fns}
+    saved = {fn: fn.backward for fn in fns}
+
+    def wrap(fn, orig):
+        def backward(ctx, *grads):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = orig(ctx, *grads)
+            b.record()
+            events[fn.__name__].append((a, b))
+            return out
+        return staticmethod(backward)
+
+    for fn in fns:
+        fn.backward = wrap(fn, saved[fn])
+    out = {}
+    try:
+        yield out
+    finally:
+        for fn in fns:
+            fn.backward = staticmethod(saved[fn])
+        torch.cuda.synchronize()
+        out.update({n: dict(ms=sum(a.elapsed_time(b) for a, b in ev), calls=len(ev))
+                    for n, ev in events.items() if ev})
+
+
+def train_family(family: str, arch: str, layers: int, B: int, S: int, seed: int, kernels):
+    """One model of TRAIN_FAMILY_RUNS at published widths: TRAIN_FAMILY_STEPS
+    AdamW steps at a constant ``TRAIN_FAMILY_LR`` on one batch of
+    ``SyntheticLM`` tokens (and numpy-normal stub frontend inputs), so that
+    each step's loss is the same function's. Every loss finite, the last
+    below the first; the kernels' counts reset just before and read just
+    after; step wall, tokens/s, peak memory, and the plain backwards' ms and
+    share of the last step (``timed_backwards``)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models.model import build, build_dense_pattern
+    from repro_torch.training.optimizer import AdamW, tree_leaves
+    from repro_torch.training.train_loop import make_train_step
+    full_cfg = get_config(arch)
+    cfg = dataclasses.replace(full_cfg, n_layers=layers)
+    bundle = (build_dense_pattern if family == "pattern" else build)(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params, t_init = timed_init(bundle, seed)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    opt = AdamW(lr=TRAIN_FAMILY_LR)
+    state = opt.init(params)
+    step = make_train_step(bundle, opt)
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": torch.from_numpy(next(SyntheticLM(cfg.vocab, seed=seed).batches(B, S)))}
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = torch.from_numpy(rng.standard_normal(
+            (B, cfg.n_frontend_tokens, cfg.frontend_dim), dtype=np.float32))
+    if cfg.family == "encdec":
+        batch["frames"] = torch.from_numpy(rng.standard_normal(
+            (B, S, cfg.frontend_dim), dtype=np.float32))
+    batch = {k: v.cuda() for k, v in batch.items()}
+    for fn in kernels:
+        fn.launches = 0
+    rows = []
+    for i in range(TRAIN_FAMILY_STEPS):
+        last = i == TRAIN_FAMILY_STEPS - 1
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with (timed_backwards() if last else contextlib.nullcontext({})) as bwd:
+            params, state, m = step(params, state, batch)
+            loss, gn = float(m["loss"]), float(m["grad_norm"])
+        wall = time.perf_counter() - t0
+        rows.append(dict(step=i, loss=loss, grad_norm=gn, wall_s=wall,
+                         tokens_per_s=B * S / wall))
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    plain_ms = sum(v["ms"] for v in bwd.values())
+    losses = [r["loss"] for r in rows]
+    res = dict(phase="train_families", family=family, model=cfg.name, layers=layers,
+               published_layers=full_cfg.n_layers, widths=widths(cfg), n_params=n_params,
+               state_bytes=12 * n_params, batch=B, seq=S, init_s=t_init, steps=rows,
+               step_wall_s=rows[-1]["wall_s"], tokens_per_s=rows[-1]["tokens_per_s"],
+               plain_backward=bwd, plain_backward_ms=plain_ms,
+               plain_backward_share=plain_ms / 1e3 / rows[-1]["wall_s"],
+               max_memory_allocated=torch.cuda.max_memory_allocated(), launches=launches)
+    if layers < full_cfg.n_layers:
+        res["cut"] = f"depth: {layers} of {full_cfg.n_layers} layers"
+    if cfg.family == "vlm":
+        res["gates"] = FAMILY_GATES
+    need = {"ssm": ("ssd_scan",), "hybrid": ("ssd_scan", "flash_attention"),
+            "encdec": ("flash_attention", "flash_attention_cross"),
+            "vlm": ("flash_attention", "flash_attention_cross")}.get(family, ("flash_attention",))
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        emit(res)
+        raise AssertionError(f"train_families: {cfg.name} losses {losses}")
+    missing = [n for n in need if launches[n] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched by {cfg.name}'s training: {missing}")
+    del params, state
+    return res
+
+
+def train_families(seed: int, kernels):
+    """Phase 16c: each of TRAIN_FAMILY_RUNS, released in between; the
+    launches summed over them."""
+    launches = {}
+    for run in TRAIN_FAMILY_RUNS:
+        r = train_family(*run, seed, kernels)
+        emit(r)
+        for n, c in r["launches"].items():
+            launches[n] = launches.get(n, 0) + c
+        release()
+    return dict(phase="train_families", launches=launches)
+
 
 # -- phase 3, continued: the kernel variants of the remaining families --------
 
@@ -3176,6 +3571,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     clu = serve_cluster(mixtral, reference, kernels + [flash_attention_chunk])
     emit(clu)
+    with uncounted(kernels + [flash_attention_chunk]):
+        emit(analyse(mixtral, args.seed))
     del mixtral, reference
     release()
 
@@ -3199,6 +3596,9 @@ def main() -> int:
     train = train_model(args.seed, [expert_ffn, flash_attention])
     emit(train)
     release()
+    emit(check_train_families(args.seed))
+    trained = train_families(args.seed, [flash_attention, flash_attention_cross, ssd_scan])
+    emit(trained)
 
     emit(check_families_small(args.seed))
     families = serve_families(args.seed, [flash_attention, flash_attention_cross,
@@ -3212,7 +3612,7 @@ def main() -> int:
 
     # each kernel's launches from the paths that run it
     launches = {}
-    for phase in (srv, bat, clu, ssm, paper, bundles, train, families):
+    for phase in (srv, bat, clu, ssm, paper, bundles, train, trained, families):
         for n, c in phase["launches"].items():
             launches[n] = launches.get(n, 0) + c
     compact = ("variant", "shape", "B", "W", "max_abs_err", "ms", "device_ms", "plain_ms",

@@ -111,6 +111,17 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
 
 
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise where autograd records through a launch: a kernel writes its
+    outputs through ``ctypes``, so autograd would see no edge from them to
+    the inputs and every gradient behind them would silently read zero.
+    The kernels that training reaches run under an ``autograd.Function``
+    (whose forward runs with grad disabled); every other call must too."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{what}: the kernel has no gradient; call it under "
+                           "torch.no_grad() or through its autograd.Function")
+
+
 def stream_ptr(t: torch.Tensor) -> int:
     """The current PyTorch stream of ``t``'s device, as a C pointer."""
     return torch.cuda.current_stream(t.device).cuda_stream

@@ -69,6 +69,7 @@ def _check(x, w1_pool, w3_pool, w2_pool, slots):
 
 def _launch(x, w1_pool, w3_pool, w2_pool, slots):
     _check(x, w1_pool, w3_pool, w2_pool, slots)
+    _build.refuse_grad("expert_ffn (use ExpertFFNFn)", x, w1_pool, w3_pool, w2_pool)
     U, C, d = x.shape
     f = w1_pool.shape[2]
     h = torch.empty((U, C, f), dtype=x.dtype, device=x.device)

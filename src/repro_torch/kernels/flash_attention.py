@@ -27,15 +27,17 @@ runs its plain version. ``flash_attention.launches``,
 ``flash_attention_chunk.launches`` and ``flash_attention_cross.launches``
 count kernel launches.
 
-``flash_attention(..., return_lse=True)`` also gives each query row's
-log-sum-exp of its scaled logits, ``[B,H,S]`` f32 in natural log; ``o`` is
-the same with or without it. ``FlashAttentionFn`` is the monolithic form
-with a gradient: its forward is ``flash_attention`` (the kernel on the card,
-the plain version on the CPU) and its backward recomputes the probability
-tiles from (q, k, v, o, lse) block by block in plain PyTorch
+``flash_attention(..., return_lse=True)`` (and ``flash_attention_cross``)
+also gives each query row's log-sum-exp of its scaled logits, ``[B,H,Sq]``
+f32 in natural log; ``o`` is the same with or without it.
+``FlashAttentionFn`` is the monolithic form with a gradient, and
+``FlashAttentionCrossFn`` the cross form: the forward is the kernel on the
+card (the plain version on the CPU) and the backward recomputes the
+probability tiles from (q, k, v, o, lse) block by block in plain PyTorch
 (``flash_attention_bwd_plain``), as the reference's custom VJP
 ``repro.models.layers._fa_bwd`` does in XLA. The Pallas kernel has no
-backward; a kernel for this one is later work.
+backward; a kernel for this one is later work. A launch has no gradient of
+its own, so each wrapper raises on the card where autograd records.
 """
 from __future__ import annotations
 
@@ -140,6 +142,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = -1,
                                      return_lse=return_lse)
     if k.shape[1] != q.shape[1]:
         raise ValueError(f"shapes: q {tuple(q.shape)} k {tuple(k.shape)}: one length")
+    _build.refuse_grad("flash_attention (use FlashAttentionFn)", q, k, v)
     o, lse = _launch(q, k, v, causal, window, return_lse)
     flash_attention.launches += 1
     return (o, lse) if return_lse else o
@@ -148,17 +151,19 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = -1,
 flash_attention.launches = 0
 
 
-def flash_attention_cross(q, k, v):
+def flash_attention_cross(q, k, v, *, return_lse: bool = False):
     """Cross attention: q [B,Sq,H,D] over a memory's k, v [B,Sk,Hkv,D],
-    every key valid -> [B,Sq,H,D]. The reference's ``attention(causal=False,
-    window=None)`` over the memory."""
+    every key valid -> [B,Sq,H,D], and with ``return_lse`` (o, lse [B,H,Sq]
+    f32). The reference's ``attention(causal=False, window=None)`` over the
+    memory."""
     if not q.is_cuda:
         if k.is_cuda or v.is_cuda:
             raise ValueError("flash_attention_cross: mixed CPU/CUDA tensors")
-        return flash_attention_plain(q, k, v, causal=False)
-    o, _ = _launch(q, k, v, False, -1, False)
+        return flash_attention_plain(q, k, v, causal=False, return_lse=return_lse)
+    _build.refuse_grad("flash_attention_cross (use FlashAttentionCrossFn)", q, k, v)
+    o, lse = _launch(q, k, v, False, -1, return_lse)
     flash_attention_cross.launches += 1
-    return o
+    return (o, lse) if return_lse else o
 
 
 flash_attention_cross.launches = 0
@@ -173,37 +178,41 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
     recomputed, ds = p (do v^T - rowsum(do o)) D^-0.5, dv += p^T do,
     dk += ds^T q, dq += ds k; the port of ``repro.models.layers._fa_bwd``,
     block for block. Tiles that the mask empties are skipped (they add
-    exact zeros). q, o, do: [B,S,H,D]; k, v: [B,S,Hkv,D]; lse [B,H,S]."""
-    B, S, H, D = q.shape
-    Hkv = k.shape[2]
+    exact zeros). q, o, do: [B,Sq,H,D]; k, v: [B,Sk,Hkv,D]; lse [B,H,Sq].
+    Without a causal mask Sk may differ from Sq (cross attention; with
+    ``window <= 0`` nothing is masked)."""
+    B, Sq, H, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    if causal and Sk != Sq:
+        raise ValueError(f"causal attention over {Sk} keys for {Sq} queries")
     G = H // Hkv
     scale = D ** -0.5
-    grp = lambda t: t.float().reshape(B, S, Hkv, G, D)
+    grp = lambda t: t.float().reshape(B, Sq, Hkv, G, D)
     qf, dof = grp(q), grp(do)
     kf, vf = k.float(), v.float()
-    delta = (dof * grp(o)).sum(-1).permute(0, 2, 3, 1)    # [B,Hkv,G,S]
-    lse = lse.float().reshape(B, Hkv, G, S)
-    pos = torch.arange(S, device=q.device)
+    delta = (dof * grp(o)).sum(-1).permute(0, 2, 3, 1)    # [B,Hkv,G,Sq]
+    lse = lse.float().reshape(B, Hkv, G, Sq)
+    qpos, kpos = torch.arange(Sq, device=q.device), torch.arange(Sk, device=q.device)
     dq = torch.zeros_like(qf)
     dk = torch.zeros_like(kf)
     dv = torch.zeros_like(vf)
-    for j0 in range(0, S, kv_block):
-        j1 = min(S, j0 + kv_block)
+    for j0 in range(0, Sk, kv_block):
+        j1 = min(Sk, j0 + kv_block)
         kb, vb = kf[:, j0:j1], vf[:, j0:j1]
-        for i0 in range(0, S, q_block):
-            i1 = min(S, i0 + q_block)
+        for i0 in range(0, Sq, q_block):
+            i1 = min(Sq, i0 + q_block)
             if (causal and i1 - 1 < j0) or (window > 0 and j1 - 1 <= i0 - window):
                 continue
             qb, dob = qf[:, i0:i1], dof[:, i0:i1]
             s = torch.einsum("bqhgd,bkhd->bhgqk", qb, kb) * scale
-            s = s.masked_fill(~_valid(pos[i0:i1], pos[j0:j1], causal, window), NEG_INF)
+            s = s.masked_fill(~_valid(qpos[i0:i1], kpos[j0:j1], causal, window), NEG_INF)
             p = torch.exp(s - lse[..., i0:i1, None])
             dp = torch.einsum("bqhgd,bkhd->bhgqk", dob, vb)
             ds = p * (dp - delta[..., i0:i1, None]) * scale
             dv[:, j0:j1] += torch.einsum("bhgqk,bqhgd->bkhd", p, dob)
             dk[:, j0:j1] += torch.einsum("bhgqk,bqhgd->bkhd", ds, qb)
             dq[:, i0:i1] += torch.einsum("bhgqk,bkhd->bqhgd", ds, kb)
-    return (dq.reshape(B, S, H, D).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))
+    return (dq.reshape(B, Sq, H, D).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))
 
 
 class FlashAttentionFn(torch.autograd.Function):
@@ -225,6 +234,24 @@ class FlashAttentionFn(torch.autograd.Function):
         dq, dk, dv = flash_attention_bwd_plain(q, k, v, o, lse, do, causal=ctx.causal,
                                                window=ctx.window)
         return dq, dk, dv, None, None
+
+
+class FlashAttentionCrossFn(torch.autograd.Function):
+    """``flash_attention_cross`` with a gradient: the forward is the kernel
+    on the card (the plain version on the CPU) with its lse output, the
+    backward ``flash_attention_bwd_plain`` without a mask over the Sk memory
+    keys. ``apply(q, k, v)``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        o, lse = flash_attention_cross(q, k, v, return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=False)
 
 
 def flash_attention_chunk_plain(q, k, v, slot_pos, q_start: int, *,
@@ -267,6 +294,7 @@ def flash_attention_chunk(q, k, v, slot_pos, q_start: int, *, window: int = -1):
                          f"v {tuple(v.shape)} slot_pos {tuple(slot_pos.shape)}")
     if not 0 <= q_start <= W - C:
         raise ValueError(f"chunk at {q_start} of {C} queries past the {W} slots")
+    _build.refuse_grad("flash_attention_chunk", q, k, v)
     if D not in CHUNK_HEAD_DIMS:
         raise ValueError(f"head_dim {D}: the chunk kernel is built for {CHUNK_HEAD_DIMS}")
     _check_qkv(q, k, v)

@@ -82,6 +82,7 @@ def flash_decode(q, k, v, pos, slot_pos, *, window: int = -1):
                          f"pos {tuple(pos.shape)} slot_pos {tuple(slot_pos.shape)}")
     if D not in HEAD_DIMS:
         raise ValueError(f"the kernel is built for head_dim in {HEAD_DIMS} (D={D})")
+    _build.refuse_grad("flash_decode", q, k, v)
     if any(t.device != q.device for t in tensors):
         raise ValueError("flash_decode: tensors on different devices")
     for t in (q, k, v):

@@ -22,6 +22,11 @@ On a CUDA tensor the wrapper launches ``csrc/ssd_scan.cu`` (three kernels:
 chunk states, state passing, chunk scan, on the tensor cores); on a CPU
 tensor it runs ``ssd_scan_plain``. ``ssd_scan.launches`` counts calls that
 launched the kernel, one per call whatever the number of kernels in it.
+The launch has no gradient, so on the card ``ssd_scan`` raises where
+autograd records: ``SSDScanFn`` is the scan with a gradient, its forward
+``ssd_scan`` and its backward autograd through ``ssd_scan_plain`` recomputed
+in f32 (the reference differentiates its ``lax.scan`` in XLA; the Pallas
+kernel has no backward).
 """
 from __future__ import annotations
 
@@ -65,9 +70,11 @@ def ssd_scan_plain(x, b, c, da, dt, *, chunk: int = 256):
     gmat = torch.einsum("bcqhn,bckhn->bchqk", ch, bh)
     tri = torch.ones(q, q, dtype=torch.bool, device=x.device).tril()
     cst = cs.transpose(2, 3)                        # [B,nc,H,q]
-    # select, never multiply: exp(cs_i - cs_j) may be inf above the diagonal
-    ldec = torch.where(tri, torch.exp(cst[..., :, None] - cst[..., None, :]),
-                       torch.zeros((), device=x.device))
+    # cs_i - cs_j above the diagonal may pass 88 (exp overflows to inf):
+    # select the exponent before exp, so that neither the product here nor
+    # exp's backward (0 * inf) ever sees an inf
+    ldec = torch.exp(torch.where(tri, cst[..., :, None] - cst[..., None, :],
+                                 torch.tensor(float("-inf"), device=x.device)))
     m = gmat * ldec * dtc.transpose(2, 3)[..., None, :]
     y = torch.einsum("bchqk,bckhp->bcqhp", m, xh)
 
@@ -95,6 +102,7 @@ def ssd_scan(x, b, c, da, dt, *, chunk: int = 256):
         if any(t.is_cuda for t in tensors):
             raise ValueError("ssd_scan: mixed CPU/CUDA tensors")
         return ssd_scan_plain(x, b, c, da, dt, chunk=chunk)
+    _build.refuse_grad("ssd_scan (use SSDScanFn)", *tensors)
     B, S, H, P = x.shape
     G, N = b.shape[2], b.shape[3]
     if (b.shape != (B, S, G, N) or c.shape != b.shape or da.shape != (B, S, H)
@@ -137,3 +145,36 @@ def ssd_scan(x, b, c, da, dt, *, chunk: int = 256):
 
 
 ssd_scan.launches = 0
+
+
+class SSDScanFn(torch.autograd.Function):
+    """``ssd_scan`` with a gradient: the forward is ``ssd_scan`` (the kernel
+    on the card, the plain version on the CPU); the backward recomputes
+    ``ssd_scan_plain`` on f32 copies of the inputs and differentiates it,
+    so b and c get their gradient summed over the ``H/G`` heads of a group.
+    Gradients come in the inputs' dtypes; a final state that nothing reads
+    takes no gradient. ``apply(x, b, c, da, dt, chunk)`` -> (y, state)."""
+
+    @staticmethod
+    def forward(ctx, x, b, c, da, dt, chunk: int = 256):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, b, c, da, dt)
+        ctx.chunk = chunk
+        return ssd_scan(x, b, c, da, dt, chunk=chunk)
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        saved = ctx.saved_tensors
+        need = ctx.needs_input_grad[:5]
+        with torch.enable_grad():
+            ins = [t.detach().float().requires_grad_(n) for t, n in zip(saved, need)]
+            y, state = ssd_scan_plain(*ins, chunk=ctx.chunk)
+            outs, ups = zip(*[(o, u.float()) for o, u in ((y, dy), (state, dstate))
+                              if u is not None])
+            wrt = [t for t, n in zip(ins, need) if n]
+            got = iter(torch.autograd.grad(outs, wrt, ups, allow_unused=True))
+        grads = []
+        for t, n in zip(saved, need):
+            g = next(got) if n else None
+            grads.append(None if g is None else g.to(t.dtype))
+        return (*grads, None)

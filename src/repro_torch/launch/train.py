@@ -9,11 +9,16 @@ Builds the bundle, random weights from seed 0, AdamW under the
 wall time; ``--ckpt`` saves the params (``training/checkpoint.py``).
 
   python -m repro_torch.launch.train --arch qwen2-moe-a2.7b --layers 4 --steps 10
+  python -m repro_torch.launch.train --arch mamba2-2.7b --steps 4
+  python -m repro_torch.launch.train --arch zamba2-7b --layers 24 --batch 1 --seq 4096
   python -m repro_torch.launch.train --arch qwen2-moe-a2.7b --reduced --device cpu --steps 4
 
 On the card the model runs at its published widths, ``--layers`` cutting
 its depth; the ``reduced()`` configs run on the CPU only (head_dim 32 is
-outside the CUDA attention kernels).
+outside the CUDA attention kernels). The batch is tokens only, as the
+reference's launcher builds it, so the vlm and enc-dec families, whose
+forward also needs ``patch_embeds`` / ``frames``, are refused here: train
+them through ``training.train_loop.make_train_step`` with those inputs.
 """
 from __future__ import annotations
 
@@ -21,7 +26,24 @@ import argparse
 import time
 from typing import Optional, Sequence
 
-from repro_torch.launch.serve import KERNEL_HEAD_DIMS, resolve_config
+from repro_torch.launch.serve import resolve_config
+
+# families whose forward needs a frontend's inputs beside the tokens
+FRONTEND_FAMILIES = {"vlm": "patch_embeds", "encdec": "frames"}
+
+
+def kernel_misfit(cfg) -> Optional[str]:
+    """Why the CUDA kernels cannot run ``cfg``, or None: attention head
+    dims outside ``flash_attention``'s, a Mamba (P, N) outside
+    ``ssd_scan``'s."""
+    from repro_torch.kernels.flash_attention import HEAD_DIMS
+    from repro_torch.kernels.ssd_scan import KERNEL_SHAPES
+    if cfg.n_heads and cfg.hd not in HEAD_DIMS:
+        return f"head_dim {cfg.hd} is outside the attention kernels' {HEAD_DIMS}"
+    if cfg.ssm_state and (cfg.ssm_head_dim, cfg.ssm_state) not in KERNEL_SHAPES:
+        return (f"(P, N) = ({cfg.ssm_head_dim}, {cfg.ssm_state}) is outside "
+                f"ssd_scan's {KERNEL_SHAPES}")
+    return None
 
 
 def main(argv: Optional[Sequence[str]] = None):
@@ -51,9 +73,14 @@ def main(argv: Optional[Sequence[str]] = None):
 
     cfg = resolve_config(args.arch, use_reduced=args.reduced, layers=args.layers)
     device = torch.device(args.device)
-    if device.type == "cuda" and cfg.hd not in KERNEL_HEAD_DIMS:
-        ap.error(f"{cfg.name}: head_dim {cfg.hd} is outside the CUDA kernels "
-                 f"{KERNEL_HEAD_DIMS}; run it with --device cpu")
+    if cfg.family in FRONTEND_FAMILIES:
+        ap.error(f"{cfg.name}: the {cfg.family} family's forward needs "
+                 f"'{FRONTEND_FAMILIES[cfg.family]}' beside the tokens, and this "
+                 "launcher's batches are tokens only; train it through "
+                 "make_train_step with that input")
+    misfit = kernel_misfit(cfg) if device.type == "cuda" else None
+    if misfit:
+        ap.error(f"{cfg.name}: {misfit}; run it with --device cpu")
     B = args.batch or (4 if args.reduced else 2)
     S = args.seq or (32 if args.reduced else 2048)
     if B % args.microbatches:

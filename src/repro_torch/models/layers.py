@@ -18,7 +18,8 @@ queries at their absolute positions over the request's KV row, masked by
 its slot positions (the reference mask's valid-key set ``0 <= slot_pos <=
 pos``); decode runs ``flash_decode``. Cross attention to a fixed memory
 (the vlm's image patches, the enc-dec decoder's encoder output) runs
-``flash_attention_cross`` over the whole sequence and ``flash_decode`` with
+``flash_attention_cross`` over the whole sequence (under autograd
+``FlashAttentionCrossFn``) and ``flash_decode`` with
 every memory slot at position 0 for one token (the reference's
 ``cross_attn_decode`` masks nothing: ``q_pos = k_pos = 0``); on the CPU the
 reference's ``attention`` with ``causal=False``.
@@ -30,8 +31,8 @@ from typing import Optional, Union
 
 import torch
 
-from repro_torch.kernels.flash_attention import (FlashAttentionFn, flash_attention,
-                                                 flash_attention_bwd_plain,
+from repro_torch.kernels.flash_attention import (FlashAttentionCrossFn, FlashAttentionFn,
+                                                 flash_attention, flash_attention_bwd_plain,
                                                  flash_attention_chunk,
                                                  flash_attention_cross)
 from repro_torch.kernels.flash_decode import flash_decode
@@ -375,12 +376,6 @@ def self_attn_decode_batched(x, p, dims: AttnDims, cache_k, cache_v, slot_pos,
     return linear(o.reshape(B, 1, -1), p["wo"]), cache_k, cache_v
 
 
-def _no_card_gradient(*ts):
-    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
-        raise NotImplementedError("cross attention has no backward on the card "
-                                  "(flash_attention_cross is forward only)")
-
-
 def cross_kv(mem, p, dims: AttnDims):
     """Memory tokens [B,M,d] projected once to cross-attention K, V, each
     [B,M,Hkv,hd] (k normed with ``qk_norm``); no rope."""
@@ -403,13 +398,17 @@ def _cross_q(x, p, dims: AttnDims):
 def cross_attn_full(x, p, dims: AttnDims, mem_k, mem_v):
     """Cross attention of x [B,S,d] to a fixed memory mem_k, mem_v
     [B,M,Hkv,hd]: every memory key valid for every query, no rope. On the
-    card ``flash_attention_cross`` (forward only), on the CPU the
-    reference's ``attention(causal=False)``."""
+    card ``flash_attention_cross``; where autograd records,
+    ``FlashAttentionCrossFn`` (the kernel's forward, a plain flash
+    backward). On the CPU the reference's ``attention(causal=False)``,
+    differentiated by autograd."""
     B, S, _ = x.shape
     q = _cross_q(x, p, dims)
     if x.is_cuda:
-        _no_card_gradient(q, mem_k, mem_v)
-        o = flash_attention_cross(q, mem_k, mem_v)
+        if torch.is_grad_enabled() and any(t.requires_grad for t in (q, mem_k, mem_v)):
+            o = FlashAttentionCrossFn.apply(q, mem_k, mem_v)
+        else:
+            o = flash_attention_cross(q, mem_k, mem_v)
     else:
         o = attention(q, mem_k, mem_v, q_pos=torch.arange(S, device=x.device)[None],
                       k_pos=torch.arange(mem_k.shape[1], device=x.device)[None],
@@ -427,7 +426,6 @@ def cross_attn_decode(x, p, dims: AttnDims, mem_k, mem_v):
     M = mem_k.shape[1]
     zero = torch.zeros((B,), dtype=torch.int32, device=x.device)
     if x.is_cuda:
-        _no_card_gradient(q, mem_k, mem_v)
         sp = torch.zeros((M,), dtype=torch.int32, device=x.device)[None].expand(B, M)
         o = flash_decode(q[:, 0], mem_k, mem_v, zero, sp)[:, None]
     else:

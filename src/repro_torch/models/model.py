@@ -575,6 +575,13 @@ def _layer(params, l: int):
     return params["layers"]["ln"][l], {k: v[l] for k, v in params["layers"]["ssm"].items()}
 
 
+def _mamba_full(x, lp, cfg: ArchConfig):
+    """One pre-norm Mamba2 layer (``lp``: ``ln`` and ``ssm``) over a whole
+    sequence. Returns (x, final state, conv tails)."""
+    y, hfin, tails = S.ssd_forward(L.rms_norm(x, lp["ln"], cfg.rms_eps), lp["ssm"], cfg)
+    return x + y, hfin, tails
+
+
 def build_ssm(cfg: ArchConfig) -> ModelBundle:
 
     def init(seed: int = 0, device="cuda"):
@@ -583,12 +590,10 @@ def build_ssm(cfg: ArchConfig) -> ModelBundle:
     def _run_full(params, tokens, emit_state):
         x = _embed(params["embed"], tokens)
         states = []
-        for l in range(cfg.n_layers):
-            ln, lp = _layer(params, l)
-            y, hfin, tails = S.ssd_forward(L.rms_norm(x, ln, cfg.rms_eps), lp, cfg)
+        for lp in _stack(params, "layers"):
+            x, hfin, tails = _run(_mamba_full, x, lp, cfg)
             if emit_state:
                 states.append((hfin, tails))
-            x = x + y
         return L.rms_norm(x, params["ln_f"], cfg.rms_eps), states
 
     def forward(params, batch):
@@ -660,10 +665,6 @@ def build_hybrid(cfg: ArchConfig) -> ModelBundle:
     def init(seed: int = 0, device="cuda"):
         return init_params(cfg, seed, device)
 
-    def _mamba_full(x, lp):
-        y, hfin, tails = S.ssd_forward(L.rms_norm(x, lp["ln"], cfg.rms_eps), lp["ssm"], cfg)
-        return x + y, hfin, tails
-
     def _mamba_decode(x, lp, cache, idx, new, key):
         """One Mamba layer for one token; its state at ``idx`` of the cache
         leaves ``key(name)`` read from ``cache``, written into ``new``."""
@@ -682,14 +683,14 @@ def build_hybrid(cfg: ArchConfig) -> ModelBundle:
         for b in range(n_blocks):
             blk = _at(params["mamba"], b)
             for i in range(per):
-                x, hfin, tails = _run(_mamba_full, x, _at(blk, i))
+                x, hfin, tails = _run(_mamba_full, x, _at(blk, i), cfg)
                 if emit:
                     states.append((hfin, tails))
             x, kv, _ = _run(_block_full, x, params["shared"], win, cfg, chunked)
             if emit:
                 kvs.append(kv)
         for i in range(n_tail):
-            x, hfin, tails = _run(_mamba_full, x, _at(params["tail"], i))
+            x, hfin, tails = _run(_mamba_full, x, _at(params["tail"], i), cfg)
             if emit:
                 tail.append((hfin, tails))
         return L.rms_norm(x, params["ln_f"], cfg.rms_eps), states, kvs, tail

@@ -7,8 +7,9 @@ the state in f32.
 
 ``ssd_forward`` runs the chunked scan through ``kernels/ssd_scan.py``: the
 hand-written kernel on a CUDA tensor, its plain version (the reference's
-chunked einsums) on the CPU. ``D x``, the gate and the norm stay plain
-tensor code around it, as in the reference. ``ssd_decode_step`` is the
+chunked einsums) on the CPU; where autograd records, through ``SSDScanFn``
+(that forward, a plain f32 backward) on either device. ``D x``, the gate
+and the norm stay plain tensor code around it, as in the reference. ``ssd_decode_step`` is the
 one-token recurrence, plain tensor code on both devices.
 """
 from __future__ import annotations
@@ -17,7 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.kernels.ssd_scan import ssd_scan
+from repro_torch.kernels.ssd_scan import SSDScanFn, ssd_scan
 from repro_torch.models.layers import PDT, rms_norm
 
 
@@ -102,8 +103,11 @@ def ssd_forward(x, p, cfg: ArchConfig, chunk: int = 256):
 
     a = -torch.exp(p["A_log"])                      # [h], negative decay rate
     xh = xs.reshape(B, S, h, pdim)
-    y, hfin = ssd_scan(xh, bv.reshape(B, S, g, n), cv.reshape(B, S, g, n),
-                       dt * a, dt, chunk=chunk)
+    scan_in = (xh, bv.reshape(B, S, g, n), cv.reshape(B, S, g, n), dt * a, dt)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in scan_in):
+        y, hfin = SSDScanFn.apply(*scan_in, chunk)
+    else:
+        y, hfin = ssd_scan(*scan_in, chunk=chunk)
     y = y + p["D"][:, None] * xh.float()
     y = y.reshape(B, S, d_inner)
     y = rms_norm((y * F.silu(z.float())).to(x.dtype), p["norm"], cfg.rms_eps)

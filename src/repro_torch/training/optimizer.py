@@ -15,7 +15,9 @@ Two interfaces over one update:
   ``params, state, grad_norm = opt.update(grads, state, params)``. To keep
   one copy of the parameters and moments on the card, ``update`` writes the
   new values into the parameter and moment tensors it was given and
-  returns those same tensors (the reference returns new arrays);
+  returns those same tensors (the reference returns new arrays), a piece
+  of at most ``UPDATE_ELEMS`` elements at a time (``_pieces``), so its f32
+  temporaries stay a piece's and not a stacked leaf's;
 * the torch one the ExpertMLP predictor trains with: ``AdamW(params,
   ...)``, ``zero_grad()``, ``step()`` from the parameters' ``.grad``.
 """
@@ -25,6 +27,29 @@ import math
 from typing import Callable, Dict, Iterable, List, NamedTuple, Optional, Union
 
 import torch
+
+
+# elements of one piece of the update: the f32 temporaries of a whole
+# stacked leaf (every layer's w1 of a 90B model is 0.94 B elements) would
+# take about 20 bytes an element beside the params and moments
+UPDATE_ELEMS = 1 << 26
+
+
+def _pieces(*ts):
+    """Matching views of same-shaped tensors, cut along their leading dims
+    into pieces of at most ``UPDATE_ELEMS`` elements (a vector whole)."""
+    t0 = ts[0]
+    if t0.numel() <= UPDATE_ELEMS or t0.ndim < 2:
+        yield ts
+        return
+    per = t0.numel() // t0.shape[0]
+    if per > UPDATE_ELEMS:
+        for i in range(t0.shape[0]):
+            yield from _pieces(*(t[i] for t in ts))
+        return
+    rows = UPDATE_ELEMS // per
+    for i in range(0, t0.shape[0], rows):
+        yield tuple(t[i:i + rows] for t in ts)
 
 
 class AdamWState(NamedTuple):
@@ -85,19 +110,22 @@ class AdamW:
         step = state.step + 1
         lr = self.lr(step) if callable(self.lr) else self.lr
         g_leaves = tree_leaves(grads)
-        gn = torch.sqrt(sum((g.float() * g.float()).sum() for g in g_leaves))
+        gn = torch.sqrt(sum((g.float() * g.float()).sum()
+                            for leaf in g_leaves for (g,) in _pieces(leaf)))
         scale = torch.clamp(self.grad_clip / torch.clamp(gn, min=1e-9), max=1.0)
         bc1 = 1 - self.b1 ** step
         bc2 = 1 - self.b2 ** step
-        for p, g, m, v in zip(tree_leaves(params), g_leaves, tree_leaves(state.m),
-                              tree_leaves(state.v)):
-            g = g.float() * scale
-            m.mul_(self.b1).add_((1 - self.b1) * g)
-            v.mul_(self.b2).add_((1 - self.b2) * g * g)
-            u = (m / bc1) / (torch.sqrt(v / bc2) + self.eps)
-            if p.ndim >= 2:
-                u = u + self.weight_decay * p.float()
-            p.copy_((p.float() - lr * u).to(p.dtype))
+        for leaves in zip(tree_leaves(params), g_leaves, tree_leaves(state.m),
+                          tree_leaves(state.v)):
+            decay = leaves[0].ndim >= 2
+            for p, g, m, v in _pieces(*leaves):
+                g = g.float() * scale
+                m.mul_(self.b1).add_((1 - self.b1) * g)
+                v.mul_(self.b2).add_((1 - self.b2) * g * g)
+                u = (m / bc1) / (torch.sqrt(v / bc2) + self.eps)
+                if decay:
+                    u = u + self.weight_decay * p.float()
+                p.copy_((p.float() - lr * u).to(p.dtype))
         return params, AdamWState(step, state.m, state.v), gn
 
     # -- the torch interface (parameters with .grad) -------------------------

@@ -1060,3 +1060,159 @@ def test_ssd_scan_zamba2_widths(cuda, B, S, H, chunk):
     y0, h0 = ssd_scan_plain(x, b, c, da, dt, chunk=chunk)
     torch.testing.assert_close(y, y0, rtol=1e-3, atol=1e-3)
     torch.testing.assert_close(h, h0, rtol=1e-3, atol=1e-3)
+
+
+# -- training every family: the scan's and cross attention's gradients ----------
+
+
+@pytest.mark.cuda
+def test_ssd_scan_raises_under_autograd_on_card(cuda):
+    """A launch has no gradient: under autograd on the card ``ssd_scan``
+    refuses instead of giving outputs with no edge to their inputs (whose
+    gradients would then read zero)."""
+    x = torch.zeros(1, 16, 2, 16, device=cuda, dtype=torch.bfloat16, requires_grad=True)
+    b = torch.zeros(1, 16, 1, 16, device=cuda, dtype=torch.bfloat16)
+    d = torch.zeros(1, 16, 2, device=cuda)
+    with pytest.raises(RuntimeError, match="SSDScanFn"):
+        ssd_scan(x, b, b, d, d)
+    with torch.no_grad():
+        ssd_scan(x, b, b, d, d)
+    with pytest.raises(RuntimeError, match="FlashAttentionCrossFn"):
+        from repro_torch.kernels.flash_attention import flash_attention_cross
+        q = torch.zeros(1, 8, 2, 64, device=cuda, dtype=torch.bfloat16, requires_grad=True)
+        flash_attention_cross(q, q[:, :, :1].detach(), q[:, :, :1].detach())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,G,P,N", [(2, 300, 8, 2, 64, 128), (1, 70, 4, 1, 64, 64)])
+def test_ssd_scan_fn_gradient_on_card(cuda, B, S, H, G, P, N):
+    """SSDScanFn (the kernel's forward) against autograd through
+    ``ssd_scan_plain``: 2e-2 of each gradient's largest entry; the kernel
+    launched once."""
+    from repro_torch.kernels.ssd_scan import SSDScanFn
+    g = torch.Generator(device=cuda).manual_seed(11)
+    r = lambda *s, sc=1.0: (torch.randn(s, generator=g, device=cuda) * sc).to(torch.bfloat16)
+    dt = torch.nn.functional.softplus(torch.randn(B, S, H, generator=g, device=cuda) - 2)
+    args = (r(B, S, H, P), r(B, S, G, N, sc=0.3), r(B, S, G, N, sc=0.3), -dt * 0.7, dt)
+    dy = torch.randn(B, S, H, P, generator=g, device=cuda)
+    a = [t.clone().requires_grad_(True) for t in args]
+    b = [t.clone().requires_grad_(True) for t in args]
+    n = ssd_scan.launches
+    y, _ = SSDScanFn.apply(*a, 256)
+    assert ssd_scan.launches == n + 1
+    y.backward(dy)
+    ssd_scan_plain(*b)[0].backward(dy)
+    for ta, tb in zip(a, b):
+        assert ta.grad.dtype == ta.dtype
+        _rel_close(ta.grad, tb.grad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Sk,H,Hkv,D", [(2, 256, 201, 8, 2, 128), (1, 100, 333, 4, 4, 64)])
+def test_cross_fn_gradient_on_card(cuda, B, Sq, Sk, H, Hkv, D):
+    """FlashAttentionCrossFn against autograd through the plain version
+    without a mask, and the kernel's lse over a ragged key tile against the
+    plain lse."""
+    from repro_torch.kernels.flash_attention import FlashAttentionCrossFn, flash_attention_cross
+    g = torch.Generator(device=cuda).manual_seed(12)
+    r = lambda *s: torch.randn(s, generator=g, device=cuda).to(torch.bfloat16)
+    q, k, v, do = r(B, Sq, H, D), r(B, Sk, Hkv, D), r(B, Sk, Hkv, D), r(B, Sq, H, D)
+    _, lse = flash_attention_cross(q, k, v, return_lse=True)
+    _, want = flash_attention_plain(q, k, v, causal=False, return_lse=True)
+    torch.testing.assert_close(lse, want, rtol=1e-4, atol=1e-4)
+    a = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    b = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    n = flash_attention_cross.launches
+    FlashAttentionCrossFn.apply(*a).backward(do)
+    assert flash_attention_cross.launches == n + 1
+    flash_attention_plain(*b, causal=False).backward(do)
+    for ta, tb in zip(a, b):
+        _rel_close(ta.grad, tb.grad)
+
+
+def _step_grads(bundle, params, tokens):
+    """One train step; the raw gradient leaves (CPU, f32) from the first
+    moment: m = (1 - b1) * clip scale * g."""
+    from repro_torch.training.optimizer import AdamW, tree_leaves
+    from repro_torch.training.train_loop import make_train_step
+    opt = AdamW(lr=1e-3)
+    _, st, m = make_train_step(bundle, opt)(params, opt.init(params), {"tokens": tokens})
+    gn = float(m["grad_norm"])
+    scale = (1 - opt.b1) * min(1.0, opt.grad_clip / max(gn, 1e-9))
+    return [t.float().cpu() / scale for t in tree_leaves(st.m)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,over,S", [
+    ("mamba2_2_7b", dict(ssm_head_dim=64, ssm_state=128), 40),
+    ("zamba2_7b", dict(n_layers=3, head_dim=112, ssm_head_dim=64, ssm_state=64), 100)])
+def test_small_ssm_and_hybrid_train_step_card_vs_cpu(cuda, arch, over, S):
+    """One train step of a small ssm / hybrid bundle at the kernels' widths
+    on the card against the CPU, leaf by leaf within 5e-2 of the CPU leaf's
+    largest entry (tests/test_torch_training.py's STEP_GRAD_TOL); every
+    leaf the CPU moves is nonzero on the card (A_log, dt_bias, conv_B and
+    conv_C read zero while the scan had no gradient); the first half of the
+    batch alone is beyond the limit."""
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.models.model import build
+    cfg = dataclasses.replace(reduced(get_config(arch)), **over)
+    bundle = build(cfg)
+    gpu = bundle.init(0, device=cuda)
+
+    def cpu_tree(node):
+        return {k: cpu_tree(v) for k, v in node.items()} if isinstance(node, dict) else node.cpu()
+
+    cpu = lambda: cpu_tree(gpu)
+
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (4, S)))
+    half = _step_grads(bundle, cpu(), toks[:2])
+    want = _step_grads(bundle, cpu(), toks)
+    n = ssd_scan.launches
+    got = _step_grads(bundle, gpu, toks.to(cuda))
+    assert ssd_scan.launches > n
+    rel = lambda a, b: float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+    for a, b in zip(got, want):
+        assert rel(a, b) <= 5e-2
+        assert float(b.abs().max()) == 0 or float(a.abs().max()) > 0
+    assert min(rel(h, b) for h, b in zip(half, want)) > 5e-2
+
+
+@pytest.mark.cuda
+def test_device_audit_on_card(cuda):
+    """All four device-audit checks run on a card engine (reduced Mixtral at
+    the kernels' widths); ``const``, ``donation`` and ``compile-keys`` find
+    nothing, ``callback`` counts the decode step's syncs, and each check
+    catches its planted fault."""
+    from repro_torch.analysis.device_audit import (CONST_BYTES_LIMIT, build_audit_engine,
+                                                    run_audit)
+    from repro_torch.serving.engine import group_by_expert
+    build = lambda: build_audit_engine("cuda")
+    clean = run_audit(build=build)
+    assert sorted(clean.checks) == ["callback", "compile-keys", "const", "donation"]
+    assert not [f for f in clean.findings if f.rule != "callback"], clean.findings
+    assert clean.readings["callback"]["syncs"] > 0
+
+    def out_of_place(cache, key):
+        slot = cache.slot_of[key]
+        for name, src in zip(("w1", "w3", "w2"), cache.store.get(key)):
+            cache._pools[name] = cache._pools[name].clone()
+            cache._pools[name][slot].copy_(src)
+        cache._loaded.add(key)
+
+    def unbucketed(ids, union, bucket_cap, u_bucket_cap=None):
+        d = group_by_expert(ids, union, bucket_cap=1 << 30)
+        return dataclasses.replace(d, row_idx=d.row_idx[:len(union), :max(d.counts)])
+
+    probe = torch.ones(1, device=cuda)
+    planted = run_audit(build=build, extra={
+        "callback": [lambda: probe.item()],
+        "const": [lambda eng: setattr(eng, "_stray", torch.zeros(
+            2 * CONST_BYTES_LIMIT, dtype=torch.uint8, device=cuda))],
+        "donation": out_of_place, "compile-keys": unbucketed})
+    count = lambda rep, rule: sum(f.rule == rule for f in rep.findings)
+    for rule in ("const", "donation", "compile-keys"):
+        assert count(planted, rule) > count(clean, rule), rule
+    # the planted sync, at its own site in this file
+    assert any(f.rule == "callback" and "test_torch_cuda.py" in f.where
+               for f in planted.findings)
+
