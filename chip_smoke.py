@@ -135,11 +135,26 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                sources (clean), then ``device_audit.run_audit`` on the batched
                engine at Mixtral-8x7B width (the batch phase's params and
                predictor, 8 prompts all decoding): the host syncs of one
-               decode step by call site (``callback``, printed), the device
-               bytes outside the residency ledger (``const``), in-place
-               pool writes (``donation``) and the grouped FFN's launch
-               shapes (``compile-keys``), the last three clean; then each
-               check against a planted fault, which it must catch.
+               decode step by call site (``callback``: each must be a
+               dispatch point the allowlist declares), the device bytes
+               outside the residency ledger (``const``), in-place pool
+               writes (``donation``) and the grouped FFN's launch shapes
+               (``compile-keys``), all four clean; then each check against
+               a planted fault, which it must catch. Then ``decode_steps``:
+               the B=8 decode step's host-clock wall (median of 16), the
+               device's busy share of a profiled window of 4 more steps and
+               the CUDA runtime calls per step, with no ``cudaHostAlloc``.
+               ``--decode-step SRC`` runs only this timing, on the package
+               under SRC (another tree's ``src/``).
+  8c. examples — each port example's ``main`` (``repro_torch.examples``)
+               on the card at published widths, 4 layers: quickstart,
+               serve_e2e (2 requests), serve_concurrent --smoke and
+               serve_cluster --smoke (2 layers: its 12 engines' expert
+               pools) on Mixtral-8x7B, train_moe (3 steps) and
+               preprocess_pipeline on Qwen2-MoE-A2.7B; each holds its
+               own assertions, and prints a line of its wall, launches and
+               readings. The serving and training kernels' counts are reset
+               before and must each be > 0 after.
   9. ssm_check — a small Mamba2 (2 layers, head_dim 64, state 128) through
                the model bundle on the card and on the CPU: the prefill
                logits must agree.
@@ -763,13 +778,17 @@ def check_small(seed: int):
 
 # -- phase 5: serve Mixtral-8x7B -----------------------------------------------
 
-def serve(layers: int, seed: int, kernels):
+def mixtral_setup(layers: int, seed: int):
+    """Mixtral-8x7B at full width, ``layers`` deep, random weights from
+    ``seed``; ODF traces over 3 prompts of 512 tokens (32 new each) and the
+    ExpertMLP trained on them. Returns ((cfg, params, stats, predictor),
+    the 7 prompts, a record of the set-up's times and the predictor's
+    validation accuracy)."""
     from repro_torch.configs.base import get_config
     from repro_torch.core.predictor import train_predictor
     from repro_torch.core.state import StateConstructor
     from repro_torch.models.params import init_params
-    from repro_torch.serving.api import SamplingParams
-    from repro_torch.serving.engine import MoEServingEngine, collect_traces
+    from repro_torch.serving.engine import collect_traces
 
     cfg = dataclasses.replace(get_config("mixtral_8x7b"), n_layers=layers)
     t0 = time.perf_counter()
@@ -785,8 +804,17 @@ def serve(layers: int, seed: int, kernels):
     X, Y = StateConstructor(stats).build_dataset(tracer.as_array())
     pred, hist = train_predictor(seed, X, Y, cfg.top_k, epochs=20, batch=64,
                                  device="cuda")
-    t_pre = time.perf_counter() - t0
+    setup = dict(init_s=t_init, traces_and_training_s=time.perf_counter() - t0,
+                 predictor_val_topk=hist["val_topk"][-1],
+                 predictor_val_half=hist["val_half"][-1])
+    return (cfg, params, stats, pred), prompts, setup
 
+
+def serve(layers: int, seed: int, kernels):
+    from repro_torch.serving.api import SamplingParams
+    from repro_torch.serving.engine import MoEServingEngine
+
+    (cfg, params, stats, pred), prompts, setup = mixtral_setup(layers, seed)
     engine = MoEServingEngine(cfg, params, policy="duo", stats=stats,
                               predictor=pred, temperature=0.0)
     sp = SamplingParams(temperature=0.0, max_new_tokens=32)
@@ -831,9 +859,7 @@ def serve(layers: int, seed: int, kernels):
                     n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
                     n_experts=cfg.n_experts, top_k=cfg.top_k,
                     d_expert=cfg.d_expert, vocab=cfg.vocab),
-        init_s=t_init, traces_and_training_s=t_pre,
-        predictor_val_topk=hist["val_topk"][-1],
-        predictor_val_half=hist["val_half"][-1],
+        **setup,
         cache_capacity=engine.cache.capacity,
         expert_pool_bytes=engine.cache.device_bytes,
         ttft_s=[r.ttft_wall for r in reqs], e2e_s=[r.e2e_wall for r in reqs],
@@ -869,30 +895,13 @@ def plant_unbucketed(ids, union, bucket_cap, u_bucket_cap=None):
     return dataclasses.replace(d, row_idx=d.row_idx[:len(union), :C])
 
 
-def analyse(mixtral, seed: int):
-    """Phase 8b: ``python -m repro_torch.analysis``'s lint of the port's
-    sources (no finding, no stale allowlist entry), then the device audit
-    (``device_audit.run_audit``) of the batched engine at Mixtral-8x7B width
-    on the batch phase's params and predictor (``duo``, ``max_batch=8``,
-    ``max_seq=2048``, budget 512): every request of 8 prompts of 64-512
-    tokens decoding, then one batched decode step under the sync debug
-    mode (``callback``: each sync's call site, allowed or not), the bytes
-    held outside the residency ledger (``const``), in-place pool writes
-    over 6 prefetches (``donation``) and the grouped FFN's launch shapes
-    (``compile-keys``). ``const``, ``donation`` and ``compile-keys`` must
-    find nothing; ``callback``'s findings are printed, not held. Then the
-    same audit with a planted fault per check (a ``.item()`` inside the
-    step, twice ``CONST_BYTES_LIMIT`` kept beside the ledger, an
-    out-of-place pool write, an unbucketed dispatch): each check must catch
-    its own."""
-    from repro_torch.analysis import ALL_RULES, load_allowlist, run_lint
-    from repro_torch.analysis.device_audit import CONST_BYTES_LIMIT, run_audit
+def audit_engine(mixtral, seed: int):
+    """The analysis phase's engine: ``BatchedServingEngine`` over the batch
+    phase's params and predictor (``duo``, ``max_batch=8``,
+    ``max_seq=2048``, budget 512), and its 8 prompts of 64-512 tokens.
+    Returns (build, prompts)."""
     from repro_torch.serving.batching import BatchedServingEngine
     cfg, params, stats, pred = mixtral
-    root = ROOT / "src" / "repro_torch"
-    lint = run_lint(root, ALL_RULES, load_allowlist(root / "analysis" / "allowlist.toml"))
-    if lint.findings or lint.unused_allows:
-        raise AssertionError("lint: " + "; ".join(f.format() for f in lint.findings))
     rng = np.random.default_rng(seed + 8)
     prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
                for n in (64, 96, 128, 192, 256, 320, 384, 512)]
@@ -901,6 +910,86 @@ def analyse(mixtral, seed: int):
         return BatchedServingEngine(cfg, params, policy="duo", stats=stats, predictor=pred,
                                     max_batch=8, max_seq=2048, prefill_budget=512,
                                     temperature=0.0)
+
+    return build, prompts
+
+
+# decode steps of the audit's engine timed, after the warm ones, then profiled
+DECODE_WARM, DECODE_TIMED, DECODE_PROFILED = 4, 16, 4
+
+
+def decode_steps(eng) -> dict:
+    """Batched decode steps of ``eng`` at its full batch, every request
+    decoding: DECODE_WARM steps, then the host-clock wall of DECODE_TIMED
+    (the engine's own ``decode_step_wall``, from a step's start to its
+    logits on the host), then a ``torch.profiler`` window over
+    DECODE_PROFILED more: the device's busy share of the window (``busy_ms``
+    of its device events over the window's host-clock length, the
+    profiler's own cost in it) and the CUDA runtime calls made in it, per
+    step. A steady step must call no ``cudaHostAlloc``: the upload helper's
+    pinned blocks come back from the caching host allocator."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(DECODE_WARM):
+        eng.step()
+    n0 = len(eng.decode_step_wall)
+    for _ in range(DECODE_TIMED):
+        eng.step()
+    walls = np.array(eng.decode_step_wall[n0:]) * 1e3
+    batches = set(eng.decode_batch_hist[n0:])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(DECODE_PROFILED):
+            eng.step()
+        torch.cuda.synchronize()
+        window = (time.perf_counter() - t0) * 1e3
+    if batches != {eng.max_batch} or set(eng.decode_batch_hist[-DECODE_PROFILED:]) != batches:
+        raise AssertionError(f"decode steps: batch sizes {sorted(batches)}, "
+                             f"not {eng.max_batch} throughout")
+    busy = busy_ms([e for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA])
+    runtime = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CPU and e.name.startswith("cuda"):
+            runtime[e.name] = runtime.get(e.name, 0) + 1
+    per_step = {k: v / DECODE_PROFILED for k, v in sorted(runtime.items())}
+    return dict(batch=eng.max_batch, step_ms_median=float(np.median(walls)),
+                step_ms=walls.tolist(), profiled_steps=DECODE_PROFILED,
+                window_ms=window, device_busy_ms=busy, busy_share=busy / window,
+                host_allocs=sum(v for k, v in runtime.items()
+                                if "HostAlloc" in k or "HostRegister" in k),
+                runtime_calls_per_step=per_step)
+
+
+def analyse(mixtral, seed: int):
+    """Phase 8b: ``python -m repro_torch.analysis``'s lint of the port's
+    sources (no finding, no stale allowlist entry), then the device audit
+    (``device_audit.run_audit``) of the batched engine at Mixtral-8x7B width
+    on the batch phase's params and predictor (``audit_engine``): every
+    request of 8 prompts of 64-512 tokens decoding, then one batched decode
+    step under the sync debug mode (``callback``: each sync's call site,
+    which must be a dispatch point the allowlist declares: one gate
+    readback a layer, the predictor's readback, the logits readback, a
+    correction fetch's wait), the bytes held outside the residency ledger
+    (``const``), in-place pool writes over 6 prefetches (``donation``) and
+    the grouped FFN's launch shapes (``compile-keys``). All four must find
+    nothing, and the step must show at least its gate and logits
+    readbacks. Then the same audit with a planted fault per check (a
+    ``.item()`` inside the step, twice ``CONST_BYTES_LIMIT`` kept beside
+    the ledger, an out-of-place pool write, an unbucketed dispatch): each
+    check must catch its own. Then ``decode_steps`` on a fresh engine: the
+    B=8 step's wall, the device's busy share, the runtime calls a step
+    makes."""
+    from repro_torch.analysis import ALL_RULES, load_allowlist, run_lint
+    from repro_torch.analysis.device_audit import (CONST_BYTES_LIMIT, decoding_engine,
+                                                   run_audit)
+    cfg = mixtral[0]
+    root = ROOT / "src" / "repro_torch"
+    lint = run_lint(root, ALL_RULES, load_allowlist(root / "analysis" / "allowlist.toml"))
+    if lint.findings or lint.unused_allows:
+        raise AssertionError("lint: " + "; ".join(f.format() for f in lint.findings))
+    build, prompts = audit_engine(mixtral, seed)
+    params = mixtral[1]
 
     t0 = time.perf_counter()
     clean = run_audit(build=build, given=params, prompts=prompts)
@@ -917,21 +1006,142 @@ def analyse(mixtral, seed: int):
     # the planted sync's own site: this file
     caught["callback"] = any(f.rule == "callback" and "chip_smoke.py" in f.where
                              for f in planted.findings)
+    eng = decoding_engine(build(), prompts)
+    steps = decode_steps(eng)
+    del eng
+    release()
+    syncs = clean.readings["callback"]["syncs"]
     res = dict(phase="analysis", model=cfg.name, layers=cfg.n_layers,
                lint=dict(files=len(lint.scanned), findings=0,
                          allowlisted=len(lint.suppressed)),
                checks=clean.checks, readings=clean.readings,
                findings=[f.format() for f in clean.findings],
-               planted_caught=caught,
+               planted_caught=caught, decode_steps=steps,
                seconds=time.perf_counter() - t0)
-    held = [f for f in clean.findings if f.rule != "callback"]
     if sorted(clean.checks) != sorted(("callback", "const", "donation", "compile-keys")):
         raise AssertionError(f"analysis: the audit ran {clean.checks}")
-    if held or not all(res["planted_caught"].values()):
+    if clean.findings or not all(res["planted_caught"].values()) or syncs < cfg.n_layers + 1:
         emit(res)
-        raise AssertionError("analysis: a device audit check failed or missed its "
-                             "planted fault")
+        raise AssertionError("analysis: a device audit check failed, missed its planted "
+                             f"fault, or saw {syncs} syncs (fewer than the gate and "
+                             "logits readbacks)")
+    if steps["host_allocs"]:
+        emit(res)
+        raise AssertionError(f"analysis: {steps['host_allocs']} cudaHostAlloc calls in "
+                             f"{DECODE_PROFILED} steady decode steps")
     return res
+
+
+# -- phase 8c: the examples --------------------------------------------------
+
+# published widths, depth cut: Mixtral-8x7B as the serve phase (each layer
+# holds 2.6 GiB of pinned host expert weights), Qwen2-MoE-A2.7B as train;
+# serve_cluster keeps 12 engines alive, each with its own expert pool (duo+
+# holds 20 slabs of 336 MiB at 4 layers: 79 GB in all, past the card), so
+# it runs at 2 layers (14 slabs an engine)
+EXAMPLE_LAYERS = dict(quickstart=4, serve_e2e=4, serve_concurrent=4, serve_cluster=2,
+                      train_moe=4, preprocess_pipeline=4)
+# the examples' own request and step counts, cut for time (each cut printed)
+EXAMPLE_CUTS = {"serve_e2e": ("--requests", "2"), "train_moe": ("--steps", "3")}
+
+
+def example_readings(name: str, rec: dict) -> dict:
+    """What each example's record says, in a line: tokens, hits and misses,
+    simulator results, walls, sheds, handoffs, losses, artifacts."""
+    if name == "quickstart":
+        return dict(tokens=rec["tokens"], hits=rec["hits"], misses=rec["misses"],
+                    ttft_wall_s=rec["ttft_wall"], e2e_wall_s=rec["e2e_wall"],
+                    sim_edge_gpu={p: dict(ttft=v["ttft"], e2e=v["e2e"], hit_rate=v["hit_rate"])
+                                  for p, v in rec["sims"].items()})
+    if name == "serve_e2e":
+        return {p: dict(tokens_first=v["tokens"][0], hits=sum(v["hits"]),
+                        misses=sum(v["misses"]), wall_ttft_s=v["wall_ttft_s"],
+                        wall_e2e_s=v["wall_e2e_s"], sim_p50_e2e=v["summary"]["p50_e2e"])
+                for p, v in rec.items()}
+    if name == "serve_concurrent":
+        return dict(match_sequential=[s["match_sequential"] for s in rec["streams"]],
+                    sequential_wall_s=rec["sequential_wall_s"],
+                    streamed_wall_s=rec["streamed_wall_s"],
+                    mean_decode_batch=rec["mean_decode_batch"], cancel=rec["cancel"],
+                    shed=rec["shed"])
+    if name == "serve_cluster":
+        return dict(balance=rec["cluster"]["balance"], wall_s=rec["cluster"]["wall_s"],
+                    one_replica_parity=rec["one_replica_parity"],
+                    handoffs=rec["disagg"]["n_handoffs"],
+                    handoff_bytes=rec["disagg"]["handoff_bytes"],
+                    trace_events=rec["disagg"].get("trace_events"),
+                    migrated=rec["drain"]["n_migrated"],
+                    prefix_hit_tokens=rec["prefix"]["hit_tokens"])
+    if name == "train_moe":
+        return dict(n_params=rec["n_params"], loss=rec["loss"], grad_norm=rec["grad_norm"],
+                    step_wall_s=rec["wall_s"])
+    return dict(paths=int(rec["paths"].shape[0]), entropy=np.asarray(rec["entropy"]).tolist(),
+                val_topk=rec["history"]["val_topk"][-1],
+                val_half=rec["history"]["val_half"][-1],
+                file_bytes={k: os.path.getsize(v) for k, v in rec["files"].items()})
+
+
+def run_examples(kernels):
+    """Phase 8c: each port example's ``main`` in this process, on the card
+    at published widths cut to its EXAMPLE_LAYERS: Mixtral-8x7B for
+    quickstart, serve_e2e, serve_concurrent --smoke and serve_cluster
+    --smoke (with a Perfetto trace), Qwen2-MoE-A2.7B for train_moe and
+    preprocess_pipeline (into a temporary directory, whose artifacts are
+    loaded back), with the counts of EXAMPLE_CUTS. Each example holds its
+    own assertions (it raises); here every loss must be finite and every
+    kernel of the set launched. One line per example: its wall, launches,
+    readings and the last lines it printed."""
+    import io
+    import tempfile
+    from repro_torch.core.tracer import TraceStats
+    from repro_torch.examples import (preprocess_pipeline, quickstart, serve_cluster,
+                                      serve_concurrent, serve_e2e, train_moe)
+    from repro_torch.training import checkpoint
+    for fn in kernels:
+        fn.launches = 0
+    runs = []
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="examples-", dir=ROOT / "build") as tmp:
+        examples = [
+            ("quickstart", quickstart, []),
+            ("serve_e2e", serve_e2e, []),
+            ("serve_concurrent", serve_concurrent, ["--smoke"]),
+            ("serve_cluster", serve_cluster, ["--smoke", "--trace-out", f"{tmp}/trace.json"]),
+            ("train_moe", train_moe, ["--ckpt", f"{tmp}/train.npz"]),
+            ("preprocess_pipeline", preprocess_pipeline, ["--out", f"{tmp}/preprocess"]),
+        ]
+        for name, mod, argv in examples:
+            argv = ["--device", "cuda", "--layers", str(EXAMPLE_LAYERS[name]), *argv,
+                    *EXAMPLE_CUTS.get(name, ())]
+            before = {fn.__name__: fn.launches for fn in kernels}
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rec = mod.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            if name == "train_moe" and not np.isfinite(rec["loss"]).all():
+                raise AssertionError(f"train_moe: losses {rec['loss']}")
+            if name == "preprocess_pipeline":
+                TraceStats.load(rec["files"]["trace_stats"])
+                checkpoint.load(rec["files"]["predictor"])
+            line = dict(phase="example", example=name, argv=argv,
+                        cut=list(EXAMPLE_CUTS.get(name, ())), wall_s=wall,
+                        launches={n: fn.launches - before[n] for n, fn in
+                                  ((fn.__name__, fn) for fn in kernels)},
+                        readings=example_readings(name, rec),
+                        last_lines=out.getvalue().splitlines()[-3:])
+            emit(line)
+            runs.append(line)
+            del rec
+            release()
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    missing = [n for n, c in launches.items() if c == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched by the examples: {missing}")
+    return dict(phase="examples", layers=EXAMPLE_LAYERS,
+                walls_s={r["example"]: r["wall_s"] for r in runs},
+                seconds=sum(r["wall_s"] for r in runs), launches=launches)
 
 
 # -- phase 6: the batched engine on the card vs on the CPU ---------------------
@@ -3514,16 +3724,41 @@ def serve_families(seed: int, kernels):
     return dict(phase="families", launches=launches)
 
 
+def decode_step_only(src: Path, layers: int, seed: int) -> int:
+    """``--decode-step SRC``: the analysis phase's engine and decode steps
+    (``mixtral_setup``, ``audit_engine``, ``decode_steps``) on the port's
+    package from ``src``, so two trees are timed by the same code in one
+    call. Prints the card and one ``decode_step`` line."""
+    sys.path.insert(0, str(src))
+    from repro_torch.analysis.device_audit import decoding_engine
+    from repro_torch.kernels import _build
+    emit(dict(phase="device", nvidia_smi=nvidia_smi(), name=torch.cuda.get_device_name(0),
+              torch=torch.__version__, cuda=torch.version.cuda))
+    _build.build_all()
+    mixtral, _, setup = mixtral_setup(layers, seed)
+    build, prompts = audit_engine(mixtral, seed)
+    eng = decoding_engine(build(), prompts)
+    emit(dict(phase="decode_step", src=str(src), model=mixtral[0].name, layers=layers,
+              setup=setup, **decode_steps(eng)))
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=4,
                     help="decoder depth (each Mixtral layer holds 2.6 GiB of "
                          "pinned host expert weights)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--decode-step", metavar="SRC", default=None,
+                    help="only time the analysis phase's B=8 decode steps (decode_steps) "
+                         "with the port's package taken from SRC (a src/ directory, "
+                         "such as an unpacked parent commit's), and print one line")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if args.decode_step:
+        return decode_step_only(Path(args.decode_step).resolve(), args.layers, args.seed)
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _build
     from repro_torch.kernels.expert_ffn import expert_ffn, expert_ffn_from_pool
@@ -3575,6 +3810,8 @@ def main() -> int:
         emit(analyse(mixtral, args.seed))
     del mixtral, reference
     release()
+    examples = run_examples(kernels + [flash_attention_chunk, expert_ffn])
+    emit(examples)
 
     emit(check_small_ssm(args.seed))
     ssm = serve_ssm(args.seed, ssd_scan)
@@ -3612,7 +3849,7 @@ def main() -> int:
 
     # each kernel's launches from the paths that run it
     launches = {}
-    for phase in (srv, bat, clu, ssm, paper, bundles, train, trained, families):
+    for phase in (srv, bat, clu, examples, ssm, paper, bundles, train, trained, families):
         for n, c in phase["launches"].items():
             launches[n] = launches.get(n, 0) + c
     compact = ("variant", "shape", "B", "W", "max_abs_err", "ms", "device_ms", "plain_ms",

@@ -101,6 +101,8 @@ def _is_cuda(eng) -> bool:
 
 
 TORCH = Path(torch.__file__).resolve().parent
+# what the sync debug mode warns at each sync (c10's warn_or_error_on_sync)
+SYNC_WARNING = "called a synchronizing CUDA operation"
 
 
 def _site(stack) -> Tuple[str, int]:
@@ -166,7 +168,9 @@ def audit_callbacks(eng, allowed: Set[Tuple[str, int]], planted: Sequence[Callab
     sites: Dict[Tuple[str, int], int] = {}
 
     def hook(message, category, filename, lineno, file=None, line=None):
-        if "synchroniz" in str(message):
+        # the sync's own warning, not the mode's one-time "prototype
+        # feature" notice (which names synchronizing operations too)
+        if SYNC_WARNING in str(message):
             site = _site(traceback.extract_stack()[:-1])   # not this hook
             sites[site] = sites.get(site, 0) + 1
 

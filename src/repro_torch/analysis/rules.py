@@ -33,6 +33,7 @@ from .lint import Finding, ModuleInfo, Rule, dotted_name, first_arg_src
 # that DuoServe's prefetch overlap is there to protect.
 SYNC_HOT_SCOPES: Dict[str, Tuple[str, ...]] = {
     "serving/engine.py": (
+        "EngineCore._embed",
         "EngineCore._grouped_ffn_raw",
         "EngineCore._run_experts_prefill",
         "EngineCore._run_experts_prefill_fused",
@@ -46,6 +47,8 @@ SYNC_HOT_SCOPES: Dict[str, Tuple[str, ...]] = {
     "serving/batching.py": (
         "BatchedServingEngine.step",
         "BatchedServingEngine._decode_step",
+        "BatchedServingEngine._kv_rows",
+        "BatchedServingEngine._pool_row",
         "BatchedServingEngine._prefill_work",
         "BatchedServingEngine._run_prefill_chunk",
         "BatchedServingEngine._admit_and_prefill",
@@ -55,6 +58,9 @@ SYNC_HOT_SCOPES: Dict[str, Tuple[str, ...]] = {
     "core/cache.py": (
         "CacheState.*",
         "ExpertResidency.*",
+    ),
+    "core/predictor.py": (
+        "TrainedPredictor.predict_logits",
     ),
     "kernels/*.py": ("*",),
 }
@@ -76,7 +82,14 @@ SYNC_METHODS: Set[str] = {"item", "cpu", "tolist", "numpy", "synchronize"}
 # the ``.cpu()`` is the sync and is reported itself.
 HOST_AFTER_CPU: Set[str] = {"numpy", "tolist", "item"}
 # parameter annotations that make an argument a host value
-HOST_ANNOTATIONS: Set[str] = {"int", "float", "bool", "str"}
+HOST_ANNOTATIONS: Set[str] = {"int", "float", "bool", "str", "np.ndarray"}
+# Uploads from pageable host memory: the copy waits for the stream, so the
+# host stalls on whatever the stream has queued. ``torch.as_tensor`` /
+# ``torch.tensor`` with a ``device=``, and ``.to(<device>)`` / ``.cuda()``
+# without ``non_blocking=True``; ``models.layers.upload`` (pinned,
+# ``non_blocking``) is the sanctioned way to the card.
+UPLOAD_CALLS: Set[str] = {"torch.as_tensor", "torch.tensor", "as_tensor"}
+UPLOAD_METHODS: Set[str] = {"to", "cuda"}
 
 # --- emit-discipline ------------------------------------------------------
 # The one sink every streamed token funnels through; the event buffer itself
@@ -182,16 +195,55 @@ def _host_names(fn: Optional[ast.AST]) -> Set[str]:
 
 
 def _is_host(node: ast.AST, host: Set[str]) -> bool:
-    """A host literal, a name in ``host``, or arithmetic of such."""
+    """A host literal, a name in ``host``, an element of one, or
+    arithmetic of such."""
     if _is_host_literal(node):
         return True
     if isinstance(node, ast.Name):
         return node.id in host
+    if isinstance(node, ast.Subscript):
+        return _is_host(node.value, host)
     if isinstance(node, ast.BinOp):
         return _is_host(node.left, host) and _is_host(node.right, host)
     if isinstance(node, ast.UnaryOp):
         return _is_host(node.operand, host)
     return False
+
+
+def _is_device(node: ast.AST) -> bool:
+    """A device argument: ``device`` / ``dev`` / ``*_device`` names,
+    ``<x>.device``, a ``"cuda..."`` string or ``torch.device(...)``."""
+    if isinstance(node, ast.Name):
+        return node.id in ("device", "dev") or node.id.endswith("_device")
+    if isinstance(node, ast.Attribute):
+        return node.attr == "device"
+    if isinstance(node, ast.Constant):
+        return isinstance(node.value, str) and node.value.startswith("cuda")
+    return isinstance(node, ast.Call) and dotted_name(node.func) == "torch.device"
+
+
+def _kwarg(node: ast.Call, name: str) -> Optional[ast.AST]:
+    return next((k.value for k in node.keywords if k.arg == name), None)
+
+
+def _pageable_upload(node: ast.Call) -> Optional[str]:
+    """The callee of a host-to-device upload from pageable memory, or None."""
+    name = dotted_name(node.func)
+    if name in UPLOAD_CALLS:
+        dev = _kwarg(node, "device")
+        if dev is not None and not (isinstance(dev, ast.Constant) and dev.value is None):
+            return name
+        return None
+    fn = node.func
+    if not (isinstance(fn, ast.Attribute) and fn.attr in UPLOAD_METHODS):
+        return None
+    nb = _kwarg(node, "non_blocking")
+    if isinstance(nb, ast.Constant) and nb.value is True:
+        return None
+    if fn.attr == "to" and not any(_is_device(a) for a in
+                                   node.args[:1] + [_kwarg(node, "device")] if a):
+        return None
+    return name or fn.attr
 
 
 def _attr_root(node: ast.AST) -> Optional[str]:
@@ -252,6 +304,9 @@ class SyncPointRule(Rule):
                     f"host sync `{finding}` on a per-token/per-chunk path; "
                     "syncs belong at declared dispatch points "
                     "(allowlist with a reason if this is one)"
+                    + (": an upload from pageable memory waits for the stream, "
+                       "upload through models.layers.upload (pinned, non_blocking)"
+                       if _pageable_upload(node) else "")
                 ),
                 call=finding,
                 arg=first_arg_src(node),
@@ -259,6 +314,9 @@ class SyncPointRule(Rule):
 
     @staticmethod
     def _sync(node: ast.Call, host: Set[str]) -> Optional[str]:
+        upload = _pageable_upload(node)
+        if upload is not None:
+            return upload
         name = dotted_name(node.func)
         if name in SYNC_CALLS:
             if node.args and _is_host(node.args[0], host):

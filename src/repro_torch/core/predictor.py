@@ -19,6 +19,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.models.layers import upload
 from repro_torch.training.optimizer import AdamW
 
 HIDDEN = (2048, 1536, 1024, 512, 256, 128, 64)
@@ -106,6 +107,20 @@ class ExpertMLP(nn.Module):
                     bn.var.copy_(t(bn_state[i]["var"]))
         return model
 
+    def reference_tree(self):
+        """(params, bn_state) in the reference's layout, the inverse of
+        ``from_jax``: per layer {"w" [in, out], "b", "bn_scale", "bn_bias"},
+        per hidden layer {"mean", "var"}, as f32 numpy arrays."""
+        f = lambda t: t.detach().float().cpu().numpy()
+        params, bn_state = [], []
+        for i, lin in enumerate(self.linears):
+            params.append({"w": f(lin.weight).T.copy(), "b": f(lin.bias)})
+            if i < len(self.norms):
+                bn = self.norms[i]
+                params[-1].update(bn_scale=f(bn.scale), bn_bias=f(bn.bias))
+                bn_state.append({"mean": f(bn.mean), "var": f(bn.var)})
+        return params, bn_state
+
 
 def bce_loss(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     """Eq. 6: multi-label binary cross-entropy over sigmoid outputs, in the
@@ -124,8 +139,7 @@ class TrainedPredictor:
     def predict_logits(self, x: np.ndarray) -> np.ndarray:
         self.model.eval()
         dev = next(self.model.parameters()).device
-        lg = self.model(torch.as_tensor(np.asarray(x), dtype=torch.float32,
-                                        device=dev))
+        lg = self.model(upload(x, dev, torch.float32))
         return lg.cpu().numpy()
 
     def predict_topk(self, x: np.ndarray, k: Optional[int] = None) -> np.ndarray:

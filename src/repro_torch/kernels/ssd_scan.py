@@ -74,7 +74,7 @@ def ssd_scan_plain(x, b, c, da, dt, *, chunk: int = 256):
     # select the exponent before exp, so that neither the product here nor
     # exp's backward (0 * inf) ever sees an inf
     ldec = torch.exp(torch.where(tri, cst[..., :, None] - cst[..., None, :],
-                                 torch.tensor(float("-inf"), device=x.device)))
+                                 float("-inf")))
     m = gmat * ldec * dtc.transpose(2, 3)[..., None, :]
     y = torch.einsum("bchqk,bckhp->bcqhp", m, xh)
 

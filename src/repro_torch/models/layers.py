@@ -29,6 +29,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
 from repro_torch.kernels.flash_attention import (FlashAttentionCrossFn, FlashAttentionFn,
@@ -45,6 +46,20 @@ NEG_INF = -1e9  # mask value (f32-safe); the kernels use their own -1e30
 
 def vocab_pad_of(vocab: int) -> int:
     return -(-vocab // 128) * 128
+
+
+def upload(a, device, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """A host array (or nested list) as a new tensor on ``device``, never a
+    view of ``a``. To the card it goes through pinned memory with
+    ``non_blocking=True``: an upload from pageable memory makes the host wait
+    for the stream, a pinned one does not. The pinned copy is a block of the
+    caching host allocator, which records an event on the copy and reuses the
+    block only once that event has passed, so ``a`` may be overwritten as
+    soon as this returns."""
+    t = torch.tensor(np.asarray(a), dtype=dtype)
+    if torch.device(device).type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
 
 
 @dataclasses.dataclass(frozen=True)

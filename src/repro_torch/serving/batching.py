@@ -54,7 +54,7 @@ from repro_torch.core.prefix import PrefixTree
 from repro_torch.core.qos import (Admission, AdmissionController, ReplicaLoad,
                                   TBTLedger)
 from repro_torch.core.scheduler import DuoServeScheduler
-from repro_torch.models.layers import PDT
+from repro_torch.models.layers import PDT, upload
 from repro_torch.obs.spans import SpanRecorder, monotonic
 from repro_torch.serving.api import (FinishEvent, GenerationRequest,
                                      RejectEvent, RequestSnapshot,
@@ -518,7 +518,7 @@ class BatchedServingEngine(EngineCore):
         place by ``prefill_chunk``) and a device copy of its positions."""
         return ([k[slot:slot + 1] for k in self._K],
                 [v[slot:slot + 1] for v in self._V],
-                torch.tensor(self._slot_pos[slot:slot + 1], device=self.device))
+                upload(self._slot_pos[slot:slot + 1], self.device))
 
     def _release_expert_contributions(self, req: Request) -> None:
         """Drop the residency entries the request's prefill chunks / last
@@ -905,7 +905,7 @@ class BatchedServingEngine(EngineCore):
         if np.array_equal(idx, np.arange(lo, lo + idx.size)):
             hi = lo + idx.size
             return self._K[l][lo:hi], self._V[l][lo:hi], None
-        jidx = torch.as_tensor(idx, dtype=torch.long, device=self.device)
+        jidx = upload(idx, self.device, torch.long)
         return self._K[l][jidx], self._V[l][jidx], jidx
 
     def _decode_step(self, batch: List[Request]) -> None:
@@ -922,9 +922,9 @@ class BatchedServingEngine(EngineCore):
         for b in range(B):
             self._slot_pos[idx[b], slot_np[b]] = pos_np[b]
         dev = self.device
-        sp = torch.as_tensor(self._slot_pos[idx], device=dev)
-        pos = torch.as_tensor(pos_np, device=dev)
-        slot = torch.as_tensor(slot_np, dtype=torch.long, device=dev)
+        sp = upload(self._slot_pos[idx], dev)
+        pos = upload(pos_np, dev)
+        slot = upload(slot_np, dev, torch.long)
         rows = torch.arange(B, device=dev)
 
         x = self._embed(toks)
@@ -976,8 +976,8 @@ class BatchedServingEngine(EngineCore):
                 self.perf.inc("decode_ffn_launches")
                 self.perf.inc("decode_rows_grouped", disp.n_rows)
                 self.perf.inc("decode_rows_launched", disp.n_launched)
-                u_of = torch.as_tensor(disp.u_of, dtype=torch.long, device=dev)
-                c_of = torch.as_tensor(disp.c_of, dtype=torch.long, device=dev)
+                u_of = upload(disp.u_of, dev, torch.long)
+                c_of = upload(disp.c_of, dev, torch.long)
                 for j in range(self.k):
                     y = raw_g[u_of[:, j], c_of[:, j]]   # f32 [B, d]
                     acc = acc + (y * w[:, j, None]).to(acc.dtype)
@@ -999,7 +999,7 @@ class BatchedServingEngine(EngineCore):
                     inv[e] = u
                 for j in range(self.k):
                     # j-th choice of every row, in that row's top-k order
-                    u_j = torch.as_tensor(inv[ids_np[:, j]], device=dev)
+                    u_j = upload(inv[ids_np[:, j]], dev)
                     y = stacked[u_j, rows]
                     acc = acc + (y * w[:, j, None]).to(acc.dtype)
             x = x + acc.reshape(x.shape)

@@ -295,8 +295,7 @@ class EngineCore:
         return lg.masked_fill(pad, -1e9)
 
     def _embed(self, tokens) -> torch.Tensor:
-        tok = torch.as_tensor(np.asarray(tokens), dtype=torch.long,
-                              device=self.device).clamp(0, self.vp - 1)
+        tok = L.upload(tokens, self.device, torch.long).clamp(0, self.vp - 1)
         return self.dev["embed"][tok]
 
     def _grouped_ffn_raw(self, l: int, union: Sequence[int], xn,
@@ -313,10 +312,9 @@ class EngineCore:
             # output is never scattered back
             slots = np.pad(slots, (0, row_idx.shape[0] - slots.size))
         x2 = xn.reshape(-1, xn.shape[-1])
-        rows = torch.as_tensor(row_idx, dtype=torch.long, device=self.device)
-        out = expert_ffn_from_pool(
-            x2[rows], *self.cache.pools,
-            torch.as_tensor(slots, device=self.device))
+        rows = L.upload(row_idx, self.device, torch.long)
+        out = expert_ffn_from_pool(x2[rows], *self.cache.pools,
+                                   L.upload(slots, self.device))
         self.cache.mark_used(slots)
         return out.float(), rows
 

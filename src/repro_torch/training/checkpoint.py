@@ -1,9 +1,9 @@
 """Checkpointing: a parameter tree <-> one ``.npz`` (port of
 ``repro.training.checkpoint``, the same format).
 
-Keys are the ``/``-joined key paths of a nested dict, written in
-``jax.tree_util``'s order (sorted keys); bf16 leaves are stored as a
-``uint16`` view; ``__meta__`` holds a JSON ``{"dtypes": {key: numpy dtype
+Keys are the ``/``-joined key paths of nested dicts and lists (a list
+entry by its index), written in ``jax.tree_util``'s order (sorted keys);
+bf16 leaves are stored as a ``uint16`` view; ``__meta__`` holds a JSON ``{"dtypes": {key: numpy dtype
 name}, "extra": {...}}``. A file written by either package loads in the
 other. The write is atomic: a temporary file in the same directory,
 renamed over the path.
@@ -22,10 +22,12 @@ _TORCH = {"bfloat16": torch.bfloat16}
 
 
 def _flatten(tree, prefix: str = "") -> Dict[str, Any]:
-    if isinstance(tree, dict):
+    if isinstance(tree, (dict, list, tuple)):
+        items = (sorted(tree.items()) if isinstance(tree, dict)
+                 else enumerate(tree))
         flat = {}
-        for k in sorted(tree):
-            flat.update(_flatten(tree[k], f"{prefix}{k}/"))
+        for k, v in items:
+            flat.update(_flatten(v, f"{prefix}{k}/"))
         return flat
     return {prefix[:-1]: tree}
 
@@ -82,6 +84,8 @@ def load(path: str, like=None):
     def rebuild(node, prefix):
         if isinstance(node, dict):
             return {k: rebuild(v, f"{prefix}{k}/") for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(rebuild(v, f"{prefix}{i}/") for i, v in enumerate(node))
         return flat[prefix[:-1]].to(node.device)
 
     return rebuild(like, ""), meta["extra"]

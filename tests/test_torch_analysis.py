@@ -105,6 +105,45 @@ def test_sync_point_ignores_host_values(tmp_path):
     assert rep.findings == []
 
 
+@pytest.mark.parametrize("call", [
+    "torch.as_tensor(idx, dtype=torch.long, device=self.device)",
+    "torch.as_tensor(self._slot_pos[idx], device=dev)",
+    "torch.tensor(pos_np, device=self.device)",
+    "torch.from_numpy(pos_np).to(dev)",
+    "torch.from_numpy(pos_np).to(device=self.device)",
+    "torch.from_numpy(pos_np).to('cuda')",
+    "torch.from_numpy(pos_np).cuda()",
+])
+def test_sync_point_flags_pageable_upload(tmp_path, call):
+    """An upload from pageable host memory waits for the stream: flagged in
+    a hot scope, with the helper named in the message."""
+    rep = lint_snippet(tmp_path, "serving/batching.py", f"""
+        import torch
+        class BatchedServingEngine:
+            def _kv_rows(self, l: int, idx, pos_np, dev):
+                return {call}
+    """)
+    assert rules_of(rep) == ["sync-point"]
+    assert "models.layers.upload" in rep.findings[0].message
+
+
+def test_sync_point_allows_pinned_non_blocking_upload(tmp_path):
+    """The upload helper, a pinned ``non_blocking`` copy, a device-side
+    cast and a host array's element are not syncs."""
+    rep = lint_snippet(tmp_path, "serving/engine.py", """
+        import numpy as np
+        import torch
+        from repro_torch.models.layers import upload
+        class EngineCore:
+            def _embed(self, tokens, idx: np.ndarray):
+                tok = upload(tokens, self.device, torch.long)
+                pin = torch.from_numpy(idx).pin_memory().to(self.device, non_blocking=True)
+                lo = int(idx[0])
+                return self.dev["embed"][tok].to(torch.float32), pin.to(tok.dtype), lo
+    """)
+    assert rep.findings == []
+
+
 def test_sync_point_scans_kernels_everywhere(tmp_path):
     rep = lint_snippet(tmp_path, "kernels/custom.py", """
         def my_kernel(x):

@@ -264,3 +264,22 @@ def test_shared_expert_apply():
     np.testing.assert_allclose(_np(got), _np(want), **BF16)
     zero = EngineCore._shared({}, _t(x))
     assert zero.shape == (6, jcfg.d_model) and not zero.any()
+
+
+@pytest.mark.parametrize("a, dtype", [
+    (np.arange(12, dtype=np.int32).reshape(3, 4), None),
+    (np.arange(12, dtype=np.int32).reshape(3, 4)[:, ::2], torch.long),
+    ([[5], [7]], torch.long),
+    (np.linspace(-1, 1, 7), torch.float32),
+])
+def test_upload_equals_as_tensor_and_owns_its_memory(a, dtype):
+    """``layers.upload`` on the CPU: the values and dtype of
+    ``torch.as_tensor(np.asarray(a), dtype)``, and a copy, never a view of
+    ``a`` (the engine mutates the arrays it uploads, ``_slot_pos`` rows
+    among them)."""
+    want = torch.as_tensor(np.asarray(a), dtype=dtype).clone()
+    got = TL.upload(a, "cpu", dtype)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+    if isinstance(a, np.ndarray):
+        a[...] = -3
+        assert torch.equal(got, want)
