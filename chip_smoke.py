@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--layers 4] [--seed 0]
+    python3 chip_smoke.py --flash-decode SRC   # flash_decode's shapes on SRC's package
 
 Phases, each printing one JSON line; any failure raises and exits non-zero:
 
@@ -38,8 +39,13 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                C=64 (``c64``) and ``long`` (C=512 from 3584, W=4096),
                timed beside SDPA with its mask and beside the folded
                ``flash_decode`` route it replaces (``folded_device_ms``).
-               Tolerance: bf16 outputs rtol = atol = 2e-2 (the repo's
-               kernel-test tolerance), ``ssd_scan``'s f32 outputs 1e-3
+               ``flash_decode`` also runs at the batch phase's decode row
+               (``batch``: B=8 over W=2048 at the phase's positions), and
+               every ``flash_decode`` record carries its kernels' device ms
+               apart (``parts``: the split pass and the combine, from the
+               same profiler window). Tolerance: bf16 outputs rtol = atol =
+               2e-2 (the repo's kernel-test tolerance), ``ssd_scan``'s f32
+               outputs 1e-3
                (tests/test_kernels.py's for that kernel). Then one
                ``kernel_variant`` line per shape that only the families
                phase runs, held and timed the same way, and held at the
@@ -111,8 +117,7 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
   8. cluster — the serving surface (``repro_torch.serving``: ReplicaPool,
                ClusterFrontend, handles) over the batch phase's params,
                predictor and 8 prompts, every replica at ``max_seq=2048``
-               (where ``flash_decode``'s split count does not depend on the
-               batch) and ``max_batch=8``. Run A, ``disagg``: a prefill and
+               and ``max_batch=8``. Run A, ``disagg``: a prefill and
                a decode replica (``prefill_budget=512``, rr), 4 requests
                submitted before the first poll and 4 after poll 4, each
                handed off once (its KV rows to host tensors and back). Run
@@ -385,25 +390,23 @@ def busy_ms(events) -> float:
     return total / 1e3
 
 
-def kernel_ms(fn, reps: int = 20, opening: int = 10) -> list:
-    """Device time of each call: the busy time (``busy_ms``) of the device
-    work (kernels, copies, sets) the call launches, from a
-    ``torch.profiler`` window over ``reps`` calls, each ending in a sync.
-    The calls run one after another and launch the same work, so the
-    device events, in device order, end in ``reps`` equal runs of names
-    (the host and device clocks are not aligned closely enough to match
-    events to calls); a call's run is the shortest that repeats, so a call
-    must not launch one sequence of kernels twice. ``opening`` more calls
-    open the window and are not counted: the profiler drops events at its
-    start (the first 8 calls of a masked SDPA, NVIDIA H100 80GB HBM3). A
-    window that returns no device event at all is opened again, twice at
-    most: once in a whole run the profiler returned none (NVIDIA H100 80GB
-    HBM3, torch 2.11), where the same calls measured fine before and
-    after; so is one that returns too few to end in ``reps`` equal runs
-    (once, 5 of a window's 30 ``flash_attention`` calls, same card; three
-    windows in a row, 14 of 30 ``flash_attention_chunk`` calls at W=4096).
-    After six such windows the calls are timed by CUDA events instead
-    (``event_ms``, host issue included), and a ``note`` line says so."""
+def device_runs(fn, reps: int = 20, opening: int = 10):
+    """The device events (kernels, copies, sets) of each of ``reps`` calls,
+    from a ``torch.profiler`` window, each call ending in a sync. The calls
+    run one after another and launch the same work, so the device events,
+    in device order, end in ``reps`` equal runs of names (the host and
+    device clocks are not aligned closely enough to match events to
+    calls); a call's run is the shortest that repeats, so a call must not
+    launch one sequence of kernels twice. ``opening`` more calls open the
+    window and are not counted: the profiler drops events at its start
+    (the first 8 calls of a masked SDPA, NVIDIA H100 80GB HBM3). A window
+    that returns no device event at all is opened again, twice at most:
+    once in a whole run the profiler returned none (NVIDIA H100 80GB HBM3,
+    torch 2.11), where the same calls measured fine before and after; so
+    is one that returns too few to end in ``reps`` equal runs (once, 5 of
+    a window's 30 ``flash_attention`` calls, same card; three windows in a
+    row, 14 of 30 ``flash_attention_chunk`` calls at W=4096). Returns the
+    runs, or None and the last window's events after six such windows."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -419,13 +422,42 @@ def kernel_ms(fn, reps: int = 20, opening: int = 10) -> list:
             tail = work[len(work) - reps * n:]
             runs = [tail[i * n:(i + 1) * n] for i in range(reps)]
             if all([e.name for e in r] == [e.name for e in runs[0]] for r in runs):
-                return [busy_ms(r) for r in runs]
+                return runs, work
+    return None, work
+
+
+def kernel_ms(fn, reps: int = 20, opening: int = 10) -> list:
+    """Device time of each call: the busy time (``busy_ms``) of the device
+    work each call launches (``device_runs``). Where the profiler gives no
+    ``reps`` equal runs, the calls are timed by CUDA events instead
+    (``event_ms``, host issue included), and a ``note`` line says so."""
+    runs, work = device_runs(fn, reps, opening)
+    if runs is not None:
+        return [busy_ms(r) for r in runs]
     names = {}
     for e in work:
         names[e.name[:40]] = names.get(e.name[:40], 0) + 1
     emit(dict(note=f"profiler saw {len(work)} device events in {reps + opening} calls, "
                    f"no {reps} equal runs at the end: {names}; CUDA event times used"))
     return event_ms(fn, reps)
+
+
+def kernel_parts_ms(fn, reps: int = 20):
+    """Device ms per call of each kernel ``fn`` launches, by kernel name
+    (namespace and template arguments cut): the median over ``reps`` calls
+    of one ``device_runs`` window, or "not measured" where it gave none."""
+    runs, _ = device_runs(fn, reps)
+    if runs is None:
+        return "not measured: no equal runs in the profiler window"
+    parts = {}
+    for run in runs:
+        per = {}
+        for e in run:
+            name = e.name.split("<")[0].split("::")[-1].split("(")[0].replace("void ", "")
+            per[name] = per.get(name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
+        for name, ms in per.items():
+            parts.setdefault(name, []).append(ms)
+    return {name: float(np.median(v)) for name, v in parts.items()}
 
 
 def in_turns(kernel, library, timer) -> tuple:
@@ -588,6 +620,7 @@ def prefill_attention(H, Hkv, D, S, g, B: int = 1, lse: bool = False, window: in
 
 def kernel_flash_decode(g):
     import torch.nn.functional as F
+    from repro_torch.configs.base import get_config
     from repro_torch.kernels.flash_decode import (flash_decode, flash_decode_plain,
                                                   n_splits)
     H, Hkv, D = 32, 8, 128
@@ -609,9 +642,10 @@ def kernel_flash_decode(g):
         bms, by = bound(2 * (2 * H * D + 2 * n_valid * Hkv * D) + 4 * (W + 1),
                         4 * H * D * n_valid)
         return (q, k, v, pos, sp), dict(
-            shape=dict(B=1, W=W, H=H, Hkv=Hkv, D=D, n_split=n_splits(1, Hkv, W)),
+            shape=dict(B=1, W=W, H=H, Hkv=Hkv, D=D, n_split=n_splits(Hkv, W)),
             max_abs_err=err, bound_ms=bms, bound_by=by,
-            bound_share=bms / timed["device_ms"], **timed)
+            bound_share=bms / timed["device_ms"],
+            parts=kernel_parts_ms(lambda: flash_decode(q, k, v, pos, sp)), **timed)
 
     (q, k, v, pos, sp), main = shape(545)
     W, err = 545, main["max_abs_err"]
@@ -626,10 +660,14 @@ def kernel_flash_decode(g):
                                flash_decode_plain(q2, k2, v2, pos2, sp2, window=window)))
     plain_ms = time_ms(lambda: flash_decode_plain(q, k, v, pos, sp))
     _, long = shape(4096)
+    # the batch phase's decode row (its kernel_checks hold it again there)
+    batch = decode_attention(get_config("mixtral_8x7b"), 2048,
+                             [n + BATCH_NEW - 1 for n in BATCH_LENS])
     return dict(name="flash_decode", route="cuda",
                 source="src/repro_torch/csrc/flash_decode.cu",
                 replaces="src/repro/kernels/flash_decode.py:80",
-                plain_ms=plain_ms, long=long, **(main | dict(max_abs_err=err)))
+                plain_ms=plain_ms, long=long, batch=batch,
+                **(main | dict(max_abs_err=max(err, batch["max_abs_err"]))))
 
 
 def kernel_flash_attention_chunk(g):
@@ -1272,14 +1310,16 @@ def check_batch_small(seed: int):
 
 # -- phase 7: the batched engine at Mixtral-8x7B width ---------------------------
 
+# the batch phase's prompt lengths and new tokens per request
+BATCH_LENS, BATCH_NEW = (128, 256, 384, 512, 512, 768, 1024, 1536), 32
+
 def serve_batch(mixtral, seed: int, kernels):
     from repro_torch.kernels.flash_attention import flash_attention_chunk as chunk_kernel
     from repro_torch.serving.batching import BatchedServingEngine
     cfg, params, stats, pred = mixtral
     rng = np.random.default_rng(seed + 2)
-    lens = (128, 256, 384, 512, 512, 768, 1024, 1536)
+    lens, new_tokens = BATCH_LENS, BATCH_NEW
     prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in lens]
-    new_tokens = 32
     # the phase's kernel shapes held against their plain versions, before
     # its engines run (these launches are not the path's)
     with uncounted(kernels):
@@ -1831,8 +1871,10 @@ def decode_attention(cfg, W: int, pos):
                                   attn_mask=mask, enable_gqa=True))
     plain_ms = time_ms(lambda: flash_decode_plain(*args), reps=5)
     bms, by = decode_bound(H, Hkv, D, int(mask.sum()), B, W)
-    return dict(B=B, W=W, pos=pos.tolist(), max_abs_err=err, plain_ms=plain_ms,
-                bound_ms=bms, bound_by=by, bound_share=bms / timed["device_ms"], **timed)
+    return dict(B=B, W=W, H=H, Hkv=Hkv, D=D, pos=pos.tolist(), max_abs_err=err,
+                plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                bound_share=bms / timed["device_ms"],
+                parts=kernel_parts_ms(lambda: flash_decode(*args)), **timed)
 
 
 def decode_expert_ffn(cfg):
@@ -2086,9 +2128,8 @@ def check_paper_small(seed: int):
 
 # (model, layers, max_seq): DeepSeekMoE-16B at all 28 layers (31.0 GB of
 # pinned host expert slabs), Qwen3-30B-A3B at 24 of 48 (29.0 GB), Mixtral-
-# 8x22B at 4 of 56 (19.3 GB). max_seq: flash_decode's split count must not
-# depend on the batch (kernels/flash_decode.py n_splits): 32 ranges at W=2048
-# for every B when Hkv >= 5, and Qwen3's Hkv = 4 needs W=4096 (64 for every B)
+# 8x22B at 4 of 56 (19.3 GB). max_seq: each model's own choice (batch
+# invariance holds at any max_seq: flash_decode's ranges come from Hkv and W)
 PAPER_RUNS = (("deepseekmoe-16b", 28, 2048), ("qwen3-30b-a3b", 24, 4096),
               ("mixtral-8x22b", 4, 2048))
 PAPER_NEW_TOKENS = 16
@@ -3358,8 +3399,10 @@ def cross_decode(B, M, H, Hkv, D, g):
                                   enable_gqa=True))
     plain_ms = time_ms(lambda: flash_decode_plain(*args), reps=5)
     bms, by = decode_bound(H, Hkv, D, B * M, B, M)
-    return dict(B=B, W=M, cross=True, max_abs_err=err, plain_ms=plain_ms, bound_ms=bms,
-                bound_by=by, bound_share=bms / timed["device_ms"], **timed)
+    return dict(B=B, W=M, H=H, Hkv=Hkv, D=D, cross=True, max_abs_err=err,
+                plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                bound_share=bms / timed["device_ms"],
+                parts=kernel_parts_ms(lambda: flash_decode(*args)), **timed)
 
 
 def attention_err(B, Sq, Sk, H, Hkv, D, g, cross: bool = False, window: int = -1):
@@ -3724,6 +3767,49 @@ def serve_families(seed: int, kernels):
     return dict(phase="families", launches=launches)
 
 
+def flash_decode_shapes():
+    """Every ``flash_decode`` shape a main path runs, as (label, record
+    maker): Mixtral-8x7B's serve rows (B=1 at W=545 and 4096) and the batch
+    phase's B=8 row, the bundles' (B=2, W=2064), and the families'
+    variants (D=112, D=256, G=48, the cross decode)."""
+    from repro_torch.configs.base import get_config
+    c = {a: get_config(a) for a in ("mixtral_8x7b", "qwen2_moe_a2_7b", "qwen3_1_7b",
+                                     "zamba2_7b", "gemma3_1b", "granite_34b",
+                                     "llama_3_2_vision_90b")}
+    W = BUNDLE_S + BUNDLE_NEW
+    zw, vision = c["zamba2_7b"].sliding_window, c["llama_3_2_vision_90b"]
+    rows = (("B=1, W=545 (Mixtral-8x7B serve)", "mixtral_8x7b", 545, [544]),
+            ("B=1, W=4096 (Mixtral-8x7B)", "mixtral_8x7b", 4096, [4095]),
+            ("B=8, W=2048 (Mixtral-8x7B batch phase)", "mixtral_8x7b", 2048,
+             [n + BATCH_NEW - 1 for n in BATCH_LENS]),
+            ("B=2, W=2064 (Qwen2-MoE-A2.7B)", "qwen2_moe_a2_7b", W, [W - 1] * 2),
+            ("B=2, W=2064 (Qwen3-1.7B)", "qwen3_1_7b", W, [W - 1] * 2),
+            ("D=112 (Zamba2-7B, W=4096)", "zamba2_7b", zw, [zw - 1]),
+            ("D=256 (gemma3-1b)", "gemma3_1b", W, [W - 1] * 2),
+            ("G=48 (granite-34b)", "granite_34b", W, [W - 1] * 2))
+    return tuple((label, lambda a=arch, w=w, p=p: decode_attention(c[a], w, p))
+                 for label, arch, w, p in rows) + (
+        ("cross decode (Llama-3.2-Vision-90B)",
+         lambda: cross_decode(2, vision.n_frontend_tokens, vision.n_heads, vision.n_kv_heads,
+                              vision.hd, torch.Generator(device="cuda").manual_seed(2))),)
+
+
+def flash_decode_only(src: Path) -> int:
+    """``--flash-decode SRC``: every ``flash_decode_shapes`` record, on the
+    port's package from ``src``, so two trees' kernels are timed by the same
+    code in one call. Prints the card and one ``decode_kernel`` line a
+    shape."""
+    sys.path.insert(0, str(src))
+    from repro_torch.kernels import _build
+    emit(dict(phase="device", nvidia_smi=nvidia_smi(), name=torch.cuda.get_device_name(0),
+              torch=torch.__version__, cuda=torch.version.cuda))
+    _build.build("flash_decode")
+    for label, record in flash_decode_shapes():
+        emit(dict(phase="decode_kernel", src=str(src), shape=label, **record()))
+        release()
+    return 0
+
+
 def decode_step_only(src: Path, layers: int, seed: int) -> int:
     """``--decode-step SRC``: the analysis phase's engine and decode steps
     (``mixtral_setup``, ``audit_engine``, ``decode_steps``) on the port's
@@ -3753,10 +3839,16 @@ def main() -> int:
                     help="only time the analysis phase's B=8 decode steps (decode_steps) "
                          "with the port's package taken from SRC (a src/ directory, "
                          "such as an unpacked parent commit's), and print one line")
+    ap.add_argument("--flash-decode", metavar="SRC", default=None,
+                    help="only time flash_decode at every shape a main path runs "
+                         "(flash_decode_shapes) with the port's package taken from SRC, "
+                         "and print one line a shape")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if args.flash_decode:
+        return flash_decode_only(Path(args.flash_decode).resolve())
     if args.decode_step:
         return decode_step_only(Path(args.decode_step).resolve(), args.layers, args.seed)
     sys.path.insert(0, str(ROOT / "src"))
@@ -3852,14 +3944,16 @@ def main() -> int:
     for phase in (srv, bat, clu, examples, ssm, paper, bundles, train, trained, families):
         for n, c in phase["launches"].items():
             launches[n] = launches.get(n, 0) + c
-    compact = ("variant", "shape", "B", "W", "max_abs_err", "ms", "device_ms", "plain_ms",
-               "bound_ms", "bound_by", "library_ms", "library_device_ms")
+    compact = ("variant", "shape", "B", "W", "max_abs_err", "ms", "device_ms", "parts",
+               "plain_ms", "bound_ms", "bound_by", "library_ms", "library_device_ms")
     summary = [{k: r[k] for k in ("name", "route", "source", "replaces")}
                | {"launches": launches[r["name"]]}
                | {k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                     "bound_by", "library_ms")}
-               | {k: r[k] for k in ("device_ms", "library_device_ms", "cublas_device_ms",
-                                    "folded_device_ms") if k in r}
+               | {k: r[k] for k in ("device_ms", "parts", "library_device_ms",
+                                    "cublas_device_ms", "folded_device_ms") if k in r}
+               | {k: {c: r[k][c] for c in compact if c in r[k]}
+                  for k in ("long", "batch") if k in r}
                | ({"variants": [{k: v[k] for k in compact if k in v}
                                 for v in variants[r["name"]]]}
                   if variants.get(r["name"]) else {})

@@ -8,12 +8,13 @@ layout. A slot is valid when ``0 <= slot_pos <= pos`` and, for
 ``window > 0``, ``slot_pos > pos - window``. Scale ``D**-0.5``, mask -1e30,
 f32 softmax statistics, probabilities rounded to the V dtype before PV.
 
-On a CUDA tensor the wrapper launches ``csrc/flash_decode.cu``: a split-K
-pass over ``n_splits(...)`` contiguous slot ranges, then a combine pass, both
-from one C call; on a CPU tensor it runs ``flash_decode_plain``. The kernel
-takes head_dim 64, 112, 128 and 256 and any number of query heads per KV
-head (a block serves at most ``MAX_GROUP`` of them; more are split into
-groups of blocks that read the same slots).
+On a CUDA tensor the wrapper launches ``csrc/flash_decode.cu``: a split pass
+over ``n_splits(Hkv, W)`` ranges of whole ``TILE_SLOTS``-slot tiles, in which
+one block serves every query head of a KV head on the tensor cores, then a
+combine pass, both from one C call; on a CPU tensor it runs
+``flash_decode_plain``. The ranges do not depend on the batch, so a row's
+output is bit-equal alone and in any batch. The kernel takes head_dim 64,
+112, 128 and 256 and up to ``MAX_GROUP`` query heads per KV head.
 ``flash_decode.launches`` counts wrapper calls that launched the kernels.
 """
 from __future__ import annotations
@@ -26,9 +27,9 @@ from repro_torch.kernels import _build
 
 NEG_INF = -1e30
 H100_SMS = 132
-MIN_SPLIT_SLOTS = 32    # slots a range holds at least, where W allows
-MAX_SPLIT_SLOTS = 64    # the kernel's score buffer (csrc/flash_decode.cu MAX_SPLIT)
-MAX_GROUP = 8           # query heads a block serves (csrc/flash_decode.cu MAXG)
+TILE_SLOTS = 64         # slots of a tile (csrc/flash_decode.cu TILE)
+MAX_RANGE_TILES = 64    # tiles a range holds at most (csrc/flash_decode.cu MAX_TILES)
+MAX_GROUP = 64          # query heads a block serves: four 16-row mma tiles
 HEAD_DIMS = (64, 112, 128, 256)
 # q, k, v, pos, slot_pos, o, scratch, B, H, Hkv, W, D, strides, window,
 # scale, n_split, stream
@@ -38,13 +39,24 @@ _ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
 _SMS = {}
 
 
-def n_splits(B: int, Hkv: int, W: int, sms: int = H100_SMS) -> int:
-    """How many slot ranges the split pass cuts W into: enough blocks
-    (B * Hkv * n) to cover ``sms`` SMs, at most ``MAX_SPLIT_SLOTS`` slots a
-    range, and at least ``MIN_SPLIT_SLOTS`` where W allows. Range i is
-    ``[i*W // n, (i+1)*W // n)``, so lengths differ by at most one."""
-    n = max(-(-sms // (B * Hkv)), -(-W // MAX_SPLIT_SLOTS))
-    return max(1, min(n, W // MIN_SPLIT_SLOTS))
+def n_splits(Hkv: int, W: int, sms: int = H100_SMS) -> int:
+    """How many slot ranges the split pass cuts W into, from the KV heads
+    and W alone (never the batch): enough blocks (Hkv * n) for two on each
+    of ``sms`` SMs at B=1, at least one tile a range and at most
+    ``MAX_RANGE_TILES``. Of the T = ceil(W / TILE_SLOTS) tiles, range i
+    holds tiles ``[i*T // n, (i+1)*T // n)`` (the last tile ends at W), so
+    range lengths differ by at most one tile."""
+    T = -(-W // TILE_SLOTS)
+    n = max(-(-2 * sms // Hkv), -(-T // MAX_RANGE_TILES))
+    return max(1, min(n, T))
+
+
+def split_plan(B: int, H: int, Hkv: int, W: int, D: int, sms: int = H100_SMS) -> dict:
+    """The launch the wrapper makes for a [B,H,D] query over W slots: the
+    split count (``n_splits``, the same for every B) and the scratch floats
+    (each head's partial acc and (m, l) in each range)."""
+    n = n_splits(Hkv, W, sms)
+    return dict(n_split=n, scratch=B * H * n * (D + 2))
 
 
 def flash_decode_plain(q, k, v, pos, slot_pos, *, window: int = -1):
@@ -82,6 +94,9 @@ def flash_decode(q, k, v, pos, slot_pos, *, window: int = -1):
                          f"pos {tuple(pos.shape)} slot_pos {tuple(slot_pos.shape)}")
     if D not in HEAD_DIMS:
         raise ValueError(f"the kernel is built for head_dim in {HEAD_DIMS} (D={D})")
+    if H // Hkv > MAX_GROUP:
+        raise ValueError(f"the kernel serves at most {MAX_GROUP} query heads per KV head "
+                         f"(G={H // Hkv})")
     _build.refuse_grad("flash_decode", q, k, v)
     if any(t.device != q.device for t in tensors):
         raise ValueError("flash_decode: tensors on different devices")
@@ -90,24 +105,24 @@ def flash_decode(q, k, v, pos, slot_pos, *, window: int = -1):
             raise ValueError("q, k, v must be bf16 with a contiguous last dim")
         if any(s % 8 for s in t.stride()[:-1]) or t.data_ptr() % 16:
             raise ValueError("q, k, v need 16-byte strides and pointers")
+    if max(k.stride(1), v.stride(1)) * TILE_SLOTS >= 2 ** 31:
+        raise ValueError("k, v slot strides too large for the kernel's 32-bit tile offsets")
     if pos.dtype != torch.int32 or slot_pos.dtype != torch.int32 \
             or slot_pos.stride(1) != 1:
         raise ValueError("pos / slot_pos must be int32, slot_pos rows contiguous")
     pos = pos.contiguous()   # the kernel reads pos[b] at stride 1
     if q.device not in _SMS:
         _SMS[q.device] = torch.cuda.get_device_properties(q.device).multi_processor_count
-    # the slot ranges do not depend on G: a head's ranges, and so its sums,
-    # are those of the same head in a call of MAX_GROUP heads
-    n = n_splits(B, Hkv, W, _SMS[q.device])
+    plan = split_plan(B, H, Hkv, W, D, _SMS[q.device])
     o = torch.empty((B, H, D), dtype=q.dtype, device=q.device)
-    scratch = torch.empty(B * H * n * (D + 2), dtype=torch.float32, device=q.device)
+    scratch = torch.empty(plan["scratch"], dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 11)(
         q.stride(0), q.stride(1), *k.stride()[:3], *v.stride()[:3],
         slot_pos.stride(0), o.stride(0), o.stride(1))
     fn = _build.function("flash_decode", "flash_decode_fwd", _ARGTYPES)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
             slot_pos.data_ptr(), o.data_ptr(), scratch.data_ptr(), B, H, Hkv, W,
-            D, strides, int(window), D ** -0.5, n, _build.stream_ptr(q))
+            D, strides, int(window), D ** -0.5, plan["n_split"], _build.stream_ptr(q))
     _build.check(_build.load("flash_decode"), rc, "flash_decode")
     flash_decode.launches += 1
     return o

@@ -21,11 +21,9 @@ Determinism contract: at temperature 0, handle streams under any poll()
 schedule, ``run_until_drained()`` and a ``ClusterFrontend`` of any replica
 count under any router give the same tokens for the same prompt. On the
 card this needs every kernel's arithmetic to be independent of which
-requests share a batch: ``flash_decode`` picks its split count from the
-batch size and the window (``kernels/flash_decode.py n_splits``), so
-replicas that must agree run at one ``max_seq`` where that count does not
-depend on the batch (with 8 KV heads any W > 1024, where 64-slot ranges
-alone fill the card's 132 SMs; with 1 KV head any W < 576).
+requests share a batch: ``flash_decode`` cuts the cache into slot ranges
+from the KV heads and ``max_seq`` alone (``kernels/flash_decode.py
+n_splits``), so this holds at any ``max_seq``.
 
     pool = ReplicaPool.build(cfg, params, overrides=[{"role": "prefill"},
                              {"role": "decode"}], max_batch=8, max_seq=2048)

@@ -159,11 +159,11 @@ def _decode_case(cuda, B, W, H, Hkv, D, seed):
 @pytest.mark.parametrize("case", ["ragged", "empty_split", "all_empty", "three_rows",
                                   "small_window", "long", "d64"])
 def test_flash_decode_kernel_splits(cuda, case):
-    """Cases of the split-K pass: W not a multiple of the range length, a
-    whole range of empty slots, no valid slot at all (the mean of V, as the
-    plain version gives), three rows at three positions, a window shorter
-    than one range, W = 4096, and D = 64 with G = 4."""
-    from repro_torch.kernels.flash_decode import n_splits
+    """Cases of the split pass: W not a multiple of the tile (a ragged last
+    tile), two whole ranges of empty slots, no valid slot at all (the mean
+    of V, as the plain version gives), three rows at three positions, a
+    window shorter than one tile, W = 4096, and D = 64 with G = 4."""
+    from repro_torch.kernels.flash_decode import TILE_SLOTS, n_splits
     B, W, H, Hkv, D = {"three_rows": 3, "d64": 2}.get(case, 1), 545, 32, 8, 128
     if case == "long":
         W = 4096
@@ -172,11 +172,11 @@ def test_flash_decode_kernel_splits(cuda, case):
     q, k, v, sp = _decode_case(cuda, B, W, H, Hkv, D, seed=6)
     pos = torch.full((B,), W - 1, dtype=torch.int32, device=cuda)
     window = -1
-    n = n_splits(B, Hkv, W)
+    n, T = n_splits(Hkv, W), -(-W // TILE_SLOTS)
     if case == "ragged":
-        assert W % n
+        assert W % TILE_SLOTS
     elif case == "empty_split":
-        sp[:, (W * 2) // n:(W * 4) // n] = -1    # ranges 2 and 3
+        sp[:, TILE_SLOTS * (2 * T // n):TILE_SLOTS * (4 * T // n)] = -1   # ranges 2 and 3
     elif case == "all_empty":
         sp[:] = -1
     elif case == "three_rows":
@@ -547,8 +547,7 @@ def test_mm_f32_on_card(cuda):
 
 # -- the serving surface on the card: cluster, handoff, drain, pause ----------
 
-# a window at which flash_decode's split count does not depend on the batch
-# for the small model (Hkv = 1): W // 32 = 16 ranges for B = 1 and B = 8
+# the small model's cache: 8 tiles of 64 slots, one flash_decode range each
 CLUSTER_W = 512
 
 
@@ -594,12 +593,15 @@ def _frontend_tokens(cfg, params, prompts, rows=None, **kw):
 
 @pytest.mark.cuda
 def test_flash_decode_split_count_batch_invariant_window(cuda):
-    """At a window where ``n_splits`` is the same for B = 1 and B = 8, a
-    request's decode logits on the card are bit-equal alone and in a batch
-    of 8 (monolithic prefill, so only the decode batch differs)."""
-    from repro_torch.kernels.flash_decode import n_splits
+    """Where the split count is the same for B = 1 and B = 8 (it is at any
+    window), a request's decode logits on the card are bit-equal alone and
+    in a batch of 8 (monolithic prefill, so only the decode batch
+    differs)."""
+    from repro_torch.kernels.flash_decode import split_plan
     cfg, params = _small_engine_params(cuda)
-    assert n_splits(1, cfg.n_kv_heads, CLUSTER_W) == n_splits(8, cfg.n_kv_heads, CLUSTER_W)
+    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    assert (split_plan(1, H, Hkv, CLUSTER_W, D)["n_split"]
+            == split_plan(8, H, Hkv, CLUSTER_W, D)["n_split"])
     prompts = _prompts(cfg, n=8)
     batched, alone = {}, {}
     _frontend_tokens(cfg, params, prompts, batched, max_batch=8)
@@ -609,6 +611,26 @@ def test_flash_decode_split_count_batch_invariant_window(cuda):
     for k, rows in batched.items():
         assert len(rows) == len(alone[k]) == 9
         assert all(np.array_equal(a, b) for a, b in zip(rows, alone[k]))
+
+
+@pytest.mark.cuda
+def test_batched_tokens_equal_alone_at_max_seq_512_eight_kv_heads(cuda):
+    """The small model with 8 KV heads at ``max_seq=512``, where the split
+    count once came from the batch (16 ranges alone, 8 in a batch of 8): a
+    request's greedy tokens and logits rows in a batch of 8 equal its own
+    alone."""
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.models.params import init_params
+    cfg = dataclasses.replace(reduced(get_config("mixtral_8x7b")), head_dim=64,
+                              n_heads=16, n_kv_heads=8)
+    params = init_params(cfg, 0, device=cuda)
+    prompts = _prompts(cfg, n=8, seed=9)
+    batched, alone = {}, {}
+    toks = _frontend_tokens(cfg, params, prompts, batched, max_batch=8)
+    for p, t in zip(prompts, toks):
+        assert _frontend_tokens(cfg, params, [p], alone, max_batch=1) == [t]
+    for key, rows in batched.items():
+        assert all(np.array_equal(a, b) for a, b in zip(rows, alone[key]))
 
 
 @pytest.mark.cuda
@@ -1003,7 +1025,7 @@ def test_flash_attention_cross_bit_equal_where_lengths_match(cuda, S, D):
     (2, 545, 4, 1, 256, -1),       # gemma3's heads, G = 4
     (2, 300, 4, 1, 256, 64),
     (2, 545, 48, 1, 128, -1),      # granite-34b: G = 48, six head groups
-    (1, 300, 12, 1, 128, 32),      # G = 12: a full group and a group of 4
+    (1, 300, 12, 1, 128, 32),      # G = 12: one query tile, 4 rows of padding
     (2, 1601, 64, 8, 128, -1),     # Llama-3.2-Vision's cross decode shape
 ])
 def test_flash_decode_new_shapes(cuda, B, W, H, Hkv, D, window):
@@ -1036,13 +1058,89 @@ def test_flash_decode_d112_reads_112_columns(cuda):
 def test_flash_decode_g48_equals_six_calls_of_eight(cuda):
     """granite-34b's 48 query heads of one KV head: each head's output is
     bit-equal to the same head in a call of 8 (the slot ranges do not
-    depend on G, and a head's group position is the same)."""
+    depend on G, and a head's arithmetic does not depend on the other
+    query rows of its mma tiles)."""
     q, k, v, sp = _decode_case(cuda, 2, 1000, 48, 1, 128, seed=17)
     pos = torch.tensor([999, 700], dtype=torch.int32, device=cuda)
     full = flash_decode(q, k, v, pos, sp)
     for i in range(6):
         part = flash_decode(q[:, 8 * i:8 * i + 8].contiguous(), k, v, pos, sp)
         assert torch.equal(full[:, 8 * i:8 * i + 8], part), i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 112, 128, 256])
+@pytest.mark.parametrize("G", [1, 2, 4, 6, 8, 48])
+def test_flash_decode_groups_and_head_dims(cuda, G, D):
+    """Every query-head ratio the configurations use at every head_dim: two
+    KV heads, two rows at other positions over a ragged last tile, a hole
+    of invalid slots in a live tile and a whole dead tile."""
+    B, W, Hkv = 2, 300, 2
+    q, k, v, sp = _decode_case(cuda, B, W, G * Hkv, Hkv, D, seed=20 + G)
+    sp[0, 70:90] = -1
+    sp[1, 128:192] = -1
+    pos = torch.tensor([299, 250], dtype=torch.int32, device=cuda)
+    torch.testing.assert_close(flash_decode(q, k, v, pos, sp),
+                               flash_decode_plain(q, k, v, pos, sp), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["cross", "dead_tiles", "wrapped_window", "all_empty"])
+def test_flash_decode_live_slots(cuda, case):
+    """The cross decode (every slot at position 0, pos 0), rows whose valid
+    slots leave whole tiles dead (a row at position 100, a row with 10 dead
+    tiles in its middle), a ring that has wrapped under a window (slot s
+    holds the latest position that is s mod W), and rows with no valid slot
+    at all (the mean of V)."""
+    B, W, H, Hkv, D = 2, 2048, 32, 8, 128
+    window = -1
+    if case == "cross":
+        W, H = 1601, 64
+    q, k, v, sp = _decode_case(cuda, B, W, H, Hkv, D, seed=31)
+    pos = torch.full((B,), W - 1, dtype=torch.int32, device=cuda)
+    if case == "cross":
+        sp.zero_()
+        pos.zero_()
+    elif case == "dead_tiles":
+        pos[0] = 100
+        sp[0, 101:] = -1
+        sp[1, 640:1280] = -1
+    elif case == "wrapped_window":
+        pos = torch.tensor([5000, 2100], dtype=torch.int32, device=cuda)
+        slots = torch.arange(W, dtype=torch.int32, device=cuda)
+        sp = pos[:, None] - (pos[:, None] - slots[None]) % W
+        window = 1000
+    else:
+        sp[:] = -1
+    torch.testing.assert_close(flash_decode(q, k, v, pos, sp, window=window),
+                               flash_decode_plain(q, k, v, pos, sp, window=window),
+                               rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Hkv", [1, 4, 8])
+@pytest.mark.parametrize("W", [512, 545, 2048, 4096])
+def test_flash_decode_rows_bit_equal_alone_and_in_a_batch(cuda, W, Hkv):
+    """Row b of a B=8 call is bit-equal to a B=1 call on that row (the
+    ranges come from Hkv and W alone), and two runs are bit-equal (no
+    atomics on values). Rows at eight positions, one with a hole."""
+    B, H, D = 8, 4 * Hkv, 128
+    q, k, v, sp = _decode_case(cuda, B, W, H, Hkv, D, seed=W + Hkv)
+    pos = torch.linspace(W // 9, W - 1, B, device=cuda).to(torch.int32)
+    sp[3, W // 4:W // 2] = -1
+    full = flash_decode(q, k, v, pos, sp)
+    assert torch.equal(full, flash_decode(q, k, v, pos, sp))
+    for b in range(B):
+        one = flash_decode(q[b:b + 1], k[b:b + 1], v[b:b + 1], pos[b:b + 1], sp[b:b + 1])
+        assert torch.equal(full[b:b + 1], one), b
+
+
+@pytest.mark.cuda
+def test_flash_decode_refuses_more_than_64_heads_a_kv_head(cuda):
+    q, k, v, sp = _decode_case(cuda, 1, 64, 65, 1, 128, seed=3)
+    pos = torch.full((1,), 63, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="at most 64"):
+        flash_decode(q, k, v, pos, sp)
 
 
 @pytest.mark.cuda

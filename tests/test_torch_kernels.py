@@ -177,26 +177,34 @@ def test_wrappers_take_plain_versions_on_cpu_without_launching():
 @pytest.mark.parametrize("B,Hkv,W", [
     (1, 8, 545), (1, 8, 4096), (1, 8, 31), (1, 8, 40), (3, 8, 545),
     (1, 2, 100), (2, 4, 70000), (64, 8, 4096), (1, 1, 33), (17, 8, 1),
+    (2, 1, 512), (8, 1, 2064), (8, 4, 512), (2, 4, 2064),
 ])
 def test_flash_decode_n_splits_cover_the_card_and_tile_w(B, Hkv, W):
-    """The split-K choice: ranges [i*W//n, (i+1)*W//n) tile W exactly, each
-    holds at least MIN_SPLIT_SLOTS slots (unless W is shorter, then one
-    range) and at most MAX_SPLIT_SLOTS, and B*Hkv*n blocks cover the SMs
-    unless the minimum length stops it."""
-    from repro_torch.kernels.flash_decode import (H100_SMS, MAX_SPLIT_SLOTS,
-                                                  MIN_SPLIT_SLOTS, n_splits)
-    n = n_splits(B, Hkv, W)
-    edges = [i * W // n for i in range(n + 1)]
-    lengths = np.diff(edges)
-    assert edges[0] == 0 and edges[-1] == W and lengths.sum() == W
-    assert lengths.max() <= MAX_SPLIT_SLOTS
-    if W >= MIN_SPLIT_SLOTS:
-        assert lengths.min() >= MIN_SPLIT_SLOTS
-    else:
-        assert n == 1
-    assert B * Hkv * n >= H100_SMS or n == max(1, W // MIN_SPLIT_SLOTS)
+    """The split choice: of the T = ceil(W / TILE_SLOTS) tiles, range i
+    holds tiles [i*T//n, (i+1)*T//n), so the ranges tile W exactly, each
+    holds at least one tile and at most MAX_RANGE_TILES, lengths differ by
+    at most one tile, and Hkv*n blocks are two an SM at B=1 unless every
+    range is one tile. The launch at B rows cuts the same ranges as at one
+    row (a row's sums do not depend on the batch)."""
+    from repro_torch.kernels.flash_decode import (H100_SMS, MAX_RANGE_TILES, TILE_SLOTS,
+                                                  n_splits, split_plan)
+    n = n_splits(Hkv, W)
+    T = -(-W // TILE_SLOTS)
+    tiles = [i * T // n for i in range(n + 1)]
+    edges = [min(W, TILE_SLOTS * t) for t in tiles]
+    assert edges[0] == 0 and edges[-1] == W and sum(np.diff(edges)) == W
+    per_range = np.diff(tiles)
+    assert per_range.min() >= 1 and per_range.max() <= MAX_RANGE_TILES
+    assert per_range.max() - per_range.min() <= 1
+    assert Hkv * n >= 2 * H100_SMS or n == T
+    H, D = 4 * Hkv, 128
+    plan, alone = split_plan(B, H, Hkv, W, D), split_plan(1, H, Hkv, W, D)
+    assert plan["n_split"] == alone["n_split"] == n
+    assert plan["scratch"] == B * alone["scratch"] == B * H * n * (D + 2)
     if (B, Hkv, W) == (1, 8, 545):
-        assert n == 17    # the serve shape: 136 blocks of 32-33 slots
+        assert n == 9     # the serve shape: 72 blocks of one tile
+    if (B, Hkv, W) == (8, 4, 512):
+        assert n == 8     # Qwen3-30B-A3B's KV heads: one tile a range in a batch too
 
 
 @pytest.mark.parametrize("C", [1, 2, 5, 16])
