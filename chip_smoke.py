@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--layers 4] [--seed 0]
     python3 chip_smoke.py --flash-decode SRC   # flash_decode's shapes on SRC's package
+    python3 chip_smoke.py --flash-attention SRC   # the same for flash_attention
 
 Phases, each printing one JSON line; any failure raises and exits non-zero:
 
@@ -10,8 +11,14 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
   2. build   — compiles every CUDA kernel of ``src/repro_torch/csrc`` for
                sm_90a (one ``nvcc`` per source, in parallel); prints each
                library's ptxas registers / spills and its count of HGMMA
-               (wgmma), UTMALDG (TMA load) and HMMA (mma.sync / wmma)
-               instructions in ``cuobjdump -sass``.
+               (wgmma), UTMALDG / UTMASTG (TMA load / store), HMMA
+               (mma.sync / wmma), named BAR.SYNC, BAR.ARV and USETMAXREG
+               instructions in ``cuobjdump -sass``, and for each
+               ``flash_attn_kernel`` instantiation its registers, spills,
+               its own counts and every ptxas advisory naming wgmma or
+               setmaxnreg. Fails on any such advisory in
+               flash_attention.cu, or on an instantiation whose SASS lacks
+               the named barriers or setmaxnreg.
   3. kernels — each kernel at the shapes its main path gives it (the
                Mixtral-8x7B serve path; Mamba2-2.7B's prefill for
                ``ssd_scan``), held against its plain PyTorch version on the
@@ -326,6 +333,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -468,15 +476,86 @@ def in_turns(kernel, library, timer) -> tuple:
     return float(np.median(k)), float(np.median(lib))
 
 
+# SASS instructions counted per library and per flash_attn_kernel
+# instantiation: wgmma, TMA load / store, mma.sync, named barriers (a
+# BAR.SYNC with an id other than 0, __syncthreads' own) and arrivals, and
+# setmaxnreg
+SASS_OPS = {"HGMMA": r"\bHGMMA\b", "UTMALDG": r"\bUTMALDG\b", "UTMASTG": r"\bUTMASTG\b",
+            "HMMA": r"\bHMMA\b", "BAR.SYNC named": r"\bBAR\.SYNC(?:\.\w+)*\s+(?!0x0\b)",
+            "BAR.ARV": r"\bBAR\.ARV\b", "USETMAXREG": r"\bUSETMAXREG\b"}
+
+
+def attn_instance(mangled: str) -> str:
+    """``flash_attn_kernel<D,CHUNK>`` for a mangled instantiation name."""
+    m = re.search(r"flash_attn_kernelILi(\d+)ELb([01])E", mangled)
+    return f"flash_attn_kernel<{m.group(1)},{'true' if m.group(2) == '1' else 'false'}>"
+
+
+def sass_op_counts(sass: str) -> dict:
+    """``SASS_OPS`` counts of a ``cuobjdump -sass`` text: the library's
+    totals, and under ``"functions"`` each flash_attn_kernel
+    instantiation's own."""
+    count = lambda text: {op: len(re.findall(rx, text)) for op, rx in SASS_OPS.items()}
+    out = count(sass)
+    funcs = {}
+    for part in re.split(r"\n\s*Function : ", sass)[1:]:
+        name = part.split(None, 1)[0]
+        if "flash_attn_kernel" in name:
+            funcs[attn_instance(name)] = count(part)
+    if funcs:
+        out["functions"] = funcs
+    return out
+
+
 def sass_counts(lib: Path):
-    """Tensor-core and TMA instructions in a built library's SASS."""
+    """``sass_op_counts`` of a built library."""
     from repro_torch.kernels import _build
     tool = Path(_build.nvcc()).parent / "cuobjdump"
     if not tool.is_file():
         return f"not counted: {tool} not found"
-    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
-                          text=True, check=True, timeout=120).stdout
-    return {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "UTMALDG", "HMMA")}
+    return sass_op_counts(subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                                         text=True, check=True, timeout=120).stdout)
+
+
+def ptxas_report(log: str) -> dict:
+    """A ``-Xptxas -v`` log read per entry function: registers and spill
+    bytes of each flash_attn_kernel instantiation (``functions``), and
+    every advisory line that names wgmma or setmaxnreg (``advisories``:
+    C7515 / C7518 wgmma serialized, C7517 waits injected, C7508 setmaxnreg
+    ignored)."""
+    funcs, cur, advisories = {}, None, []
+    for ln in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)", ln)
+        if m:
+            cur = attn_instance(m.group(1)) if "flash_attn_kernel" in m.group(1) else None
+            if cur:
+                funcs.setdefault(cur, {})
+        elif cur and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)):
+            funcs[cur].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        elif cur and (m := re.search(r"Used (\d+) registers", ln)):
+            funcs[cur]["registers"] = int(m.group(1))
+        if "wgmma" in ln or "setmaxnreg" in ln:
+            advisories.append(ln.strip())
+    return dict(functions=funcs, advisories=advisories)
+
+
+def check_attention_build(report: dict, sass) -> None:
+    """The build phase's gate on flash_attention.cu's log and SASS: no
+    advisory that a wgmma is serialized (or waits were injected, or
+    setmaxnreg ignored) in any instantiation, and the SASS of every
+    instantiation at D <= 128 (two consumer warpgroups) holds named
+    barriers, arrivals and setmaxnreg (the ping-pong and the register moves
+    were compiled)."""
+    bad = report["advisories"]   # flash_attention.cu holds flash_attn_kernel alone
+    if bad:
+        raise AssertionError(f"flash_attention.cu: ptxas advisories {bad}")
+    if isinstance(sass, dict):
+        for name, ops in sass.get("functions", {}).items():
+            if int(re.search(r"<(\d+),", name).group(1)) > 128:
+                continue   # D = 256: one consumer warpgroup, no ping-pong
+            missing = [op for op in ("BAR.SYNC named", "BAR.ARV", "USETMAXREG") if not ops[op]]
+            if missing:
+                raise AssertionError(f"{name}: no {missing} in its SASS")
 
 
 def bound(n_bytes: float, n_ops: float, peak_ops: float = PEAK_BF16_OPS_PER_S):
@@ -487,9 +566,9 @@ def bound(n_bytes: float, n_ops: float, peak_ops: float = PEAK_BF16_OPS_PER_S):
 
 def max_err(got, want, tol=TOL) -> float:
     got, want = got.float(), want.float()
+    err = (got - want).abs()
     if not torch.isfinite(got).all():
         raise AssertionError("kernel output is not finite")
-    err = (got - want).abs()
     lim = tol["atol"] + tol["rtol"] * want.abs()
     if (err > lim).any():
         raise AssertionError(f"kernel disagrees with its plain version: max abs "
@@ -559,7 +638,7 @@ def attention_bound(B, S, H, Hkv, D, window: int = -1):
 def kernel_flash_attention(g):
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
-    (q, k, v), main = prefill_attention(32, 8, 128, 512, g)
+    (q, k, v), main = flash_attention_shapes()["serve"].make(g)
     err = main["max_abs_err"]
     for s, causal, window in ((512, True, 128), (500, True, -1), (200, False, -1)):
         qs, ks, vs = q[:, :s], k[:, :s], v[:, :s]   # strided views, ragged S
@@ -567,12 +646,59 @@ def kernel_flash_attention(g):
             flash_attention(qs, ks, vs, causal=causal, window=window),
             flash_attention_plain(qs, ks, vs, causal=causal, window=window)))
     del q, k, v
-    _, long = prefill_attention(32, 8, 128, 4096, g)
+    _, long = flash_attention_shapes()["long"].make(g)
     torch.cuda.empty_cache()
     return dict(name="flash_attention", route="cuda",
                 source="src/repro_torch/csrc/flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention.py:96",
                 long=long, **(main | dict(max_abs_err=err)))
+
+
+class AttentionShape(NamedTuple):
+    kernel: str      # the entry's record name: flash_attention, _cross or _chunk
+    label: str
+    make: Callable   # make(g) -> (inputs, record)
+
+
+def flash_attention_shapes() -> dict[str, AttentionShape]:
+    """Every ``flash_attention`` / ``_cross`` / ``_chunk`` shape a main path
+    runs, by key: Mixtral-8x7B's serve prefill (S=512) and S=4096, Zamba2-7B's
+    shared block (D=112) over a full window and at the families' 5120
+    tokens, gemma3-1b (D=256), the two cross shapes, and the batch phase's
+    chunk (C=512 from 1024 over W=2048) beside C=64 and C=512 from 3584
+    over W=4096. The kernel and kernel_variant phases and
+    ``--flash-attention`` share it."""
+    from repro_torch.configs.base import get_config
+    zamba, gemma = get_config("zamba2_7b"), get_config("gemma3_1b")
+    vision, seamless = get_config("llama_3_2_vision_90b"), get_config("seamless_m4t_medium")
+    zw, zh = zamba.sliding_window, (zamba.n_heads, zamba.n_kv_heads, zamba.hd)
+    heads = lambda c: (c.n_heads, c.n_kv_heads, c.hd)
+    fa, cross, chunk = "flash_attention", "flash_attention_cross", "flash_attention_chunk"
+    shapes = {
+        "serve": (fa, "causal, D=128, B=1, S=512, 32/8 (Mixtral-8x7B serve prefill)",
+                  lambda g: prefill_attention(32, 8, 128, 512, g)),
+        "long": (fa, "causal, D=128, B=1, S=4096, 32/8",
+                 lambda g: prefill_attention(32, 8, 128, 4096, g)),
+        "zamba": (fa, "D=112 (Zamba2-7B, S=4096)",
+                  lambda g: prefill_attention(*zh, zw, g, window=zw)),
+        "zamba_window": (fa, f"D=112 (Zamba2-7B, S={FAMILY_HYBRID_S}, window {zw})",
+                         lambda g: prefill_attention(*zh, FAMILY_HYBRID_S, g, window=zw)),
+        "gemma": (fa, "D=256 (gemma3-1b)",
+                  lambda g: prefill_attention(*heads(gemma), BUNDLE_S, g, B=2)),
+        "vision": (cross, "cross, Llama-3.2-Vision-90B",
+                   lambda g: cross_attention(2, BUNDLE_S, vision.n_frontend_tokens,
+                                             *heads(vision), g)),
+        "seamless": (cross, "cross, SeamlessM4T-medium",
+                     lambda g: cross_attention(2, BUNDLE_S, BUNDLE_S, *heads(seamless), g)),
+        "chunk": (chunk, "C=512 from 1024 over W=2048, 32/8 (batch phase)",
+                  lambda g: (None, chunk_attention(32, 8, 128, 2048, start=1024, C=512))),
+        "c64": (chunk, "C=64 from 1024 over W=2048, 32/8",
+                lambda g: (None, chunk_attention(32, 8, 128, 2048, start=1024, C=64, seed=1))),
+        "chunk_long": (chunk, "C=512 from 3584 over W=4096, 32/8",
+                       lambda g: (None, chunk_attention(32, 8, 128, 4096, start=3584, C=512,
+                                                        seed=2))),
+    }
+    return {key: AttentionShape(*shape) for key, shape in shapes.items()}
 
 
 def prefill_attention(H, Hkv, D, S, g, B: int = 1, lse: bool = False, window: int = -1):
@@ -675,14 +801,15 @@ def kernel_flash_attention_chunk(g):
                                                      flash_attention_chunk_plain)
     H, Hkv, D = 32, 8, 128
     # the batch phase's chunk: 512 queries after a 1024-token prefix
-    main = chunk_attention(H, Hkv, D, 2048, start=1024, C=512)
+    shapes = flash_attention_shapes()
+    _, main = shapes["chunk"].make(g)
     err = main["max_abs_err"]
     for start, C, W, h, hkv, d, window, holes, slot, B in CHUNK_CASES:
         q, k, v, sp = chunk_inputs(g, B, start, C, W, h, hkv, d, holes, slot)
         err = max(err, max_err(flash_attention_chunk(q, k, v, sp, start, window=window),
                                flash_attention_chunk_plain(q, k, v, sp, start, window=window)))
-    short = chunk_attention(H, Hkv, D, 2048, start=1024, C=64, seed=1)
-    long = chunk_attention(H, Hkv, D, 4096, start=3584, C=512, seed=2)
+    _, short = shapes["c64"].make(g)
+    _, long = shapes["chunk_long"].make(g)
     err = max(err, short["max_abs_err"], long["max_abs_err"])
     torch.cuda.empty_cache()
     return dict(name="flash_attention_chunk", route="cuda",
@@ -3360,7 +3487,8 @@ def cross_attention(B, Sq, Sk, H, Hkv, D, g):
     held against the plain version, the rows of a call with Sk = Sq
     bit-equal to the monolithic kernel's without a mask, timed beside the
     plain version and beside SDPA. Bound: q, k, v read and o written once;
-    4 D operations per (query, key) pair of each head."""
+    4 D operations per (query, key) pair of each head. Returns the inputs
+    and the record."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_cross,
                                                      flash_attention_plain)
@@ -3377,9 +3505,9 @@ def cross_attention(B, Sq, Sk, H, Hkv, D, g):
                                   enable_gqa=True))
     plain_ms = time_ms(lambda: flash_attention_plain(q, k, v, causal=False), reps=5)
     bms, by = bound(2 * (2 * B * Sq * H * D + 2 * B * Sk * Hkv * D), 4 * B * H * D * Sq * Sk)
-    return dict(shape=dict(B=B, Sq=Sq, Sk=Sk, H=H, Hkv=Hkv, D=D), max_abs_err=err,
-                bit_equal_to_monolithic=True, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                bound_share=bms / timed["device_ms"], **timed)
+    return (q, k, v), dict(shape=dict(B=B, Sq=Sq, Sk=Sk, H=H, Hkv=Hkv, D=D), max_abs_err=err,
+                           bit_equal_to_monolithic=True, plain_ms=plain_ms, bound_ms=bms,
+                           bound_by=by, bound_share=bms / timed["device_ms"], **timed)
 
 
 def cross_decode(B, M, H, Hkv, D, g):
@@ -3463,30 +3591,30 @@ def family_kernel_variants(g):
         out[kernel].append(rec)
         release()
 
+    shapes = flash_attention_shapes()
     # Zamba2's shared block (D = 112, 32 / 32) under its 4096-token window
     zw, S = zamba.sliding_window, FAMILY_HYBRID_S
-    zh = (zamba.n_heads, zamba.n_kv_heads, zamba.hd)
-    _, rec = prefill_attention(*zh, zw, g, window=zw)
-    add("flash_attention", "D=112 (Zamba2-7B, S=4096)", rec)
-    _, rec = prefill_attention(*zh, S, g, window=zw)
-    rec["forward_max_abs_err"] = attention_err(1, S + 1, S + 1, *zh, g, window=zw)
-    add("flash_attention", f"D=112 (Zamba2-7B, S={S}, window {zw})", rec)
+    _, rec = shapes["zamba"].make(g)
+    add("flash_attention", shapes["zamba"].label, rec)
+    _, rec = shapes["zamba_window"].make(g)
+    rec["forward_max_abs_err"] = attention_err(1, S + 1, S + 1, zamba.n_heads,
+                                               zamba.n_kv_heads, zamba.hd, g, window=zw)
+    add("flash_attention", shapes["zamba_window"].label, rec)
     # gemma3-1b: D = 256, 4 / 1, a global layer; a local layer's window checked too
-    (q, k, v), rec = prefill_attention(gemma.n_heads, gemma.n_kv_heads, gemma.hd, BUNDLE_S,
-                                       g, B=2)
+    (q, k, v), rec = shapes["gemma"].make(g)
     w = gemma.sliding_window
     rec["window_max_abs_err"] = max_err(flash_attention(q, k, v, window=w),
                                         flash_attention_plain(q, k, v, window=w))
     del q, k, v
     rec["forward_max_abs_err"] = attention_err(2, BUNDLE_S + 1, BUNDLE_S + 1, gemma.n_heads,
                                                gemma.n_kv_heads, gemma.hd, g)
-    add("flash_attention", "D=256 (gemma3-1b)", rec)
-    for name, cfg, Sk in (("Llama-3.2-Vision-90B", vision, vision.n_frontend_tokens),
-                          ("SeamlessM4T-medium", seamless, BUNDLE_S)):
-        heads = (cfg.n_heads, cfg.n_kv_heads, cfg.hd)
-        rec = cross_attention(2, BUNDLE_S, Sk, *heads, g)
-        rec["forward_max_abs_err"] = attention_err(2, BUNDLE_S + 1, Sk, *heads, g, cross=True)
-        add("flash_attention_cross", f"cross, {name}", rec)
+    add("flash_attention", shapes["gemma"].label, rec)
+    for key, cfg, Sk in (("vision", vision, vision.n_frontend_tokens),
+                         ("seamless", seamless, BUNDLE_S)):
+        _, rec = shapes[key].make(g)
+        rec["forward_max_abs_err"] = attention_err(2, BUNDLE_S + 1, Sk, cfg.n_heads,
+                                                   cfg.n_kv_heads, cfg.hd, g, cross=True)
+        add("flash_attention_cross", shapes[key].label, rec)
     W = BUNDLE_S + BUNDLE_NEW
     rec = decode_attention(zamba, zw, [zw - 1])
     rec["wrapped_ring_max_abs_err"] = max(ring_decode_err(zamba, zw, p, g)
@@ -3810,6 +3938,26 @@ def flash_decode_only(src: Path) -> int:
     return 0
 
 
+def flash_attention_only(src: Path) -> int:
+    """``--flash-attention SRC``: every ``flash_attention_shapes`` record
+    (held against the plain version, timed beside SDPA and the bound), on
+    the port's package from ``src``, so two trees' kernels are timed by the
+    same code in one call. Prints the card and one ``attention_kernel``
+    line a shape."""
+    sys.path.insert(0, str(src))
+    from repro_torch.kernels import _build
+    emit(dict(phase="device", nvidia_smi=nvidia_smi(), name=torch.cuda.get_device_name(0),
+              torch=torch.__version__, cuda=torch.version.cuda))
+    _build.build("flash_attention")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for shape in flash_attention_shapes().values():
+        _, record = shape.make(g)
+        emit(dict(phase="attention_kernel", src=str(src), kernel=shape.kernel,
+                  label=shape.label, **record))
+        release()
+    return 0
+
+
 def decode_step_only(src: Path, layers: int, seed: int) -> int:
     """``--decode-step SRC``: the analysis phase's engine and decode steps
     (``mixtral_setup``, ``audit_engine``, ``decode_steps``) on the port's
@@ -3843,10 +3991,16 @@ def main() -> int:
                     help="only time flash_decode at every shape a main path runs "
                          "(flash_decode_shapes) with the port's package taken from SRC, "
                          "and print one line a shape")
+    ap.add_argument("--flash-attention", metavar="SRC", default=None,
+                    help="only time flash_attention, _cross and _chunk at every shape a main "
+                         "path runs (flash_attention_shapes) with the port's package taken "
+                         "from SRC, and print one line a shape")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if args.flash_attention:
+        return flash_attention_only(Path(args.flash_attention).resolve())
     if args.flash_decode:
         return flash_decode_only(Path(args.flash_decode).resolve())
     if args.decode_step:
@@ -3866,13 +4020,16 @@ def main() -> int:
 
     t0 = time.perf_counter()
     per_source = _build.build_all()
-    ptxas = {n: [ln.strip() for ln in
-                 _build.library_path(n).with_suffix(".so.log").read_text().splitlines()
-                 if "registers" in ln or "spill" in ln]
-             for n in _build.SOURCES}
+    logs = {n: _build.library_path(n).with_suffix(".so.log").read_text()
+            for n in _build.SOURCES}
+    ptxas = {n: [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
+             for n, log in logs.items()}
     sass = {n: sass_counts(_build.library_path(n)) for n in _build.SOURCES}
+    attention = ptxas_report(logs["flash_attention"])
     emit(dict(phase="build", seconds=time.perf_counter() - t0,
-              per_source_s=per_source, ptxas=ptxas, sass=sass))
+              per_source_s=per_source, ptxas=ptxas, sass=sass,
+              flash_attention=attention))
+    check_attention_build(attention, sass["flash_attention"])
 
     g = torch.Generator(device="cuda").manual_seed(args.seed)
     results = [kernel_expert_ffn(g), kernel_flash_attention(g),

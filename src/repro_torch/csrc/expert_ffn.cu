@@ -130,7 +130,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       const uint64_t da = sw128_desc(st + wg * 64 * 128 + kk * 32, 16, 1024);
 #pragma unroll
       for (int nb = 0; nb < NB; ++nb)
-        wgmma_ss_n128_tb(acc[nb], da,
+        wgmma_ss_n128<1>(acc[nb], da,
                          sw128_desc(st + L::A + nb * L::B + kk * 16 * 128, BOX_BYTES, 1024), 1);
     }
     wgmma_commit();

@@ -23,7 +23,14 @@ On a CUDA tensor each wrapper launches ``csrc/flash_attention.cu`` (wgmma
 and TMA, for Hopper; the chunk form is a second entry point of the same
 device code, the cross form the monolithic entry with its own key length),
 head_dim 64, 112, 128 or 256 (the chunk form 64 or 128); on a CPU tensor it
-runs its plain version. ``flash_attention.launches``,
+runs its plain version. The kernel follows FlashAttention-3's schedule:
+blocks of 128 query rows, two consumer warpgroups of 64 that take turns on
+the tensor cores (ping-pong) and run each tile's softmax while the last
+tile's PV is in flight, a producer warpgroup feeding K and V tiles (128
+keys at head_dim 64, 96 at 112 and 128) by TMA, and o written by TMA
+store; at head_dim 256 a block is one warpgroup of 64 rows over 64-key
+tiles. The grid, ``(H, B, ceil(Sq / rows a block))``, is the C entry's
+own. ``flash_attention.launches``,
 ``flash_attention_chunk.launches`` and ``flash_attention_cross.launches``
 count kernel launches.
 

@@ -972,13 +972,18 @@ def test_flash_attention_head_dims_112_256(cuda, B, S, H, Hkv, D, causal, window
 
 
 @pytest.mark.cuda
-def test_flash_attention_d112_reads_and_writes_112_columns(cuda):
+@pytest.mark.parametrize("B,S,H,Hkv", [(2, 150, 4, 2), (1, 300, 1, 1)])
+def test_flash_attention_d112_reads_and_writes_112_columns(cuda, B, S, H, Hkv):
     """q, k, v as views of 128-wide rows holding NaN past column 112: the
     kernel's tensor maps stop at 112 (the second box's columns 112-127
     arrive as zeros), and its output has 112 columns, each equal to the
-    plain version's on the same values."""
+    plain version's on the same values. At one head the output rows are
+    112 columns apart, so a store of columns 112-127 would land on the
+    next row's first 16 columns: the three 128-row tiles run longest
+    first, so a later tile's stray columns would overwrite rows an earlier
+    one wrote."""
     g = torch.Generator(device=cuda).manual_seed(12)
-    B, S, H, Hkv, D = 2, 150, 4, 2, 112
+    D = 112
     q = _nan_padded(g, cuda, B, S, H, D=D)
     k, v = _nan_padded(g, cuda, B, S, Hkv, D=D), _nan_padded(g, cuda, B, S, Hkv, D=D)
     o = flash_attention(q, k, v)
@@ -1016,6 +1021,90 @@ def test_flash_attention_cross_bit_equal_where_lengths_match(cuda, S, D):
     r = lambda *s: torch.randn(s, generator=g, device=cuda).to(torch.bfloat16)
     q, k, v = r(2, S, 8, D), r(2, S, 2, D), r(2, S, 2, D)
     assert torch.equal(flash_attention_cross(q, k, v), flash_attention(q, k, v, causal=False))
+
+
+# The 128-row schedule's edges: up to D = 128 two consumer warpgroups of
+# 64 rows share every key tile, so a block may hold a warpgroup with no
+# rows (S <= 64, a ragged last tile, a short chunk). The key tile depends
+# on D: 128 keys at D = 64, 96 at D = 112 and 128, 64 at D = 256, and key
+# tiles end at multiples of it (a last tile ending exactly at Sk takes the
+# unmasked path).
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("S", [1, 64, 65, 127, 128, 129, 191])
+def test_flash_attention_rows_around_128_row_tiles(cuda, S, D):
+    g = torch.Generator(device=cuda).manual_seed(20 + S)
+    r = lambda *s: torch.randn(s, generator=g, device=cuda).to(torch.bfloat16)
+    q, k, v = r(2, S, 8, D), r(2, S, 2, D), r(2, S, 2, D)
+    torch.testing.assert_close(flash_attention(q, k, v), flash_attention_plain(q, k, v),
+                               rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,Sk", [(64, 127), (64, 128), (64, 129), (64, 256),
+                                  (128, 95), (128, 96), (128, 97), (128, 127), (128, 128),
+                                  (128, 129), (128, 192), (128, 1601)])
+def test_flash_attention_cross_keys_around_key_tiles(cuda, D, Sk):
+    """Sk one short of, at and one past a key-tile edge (128 keys at D = 64,
+    96 at D = 128), two whole tiles, and Llama-3.2-Vision's 1601 keys."""
+    from repro_torch.kernels.flash_attention import flash_attention_cross
+    g = torch.Generator(device=cuda).manual_seed(30 + Sk + D)
+    r = lambda *s: torch.randn(s, generator=g, device=cuda).to(torch.bfloat16)
+    q, k, v = r(2, 200, 16, D), r(2, Sk, 2, D), r(2, Sk, 2, D)
+    torch.testing.assert_close(flash_attention_cross(q, k, v),
+                               flash_attention_plain(q, k, v, causal=False),
+                               rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [96, 100, 192, 200, 4096])
+def test_flash_attention_windows_across_key_tiles(cuda, window):
+    """Zamba2's D = 112 at its families prefill length, S = 5120, under
+    windows whose edges cross its 96-key tiles: 96 and 192 are one and two
+    tiles wide, so some rows' windows start exactly on a tile edge; 4096 is
+    Zamba2's own, where whole tiles before the window are skipped."""
+    g = torch.Generator(device=cuda).manual_seed(40)
+    r = lambda *s: torch.randn(s, generator=g, device=cuda).to(torch.bfloat16)
+    q, k, v = r(1, 5120, 8, 112), r(1, 5120, 8, 112), r(1, 5120, 8, 112)
+    torch.testing.assert_close(flash_attention(q, k, v, window=window),
+                               flash_attention_plain(q, k, v, window=window),
+                               rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 64, 65])
+def test_flash_attention_chunk_short_chunks_off_tile(cuda, C):
+    """Chunks of C <= 65 (the second warpgroup without rows, or with one)
+    from q_start = 300 (not a multiple of 128), with -1 holes in live key
+    tiles, and in a pool view."""
+    q, k, v, sp = _chunk_case(cuda, 1, 300, C, 640, 32, 8, 128, True, 3, seed=50 + C)
+    assert (sp[0, :300] == -1).any()
+    torch.testing.assert_close(flash_attention_chunk(q, k, v, sp, 300),
+                               flash_attention_chunk_plain(q, k, v, sp, 300),
+                               rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["causal", "window", "cross", "chunk", "d256"])
+def test_flash_attention_two_calls_bit_equal(cuda, form):
+    """No atomics on values: two calls on the same inputs give the same bits."""
+    from repro_torch.kernels.flash_attention import flash_attention_cross
+    g = torch.Generator(device=cuda).manual_seed(60)
+    r = lambda *s: torch.randn(s, generator=g, device=cuda).to(torch.bfloat16)
+    if form == "chunk":
+        q, k, v, sp = _chunk_case(cuda, 2, 300, 200, 640, 32, 8, 128, True, seed=61)
+        call = lambda: flash_attention_chunk(q, k, v, sp, 300)
+    elif form == "cross":
+        q, k, v = r(2, 300, 16, 128), r(2, 1601, 2, 128), r(2, 1601, 2, 128)
+        call = lambda: flash_attention_cross(q, k, v, return_lse=True)
+    else:
+        D, Hkv = (256, 1) if form == "d256" else (128, 2)
+        q, k, v = r(2, 700, 8, D), r(2, 700, Hkv, D), r(2, 700, Hkv, D)
+        w = 200 if form == "window" else -1
+        call = lambda: flash_attention(q, k, v, window=w, return_lse=True)
+    a, b = call(), call()
+    for x, y in zip(a if isinstance(a, tuple) else (a,), b if isinstance(b, tuple) else (b,)):
+        assert torch.equal(x, y)
 
 
 @pytest.mark.cuda
