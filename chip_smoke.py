@@ -4,6 +4,7 @@
     python3 chip_smoke.py [--layers 4] [--seed 0]
     python3 chip_smoke.py --flash-decode SRC   # flash_decode's shapes on SRC's package
     python3 chip_smoke.py --flash-attention SRC   # the same for flash_attention
+    python3 chip_smoke.py --shapes   # only the (arch x input shape) matrix
 
 Phases, each printing one JSON line; any failure raises and exits non-zero:
 
@@ -187,8 +188,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                within 5e-2, greedy tokens equal.
  12. paper   — the paper's Table I models at their published widths, random
                weights from ``--seed``, one after another, each released
-               before the next: DeepSeekMoE-16B at all 28 layers,
-               Qwen3-30B-A3B at 24 of 48, Mixtral-8x22B at 4 of 56 (host
+               before the next: DeepSeekMoE-16B at 14 of 28 layers,
+               Qwen3-30B-A3B at 12 of 48, Mixtral-8x22B at 4 of 56 (host
                RAM). Per model: its kernel shapes held against their plain
                versions and timed (uncounted), ODF traces over 3 squad-like
                prompts and the ExpertMLP trained on the card, then
@@ -315,7 +316,41 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                ``HYBRID_DECODE_TOL``, with the gap at 6, 12, 24 and 48
                layers of the same weights, with the decode conv summed in
                the forward's order, and at seeds 1-3, each held).
+ 19. shapes  — the reference's (arch x input shape) matrix
+               (``configs.base.pairs()``: 33 pairs of ten configs and four
+               shapes). First ``shape_kernel`` lines: each kernel at the
+               matrix's sizes held against its plain version (the plain
+               attention in blocks of query rows, the plain expert FFN in
+               chunks of experts; an attention output's atol scaled by
+               each row's rms, with planted faults that must fail: half
+               the window or memory, every other decode range empty, a
+               ``slot_pos`` one tile off) and timed, ``SHAPES_REPS`` calls a turn,
+               beside SDPA held to its fused kernels or the cuBLAS
+               yardstick: ``flash_attention`` at S=32768 (Qwen3-1.7B D=128,
+               gemma3-1b D=256 with its window 512, Zamba2-7B D=112 under
+               its window 4096), ``flash_attention_cross`` at SeamlessM4T's
+               32768 over 32768, ``flash_decode`` at B=8 over W=32768 and at
+               position 524287 over ``long_500k``'s wrapped rings (gemma3's
+               131072 slots, global and window 512; Zamba2's 4096),
+               ``ssd_scan`` at 2 x 32768 (Mamba2, Zamba2), ``expert_ffn`` at
+               the capacity rows of Qwen2-MoE-A2.7B's and Kimi-K2's
+               ``prefill_32k``. Then every pair through
+               ``repro_torch.launch.dryrun``: its plan from bytes (depth,
+               batch, microbatches, cuts; a pair that does not fit one card
+               is printed with its bytes and not run), one warm-up and one
+               timed step at published widths and full sequence length,
+               one ``shape_pair`` line each (step ms by CUDA events, peak
+               memory, planned bytes, launches); each decode pair within
+               ``SHAPES_HOST_BYTES`` held against the same step on the CPU
+               (``BUNDLE_TOL``, or the f32 witness past two layers) over its
+               cache with each layer's V scaled to O(1) outputs, beside two
+               controls that must fail: one window further on, and an
+               eighth of the V rows zeroed.
+               The kernels' counts are reset before the pairs and each of
+               ``SHAPES_KERNELS`` must be > 0 after. ``--shapes`` runs only
+               this phase (the pairs first).
 
+Every phase line carries ``t_s``, the seconds since the script started.
 The last three lines are the card's ``nvidia-smi`` name and power limit,
 the kernels' JSON summary (with each kernel's ``variants``), and
 ``{"ok": true, "device": {...}}``.
@@ -327,6 +362,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
 import os
 import re
 import subprocess
@@ -344,6 +380,7 @@ PEAK_BF16_OPS_PER_S = 989e12   # H100 SXM dense bf16 tensor cores
 PEAK_F32_OPS_PER_S = 67e12     # H100 SXM f32, CUDA cores
 TOL = dict(rtol=2e-2, atol=2e-2)
 TOL_F32 = dict(rtol=1e-3, atol=1e-3)
+MAX_ERR_ELEMS = 1 << 28
 # batch_check: first-token logits on the card against the CPU engine in the
 # kernels' arithmetic (logits of max |x| 3.4). Sound runs read up to 0.030;
 # the control, a 1% softmax-scale fault, 0.056 (NVIDIA H100 80GB HBM3 and
@@ -353,7 +390,14 @@ BATCH_CHECK_TOL = 4e-2
 SSD_SCAN_KERNELS = ("chunk_state_kernel", "state_pass_kernel", "chunk_scan_kernel")
 
 
+T_START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also carries ``t_s``, the seconds since
+    the script started."""
+    if "phase" in obj:
+        obj = dict(obj, t_s=time.perf_counter() - T_START)
     print(json.dumps(obj), flush=True)
 
 
@@ -468,6 +512,20 @@ def kernel_parts_ms(fn, reps: int = 20):
     return {name: float(np.median(v)) for name, v in parts.items()}
 
 
+def fused_sdpa(library):
+    """``library`` with SDPA held to its fused kernels (flash, memory
+    efficient, cuDNN): its math fallback would hold B H S^2 f32 logits, 275
+    GB at S=32768."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    fused = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+             SDPBackend.CUDNN_ATTENTION]
+
+    def call():
+        with sdpa_kernel(fused):
+            return library()
+    return call
+
+
 def in_turns(kernel, library, timer) -> tuple:
     """Medians of ``timer`` over kernel, library, library, kernel."""
     k = timer(kernel)
@@ -564,16 +622,44 @@ def bound(n_bytes: float, n_ops: float, peak_ops: float = PEAK_BF16_OPS_PER_S):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def max_err(got, want, tol=TOL) -> float:
+def max_err(got, want, tol=TOL, rows: bool = False) -> float:
+    """The largest |got - want|, raising where an entry is not finite or
+    passes ``tol``; over ``MAX_ERR_ELEMS`` entries at a time along dim 0
+    (Kimi-K2's expert output in f32 copies would take 75 GB). With
+    ``rows`` (attention outputs) the atol of each row (the last dim) is
+    scaled by min(1, the row's rms in ``want``): an output that averages
+    unit-normal values over n keys has entries of about n^-1/2, so at
+    n = 131072 a fixed atol of 2e-2 would pass an output of zeros."""
+    if got.numel() > MAX_ERR_ELEMS and got.shape[0] > 1:
+        n = max(1, got.shape[0] * MAX_ERR_ELEMS // got.numel())
+        return max(max_err(got[i:i + n], want[i:i + n], tol, rows)
+                   for i in range(0, len(got), n))
     got, want = got.float(), want.float()
     err = (got - want).abs()
     if not torch.isfinite(got).all():
         raise AssertionError("kernel output is not finite")
-    lim = tol["atol"] + tol["rtol"] * want.abs()
+    atol = tol["atol"]
+    if rows:
+        atol = atol * want.square().mean(-1, keepdim=True).sqrt().clamp(max=1.0)
+    lim = atol + tol["rtol"] * want.abs()
     if (err > lim).any():
         raise AssertionError(f"kernel disagrees with its plain version: max abs "
-                             f"err {float(err.max())} beyond {tol}")
+                             f"err {float(err.max())} beyond {tol}"
+                             + (" (atol scaled by each row's rms)" if rows else ""))
     return float(err.max())
+
+
+def planted(faults: dict) -> list:
+    """Each of ``faults`` ({name: a check of the kernel's output against
+    its plain version on a deliberately wrong input}) must raise, or the
+    check it plants into could not see that fault. Returns the names."""
+    for name, check in faults.items():
+        try:
+            check()
+        except AssertionError:
+            continue
+        raise AssertionError(f"a planted fault passed its check: {name}")
+    return list(faults)
 
 
 # -- phase 3: kernels --------------------------------------------------------
@@ -616,11 +702,12 @@ def kernel_expert_ffn(g):
                 bound_share=bms / device_ms, library_ms=None)
 
 
-def device_vs_library(kernel, library):
+def device_vs_library(kernel, library, reps: int = 20):
     """Event-timed and profiler-timed medians of a kernel and its library
-    call, each timed in turns (kernel, library, library, kernel)."""
-    ms, library_ms = in_turns(kernel, library, event_ms)
-    device_ms, library_device_ms = in_turns(kernel, library, kernel_ms)
+    call, each timed in turns (kernel, library, library, kernel), ``reps``
+    calls a turn."""
+    ms, library_ms = in_turns(kernel, library, lambda fn: event_ms(fn, reps))
+    device_ms, library_device_ms = in_turns(kernel, library, lambda fn: kernel_ms(fn, reps))
     return dict(ms=ms, library_ms=library_ms, device_ms=device_ms,
                 library_device_ms=library_device_ms,
                 device_ratio=device_ms / library_device_ms)
@@ -701,13 +788,18 @@ def flash_attention_shapes() -> dict[str, AttentionShape]:
     return {key: AttentionShape(*shape) for key, shape in shapes.items()}
 
 
-def prefill_attention(H, Hkv, D, S, g, B: int = 1, lse: bool = False, window: int = -1):
+def prefill_attention(H, Hkv, D, S, g, B: int = 1, lse: bool = False, window: int = -1,
+                      reps: int = 20, plain_reps: int = 5):
     """Monolithic causal prefill attention of B S-token prompts (under
-    ``window`` where > 0): held against the plain version, timed beside it
-    and beside SDPA (with the window's mask where it cuts). With ``lse``
-    the call returns the log-sum-exp too: ``o`` must be bit-equal to the
-    call without it and the lse is held against the plain lse (TOL_F32).
-    Returns the inputs and the record."""
+    ``window`` where > 0): held against the plain version (``rows``), a
+    planted fault (the plain version under half the window, or of S where
+    there is none) failing the same check, timed beside the plain version
+    and beside SDPA held to its fused kernels (``fused_sdpa``; with the
+    window's mask where it cuts). With ``lse`` the call returns the
+    log-sum-exp too: ``o`` must be bit-equal to the call without it and the
+    lse is held against the plain lse (TOL_F32). ``reps`` / ``plain_reps``:
+    timed calls a turn / of the plain version. Returns the inputs and the
+    record."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
     mk = lambda h: torch.randn(B, S, h, D, generator=g, device="cuda").to(torch.bfloat16)
@@ -723,20 +815,25 @@ def prefill_attention(H, Hkv, D, S, g, B: int = 1, lse: bool = False, window: in
         extra = dict(lse=True, o_bit_equal=True, lse_max_abs_err=max_err(l2, plse, TOL_F32))
     else:
         po = flash_attention_plain(q, k, v, window=window)
-    err = max_err(o, po)
-    del o, po
+    err = max_err(o, po, rows=True)
+    del po
+    half = (window if 0 < window < S else S) // 2
+    extra["planted"] = planted({f"window {half}": lambda: max_err(
+        o, flash_attention_plain(q, k, v, window=half), rows=True)})
+    del o
     if 0 < window < S:
         i = torch.arange(S, device="cuda")
         band = (i[None] <= i[:, None]) & (i[None] > i[:, None] - window)
         library = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band,
-                                                         enable_gqa=True)
+                                                         enable_gqa=H != Hkv)
     else:
         library = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
                                                          enable_gqa=True)
     timed = device_vs_library(
-        lambda: flash_attention(q, k, v, return_lse=lse, window=window), library)
+        lambda: flash_attention(q, k, v, return_lse=lse, window=window), fused_sdpa(library),
+        reps)
     plain_ms = time_ms(lambda: flash_attention_plain(q, k, v, return_lse=lse, window=window),
-                       reps=5)
+                       reps=plain_reps, warmup=min(3, plain_reps))
     bms, by = attention_bound(B, S, H, Hkv, D, window)
     return (q, k, v), dict(shape=dict(B=B, S=S, H=H, Hkv=Hkv, D=D, window=window),
                            max_abs_err=err,
@@ -850,23 +947,23 @@ def ssd_scan_work(B, S, H, G, P, N, in_bytes, chunk=256):
     return n_bytes, 2 * B * H * chunked, 2 * B * H * recurrence
 
 
-def ssd_scan_shape(g, S, H, G, P, N):
-    """``ssd_scan`` on one S-token bf16 prompt of H heads (f32 da / dt):
+def ssd_scan_shape(g, S, H, G, P, N, B: int = 1, reps: int = 20):
+    """``ssd_scan`` on B S-token bf16 prompts of H heads (f32 da / dt):
     held against the plain version (TOL_F32), timed by device time, by
     events and beside the plain version. Returns the inputs and the
     record."""
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
-    args = ssd_inputs(g, 1, S, H, G, P, N, torch.bfloat16)
+    args = ssd_inputs(g, B, S, H, G, P, N, torch.bfloat16)
     (y, h), (y0, h0) = ssd_scan(*args), ssd_scan_plain(*args)
     err = max(max_err(y, y0, TOL_F32), max_err(h, h0, TOL_F32))
     del y, h, y0, h0
-    n_bytes, chunked, recurrence = ssd_scan_work(1, S, H, G, P, N, 2)
+    n_bytes, chunked, recurrence = ssd_scan_work(B, S, H, G, P, N, 2)
     bms, by = bound(n_bytes, chunked)
-    device_ms = float(np.median(kernel_ms(lambda: ssd_scan(*args))))
-    return args, dict(shape=dict(B=1, S=S, H=H, G=G, P=P, N=N, chunk=256),
+    device_ms = float(np.median(kernel_ms(lambda: ssd_scan(*args), reps)))
+    return args, dict(shape=dict(B=B, S=S, H=H, G=G, P=P, N=N, chunk=256),
                       max_abs_err=err, device_ms=device_ms, bound_ms=bms,
-                      ms=time_ms(lambda: ssd_scan(*args)),
-                      plain_ms=time_ms(lambda: ssd_scan_plain(*args)),
+                      ms=time_ms(lambda: ssd_scan(*args), reps),
+                      plain_ms=time_ms(lambda: ssd_scan_plain(*args), reps),
                       bound_by=by, bound_share=bms / device_ms,
                       bound_f32_recurrence_ms=bound(n_bytes, recurrence,
                                                     PEAK_F32_OPS_PER_S)[0])
@@ -1973,10 +2070,32 @@ def chunk_attention(H, Hkv, D, W: int, start: int, C: int, seed: int = 0):
                 bound_share=bms / timed["device_ms"], **timed)
 
 
-def decode_attention(cfg, W: int, pos):
+def decode_faults(out, q, k, v, pos, sp, window: int = -1) -> list:
+    """``planted`` faults of a ``flash_decode`` output: the plain version
+    with the slots of every other one of the call's ranges marked empty (a
+    combine that drops half its ranges) and, under a window, with every
+    ``slot_pos`` one tile older."""
+    from repro_torch.kernels.flash_decode import TILE_SLOTS, flash_decode_plain, n_splits
+    W = sp.shape[-1]
+    T, n = -(-W // TILE_SLOTS), n_splits(k.shape[2], W)
+    tile = torch.arange(W, device=sp.device) // TILE_SLOTS
+    starts = torch.arange(n, device=sp.device) * T // n
+    odd = ((torch.searchsorted(starts, tile, right=True) - 1) if n > 1 else tile) % 2 == 1
+    check = lambda s: lambda: max_err(
+        out, flash_decode_plain(q, k, v, pos, s, window=window), rows=True)
+    name = f"every other of {n} ranges empty" if n > 1 else f"every other of {T} tiles empty"
+    faults = {name: check(torch.where(odd, -1, sp))}
+    if window > 0:
+        faults[f"slot_pos one tile ({TILE_SLOTS} slots) older"] = check(
+            torch.where(sp >= 0, sp - TILE_SLOTS, sp))
+    return planted(faults)
+
+
+def decode_attention(cfg, W: int, pos, reps: int = 20):
     """Batched decode attention at B=8 over pool rows gathered out of slot
     order (as the engine gathers them), row b at position ``pos[b]``: held
-    against the plain version, timed beside it and beside SDPA."""
+    against the plain version (``rows``), ``decode_faults`` failing the
+    same check, timed beside it and beside SDPA."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_decode import flash_decode, flash_decode_plain
     B = len(pos)
@@ -1990,16 +2109,19 @@ def decode_attention(cfg, W: int, pos):
     slots = torch.arange(W, dtype=torch.int32, device="cuda")[None]
     sp = torch.where(slots <= pos[:, None], slots, -1).to(torch.int32)
     args = (q, k, v, pos, sp)
-    err = max_err(flash_decode(*args), flash_decode_plain(*args))
+    out = flash_decode(*args)
+    err = max_err(out, flash_decode_plain(*args), rows=True)
+    faults = decode_faults(out, *args)
+    del out
     mask = ((sp >= 0) & (sp <= pos[:, None]))[:, None, None, :]
     timed = device_vs_library(lambda: flash_decode(*args),
                               lambda: F.scaled_dot_product_attention(
                                   q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
-                                  attn_mask=mask, enable_gqa=True))
+                                  attn_mask=mask, enable_gqa=True), reps)
     plain_ms = time_ms(lambda: flash_decode_plain(*args), reps=5)
     bms, by = decode_bound(H, Hkv, D, int(mask.sum()), B, W)
     return dict(B=B, W=W, H=H, Hkv=Hkv, D=D, pos=pos.tolist(), max_abs_err=err,
-                plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                planted=faults, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                 bound_share=bms / timed["device_ms"],
                 parts=kernel_parts_ms(lambda: flash_decode(*args)), **timed)
 
@@ -2010,19 +2132,21 @@ def decode_expert_ffn(cfg):
     return expert_ffn_check(8, 8, cfg.d_model, cfg.d_expert, [3, 0, 7, 1, 6, 2, 5, 4])
 
 
-def expert_ffn_check(U, C, d, f, slots=None, pool: bool = True):
+def expert_ffn_check(U, C, d, f, slots=None, pool: bool = True, reps: int = 20,
+                     plain_reps: int = 5):
     """One ``expert_ffn_from_pool`` launch of U groups of C rows, read by
     slot (``slots``, or a random order) out of pools of U slabs, or with
     ``pool`` False one ``expert_ffn`` launch (the capacity buffer's entry:
     group e on slab e): held against the plain version and timed beside it
-    and the cuBLAS yardstick of the kernel phase."""
+    and the cuBLAS yardstick of the kernel phase. The slabs are drawn in
+    bf16 (Kimi-K2's 384 would take 68 GB as f32 draws)."""
     from repro_torch.kernels import expert_ffn as K
     g = torch.Generator(device="cuda").manual_seed(2)
-    r = lambda *s: torch.randn(s, generator=g, device="cuda").to(torch.bfloat16)
+    r = lambda *s: torch.empty(s, dtype=torch.bfloat16, device="cuda").normal_(generator=g)
     x = r(U, C, d)
-    w1 = r(U, d, f) * d ** -0.5
-    w3 = r(U, d, f) * d ** -0.5
-    w2 = r(U, f, d) * f ** -0.5
+    w1 = r(U, d, f).mul_(d ** -0.5)
+    w3 = r(U, d, f).mul_(d ** -0.5)
+    w2 = r(U, f, d).mul_(f ** -0.5)
     if pool:
         slots = (torch.randperm(U, generator=g, device="cuda") if slots is None
                  else torch.tensor(slots, device="cuda")).to(torch.int32)
@@ -2034,10 +2158,11 @@ def expert_ffn_check(U, C, d, f, slots=None, pool: bool = True):
         args, fn, plain = (x, w1, w3, w2), K.expert_ffn, K.expert_ffn_plain
         g1, g3, g2 = w1, w3, w2
     err = max_err(fn(*args), plain(*args))
-    ms = time_ms(lambda: fn(*args))
-    plain_ms = time_ms(lambda: plain(*args), reps=5)
+    ms = time_ms(lambda: fn(*args), reps)
+    plain_ms = time_ms(lambda: plain(*args), reps=plain_reps, warmup=min(3, plain_reps))
     cublas = lambda: torch.bmm(torch.nn.functional.silu(torch.bmm(x, g1)) * torch.bmm(x, g3), g2)
-    device_ms, cublas_device_ms = in_turns(lambda: fn(*args), cublas, kernel_ms)
+    device_ms, cublas_device_ms = in_turns(lambda: fn(*args), cublas,
+                                           lambda fn_: kernel_ms(fn_, reps))
     bms, by = bound(2 * (2 * U * C * d + 3 * U * d * f) + 4 * U * pool, 2 * 3 * U * C * d * f)
     return dict(U=U, C=C, d=d, f=f, slots=slots.tolist() if pool else None,
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, device_ms=device_ms,
@@ -2253,11 +2378,14 @@ def check_paper_small(seed: int):
 
 # -- phase 12: the paper's Table I models at their published widths -------------
 
-# (model, layers, max_seq): DeepSeekMoE-16B at all 28 layers (31.0 GB of
-# pinned host expert slabs), Qwen3-30B-A3B at 24 of 48 (29.0 GB), Mixtral-
-# 8x22B at 4 of 56 (19.3 GB). max_seq: each model's own choice (batch
-# invariance holds at any max_seq: flash_decode's ranges come from Hkv and W)
-PAPER_RUNS = (("deepseekmoe-16b", 28, 2048), ("qwen3-30b-a3b", 24, 4096),
+# (model, layers, max_seq): DeepSeekMoE-16B at 14 of 28 layers, Qwen3-30B-A3B
+# at 12 of 48, Mixtral-8x22B at 4 of 56 (19.3 GB of pinned host expert
+# slabs; host RAM). The first two ran at 28 (31.0 GB) and 24 (29.0 GB) until
+# the shapes phase needed their time: the paper phase was about half of the
+# script's 650 s, and the script's limit did not grow. max_seq: each model's
+# own choice (batch invariance holds at any max_seq: flash_decode's ranges
+# come from Hkv and W)
+PAPER_RUNS = (("deepseekmoe-16b", 14, 2048), ("qwen3-30b-a3b", 12, 4096),
               ("mixtral-8x22b", 4, 2048))
 PAPER_NEW_TOKENS = 16
 # the policy comparison's new tokens: LFP stages every expert of the next
@@ -3482,11 +3610,13 @@ def train_families(seed: int, kernels):
 
 # -- phase 3, continued: the kernel variants of the remaining families --------
 
-def cross_attention(B, Sq, Sk, H, Hkv, D, g):
+def cross_attention(B, Sq, Sk, H, Hkv, D, g, reps: int = 20, plain_reps: int = 5):
     """``flash_attention_cross``, Sq queries over Sk memory keys (no mask):
-    held against the plain version, the rows of a call with Sk = Sq
-    bit-equal to the monolithic kernel's without a mask, timed beside the
-    plain version and beside SDPA. Bound: q, k, v read and o written once;
+    held against the plain version (``rows``), a planted fault (the plain
+    version over the first half of the memory) failing the same check, the
+    rows of a call with Sk = Sq bit-equal to the monolithic kernel's
+    without a mask, timed beside the plain version and beside SDPA held to
+    its fused kernels. Bound: q, k, v read and o written once;
     4 D operations per (query, key) pair of each head. Returns the inputs
     and the record."""
     import torch.nn.functional as F
@@ -3494,33 +3624,44 @@ def cross_attention(B, Sq, Sk, H, Hkv, D, g):
                                                      flash_attention_plain)
     r = lambda *s: torch.randn(s, generator=g, device="cuda").to(torch.bfloat16)
     q, k, v = r(B, Sq, H, D), r(B, Sk, Hkv, D), r(B, Sk, Hkv, D)
-    err = max_err(flash_attention_cross(q, k, v), flash_attention_plain(q, k, v, causal=False))
+    o = flash_attention_cross(q, k, v)
+    err = max_err(o, flash_attention_plain(q, k, v, causal=False), rows=True)
+    h = Sk // 2
+    faults = planted({f"the first {h} memory keys": lambda: max_err(
+        o, flash_attention_plain(q, k[:, :h], v[:, :h], causal=False), rows=True)})
+    del o
     n = min(Sq, Sk)
     if not torch.equal(flash_attention_cross(q[:, :n], k[:, :n], v[:, :n]),
                        flash_attention(q[:, :n], k[:, :n], v[:, :n], causal=False)):
         raise AssertionError("flash_attention_cross: rows differ from the monolithic kernel's")
-    timed = device_vs_library(lambda: flash_attention_cross(q, k, v),
-                              lambda: F.scaled_dot_product_attention(
-                                  q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                                  enable_gqa=True))
-    plain_ms = time_ms(lambda: flash_attention_plain(q, k, v, causal=False), reps=5)
+    library = lambda: F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), enable_gqa=True)
+    timed = device_vs_library(lambda: flash_attention_cross(q, k, v), fused_sdpa(library),
+                              reps)
+    plain_ms = time_ms(lambda: flash_attention_plain(q, k, v, causal=False), reps=plain_reps,
+                       warmup=min(3, plain_reps))
     bms, by = bound(2 * (2 * B * Sq * H * D + 2 * B * Sk * Hkv * D), 4 * B * H * D * Sq * Sk)
     return (q, k, v), dict(shape=dict(B=B, Sq=Sq, Sk=Sk, H=H, Hkv=Hkv, D=D), max_abs_err=err,
-                           bit_equal_to_monolithic=True, plain_ms=plain_ms, bound_ms=bms,
-                           bound_by=by, bound_share=bms / timed["device_ms"], **timed)
+                           planted=faults, bit_equal_to_monolithic=True, plain_ms=plain_ms,
+                           bound_ms=bms, bound_by=by, bound_share=bms / timed["device_ms"],
+                           **timed)
 
 
 def cross_decode(B, M, H, Hkv, D, g):
     """The cross-attention decode as the port runs it: ``flash_decode`` with
     pos 0 and every memory slot at position 0 (all valid), against the
-    plain version, timed beside SDPA without a mask."""
+    plain version (``rows``), ``decode_faults`` failing the same check,
+    timed beside SDPA without a mask."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_decode import flash_decode, flash_decode_plain
     r = lambda *s: torch.randn(s, generator=g, device="cuda").to(torch.bfloat16)
     q, k, v = r(B, H, D), r(B, M, Hkv, D), r(B, M, Hkv, D)
     args = (q, k, v, torch.zeros(B, dtype=torch.int32, device="cuda"),
             torch.zeros(M, dtype=torch.int32, device="cuda")[None].expand(B, M))
-    err = max_err(flash_decode(*args), flash_decode_plain(*args))
+    out = flash_decode(*args)
+    err = max_err(out, flash_decode_plain(*args), rows=True)
+    faults = decode_faults(out, *args)
+    del out
     timed = device_vs_library(lambda: flash_decode(*args),
                               lambda: F.scaled_dot_product_attention(
                                   q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
@@ -3528,7 +3669,7 @@ def cross_decode(B, M, H, Hkv, D, g):
     plain_ms = time_ms(lambda: flash_decode_plain(*args), reps=5)
     bms, by = decode_bound(H, Hkv, D, B * M, B, M)
     return dict(B=B, W=M, H=H, Hkv=Hkv, D=D, cross=True, max_abs_err=err,
-                plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                planted=faults, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                 bound_share=bms / timed["device_ms"],
                 parts=kernel_parts_ms(lambda: flash_decode(*args)), **timed)
 
@@ -3543,26 +3684,45 @@ def attention_err(B, Sq, Sk, H, Hkv, D, g, cross: bool = False, window: int = -1
     q, k, v = r(B, Sq, H, D), r(B, Sk, Hkv, D), r(B, Sk, Hkv, D)
     if cross:
         return max_err(flash_attention_cross(q, k, v),
-                       flash_attention_plain(q, k, v, causal=False))
+                       flash_attention_plain(q, k, v, causal=False), rows=True)
     return max_err(flash_attention(q, k, v, window=window),
-                   flash_attention_plain(q, k, v, window=window))
+                   flash_attention_plain(q, k, v, window=window), rows=True)
 
 
-def ring_decode_err(cfg, W: int, pos: int, g):
-    """``flash_decode`` at one row over a ring of W slots that has wrapped
-    (slot s holds the latest position up to ``pos`` that is s mod W, as the
-    hybrid's rolled prefill leaves it), under the config's window: the
-    largest error against the plain version."""
-    from repro_torch.kernels.flash_decode import flash_decode, flash_decode_plain
+def ring_decode(cfg, W: int, pos: int, window: int, g, reps: int = 20, timed: bool = True):
+    """``flash_decode`` at one row's step of position ``pos`` over a ring of
+    W slots that has wrapped (``launch.input_specs.ring_slot_pos``: slot s
+    holds the newest position up to ``pos`` that is s mod W), under
+    ``window``: held against the plain version (``rows``),
+    ``decode_faults`` failing the same check, and with ``timed`` timed
+    beside it and beside SDPA with the same mask. Bound: the live slots' K
+    and V rows once."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_decode import flash_decode, flash_decode_plain, n_splits
+    from repro_torch.launch.input_specs import ring_slot_pos
     H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     r = lambda *s: torch.randn(s, generator=g, device="cuda").to(torch.bfloat16)
     q, k, v = r(1, H, D), r(1, W, Hkv, D), r(1, W, Hkv, D)
-    slots = torch.arange(W, dtype=torch.int32, device="cuda")
-    sp = (pos - (pos - slots) % W).to(torch.int32)[None]
-    p = torch.tensor([pos], dtype=torch.int32, device="cuda")
-    w = cfg.sliding_window or -1
-    return max_err(flash_decode(q, k, v, p, sp, window=w),
-                   flash_decode_plain(q, k, v, p, sp, window=w))
+    sp = ring_slot_pos(W, pos + 1, "cuda")[None]
+    p = torch.full((1,), pos, dtype=torch.int32, device="cuda")
+    args = (q, k, v, p, sp)
+    out = flash_decode(*args, window=window)
+    err = max_err(out, flash_decode_plain(*args, window=window), rows=True)
+    ok = (sp >= 0) & (sp <= pos) & ((sp > pos - window) if window > 0 else True)
+    rec = dict(B=1, W=W, H=H, Hkv=Hkv, D=D, pos=pos, window=window, live=int(ok.sum()),
+               n_split=n_splits(Hkv, W), max_abs_err=err,
+               planted=decode_faults(out, *args, window=window))
+    if not timed:
+        return rec
+    mask = ok[:, None, None, :]
+    timed = device_vs_library(lambda: flash_decode(*args, window=window),
+                              lambda: F.scaled_dot_product_attention(
+                                  q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+                                  attn_mask=mask, enable_gqa=True), reps)
+    plain_ms = time_ms(lambda: flash_decode_plain(*args, window=window), reps=5)
+    bms, by = decode_bound(H, Hkv, D, rec["live"], 1, W)
+    return dict(rec, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                bound_share=bms / timed["device_ms"], **timed)
 
 
 def family_kernel_variants(g):
@@ -3604,7 +3764,7 @@ def family_kernel_variants(g):
     (q, k, v), rec = shapes["gemma"].make(g)
     w = gemma.sliding_window
     rec["window_max_abs_err"] = max_err(flash_attention(q, k, v, window=w),
-                                        flash_attention_plain(q, k, v, window=w))
+                                        flash_attention_plain(q, k, v, window=w), rows=True)
     del q, k, v
     rec["forward_max_abs_err"] = attention_err(2, BUNDLE_S + 1, BUNDLE_S + 1, gemma.n_heads,
                                                gemma.n_kv_heads, gemma.hd, g)
@@ -3617,8 +3777,9 @@ def family_kernel_variants(g):
         add("flash_attention_cross", shapes[key].label, rec)
     W = BUNDLE_S + BUNDLE_NEW
     rec = decode_attention(zamba, zw, [zw - 1])
-    rec["wrapped_ring_max_abs_err"] = max(ring_decode_err(zamba, zw, p, g)
-                                          for p in (S, S + BUNDLE_NEW - 1))
+    rec["wrapped_ring_max_abs_err"] = max(
+        ring_decode(zamba, zw, p, zw, g, timed=False)["max_abs_err"]
+        for p in (S, S + BUNDLE_NEW - 1))
     add("flash_decode", "D=112 (Zamba2-7B, a full 4096-slot ring)", rec)
     add("flash_decode", "D=256 (gemma3-1b)", decode_attention(gemma, W, [W - 1] * 2))
     add("flash_decode", "G=48 (granite-34b)", decode_attention(granite, W, [W - 1] * 2))
@@ -3895,6 +4056,270 @@ def serve_families(seed: int, kernels):
     return dict(phase="families", launches=launches)
 
 
+# -- phase 19: the reference's (arch x input shape) matrix ---------------------
+
+SHAPES_S = 32_768      # prefill_32k / decode_32k
+SHAPES_REPS = 5        # timed calls a turn at these sizes (10-100 ms a call)
+# decode pairs whose params and cache fit this many host bytes (the CPU's
+# copy and its step's copy of the cache) are held against the same step on
+# the CPU; the rest (Kimi-K2's 37.6 GB of params, Llama-3.2-Vision's 10.7
+# GB beside 8.7 GB of cache) would take minutes of the CPU's bf16 products
+SHAPES_HOST_BYTES = 12e9
+# stacks of this many layers and more are held against the CPU by the f32
+# witness: through gemma3-1b's six layers the card's decode_32k logits
+# parted from the CPU's by 0.109, past BUNDLE_TOL (NVIDIA H100 80GB HBM3),
+# as families_check found bf16 rounding grow with depth in its stacks
+SHAPES_WITNESS_LAYERS = 3
+# the kernels every run of the matrix must launch
+SHAPES_KERNELS = ("expert_ffn", "flash_attention", "flash_attention_cross", "flash_decode",
+                  "ssd_scan")
+
+
+def shape_kernel_checks(g) -> dict:
+    """Each kernel at the sizes the matrix gives it and no earlier phase
+    reaches, held against its plain version on the card (TOL; ``ssd_scan``
+    TOL_F32; the plain attention goes in blocks of query rows there) and
+    timed as the kernel phase times it (device ms, events, the bound, SDPA
+    held to its fused kernels or the cuBLAS yardstick, the plain version),
+    ``SHAPES_REPS`` calls a turn: ``flash_attention`` at S=32768 (Qwen3-1.7B
+    B=2 16 / 8 D=128; gemma3-1b B=2 4 / 1 D=256, global and its window 512;
+    Zamba2-7B B=2 32 / 32 D=112 under its window 4096);
+    ``flash_attention_cross`` at SeamlessM4T's 2 x 32768 over 32768, D=64;
+    ``flash_decode`` at B=8 over W=32768 (32 / 8, D=128) and at the step of
+    position 524287 over ``long_500k``'s wrapped rings (gemma3-1b's 131072
+    slots, global and window 512; Zamba2-7B's 4096 under its window);
+    ``ssd_scan`` at 2 x 32768 (Mamba2-2.7B (64, 128), Zamba2-7B (64, 64));
+    ``expert_ffn`` at the capacity rows of Qwen2-MoE-A2.7B's and Kimi-K2's
+    ``prefill_32k`` step (2 x 32768 tokens). Returns {kernel: [records]}."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+    from repro_torch.launch.input_specs import LONG_CACHE_CAP
+    from repro_torch.models.moe_layer import capacity_for, n_experts_padded
+    c = {a: get_config(a) for a in ("qwen3_1_7b", "gemma3_1b", "zamba2_7b",
+                                     "seamless_m4t_medium", "mamba2_2_7b", "mixtral_8x7b",
+                                     "qwen2_moe_a2_7b", "kimi_k2_1t_a32b")}
+    heads = lambda a: (c[a].n_heads, c[a].n_kv_heads, c[a].hd)
+    S, R, long_pos = SHAPES_S, SHAPES_REPS, 524_287
+    out = {n: [] for n in SHAPES_KERNELS}
+
+    def add(kernel, variant, rec):
+        rec = dict(variant=variant, **rec)
+        emit(dict(phase="shape_kernel", name=kernel, tol=TOL_F32 if kernel == "ssd_scan"
+                  else TOL, **rec))
+        out[kernel].append(rec)
+        release()
+
+    _, rec = prefill_attention(*heads("qwen3_1_7b"), S, g, B=2, reps=R, plain_reps=1)
+    add("flash_attention", "causal, D=128, B=2, S=32768, 16/8 (Qwen3-1.7B prefill_32k)", rec)
+    (q, k, v), rec = prefill_attention(*heads("gemma3_1b"), S, g, B=2, reps=R, plain_reps=1)
+    w = c["gemma3_1b"].sliding_window
+    rec["window_max_abs_err"] = max_err(flash_attention(q, k, v, window=w),
+                                        flash_attention_plain(q, k, v, window=w), rows=True)
+    del q, k, v
+    add("flash_attention", "D=256, B=2, S=32768, 4/1 (gemma3-1b prefill_32k, global; "
+        "window 512 held too)", rec)
+    zw = c["zamba2_7b"].sliding_window
+    _, rec = prefill_attention(*heads("zamba2_7b"), S, g, B=2, window=zw, reps=R,
+                               plain_reps=1)
+    add("flash_attention", "D=112, B=2, S=32768, 32/32, window 4096 (Zamba2-7B prefill_32k)",
+        rec)
+    _, rec = cross_attention(2, S, S, *heads("seamless_m4t_medium"), g, reps=R,
+                             plain_reps=1)
+    add("flash_attention_cross", "B=2, 32768 over 32768, 16/16, D=64 (SeamlessM4T-medium "
+        "prefill_32k)", rec)
+    add("flash_decode", "B=8, W=32768, 32/8, D=128, pos 32767 (decode_32k)",
+        decode_attention(c["mixtral_8x7b"], S, [S - 1] * 8, reps=R))
+    gemma = c["gemma3_1b"]
+    for window in (-1, gemma.sliding_window):
+        add("flash_decode", f"gemma3-1b long_500k: {LONG_CACHE_CAP}-slot ring at pos "
+            f"{long_pos}, 4/1, D=256, window {window}",
+            ring_decode(gemma, LONG_CACHE_CAP, long_pos, window, g, reps=R))
+    add("flash_decode", f"Zamba2-7B long_500k: {zw}-slot ring at pos {long_pos}, 32/32, "
+        "D=112", ring_decode(c["zamba2_7b"], zw, long_pos, zw, g, reps=R))
+    for a in ("mamba2_2_7b", "zamba2_7b"):
+        cfg = c[a]
+        scan = (cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim, cfg.ssm_groups,
+                cfg.ssm_head_dim, cfg.ssm_state)
+        _, rec = ssd_scan_shape(g, S, *scan, B=2, reps=R)
+        add("ssd_scan", f"({scan[2]}, {scan[3]}), B=2, S=32768, H={scan[0]} ({cfg.name} "
+            "prefill_32k)", rec)
+    for a in ("qwen2_moe_a2_7b", "kimi_k2_1t_a32b"):
+        cfg = c[a]
+        E = n_experts_padded(cfg)
+        C = capacity_for(2 * S, cfg, E, cfg.capacity_factor)
+        add("expert_ffn", f"E={E}, C={C}, d={cfg.d_model}, f={cfg.d_expert} ({cfg.name} "
+            "prefill_32k capacity rows)",
+            expert_ffn_check(E, C, cfg.d_model, cfg.d_expert, pool=False, reps=R,
+                             plain_reps=1))
+    return out
+
+
+# every family's V leaves ([..., slots, Hkv, hd]; "mv" the cross memory)
+V_LEAVES = ("v", "v0", "vt", "av", "mv")
+
+
+def read_cache(cfg, cache) -> dict:
+    """``cache`` with each layer's V rows scaled by the square root of the
+    slots the layer reads (its window's, or the whole ring's or memory's).
+    Unit-normal values averaged over n slots give attention outputs of
+    about n^-1/2, too small for the logits to show a step that misreads the
+    cache body; scaled, every layer's output is O(1), as over a short
+    prompt, and a local layer's does not drown a global one's."""
+    out = dict(cache)
+    for k in V_LEAVES:
+        if k not in cache:
+            continue
+        t = cache[k]
+        W, lead = t.shape[-3], t.shape[:-4]
+        first = {"v": cfg.n_dense_layers, "v0": 0,
+                 "vt": cfg.n_layers - math.prod(lead)}.get(k)
+        if first is None:   # the hybrid's shared block, the cross memory
+            windows = [cfg.sliding_window if k == "av" and cfg.sliding_window else -1]
+        else:
+            windows = [cfg.window_for_layer(first + i) for i in range(math.prod(lead))]
+        n = torch.tensor([min(w, W) if w > 0 else W for w in windows], dtype=torch.float32)
+        scale = n.sqrt().reshape(lead if first is not None else ()).to(t.device)
+        out[k] = (t * scale.reshape(scale.shape + (1,) * 4)).to(t.dtype)
+    return out
+
+
+def misread(cache) -> dict:
+    """``cache`` with the V rows of slots [W/2, 5W/8) of every V leaf
+    zeroed: a step that reads an eighth of the cache body wrongly."""
+    out = dict(cache)
+    for k in V_LEAVES:
+        if k in cache:
+            W = cache[k].shape[-3]
+            out[k] = cache[k].clone()
+            out[k][..., W // 2:W // 2 + W // 8, :, :] = 0
+    return out
+
+
+def decode_vs_cpu(plan, bundle, params, inputs, logits) -> dict:
+    """The card's ``decode_step`` logits of a pair against the same step on
+    the CPU (the plain versions, the same weights), both over the pair's
+    synthesized cache with its V leaves scaled (``read_cache``) so that
+    what the step reads of the cache shows in the logits; the CPU's router
+    calls take the card's experts (a token whose own choice differs must
+    sit at a near-tie). First the card's step over the pair's own cache
+    must repeat the dry-run's logits bit for bit. A stack of at most two
+    layers is held within ``BUNDLE_TOL``; a deeper one
+    (``SHAPES_WITNESS_LAYERS``: gemma3-1b's six, Zamba2-7B's block) by the
+    f32 witness, as ``families_check`` holds its deeper stacks: the card at
+    most ``F32_RATIO`` times as far from the CPU's step in f32 (weights,
+    cache and activations) as the CPU's bf16 step is. Each control must
+    fail the same gate: the CPU step one window further on (``pos`` + the
+    window, or the ring where the config has none; for the attention-free
+    ssm the conv states one step behind) and, where the cache has V
+    leaves, the CPU step over ``misread``'s cache."""
+    from repro_torch.training.optimizer import tree_map
+    cfg = plan.cfg
+    with torch.no_grad():
+        again, _ = bundle.decode_step(params, inputs["step"], inputs["cache"])
+    if not torch.equal(again, logits):
+        raise AssertionError(f"{cfg.name}: the card's decode step is not repeatable")
+    del again
+    scaled = read_cache(cfg, inputs["cache"])
+    with routes() as card_routes, torch.no_grad():
+        card = bundle.decode_step(params, inputs["step"], scaled)[0].float().cpu()
+    host = to_cpu(params)
+    step, cache = to_cpu(inputs["step"]), to_cpu(scaled)
+    del scaled
+    run = lambda p, c: bundle.decode_step(p, step, c)[0].float()
+    t0 = time.perf_counter()
+    with routes(replay=card_routes) as cpu_routes, torch.no_grad():
+        cpu = run(host, cache)
+    cpu_s = time.perf_counter() - t0
+    n_flips = flips(cpu_routes, card_routes)
+    controls = {}
+    if "slot_pos" in cache:
+        window = cfg.sliding_window or cache["slot_pos"].shape[0]
+        controls["pos + window"] = dict(cache, pos=cache["pos"] + window)
+    else:
+        controls["conv states one step behind"] = dict(
+            cache, **{k: torch.roll(cache[k], 1, dims=-1) for k in cache if k.startswith("conv_")})
+    if any(k in cache for k in V_LEAVES):
+        controls["V of slots [W/2, 5W/8) zeroed"] = misread(cache)
+    for what, moved in controls.items():
+        with routes(replay=card_routes), torch.no_grad():
+            controls[what] = run(host, moved)
+    err, ok = logit_err(card, cpu)
+    share = lambda a: float(((a - cpu).abs() / (BUNDLE_TOL * (1 + cpu.abs()))).max())
+    rec = dict(max_abs_err=err, tol=BUNDLE_TOL, limit_share=share(card),
+               controls={what: logit_err(card, c)[0] for what, c in controls.items()},
+               own_route_flips_at_ties=n_flips, cpu_step_s=cpu_s)
+    passed = {what: logit_err(card, c)[1] for what, c in controls.items()}
+    if cfg.n_layers + cfg.enc_layers >= SHAPES_WITNESS_LAYERS:
+        f32 = lambda t: t.float() if t.is_floating_point() else t
+        with activations_f32(), routes(replay=card_routes), torch.no_grad():
+            exact = run(tree_map(f32, host), tree_map(f32, cache))
+        dist = lambda a: float((a - exact).abs().max())
+        rec.update(gate="f32 witness", f32_ratio=F32_RATIO, card_vs_f32=dist(card),
+                   cpu_vs_f32=dist(cpu), ratio=dist(card) / dist(cpu),
+                   control_ratios={what: dist(c) / dist(cpu) for what, c in controls.items()})
+        ok = rec["ratio"] <= F32_RATIO
+        passed = {what: r <= F32_RATIO for what, r in rec["control_ratios"].items()}
+    else:
+        rec["gate"] = "BUNDLE_TOL"
+    if not ok:
+        raise AssertionError(f"{cfg.name}: card decode logits part from the CPU's: {rec}")
+    if any(passed.values()):
+        raise AssertionError(f"{cfg.name}: a control passed the gate: {rec}")
+    return rec
+
+
+def host_bytes(plan) -> int:
+    """Host bytes of a decode pair's CPU check: params, the cache and the
+    step's copy of it."""
+    return plan.bytes["params"] + plan.bytes["cache"]
+
+
+def shape_pairs(seed: int, kernels) -> dict:
+    """Every pair of ``pairs()`` through ``launch/dryrun.py``: its plan from
+    bytes, then, where it fits, one warm-up and one timed step of its kind
+    at published widths and full sequence length (``dryrun.run_pair``), one
+    line each; params drawn once per config (the train step updates them
+    in place, the later pairs run on those). Decode pairs within
+    ``SHAPES_HOST_BYTES`` are held against the CPU (``decode_vs_cpu``).
+    The kernels' counts are reset just before and read just after; each of
+    ``SHAPES_KERNELS`` must have launched."""
+    from repro_torch.launch import dryrun as D
+    t0 = time.perf_counter()
+    plans = D.plan_all()
+    for fn in kernels:
+        fn.launches = 0
+    rows, no_fit, params, arch = [], [], None, None
+    for plan in plans:
+        if plan.arch != arch:
+            params, arch = None, plan.arch
+            release()
+        if not plan.fits:
+            rec = dict(plan.record(), ok=False)
+            no_fit.append(dict(arch=plan.arch, shape=plan.shape.name, reason=plan.reason,
+                               planned_bytes=plan.bytes))
+        else:
+            bundle = D.build_for(plan.cfg)
+            if params is None:
+                params, init_s = timed_init(bundle, seed)
+            rec, outputs, inputs = D.run_pair(plan, "cuda", seed, params=params)
+            if plan.kind == "decode" and host_bytes(plan) <= SHAPES_HOST_BYTES:
+                rec["cpu_check"] = decode_vs_cpu(plan, bundle, params, inputs,
+                                                 outputs["logits"])
+            del outputs, inputs
+        emit(dict(phase="shape_pair", **rec))
+        rows.append({k: rec.get(k) for k in ("arch", "shape", "fits", "batch", "depth",
+                                             "reduced", "step_ms", "max_memory_allocated")})
+        release()
+    params = None
+    release()
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    missing = [n for n in SHAPES_KERNELS if not launches.get(n)]
+    if missing:
+        raise AssertionError(f"kernels never launched by the matrix: {missing}")
+    return dict(phase="shapes", pairs=len(plans), ran=sum(r["fits"] for r in rows),
+                no_fit=no_fit, seconds=time.perf_counter() - t0, launches=launches)
+
+
 def flash_decode_shapes():
     """Every ``flash_decode`` shape a main path runs, as (label, record
     maker): Mixtral-8x7B's serve rows (B=1 at W=545 and 4096) and the batch
@@ -3991,6 +4416,9 @@ def main() -> int:
                     help="only time flash_decode at every shape a main path runs "
                          "(flash_decode_shapes) with the port's package taken from SRC, "
                          "and print one line a shape")
+    ap.add_argument("--shapes", action="store_true",
+                    help="only build the kernels and run the shapes phase (the reference's "
+                         "arch x input shape matrix), and print its lines")
     ap.add_argument("--flash-attention", metavar="SRC", default=None,
                     help="only time flash_attention, _cross and _chunk at every shape a main "
                          "path runs (flash_attention_shapes) with the port's package taken "
@@ -4032,6 +4460,11 @@ def main() -> int:
     check_attention_build(attention, sass["flash_attention"])
 
     g = torch.Generator(device="cuda").manual_seed(args.seed)
+    shape_set = [expert_ffn, flash_attention, flash_attention_cross, flash_decode, ssd_scan]
+    if args.shapes:
+        emit(shape_pairs(args.seed, shape_set))
+        shape_kernel_checks(g)
+        return 0
     results = [kernel_expert_ffn(g), kernel_flash_attention(g),
                kernel_flash_attention_chunk(g), kernel_flash_decode(g), kernel_ssd_scan(g)]
     torch.cuda.empty_cache()
@@ -4090,6 +4523,10 @@ def main() -> int:
     families = serve_families(args.seed, [flash_attention, flash_attention_cross,
                                           flash_decode, ssd_scan])
     emit(families)
+    release()
+    at_shapes = shape_kernel_checks(g)
+    shapes = shape_pairs(args.seed, shape_set)
+    emit(shapes)
     cross = variants["flash_attention_cross"][0]
     results.append(dict(name="flash_attention_cross", route="cuda",
                         source="src/repro_torch/csrc/flash_attention.cu",
@@ -4098,11 +4535,13 @@ def main() -> int:
 
     # each kernel's launches from the paths that run it
     launches = {}
-    for phase in (srv, bat, clu, examples, ssm, paper, bundles, train, trained, families):
+    for phase in (srv, bat, clu, examples, ssm, paper, bundles, train, trained, families,
+                  shapes):
         for n, c in phase["launches"].items():
             launches[n] = launches.get(n, 0) + c
     compact = ("variant", "shape", "B", "W", "max_abs_err", "ms", "device_ms", "parts",
-               "plain_ms", "bound_ms", "bound_by", "library_ms", "library_device_ms")
+               "plain_ms", "bound_ms", "bound_by", "library_ms", "library_device_ms",
+               "cublas_device_ms")
     summary = [{k: r[k] for k in ("name", "route", "source", "replaces")}
                | {"launches": launches[r["name"]]}
                | {k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
@@ -4114,6 +4553,9 @@ def main() -> int:
                | ({"variants": [{k: v[k] for k in compact if k in v}
                                 for v in variants[r["name"]]]}
                   if variants.get(r["name"]) else {})
+               | ({"shapes": [{k: v[k] for k in compact if k in v}
+                              for v in at_shapes[r["name"]]]}
+                  if at_shapes.get(r["name"]) else {})
                for r in results]
     print(card, flush=True)
     emit({"kernels": summary})

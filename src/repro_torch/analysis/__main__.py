@@ -3,14 +3,16 @@
 Layer 1 (always): the AST lint of the port's package against the rules,
 suppressed only through ``analysis/allowlist.toml``. Layer 2 (skip with
 ``--no-audit``): the device audit of a batched engine
-(``device_audit.run_audit``): on the CPU its ``donation`` and
-``compile-keys`` checks, on the card (``--device cuda``) all four.
+(``device_audit.run_audit``): on the card (the default) all four checks,
+on the CPU (``--device cpu``) its ``donation`` and ``compile-keys``.
 """
 from __future__ import annotations
 
 import argparse
 import sys
 from pathlib import Path
+
+import torch
 
 from .lint import load_allowlist, run_lint
 from .rules import ALL_RULES
@@ -24,8 +26,8 @@ def main(argv=None) -> int:
                     help="allowlist TOML (default: analysis/allowlist.toml in the root)")
     ap.add_argument("--no-audit", action="store_true",
                     help="skip the device audit (the lint alone)")
-    ap.add_argument("--device", default="cpu",
-                    help="the audit engine's device: cpu (default) or cuda")
+    ap.add_argument("--device", default="cuda",
+                    help="the audit engine's device: cuda (default) or cpu")
     ap.add_argument("--list-rules", action="store_true", help="print rule ids and exit")
     ap.add_argument("-v", "--verbose", action="store_true",
                     help="also print allowlisted findings with their reasons")
@@ -35,6 +37,11 @@ def main(argv=None) -> int:
         for rule in ALL_RULES:
             print(f"{rule.id:<22} paths: {', '.join(rule.paths)}")
         return 0
+
+    if not args.no_audit and args.device == "cuda" and not torch.cuda.is_available():
+        print("repro_torch.analysis: no CUDA device (--device cpu audits a CPU engine)",
+              file=sys.stderr)
+        return 2
 
     root = args.root or Path(__file__).resolve().parents[1]
     allow_path = args.allowlist or root / "analysis" / "allowlist.toml"

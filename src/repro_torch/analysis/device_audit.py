@@ -77,7 +77,7 @@ class AuditReport:
 # --------------------------------------------------------------------------
 
 
-def build_audit_engine(device: str = "cpu", **kw):
+def build_audit_engine(device: str = "cuda", **kw):
     """A batched engine of reduced Mixtral at the CUDA kernels' widths
     (head_dim 64 on one KV head), ``duo``, 8 rows of 512 slots, on random
     weights from seed 0."""
@@ -401,7 +401,7 @@ def run_audit(build: Optional[Callable] = None, given=None,
               extra: Optional[Dict[str, Sequence]] = None,
               allowlist: Path = ALLOWLIST) -> AuditReport:
     """Build an engine with ``build`` (default ``build_audit_engine()`` on
-    the CPU) and run the checks its device allows. ``extra`` plants bad
+    the card) and run the checks its device allows. ``extra`` plants bad
     cases, per check: ``callback``: callables run inside the audited decode
     step; ``const``: callables given the built engine; ``donation``: a
     prefetch ``(cache, key)`` used in place of ``ExpertResidency.prefetch``;

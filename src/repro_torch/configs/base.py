@@ -1,16 +1,18 @@
-"""Architecture configs (copy of ``repro.configs.base``).
+"""Architecture configs and input shapes (copy of ``repro.configs.base``).
 
 Each config module ``repro_torch/configs/<id>.py`` exports ``CONFIG:
 ArchConfig`` with the published dimensions. ``get_config(name)`` resolves by
 id; ``reduced(cfg)`` gives the small test variant of the same family (2
 layers, d_model <= 256, <= 4 experts), field for field as the reference
 computes it, so the tests hold both packages on the same shapes.
+``INPUT_SHAPES`` are the four workloads every config must run and
+``pairs()`` the (config, shape) matrix ``launch/dryrun.py`` drives.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Optional
+from typing import List, Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,6 +72,15 @@ class ArchConfig:
     def is_moe(self) -> bool:
         return self.n_experts > 0
 
+    @property
+    def supports_long_decode(self) -> bool:
+        """Sub-quadratic decode memory: SSM / hybrid / sliding-window archs."""
+        return self.family in ("ssm", "hybrid") or self.sliding_window is not None
+
+    @property
+    def has_decode(self) -> bool:
+        return True  # all assigned archs have an autoregressive decoder
+
     def window_for_layer(self, layer: int) -> int:
         """-1 means full attention; otherwise the sliding window size."""
         if self.sliding_window is None:
@@ -79,6 +90,21 @@ class ArchConfig:
         return -1 if (layer % (self.local_global_pattern + 1)
                       == self.local_global_pattern) else self.sliding_window
 
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # 'train' | 'prefill' | 'decode'
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
 
 ARCH_IDS = (
     "qwen3_1_7b",
@@ -111,6 +137,27 @@ def get_config(name: str) -> ArchConfig:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(_ALIASES)}")
     mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
     return mod.CONFIG
+
+
+def all_configs() -> Tuple[ArchConfig, ...]:
+    return tuple(get_config(a) for a in ARCH_IDS)
+
+
+def pairs() -> List[Tuple[ArchConfig, InputShape]]:
+    """All (arch, shape) pairs, honouring decode-shape applicability: the
+    ten assigned configs (not the paper's Mixtral replica) by each of the
+    four shapes, ``long_500k`` only where ``supports_long_decode``."""
+    out = []
+    for a in ARCH_IDS:
+        if a == "mixtral_8x7b":
+            continue
+        cfg = get_config(a)
+        for s in ("train_4k", "prefill_32k", "decode_32k", "long_500k"):
+            shape = INPUT_SHAPES[s]
+            if shape.name == "long_500k" and not cfg.supports_long_decode:
+                continue
+            out.append((cfg, shape))
+    return out
 
 
 def reduced(cfg: ArchConfig) -> ArchConfig:

@@ -33,12 +33,27 @@ import torch.nn.functional as F
 from repro_torch.kernels import _build
 from repro_torch.models.layers import matmul_rows
 
+PLAIN_CHUNK_ELEMS = 1 << 30   # f32 entries the plain version copies at once
 # x, w1_pool, w3_pool, w2_pool, slots, h, out; U, C, d, f, capacity; stream
 _ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
 def expert_ffn_plain(x, w1, w3, w2):
-    """x: [E,C,d]; w1/w3: [E,d,f]; w2: [E,f,d] -> [E,C,d] (x.dtype)."""
+    """x: [E,C,d]; w1/w3: [E,d,f]; w2: [E,f,d] -> [E,C,d] (x.dtype). Each
+    expert is its own function: where the f32 copies of all experts' rows
+    and slabs would pass ``PLAIN_CHUNK_ELEMS`` entries (Kimi-K2's 384 slabs
+    alone are 17 G), the experts go in chunks of that many."""
+    E, C, d = x.shape
+    n = max(1, PLAIN_CHUNK_ELEMS // (C * d + 3 * w1.shape[1] * w1.shape[2]))
+    if n >= E:
+        return _plain_experts(x, w1, w3, w2)
+    out = torch.empty_like(x)
+    for i in range(0, E, n):
+        out[i:i + n] = _plain_experts(x[i:i + n], w1[i:i + n], w3[i:i + n], w2[i:i + n])
+    return out
+
+
+def _plain_experts(x, w1, w3, w2):
     xf = x.float()
     h = F.silu(matmul_rows(xf, w1.float())) * matmul_rows(xf, w3.float())
     return matmul_rows(h.to(x.dtype).float(), w2.float()).to(x.dtype)

@@ -56,6 +56,7 @@ from repro_torch.kernels import _build
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 112, 128, 256)
+PLAIN_BLOCK_ELEMS = 1 << 28   # f32 logits the plain version holds at once
 CHUNK_HEAD_DIMS = (64, 128)
 # q, k, v, o, lse, B, Sq, Sk, H, Hkv, D, strides, causal, window, scale, stream
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
@@ -84,14 +85,38 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = -1,
     arithmetic (unnormalised p rounded to bf16, divided by the f32 sum).
     With ``return_lse`` also the rows' log-sum-exp, [B,H,S] f32. Without a
     causal mask k and v may hold another number of keys than q of queries
-    (cross attention)."""
+    (cross attention). Where the f32 logits of all rows would pass
+    ``PLAIN_BLOCK_ELEMS`` entries (S = 32768 is 17 G of them a head), the
+    rows go in blocks of that many entries, each over the keys its mask can
+    reach: a row's softmax is its own, and a masked key adds an exact 0."""
+    B, S, H, D = q.shape
+    Sk = k.shape[1]
+    rows = max(1, PLAIN_BLOCK_ELEMS // (B * H * Sk))
+    if rows >= S:
+        return _plain_rows(q, k, v, 0, 0, causal, window, return_lse)
+    outs = []
+    for i0 in range(0, S, rows):
+        i1 = min(S, i0 + rows)
+        k0 = max(0, i0 - window + 1) if window > 0 else 0
+        k1 = min(i1, Sk) if causal else Sk
+        outs.append(_plain_rows(q[:, i0:i1], k[:, k0:k1], v[:, k0:k1], i0, k0, causal,
+                                window, return_lse))
+    if not return_lse:
+        return torch.cat(outs, 1)
+    return torch.cat([o for o, _ in outs], 1), torch.cat([l for _, l in outs], 2)
+
+
+def _plain_rows(q, k, v, q0: int, k0: int, causal: bool, window: int, return_lse: bool):
+    """``flash_attention_plain`` of the queries at positions q0.. over the
+    keys at positions k0..."""
     B, S, H, D = q.shape
     Hkv = k.shape[2]
     G = H // Hkv
     qg = q.reshape(B, S, Hkv, G, D).float()
     s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * D ** -0.5
-    s = s.masked_fill(~_valid(torch.arange(S, device=q.device),
-                              torch.arange(k.shape[1], device=q.device), causal, window),
+    s = s.masked_fill(~_valid(torch.arange(q0, q0 + S, device=q.device),
+                              torch.arange(k0, k0 + k.shape[1], device=q.device), causal,
+                              window),
                       NEG_INF)
     m = s.amax(-1, keepdim=True)
     p = torch.exp(s - m)

@@ -11,7 +11,7 @@ and ``build_hybrid`` (zamba2).
   * ``forward(params, batch)``       -> (logits [B,S,Vp], aux) — teacher-forced
   * ``prefill(params, batch)``       -> (last_logits [B,Vp], cache)
   * ``decode_step(params, step, cache)`` -> (logits [B,Vp], cache)
-  * ``init_cache(batch_size, ...)``  -> an empty cache
+  * ``init_cache(batch_size, capacity, extras=None, device)`` -> an empty cache
 
 ``batch`` = {'tokens': [B,S]} (+ 'patch_embeds' [B,P,frontend_dim] for
 the vlm, 'frames' [B,F,frontend_dim] for the enc-dec), ``step`` =
@@ -31,7 +31,7 @@ reference's, key for key and shape for shape (each builder's docstring).
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -72,12 +72,15 @@ class ModelBundle:
     ring_axes: Dict[str, int] = dataclasses.field(default_factory=dict)
 
 
-def build(cfg: ArchConfig) -> ModelBundle:
+def build(cfg: ArchConfig, capacity_factor: Optional[float] = None) -> ModelBundle:
     """The family's builder; a dense local:global stack under
     ``REPRO_OPT_STATIC_WINDOW`` takes ``build_dense_pattern``, as the
-    reference's ``build`` does."""
+    reference's ``build`` does. ``capacity_factor`` goes to ``build_dense``
+    (MoE configs)."""
     if cfg.family == "dense" and cfg.local_global_pattern and opt_flags.static_window():
         return build_dense_pattern(cfg)
+    if cfg.family == "moe":
+        return build_dense(cfg, capacity_factor)
     builders = {"dense": build_dense, "moe": build_dense, "vlm": build_vlm,
                 "encdec": build_encdec, "ssm": build_ssm, "hybrid": build_hybrid}
     if cfg.family not in builders:
@@ -112,23 +115,27 @@ def pad_cache(cache, new_capacity: int, ring_axes: Dict[str, int]):
 # ---------------------------------------------------------------------------
 
 
-def _ffn_apply(xn, lp, cfg: ArchConfig, dropless: bool):
+def _ffn_apply(xn, lp, cfg: ArchConfig, dropless: bool, cf: Optional[float] = None):
+    """The block's FFN: the MLP, or the MoE FFN at capacity T * k
+    (``dropless``, decode), at ``capacity_for(T, cf)`` for a given ``cf``,
+    else at the exact capacity T."""
     if "moe" in lp:
-        cf = None
         if dropless:
             cf = float(cfg.top_k * M.n_experts_padded(cfg))  # => C = T*k
         return M.moe_ffn(xn, lp["moe"], cfg, capacity_factor=cf)
     return L.swiglu(xn, lp["mlp"]["w1"], lp["mlp"]["w3"], lp["mlp"]["w2"]), 0.0
 
 
-def _block_full(x, lp, win: int, cfg: ArchConfig, chunked: bool, static: bool = False):
+def _block_full(x, lp, win: int, cfg: ArchConfig, chunked: bool, static: bool = False,
+                cf: Optional[float] = None):
     """One decoder block over a whole sequence (``static``: the window is
-    the pattern stack's static one). Returns (x, (k, v), aux)."""
+    the pattern stack's static one; ``cf``: the MoE capacity factor,
+    ``_ffn_apply``). Returns (x, (k, v), aux)."""
     h, kv = L.self_attn_full(L.rms_norm(x, lp["ln1"], cfg.rms_eps), lp["attn"],
                              attn_dims(cfg), window=win, chunked=chunked,
                              static_window=static)
     x = x + h
-    y, aux = _ffn_apply(L.rms_norm(x, lp["ln2"], cfg.rms_eps), lp, cfg, dropless=False)
+    y, aux = _ffn_apply(L.rms_norm(x, lp["ln2"], cfg.rms_eps), lp, cfg, dropless=False, cf=cf)
     return x + y, kv, aux
 
 
@@ -195,7 +202,13 @@ def _slot(cache, ring: torch.Tensor):
     return slot, sp
 
 
-def build_dense(cfg: ArchConfig) -> ModelBundle:
+def build_dense(cfg: ArchConfig, capacity_factor: Optional[float] = None) -> ModelBundle:
+    """Dense and MoE decoders. ``capacity_factor``: forward and prefill
+    dispatch each MoE layer's T tokens into a buffer of ``capacity_for(T,
+    capacity_factor)`` rows an expert, as the reference's sharded
+    ``moe_ffn`` does per data shard (``launch/dryrun.py`` runs the
+    reference dry-run's step so), instead of the exact T (the default:
+    drops nothing); decode stays at T * k."""
     n_dense = cfg.n_dense_layers
     windows = [cfg.window_for_layer(l) for l in range(n_dense, cfg.n_layers)]
 
@@ -213,7 +226,7 @@ def build_dense(cfg: ArchConfig) -> ModelBundle:
         chunked = tokens.shape[1] >= CHUNKED_MIN_SEQ
         aux = 0.0
         for _, lp, win in _stacks(params):
-            x, _, a = _run(_block_full, x, lp, win, cfg, chunked)
+            x, _, a = _run(_block_full, x, lp, win, cfg, chunked, False, capacity_factor)
             aux = aux + a
         x = L.rms_norm(x, params["ln_f"], cfg.rms_eps)
         return _logits(x, params["embed"]), aux / cfg.n_layers
@@ -225,7 +238,7 @@ def build_dense(cfg: ArchConfig) -> ModelBundle:
         chunked = Ssz >= CHUNKED_MIN_SEQ
         kv = {"": [], "0": []}
         for key, lp, win in _stacks(params):
-            x, (k, v), _ = _block_full(x, lp, win, cfg, chunked)
+            x, (k, v), _ = _block_full(x, lp, win, cfg, chunked, False, capacity_factor)
             kv[key].append((k, v))
         cache = {}
         for key, rows in kv.items():
@@ -253,7 +266,7 @@ def build_dense(cfg: ArchConfig) -> ModelBundle:
         x = L.rms_norm(x, params["ln_f"], cfg.rms_eps)
         return _logits(x[:, -1], params["embed"]), new
 
-    def init_cache(batch_size: int, capacity: int, device="cuda"):
+    def init_cache(batch_size: int, capacity: int, extras=None, device="cuda"):
         shape = (batch_size, capacity, cfg.n_kv_heads, cfg.hd)
         c = {"k": torch.zeros((cfg.n_layers - n_dense,) + shape, dtype=L.PDT, device=device),
              **_ring(capacity, 0, device)}
@@ -627,7 +640,9 @@ def build_ssm(cfg: ArchConfig) -> ModelBundle:
         x = L.rms_norm(x, params["ln_f"], cfg.rms_eps)
         return _logits(x[:, -1], params["embed"]), new
 
-    def init_cache(batch_size: int, device="cuda"):
+    def init_cache(batch_size: int, capacity: int = 0, extras=None, device="cuda"):
+        """The reference's signature; the state has no slots, so
+        ``capacity`` and ``extras`` are unused."""
         one = S.init_ssm_cache(cfg, batch_size, device=device)
         cache = {k: torch.zeros((cfg.n_layers,) + v.shape, dtype=v.dtype, device=device)
                  for k, v in one.items()}

@@ -47,11 +47,11 @@ def init_params(cfg: ArchConfig, seed: int = 0, device="cuda",
     ``(1 + w)`` RMSNorm scale), the reference's f32 leaves (MoE router; SSM
     A_log, D, dt_bias). Draws on ``device``, one expert slab at a time, so
     host slabs are generated on the card and copied once into pinned
-    memory."""
+    memory. On ``meta`` the tree's shapes and dtypes, nothing drawn."""
     if expert_slabs not in PLACEMENTS:
         raise ValueError(f"expert_slabs must be one of {PLACEMENTS}")
     device = torch.device(device)
-    g = torch.Generator(device=device).manual_seed(seed)
+    g = None if device.type == "meta" else torch.Generator(device=device).manual_seed(seed)
     if cfg.family == "ssm":
         return _init_ssm(cfg, g, device)
     if cfg.family in ("hybrid", "vlm", "encdec"):

@@ -461,7 +461,7 @@ def test_cli_exit_codes(tmp_path, capsys):
 
 def test_cli_runs_the_cpu_audit(capsys):
     from repro_torch.analysis.__main__ import main
-    assert main([]) == 0
+    assert main(["--device", "cpu"]) == 0
     err = capsys.readouterr().err
     assert "device audit (cpu): donation, compile-keys" in err
 
@@ -473,8 +473,8 @@ def test_cli_runs_the_cpu_audit(capsys):
 
 @pytest.fixture(scope="module")
 def audit_report():
-    from repro_torch.analysis.device_audit import run_audit
-    return run_audit()
+    from repro_torch.analysis.device_audit import build_audit_engine, run_audit
+    return run_audit(build=lambda: build_audit_engine("cpu"))
 
 
 def test_device_audit_clean_on_cpu(audit_report):
@@ -487,7 +487,7 @@ def test_device_audit_clean_on_cpu(audit_report):
 
 
 def test_device_audit_flags_an_out_of_place_pool_write():
-    from repro_torch.analysis.device_audit import run_audit
+    from repro_torch.analysis.device_audit import build_audit_engine, run_audit
 
     def out_of_place(cache, key):
         slot = cache.slot_of[key]
@@ -496,20 +496,20 @@ def test_device_audit_flags_an_out_of_place_pool_write():
             cache._pools[name][slot].copy_(src)
         cache._loaded.add(key)
 
-    rep = run_audit(extra={"donation": out_of_place})
+    rep = run_audit(build=lambda: build_audit_engine("cpu"), extra={"donation": out_of_place})
     assert [f.rule for f in rep.findings] == ["donation"]
     assert "in place" in rep.findings[0].message
 
 
 def test_device_audit_flags_an_unbucketed_dispatch():
-    from repro_torch.analysis.device_audit import run_audit
+    from repro_torch.analysis.device_audit import build_audit_engine, run_audit
     from repro_torch.serving.engine import group_by_expert
 
     def unbucketed(ids, union, bucket_cap, u_bucket_cap=None):
         d = group_by_expert(ids, union, bucket_cap=1 << 30)
         return dataclasses.replace(d, row_idx=d.row_idx[:len(union), :max(d.counts)])
 
-    rep = run_audit(extra={"compile-keys": unbucketed})
+    rep = run_audit(build=lambda: build_audit_engine("cpu"), extra={"compile-keys": unbucketed})
     assert [f.rule for f in rep.findings] == ["compile-keys"]
 
 
