@@ -349,6 +349,35 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                The kernels' counts are reset before the pairs and each of
                ``SHAPES_KERNELS`` must be > 0 after. ``--shapes`` runs only
                this phase (the pairs first).
+ 20. mesh    — the reference's (data, model) mesh: ``mesh_kernel`` lines
+               first, the kernels at the per-rank shapes held against their
+               plain versions and timed (``expert_ffn`` at Qwen2-MoE's 30
+               local experts of the phase's capacity and at Mixtral-8x7B's
+               hidden-mode slice, f = 14336 / 16; ``flash_attention`` at 8 /
+               8 local heads and at 32 / 8 over 16 model ranks, 2 / 1).
+               Then Qwen2-MoE-A2.7B at published widths, ``MESH_LAYERS``
+               layers, experts padded by the model axis (60), global batch
+               4 x 4096: the unsharded step on the card (the MoE at the
+               config's capacity factor, one microbatch a data shard: the
+               function the mesh computes), its forward's logits and two
+               AdamW steps, its router record kept; then 4 ranks of a 2 x 2
+               (data x model) mesh in processes sharing this one card over
+               gloo (``backend``, ``ranks_per_card`` printed), each through
+               ``launch/train.py rank_setup`` and ``make_train_step`` on its
+               shard, its router taking the unsharded run's experts (its
+               own choice must differ only at a near-tie). Held: the logits
+               (last ``MESH_TAIL`` positions of every row, each rank's
+               vocabulary block, ``BUNDLE_TOL``), each step's loss
+               (``MESH_LOSS_TOL``) and gradient norm (``MESH_GN_TOL``),
+               every gradient leaf of step 1 (``MESH_GRAD_TOL``) and the
+               params after two steps (``MESH_PARAM_TOL``), beside a fault
+               run that must fail each of them: its forward with model rank
+               1's ``e_start`` off by one shard (logits), its steps with
+               ``copy_to`` left out (loss, gradient norm, gradient leaves,
+               params). Per rank: peak memory, step ms, the collectives'
+               counts and bytes (gloo between processes on one card: no
+               figure of them is NVLink's), its kernels' launches, which
+               must be > 0. ``--mesh`` runs only this phase.
 
 Every phase line carries ``t_s``, the seconds since the script started.
 The last three lines are the card's ``nvidia-smi`` name and power limit,
@@ -4402,6 +4431,319 @@ def decode_step_only(src: Path, layers: int, seed: int) -> int:
     return 0
 
 
+# -- phase 20: the (data, model) mesh ------------------------------------------
+
+MESH_ARCH = "qwen2_moe_a2_7b"
+MESH_LAYERS = 2
+MESH_GRID = (2, 2)          # (data, model)
+MESH_B, MESH_S = 4, 4096    # global batch
+MESH_STEPS = 2
+MESH_LR = 1e-3
+MESH_TAIL = 128             # logit positions held, the last of every row
+# Limits of the 2 x 2 step against the unsharded one, each near the
+# geometric mean of the sound run's reading and the copy_to control's
+# (PERF.md, PR 26: sound / control): the loss of each step (2.5e-4 / 0.19)
+# and the gradient norm (2.4e-4 / 0.44), relative; each gradient leaf of
+# step 1, read from the f32 first moment (m = (1 - b1) * clip scale * g) on
+# the rank's ZeRO slice, as its largest difference over the leaf's largest
+# entry (6.3e-3 / 1.1); the params after the steps, as the norm of (mesh -
+# unsharded) over the norm of the unsharded update, over the whole tree
+# (0.027 / 0.92).
+MESH_LOSS_TOL = 5e-3
+MESH_GN_TOL = 1e-2
+MESH_GRAD_TOL = 5e-2
+MESH_PARAM_TOL = 0.15
+
+
+def mesh_kernel_checks(g) -> dict:
+    """The kernels at the shapes a rank of a mesh gives them, each held
+    against its plain version and timed (``mesh_kernel`` lines): the
+    expert FFN at Qwen2-MoE-A2.7B's 30 local experts (60 over 2 model
+    ranks) of the mesh phase's capacity rows (``capacity_for`` 2 x 4096
+    tokens) and at Mixtral-8x7B's hidden-mode slice (8 experts, f = 14336 /
+    16, 4096 rows); the attention at 8 / 8 local heads (Qwen2-MoE's 16 / 16
+    over 2) and 2 / 1 (32 / 8 heads over 16 model ranks), B=2 x 4096."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.moe_layer import capacity_for
+    cfg = get_config(MESH_ARCH)
+    cap = capacity_for(MESH_B // MESH_GRID[0] * MESH_S, cfg, cfg.n_experts)
+    out = {"expert_ffn": [], "flash_attention": []}
+    for variant, (U, C, d, f) in (
+            ("qwen2_moe_expert_mode", (cfg.n_experts // MESH_GRID[1], cap, cfg.d_model,
+                                       cfg.d_expert)),
+            ("mixtral_hidden_mode", (8, 4096, 4096, 14336 // 16))):
+        rec = dict(variant=variant, shape=dict(U=U, C=C, d=d, f=f),
+                   **expert_ffn_check(U, C, d, f, pool=False))
+        rec["library_device_ms"] = rec["cublas_device_ms"]
+        emit(dict(phase="mesh_kernel", kernel="expert_ffn", **rec))
+        out["expert_ffn"].append(rec)
+        release()
+    for variant, (H, Hkv) in (("local_8_8", (8, 8)), ("local_2_1", (2, 1))):
+        _, rec = prefill_attention(H, Hkv, 128, MESH_S, g, B=2)
+        rec["variant"] = variant
+        emit(dict(phase="mesh_kernel", kernel="flash_attention", **rec))
+        out["flash_attention"].append(rec)
+        release()
+    return out
+
+
+def mesh_cfg():
+    from repro_torch.configs.base import get_config
+    return dataclasses.replace(get_config(MESH_ARCH), n_layers=MESH_LAYERS)
+
+
+def mesh_batches(cfg, seed: int) -> list:
+    """The global batch of each step (``SyntheticLM``, as the launcher
+    draws them)."""
+    from repro_torch.data.pipeline import SyntheticLM
+    it = SyntheticLM(cfg.vocab, seed=seed).batches(MESH_B, MESH_S)
+    return [torch.from_numpy(next(it)) for _ in range(MESH_STEPS)]
+
+
+def mesh_unsharded(seed: int, tmp: Path) -> dict:
+    """The function the mesh computes, on one card: params from ``seed``
+    with the experts padded by the model axis, the MoE at the config's
+    capacity factor and one microbatch a data shard (its capacity is the
+    shard's). The forward's logits of each data shard's rows of step 0's
+    batch (last ``MESH_TAIL`` positions), then ``MESH_STEPS`` AdamW steps.
+    Each data shard's router calls go to ``tmp/routes<d>.pt`` in the order a
+    rank makes them; params before and after and the first moments after
+    step 1 stay on the host."""
+    from repro_torch.models.model import build
+    from repro_torch.models.params import init_params
+    from repro_torch.training.optimizer import AdamW, tree_leaves
+    from repro_torch.training.train_loop import make_train_step
+    cfg = mesh_cfg()
+    n_dp = MESH_GRID[0]
+    bundle = build(cfg, capacity_factor=cfg.capacity_factor)
+    params = init_params(cfg, seed, "cuda", expert_slabs="device", n_model=MESH_GRID[1])
+    p0 = to_cpu(params)
+    batches = mesh_batches(cfg, seed)
+    rows = MESH_B // n_dp
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    with routes() as rec:
+        with torch.no_grad():
+            logits = [bundle.forward(params, {"tokens": batches[0][d * rows:(d + 1) * rows]
+                                              .cuda()})[0][:, -MESH_TAIL:].cpu()
+                      for d in range(n_dp)]
+        opt = AdamW(lr=MESH_LR)
+        state = opt.init(params)
+        step = make_train_step(bundle, opt, microbatches=n_dp)
+        for s, b in enumerate(batches):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, {"tokens": b.cuda()})
+            steps.append(dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                              ms=(time.perf_counter() - t0) * 1e3))
+            if s == 0:
+                m0 = [t.cpu() for t in tree_leaves(state.m)]
+    n = cfg.n_layers          # router calls a forward; a train microbatch recomputes them
+    want = n * n_dp + MESH_STEPS * n_dp * 2 * n
+    if len(rec) != want:
+        raise AssertionError(f"mesh: {len(rec)} router calls, {want} expected")
+    per = {d: list(rec[d * n:(d + 1) * n]) for d in range(n_dp)}
+    for s in range(MESH_STEPS):
+        base = n * n_dp + s * n_dp * 2 * n
+        for d in range(n_dp):
+            per[d] += rec[base + d * 2 * n:base + (d + 1) * 2 * n]
+    for d, calls in per.items():
+        torch.save(calls, tmp / f"routes{d}.pt")
+    out = dict(logits=logits, steps=steps, p0=p0, p2=to_cpu(params), m0=m0,
+               b1=opt.b1, grad_clip=opt.grad_clip,
+               max_memory_allocated=torch.cuda.max_memory_allocated())
+    del params, state, opt
+    release()
+    return out
+
+
+def mesh_rank(local_rank: int, port: int, tmp: str, seed: int, fault: bool) -> None:
+    """One rank of the mesh (a process of its own on the shared card):
+    ``launch/train.py rank_setup``, the forward's logits of its shard of
+    step 0's batch, then ``MESH_STEPS`` steps of ``make_train_step``, its
+    router replaying its data shard's unsharded record. The fault run's
+    forward has model rank 1's ``e_start`` off by one shard, and its steps
+    leave ``copy_to`` out (identity both ways).
+    Writes ``tmp/rank<r>.pt``."""
+    os.environ.update(RANK=str(local_rank), LOCAL_RANK=str(local_rank),
+                      WORLD_SIZE=str(math.prod(MESH_GRID)),
+                      LOCAL_WORLD_SIZE=str(math.prod(MESH_GRID)),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch.distributed as dist
+    from repro_torch import collectives
+    from repro_torch.kernels.expert_ffn import expert_ffn
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.train import rank_setup
+    from repro_torch.models import moe_layer as M
+    from repro_torch.training.optimizer import tree_leaves
+    from repro_torch.training.train_loop import make_train_step
+    tmp = Path(tmp)
+    cfg = mesh_cfg()
+    run = rank_setup(cfg, MESH_GRID, ("data", "model"), "gloo", "cuda", seed, MESH_LR)
+    d, m = run.mesh.coords["data"], run.mesh.coords["model"]
+    ref = torch.load(tmp / f"routes{d}.pt")
+    batches = [run.shard_batch({"tokens": t}) for t in mesh_batches(cfg, seed)]
+    out = dict(rank=run.mesh.rank, coords=dict(run.mesh.coords), device=str(run.device),
+               ranks_per_card=run.ranks_per_card)
+    start, copy_to = M.expert_start, collectives.copy_to
+    if fault and m == 1:
+        M.expert_start = lambda mode, i, e_loc: (i - 1) * e_loc
+    with routes(replay=ref) as own:
+        with torch.no_grad():
+            logits = run.bundle.forward(run.params, batches[0])[0]
+        out["logits"] = logits[:, -MESH_TAIL:].cpu()
+        del logits
+        M.expert_start = start
+        if fault:
+            collectives.copy_to = lambda x, ax: x
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        collectives.reset()
+        for fn in (expert_ffn, flash_attention):
+            fn.launches = 0
+        step = make_train_step(run.bundle, run.opt)
+        params, state, rows = run.params, run.state, []
+        for s, b in enumerate(batches):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, mt = step(params, state, b)
+            rows.append(dict(loss=float(mt["loss"]), grad_norm=float(mt["grad_norm"]),
+                             ms=(time.perf_counter() - t0) * 1e3))
+            if s == 0:
+                out["m0"] = [t.cpu() for t in tree_leaves(state.m)]
+        collectives.copy_to = copy_to
+        out.update(steps=rows, max_memory_allocated=torch.cuda.max_memory_allocated(),
+                   collectives=collectives.record(),
+                   launches={fn.__name__: fn.launches for fn in (expert_ffn, flash_attention)},
+                   params=[t.cpu() for t in tree_leaves(params)])
+    if not fault:
+        out["route_flips_at_ties"] = flips(own, ref)
+    torch.save(out, tmp / f"rank{run.mesh.rank}.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def mesh_ranks(tmp: Path, seed: int, fault: bool) -> list:
+    """Start the mesh's ranks on this card and return their records."""
+    import socket
+
+    import torch.multiprocessing as mp
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    world = math.prod(MESH_GRID)
+    mp.start_processes(mesh_rank, args=(port, str(tmp), seed, fault), nprocs=world,
+                       start_method="spawn")
+    return [torch.load(tmp / f"rank{r}.pt") for r in range(world)]
+
+
+def mesh_held(ranks: list, ref: dict, cfg) -> dict:
+    """The ranks' step against the unsharded one: the worst relative error
+    of the loss and of the gradient norm over steps and ranks, of a
+    gradient leaf (``MESH_GRAD_TOL``'s measure; its leaf named) and the
+    params' update over the whole tree (``MESH_PARAM_TOL``'s)."""
+    from repro_torch.launch.mesh import logical_mesh
+    from repro_torch.launch.partition import param_specs, shard_leaf, zero_specs
+    from repro_torch.training.optimizer import tree_leaves
+    pspecs = param_specs(cfg, ref["p0"], n_model=MESH_GRID[1])
+    zspecs = tree_leaves(zero_specs(ref["p0"], pspecs, dp="data", n_dp=MESH_GRID[0]))
+    pspecs, names = tree_leaves(pspecs), leaf_names(ref["p0"])
+    scale = lambda gn: (1 - ref["b1"]) * min(1.0, ref["grad_clip"] / gn)
+    js = scale(ref["steps"][0]["grad_norm"])
+    meshes = [dataclasses.replace(logical_mesh(MESH_GRID, ("data", "model")),
+                                  coords=dict(r["coords"])) for r in ranks]
+    p0, p2 = tree_leaves(ref["p0"]), tree_leaves(ref["p2"])
+    grad, worst, num, den = 0.0, None, 0.0, 0.0
+    for j, (name, zs, spec) in enumerate(zip(names, zspecs, pspecs)):
+        want, a, b = (t.cuda() for t in (ref["m0"][j], p0[j], p2[j]))
+        for r, mesh in zip(ranks, meshes):
+            w = shard_leaf(want, zs, mesh) / js
+            e = float((r["m0"][j].cuda() / scale(r["steps"][0]["grad_norm"]) - w).abs().max()) \
+                / max(float(w.abs().max()), 1e-30)
+            if e > grad:
+                grad, worst = e, name
+            got, a_r, b_r = (t.float() for t in (r["params"][j].cuda(), shard_leaf(a, spec, mesh),
+                                                 shard_leaf(b, spec, mesh)))
+            num += float((got - b_r).square().sum())
+            den += float((b_r - a_r).square().sum())
+        del want, a, b
+        release()
+    rel = lambda k: max(abs(s[k] - w[k]) / abs(w[k])
+                        for r in ranks for s, w in zip(r["steps"], ref["steps"]))
+    return dict(loss_rel_err=rel("loss"), grad_norm_rel_err=rel("grad_norm"),
+                grad_leaf_rel_err=grad, grad_worst_leaf=worst,
+                param_update_rel_err=math.sqrt(num / den))
+
+
+def mesh_phase(seed: int) -> dict:
+    """Phase 20 (module docstring)."""
+    import tempfile
+    t0 = time.perf_counter()
+    cfg = mesh_cfg()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        tmp = Path(tmp)
+        ref = mesh_unsharded(seed, tmp)
+        t_ref = time.perf_counter()
+        ranks = mesh_ranks(tmp, seed, fault=False)
+        t_ranks = time.perf_counter()
+        faulty = mesh_ranks(tmp, seed, fault=True)
+    t_fault = time.perf_counter()
+    V = ranks[0]["logits"].shape[-1]
+
+    def logits_of(rank):
+        d, m = rank["coords"]["data"], rank["coords"]["model"]
+        return logit_err(rank["logits"], ref["logits"][d][..., m * V:(m + 1) * V])
+
+    per_rank = []
+    for r in ranks:
+        err, ok = logits_of(r)
+        per_rank.append(dict(rank=r["rank"], coords=r["coords"], device=r["device"],
+                             max_memory_allocated=r["max_memory_allocated"],
+                             step_ms=[s["ms"] for s in r["steps"]],
+                             loss=[s["loss"] for s in r["steps"]],
+                             grad_norm=[s["grad_norm"] for s in r["steps"]],
+                             collectives=r["collectives"], launches=r["launches"],
+                             logits_max_abs_err=err, logits_ok=ok,
+                             route_flips_at_ties=r["route_flips_at_ties"]))
+    held = mesh_held(ranks, ref, cfg)
+    control = mesh_held(faulty, ref, cfg)
+    e_start = [logits_of(r) for r in faulty]
+    launches = {}
+    for r in ranks:
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    limits = dict(loss_rel_err=MESH_LOSS_TOL, grad_norm_rel_err=MESH_GN_TOL,
+                  grad_leaf_rel_err=MESH_GRAD_TOL, param_update_rel_err=MESH_PARAM_TOL)
+    res = dict(phase="mesh", model=cfg.name, layers=cfg.n_layers,
+               grid=dict(zip(("data", "model"), MESH_GRID)), backend="gloo",
+               ranks_per_card=ranks[0]["ranks_per_card"], cards=torch.cuda.device_count(),
+               batch=MESH_B, seq=MESH_S, steps=MESH_STEPS, lr=MESH_LR,
+               unsharded=dict(steps=ref["steps"],
+                              max_memory_allocated=ref["max_memory_allocated"]),
+               ranks=per_rank, **held, limits=limits,
+               logits_tol=BUNDLE_TOL, logits_positions=MESH_TAIL,
+               controls=dict(planted=("the forward with model rank 1's e_start off by one "
+                                      "shard (logits); the steps with copy_to left out (loss, "
+                                      "gradient norm, gradient leaves, params)"),
+                             e_start_logits_max_abs_err=[e for e, _ in e_start],
+                             e_start_logits_failed=not all(ok for _, ok in e_start),
+                             **control),
+               launches=launches,
+               seconds=dict(unsharded=t_ref - t0, ranks=t_ranks - t_ref,
+                            fault=t_fault - t_ranks, held=time.perf_counter() - t_fault))
+    bad = [n for n in ("expert_ffn", "flash_attention") if not launches.get(n)]
+    sound = all(r["logits_ok"] for r in per_rank) and all(held[k] <= v for k, v in limits.items())
+    caught = res["controls"]["e_start_logits_failed"] and all(
+        control[k] > v for k, v in limits.items())
+    if not (sound and caught and not bad):
+        emit(res)
+        raise AssertionError(f"mesh: the 2 x 2 step parts from the unsharded one ({sound=}), "
+                             f"or a control passed ({caught=}), or kernels never launched {bad}")
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=4,
@@ -4419,6 +4761,8 @@ def main() -> int:
     ap.add_argument("--shapes", action="store_true",
                     help="only build the kernels and run the shapes phase (the reference's "
                          "arch x input shape matrix), and print its lines")
+    ap.add_argument("--mesh", action="store_true",
+                    help="only build the kernels and run the mesh phase, and print its lines")
     ap.add_argument("--flash-attention", metavar="SRC", default=None,
                     help="only time flash_attention, _cross and _chunk at every shape a main "
                          "path runs (flash_attention_shapes) with the port's package taken "
@@ -4464,6 +4808,10 @@ def main() -> int:
     if args.shapes:
         emit(shape_pairs(args.seed, shape_set))
         shape_kernel_checks(g)
+        return 0
+    if args.mesh:
+        mesh_kernel_checks(g)
+        emit(mesh_phase(args.seed))
         return 0
     results = [kernel_expert_ffn(g), kernel_flash_attention(g),
                kernel_flash_attention_chunk(g), kernel_flash_decode(g), kernel_ssd_scan(g)]
@@ -4527,6 +4875,10 @@ def main() -> int:
     at_shapes = shape_kernel_checks(g)
     shapes = shape_pairs(args.seed, shape_set)
     emit(shapes)
+    release()
+    at_mesh = mesh_kernel_checks(g)
+    mesh = mesh_phase(args.seed)
+    emit(mesh)
     cross = variants["flash_attention_cross"][0]
     results.append(dict(name="flash_attention_cross", route="cuda",
                         source="src/repro_torch/csrc/flash_attention.cu",
@@ -4536,7 +4888,7 @@ def main() -> int:
     # each kernel's launches from the paths that run it
     launches = {}
     for phase in (srv, bat, clu, examples, ssm, paper, bundles, train, trained, families,
-                  shapes):
+                  shapes, mesh):
         for n, c in phase["launches"].items():
             launches[n] = launches.get(n, 0) + c
     compact = ("variant", "shape", "B", "W", "max_abs_err", "ms", "device_ms", "parts",
@@ -4556,6 +4908,9 @@ def main() -> int:
                | ({"shapes": [{k: v[k] for k in compact if k in v}
                               for v in at_shapes[r["name"]]]}
                   if at_shapes.get(r["name"]) else {})
+               | ({"mesh": [{k: v[k] for k in compact if k in v}
+                            for v in at_mesh[r["name"]]]}
+                  if at_mesh.get(r["name"]) else {})
                for r in results]
     print(card, flush=True)
     emit({"kernels": summary})

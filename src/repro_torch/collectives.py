@@ -1,0 +1,171 @@
+"""Collectives over the axes of a device mesh (the port's counterpart of
+``shard_map``'s ``psum`` / ``pmean`` / ``axis_index`` / ``all_gather``,
+which the reference reaches through ``compat.shard_map``, and the
+reduce-scatter its ZeRO-1 accumulator lowers to).
+
+An ``Axis`` is one mesh axis, or a tuple of them, as this rank sees it:
+its process group, its size and this rank's index along it
+(``launch/mesh.py`` builds them). Over an axis of size 1 every function
+here returns its input and communicates nothing.
+
+Two autograd operators carry tensor parallelism (Megatron-LM's ``f`` and
+``g``):
+
+* ``copy_to(x, ax)`` — identity forward, all-reduce (sum) backward. It
+  enters a region whose ranks each compute a part (column-parallel
+  products, the local experts, a replicated weight applied to the local
+  heads): each rank's gradient of ``x`` is a partial sum, and the
+  all-reduce makes it whole on every rank.
+* ``reduce_from(x, ax)`` — all-reduce (sum) forward, identity backward. It
+  leaves such a region (row-parallel products, the combined expert output,
+  the masked embedding lookup): every rank receives the same gradient of
+  the sum, which is the gradient of each part.
+
+``torch.distributed.nn.functional.all_reduce`` is not ``reduce_from``: its
+backward all-reduces the gradient too, which multiplies a replicated
+gradient by the axis size. Leaving ``copy_to`` out at the entry of a
+region leaves each rank with its part of the gradient of the norms and the
+router, and the ranks' replicated weights part after one AdamW step.
+
+``pmean`` averages a value over an axis forward and passes its gradient
+through unchanged: the data-parallel gradients are averaged once, after
+the backward (``training/train_loop.py``), so each rank's own contribution
+is what its backward must carry.
+
+Every collective adds its result's bytes to ``RECORD[op]`` (``count``,
+``bytes``), the form of the reference dry-run's ``parse_collectives``, and
+the host wall of the blocking call (``seconds``).
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Dict, List, Optional
+
+import torch
+import torch.distributed as dist
+
+RECORD: Dict[str, Dict[str, int]] = {}
+
+
+def reset() -> None:
+    RECORD.clear()
+
+
+def record() -> Dict[str, Dict[str, int]]:
+    """{op: {"count", "bytes", "seconds"}} since the last ``reset``."""
+    return {op: dict(r) for op, r in RECORD.items()}
+
+
+def _note(op: str, t: torch.Tensor, t0: float) -> None:
+    r = RECORD.setdefault(op, {"count": 0, "bytes": 0, "seconds": 0.0})
+    r["count"] += 1
+    r["bytes"] += t.numel() * t.element_size()
+    r["seconds"] += time.perf_counter() - t0
+
+
+@dataclasses.dataclass(frozen=True)
+class Axis:
+    """A mesh axis (or tuple of axes) as one rank sees it."""
+    group: Any        # torch.distributed ProcessGroup, None when size == 1
+    size: int
+    index: int
+
+
+def psum(t: torch.Tensor, ax: Optional[Axis], inplace: bool = False) -> torch.Tensor:
+    """Sum over the axis: a new tensor, ``t`` left as it was, or with
+    ``inplace`` (a contiguous ``t``) into ``t`` itself."""
+    if ax is None or ax.size == 1:
+        return t
+    out = t if inplace else t.contiguous().clone()
+    t0 = time.perf_counter()
+    dist.all_reduce(out, group=ax.group)
+    _note("all-reduce", out, t0)
+    return out
+
+
+def pmax(t: torch.Tensor, ax: Optional[Axis]) -> torch.Tensor:
+    if ax is None or ax.size == 1:
+        return t
+    out = t.contiguous().clone()
+    t0 = time.perf_counter()
+    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=ax.group)
+    _note("all-reduce", out, t0)
+    return out
+
+
+def reduce_scatter(t: torch.Tensor, ax: Optional[Axis]) -> torch.Tensor:
+    """``t`` (contiguous) summed over the axis and cut along dim 0 into the
+    axis' blocks: this rank's block, a new tensor."""
+    if ax is None or ax.size == 1:
+        return t
+    out = t.new_empty((t.shape[0] // ax.size,) + t.shape[1:])
+    t0 = time.perf_counter()
+    dist.reduce_scatter_tensor(out, t, group=ax.group)
+    _note("reduce-scatter", out, t0)
+    return out
+
+
+def all_gather(t: torch.Tensor, ax: Optional[Axis], dim: int) -> torch.Tensor:
+    """The ranks' tensors concatenated along ``dim`` in axis order."""
+    if ax is None or ax.size == 1:
+        return t
+    parts: List[torch.Tensor] = [torch.empty_like(t, memory_format=torch.contiguous_format)
+                                 for _ in range(ax.size)]
+    t0 = time.perf_counter()
+    dist.all_gather(parts, t.contiguous(), group=ax.group)
+    out = torch.cat(parts, dim)
+    _note("all-gather", out, t0)
+    return out
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax):
+        ctx.ax = ax
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return psum(g, ctx.ax), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax):
+        return psum(x, ax)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _PMean(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax):
+        return psum(x, ax) / ax.size
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to(x: torch.Tensor, ax: Optional[Axis]) -> torch.Tensor:
+    """Identity forward, all-reduce backward (module docstring)."""
+    if ax is None or ax.size == 1:
+        return x
+    return _CopyTo.apply(x, ax)
+
+
+def reduce_from(x: torch.Tensor, ax: Optional[Axis]) -> torch.Tensor:
+    """All-reduce forward, identity backward (module docstring)."""
+    if ax is None or ax.size == 1:
+        return x
+    return _ReduceFrom.apply(x, ax)
+
+
+def pmean(x: torch.Tensor, ax: Optional[Axis]) -> torch.Tensor:
+    """Mean over the axis forward, the gradient passed through."""
+    if ax is None or ax.size == 1:
+        return x
+    return _PMean.apply(torch.as_tensor(x), ax)

@@ -56,7 +56,19 @@ back.
   python -m repro_torch.launch.dryrun --all
   python -m repro_torch.launch.dryrun --all --reduced --device cpu
 
-Records go to ``results/dryrun_torch/<arch>__<shape>.json``. ``--reduced``
+``--mesh 16x16`` (or ``2x16x16``) runs nothing: it reckons each pair's
+per-device plan on the reference's pod mesh for the ``build_dense``
+family (``mesh_plan``), the other families being recorded as not planned:
+parameter bytes under ``launch/partition.py param_specs``, AdamW moment
+bytes (8 a parameter) and, in training with microbatches (the reference's
+rule), f32 accumulator bytes (4) under ``zero_specs``; FSDP (params
+stored under ``zero_specs`` too) where the reference's rule says so, its
+state at tensor parallelism alone above 8 GB a device; the decode cache
+under ``cache_specs``; beside this card's ``BUDGET_BYTES``. The reference
+lowers the step and reads XLA's cost; PyTorch has no HLO, so only bytes.
+
+Records go to ``results/dryrun_torch/<arch>__<shape>.json`` (mesh plans
+``<arch>__<shape>__single|multi.json``). ``--reduced``
 runs the ``reduced()`` configs at a test scale on the CPU
 (``reduced_shape``: sequences of at most ``REDUCED_SEQ`` tokens, batches
 of at most 2; ``long_500k`` keeps its 524288 positions and wrapped ring).
@@ -406,6 +418,65 @@ def run_pair(plan: Plan, device="cuda", seed: int = 0, params=None) -> Tuple[dic
     return rec, outputs, inputs
 
 
+def _sharded_bytes(params, specs, mesh, per_entry=None) -> int:
+    """Bytes a device holds of a tree under ``specs`` (``per_entry`` bytes
+    an entry, else each leaf's own)."""
+    total = 0
+    for t, spec in zip(tree_leaves(params), tree_leaves(specs)):
+        shards = 1
+        for entry in spec:
+            if entry is not None:
+                shards *= mesh.size(entry)
+        total += t.numel() // shards * (per_entry or t.element_size())
+    return total
+
+
+def mesh_plan(cfg: ArchConfig, shape: InputShape, multi_pod: bool) -> dict:
+    """The pair's per-device bytes on the reference's 16 x 16 (or 2 x 16 x
+    16) mesh at published depth and the reference's global batch (module
+    docstring). Nothing is allocated: the trees are on ``meta``."""
+    from repro_torch.launch.mesh import make_production_mesh, mesh_info, n_chips
+    from repro_torch.launch.partition import (batch_specs, cache_specs, param_specs,
+                                              zero_specs)
+    from repro_torch.models.params import init_params
+    mesh = make_production_mesh(multi_pod=multi_pod)
+    minfo = mesh_info(mesh)
+    n_model = mesh.shape["model"]
+    n_dp = n_chips(mesh) // n_model
+    dp = minfo["dp"] if len(minfo["dp"]) > 1 else minfo["dp"][0]
+    rec = dict(arch=cfg.name, shape=shape.name, mesh="2x16x16" if multi_pod else "16x16",
+               chips=n_chips(mesh), kind=shape.kind, budget_bytes=BUDGET_BYTES)
+    if cfg.family not in ("dense", "moe"):
+        return dict(rec, planned=False,
+                    reason=f"the {cfg.family} family under a mesh is not ported")
+    params = init_params(cfg, device="meta", expert_slabs="device", n_model=n_model)
+    pspecs = param_specs(cfg, params, n_model=n_model)
+    zspecs = zero_specs(params, pspecs, dp=dp, n_dp=n_dp)
+    param_bytes = tree_bytes(params)
+    rec.update(planned=True, param_bytes=param_bytes)
+    b = {"params": _sharded_bytes(params, pspecs, mesh)}
+    if shape.kind == "train":
+        mb = 4 if cfg.d_model < 4096 else (8 if cfg.d_model < 6144 else 16)
+        mb = min(mb, max(shape.global_batch // n_dp, 1))
+        state_gb_dev = param_bytes * (1 + 8 / 2) / n_model / 1e9
+        fsdp = state_gb_dev > 8.0
+        if fsdp:
+            b["params"] = _sharded_bytes(params, zspecs, mesh)
+        b["moments"] = _sharded_bytes(params, zspecs, mesh, 8)
+        b["accumulator"] = _sharded_bytes(params, zspecs, mesh, 4) if mb > 1 else 0
+        rec.update(microbatches=mb, state_gb_dev=state_gb_dev, fsdp=fsdp)
+    elif shape.kind == "decode":
+        _, cache = decode_inputs(cfg, shape, build(cfg), shape.global_batch, device="meta")
+        b["cache"] = _sharded_bytes(cache, cache_specs(cfg, cache, dp=dp, n_model=n_model,
+                                                       n_dp=n_dp), mesh)
+    tokens = {"tokens": torch.empty((shape.global_batch, 1), device="meta")}
+    bspec = batch_specs(tokens, dp=dp, n_dp=n_dp)["tokens"][0]
+    rec["batch_per_device"] = shape.global_batch // (mesh.size(bspec) if bspec else 1)
+    b["total"] = sum(b.values())
+    rec.update(bytes_per_device=b, state_fits_budget=b["total"] <= BUDGET_BYTES)
+    return rec
+
+
 def plan_all() -> List[Plan]:
     """Every pair of ``pairs()`` planned at published widths, in the
     reference's order."""
@@ -443,9 +514,29 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                     help="reduced() configs at the CPU test scale")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", type=Path, default=RESULTS_DIR)
+    ap.add_argument("--mesh", choices=("16x16", "2x16x16"), default=None,
+                    help="only reckon each pair's per-device bytes on this pod mesh")
     args = ap.parse_args(argv)
     if args.all == bool(args.arch or args.shape) or (args.arch is None) != (args.shape is None):
         ap.error("give --arch and --shape, or --all")
+    if args.mesh:
+        todo = pairs() if args.all else [(get_config(args.arch), INPUT_SHAPES[args.shape])]
+        for cfg, shape in todo:
+            rec = mesh_plan(cfg, shape, multi_pod=args.mesh == "2x16x16")
+            if rec["planned"]:
+                b = rec["bytes_per_device"]
+                print(f"[dryrun {args.mesh}] {cfg.name} / {shape.name}: "
+                      + " ".join(f"{k} {v / 1e9:.2f} GB" for k, v in b.items())
+                      + (f" fsdp={rec['fsdp']}" if "fsdp" in rec else "")
+                      + f" (budget {BUDGET_BYTES / 1e9:.1f} GB)", flush=True)
+            else:
+                print(f"[dryrun {args.mesh}] {cfg.name} / {shape.name}: not planned: "
+                      f"{rec['reason']}", flush=True)
+            args.out.mkdir(parents=True, exist_ok=True)
+            tag = "multi" if args.mesh == "2x16x16" else "single"
+            (args.out / f"{rec['arch'].replace('.', '_')}__{shape.name}__{tag}.json").write_text(
+                json.dumps(rec, indent=1))
+        return 0
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         print("repro_torch.launch.dryrun: no CUDA device (--device cpu --reduced runs the "
               "CPU test scale)", file=sys.stderr)

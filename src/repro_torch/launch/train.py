@@ -1,6 +1,5 @@
-"""Training launcher on one device (port of ``repro.launch.train`` without
-its pod tooling: mesh, partitioner and ``--dry-run-devices`` have no
-single-card counterpart).
+"""Training launcher (port of ``repro.launch.train``): one device, or one
+rank of a (data, model) mesh under ``--mesh``.
 
 Builds the bundle, random weights from seed 0, AdamW under the
 ``cosine_schedule(2e-3, warmup=10, total=steps)`` of
@@ -19,12 +18,39 @@ outside the CUDA attention kernels). The batch is tokens only, as the
 reference's launcher builds it, so the vlm and enc-dec families, whose
 forward also needs ``patch_embeds`` / ``frames``, are refused here: train
 them through ``training.train_loop.make_train_step`` with those inputs.
+
+``--mesh DxM`` (or PxDxM, axes pod, data, model) runs the reference's
+sharded step: one process a rank, started by ``torchrun`` (its RANK,
+WORLD_SIZE, LOCAL_RANK, MASTER_ADDR and MASTER_PORT) or by ``--spawn``
+(the ranks on this host, on a free local port). ``--backend`` is said
+outright and printed with the ranks a card holds: ``nccl`` takes one card
+a rank and refuses more ranks than cards; ``gloo`` lets ranks share a card
+(several ranks on one H100) and runs on the CPU. A rank on the CPU while a
+card is present is refused. Each rank draws the whole tree from the seed
+and keeps its blocks (``launch/partition.py param_specs``,
+``models/params.py shard_params``), its data shard of each batch
+(``batch_specs``), and ZeRO-1 moments (``zero_specs``,
+``training/optimizer.py ZeRO1``); ``build_dense`` configs only. Rank 0
+prints each step; every rank prints one JSON line at the end: its
+coordinates, device, peak memory, step ms, the collectives' counts, bytes
+and host seconds, and its kernels' launches.
+
+  torchrun --nproc-per-node 4 -m repro_torch.launch.train --arch qwen2-moe-a2.7b \
+      --layers 2 --mesh 2x2 --backend gloo --batch 4 --seq 4096
+  python -m repro_torch.launch.train --arch qwen2-moe-a2.7b --reduced --device cpu \
+      --mesh 2x2 --backend gloo --spawn --steps 2
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import json
+import math
+import os
+import socket
+import sys
 import time
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 from repro_torch.launch.serve import resolve_config
 
@@ -61,7 +87,16 @@ def main(argv: Optional[Sequence[str]] = None):
                     help="tokens per sequence (default 32 reduced, else 2048)")
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--ckpt", default=None, help="save the params here (.npz)")
+    ap.add_argument("--mesh", default=None,
+                    help="DxM (data x model) or PxDxM: run one rank of this mesh")
+    ap.add_argument("--backend", choices=("nccl", "gloo"), default=None,
+                    help="the collectives' backend under --mesh (no default)")
+    ap.add_argument("--spawn", action="store_true",
+                    help="start the mesh's ranks on this host")
+    ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    if args.mesh:
+        return _mesh_main(ap, args, list(argv) if argv is not None else sys.argv[1:])
 
     import torch
 
@@ -87,14 +122,14 @@ def main(argv: Optional[Sequence[str]] = None):
         ap.error(f"--batch {B} does not split into {args.microbatches} microbatches")
 
     bundle = build(cfg)
-    params = bundle.init(0, device=device)
+    params = bundle.init(args.seed, device=device)
     n_params = sum(t.numel() for t in tree_leaves(params))
     print(f"arch={cfg.name} layers={cfg.n_layers} params={n_params / 1e6:.1f}M "
           f"batch={B} seq={S} microbatches={args.microbatches} device={device}")
     opt = AdamW(lr=cosine_schedule(2e-3, warmup=10, total=args.steps))
     opt_state = opt.init(params)
     step = make_train_step(bundle, opt, microbatches=args.microbatches)
-    it = SyntheticLM(cfg.vocab, seed=0).batches(B, S)
+    it = SyntheticLM(cfg.vocab, seed=args.seed).batches(B, S)
     for i in range(args.steps):
         batch = {"tokens": torch.from_numpy(next(it)).to(device)}
         t0 = time.perf_counter()
@@ -105,6 +140,198 @@ def main(argv: Optional[Sequence[str]] = None):
     if args.ckpt:
         checkpoint.save(args.ckpt, params, extra={"arch": cfg.name, "steps": args.steps})
         print("checkpoint ->", args.ckpt)
+
+
+# -- the mesh ------------------------------------------------------------------
+
+
+def parse_mesh(text: str) -> Tuple[Tuple[int, ...], Tuple[str, ...]]:
+    """"2x2" -> ((2, 2), ("data", "model")); "2x2x2" adds "pod" in front."""
+    shape = tuple(int(v) for v in text.lower().split("x"))
+    axes = {2: ("data", "model"), 3: ("pod", "data", "model")}.get(len(shape))
+    if axes is None or min(shape) < 1:
+        raise ValueError(f"--mesh {text!r}: give DxM or PxDxM")
+    return shape, axes
+
+
+def rank_device(backend: str, device: str, local_rank: int, local_world: int):
+    """(device, ranks a card holds) of a rank, by the rules of the module
+    docstring; raises where they refuse."""
+    import torch
+    if device == "cpu":
+        if torch.cuda.is_available():
+            raise RuntimeError("a rank on the CPU while a card is present: drop --device cpu")
+        if backend != "gloo":
+            raise RuntimeError("ranks on the CPU need --backend gloo")
+        return torch.device("cpu"), None
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device (--device cpu --backend gloo runs on the CPU)")
+    cards = torch.cuda.device_count()
+    if backend == "nccl":
+        if local_world > cards:
+            raise RuntimeError(f"nccl takes one card a rank: {local_world} ranks, {cards} cards "
+                               "(--backend gloo shares cards)")
+        return torch.device("cuda", local_rank), 1
+    per_card = -(-local_world // cards)
+    return torch.device("cuda", local_rank // per_card), per_card
+
+
+@dataclasses.dataclass
+class RankRun:
+    """One rank's mesh, bundle, param blocks, specs, ZeRO-1 optimizer and
+    state (``rank_setup``)."""
+    cfg: object
+    mesh: object
+    mesh_info: dict
+    bundle: object
+    params: dict
+    pspecs: dict
+    zspecs: dict
+    opt: object
+    state: object
+    device: object
+    ranks_per_card: Optional[int]
+
+    def shard_batch(self, batch: dict) -> dict:
+        """The rank's data shard of a whole batch (``batch_specs``)."""
+        from repro_torch.launch.partition import batch_specs, shard_leaf
+        dp = tuple(self.mesh_info["dp"])
+        specs = batch_specs(batch, dp=dp if len(dp) > 1 else dp[0],
+                            n_dp=self.mesh.size(dp))
+        return {k: shard_leaf(v, specs[k], self.mesh).to(self.device) for k, v in batch.items()}
+
+
+def rank_setup(cfg, shape, axes, backend: str, device: str, seed: int, lr) -> RankRun:
+    """Initialize this process as a rank (``launch/mesh.py init_rank``),
+    build its mesh and bundle, draw the whole tree from ``seed`` on its
+    device and keep its blocks, and a ZeRO-1 ``AdamW(lr=lr)``."""
+    import torch
+
+    from repro_torch.launch.mesh import init_rank, make_mesh, mesh_info
+    from repro_torch.launch.partition import param_specs, zero_specs
+    from repro_torch.models.model import build
+    from repro_torch.models.params import shard_params
+    from repro_torch.training.optimizer import AdamW, ZeRO1
+
+    local_world = int(os.environ.get("LOCAL_WORLD_SIZE", math.prod(shape)))
+    dev, per_card = rank_device(backend, device, int(os.environ.get("LOCAL_RANK", 0)),
+                                local_world)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    else:   # the host's cores shared among its ranks
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // local_world))
+    init_rank(backend)
+    mesh = make_mesh(shape, axes, backend, dev)
+    minfo = mesh_info(mesh)
+    bundle = build(cfg, mesh_info=minfo)
+    whole = bundle.init(seed, device=dev)
+    pspecs = param_specs(cfg, whole, n_model=mesh.shape["model"])
+    dp = tuple(minfo["dp"])
+    zspecs = zero_specs(whole, pspecs, dp=dp if len(dp) > 1 else dp[0], n_dp=mesh.size(dp))
+    params = shard_params(whole, pspecs, mesh)
+    del whole
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    opt = ZeRO1(AdamW(lr=lr), pspecs, zspecs, minfo)
+    return RankRun(cfg, mesh, minfo, bundle, params, pspecs, zspecs, opt, opt.init(params),
+                   dev, per_card)
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _spawned_rank(local_rank: int, argv: list, port: int, world: int) -> None:
+    os.environ.update(RANK=str(local_rank), LOCAL_RANK=str(local_rank),
+                      WORLD_SIZE=str(world), LOCAL_WORLD_SIZE=str(world),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    main(argv)
+
+
+def _mesh_main(ap, args, argv: list):
+    import torch
+
+    try:
+        shape, axes = parse_mesh(args.mesh)
+    except ValueError as e:
+        ap.error(str(e))
+    if args.backend is None:
+        ap.error("--mesh needs --backend nccl or gloo")
+    if args.ckpt:
+        ap.error("--ckpt under --mesh is not ported: the ranks hold blocks of the params")
+    world = math.prod(shape)
+    if args.spawn:
+        import torch.multiprocessing as mp
+        rest = [a for a in argv if a != "--spawn"]
+        print(f"spawning {world} ranks, backend={args.backend}", flush=True)
+        mp.start_processes(_spawned_rank, args=(rest, _free_port(), world), nprocs=world,
+                           start_method="spawn")
+        return
+
+    import torch.distributed as dist
+
+    from repro_torch import collectives
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels.expert_ffn import expert_ffn
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.training.optimizer import cosine_schedule, tree_leaves
+    from repro_torch.training.train_loop import make_train_step
+
+    cfg = resolve_config(args.arch, use_reduced=args.reduced, layers=args.layers)
+    if cfg.family not in ("dense", "moe"):
+        ap.error(f"{cfg.name}: only build_dense configs run under --mesh")
+    if args.device != "cpu":
+        misfit = kernel_misfit(cfg)
+        if misfit:
+            ap.error(f"{cfg.name}: {misfit}")
+    B = args.batch or (4 if args.reduced else 2)
+    S = args.seq or (32 if args.reduced else 2048)
+    run = rank_setup(cfg, shape, axes, args.backend, args.device, args.seed,
+                     cosine_schedule(2e-3, warmup=10, total=args.steps))
+    rank = run.mesh.rank
+    n_dp = run.mesh.size(tuple(run.mesh_info["dp"]))
+    local_b = B // n_dp if B % n_dp == 0 else B
+    if local_b % args.microbatches:
+        ap.error(f"the data shard's {local_b} sequences do not split into "
+                 f"{args.microbatches} microbatches")
+    if rank == 0:
+        n_params = sum(t.numel() for t in tree_leaves(run.params))
+        print(f"mesh={dict(run.mesh.shape)} arch={cfg.name} layers={cfg.n_layers} "
+              f"batch={B} seq={S} microbatches={args.microbatches} backend={args.backend} "
+              f"ranks_per_card={run.ranks_per_card} device={run.device.type} "
+              f"rank0_params={n_params / 1e6:.1f}M", flush=True)
+    step = make_train_step(run.bundle, run.opt, microbatches=args.microbatches)
+    it = SyntheticLM(cfg.vocab, seed=args.seed).batches(B, S)
+    cuda = run.device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    collectives.reset()
+    kernels = (expert_ffn, flash_attention)
+    for fn in kernels:
+        fn.launches = 0
+    params, state, step_ms = run.params, run.state, []
+    for i in range(args.steps):
+        batch = run.shard_batch({"tokens": torch.from_numpy(next(it))})
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if rank == 0:
+            print(f"step {i}: loss={loss:.4f} gnorm={gnorm:.2f} "
+                  f"wall={step_ms[-1] / 1e3:.3f}s", flush=True)
+    rec = dict(rank=rank, coords=run.mesh.coords, device=str(run.device),
+               backend=args.backend, ranks_per_card=run.ranks_per_card, step_ms=step_ms,
+               max_memory_allocated=torch.cuda.max_memory_allocated() if cuda else None,
+               collectives=collectives.record(),
+               launches={fn.__name__: fn.launches for fn in kernels})
+    dist.barrier()
+    sys.stdout.write(json.dumps(rec) + "\n")   # one write: the ranks share the stream
+    sys.stdout.flush()
+    dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -23,6 +23,19 @@ pos``); decode runs ``flash_decode``. Cross attention to a fixed memory
 every memory slot at position 0 for one token (the reference's
 ``cross_attn_decode`` masks nothing: ``q_pos = k_pos = 0``); on the CPU the
 reference's ``attention`` with ``causal=False``.
+
+Tensor parallelism (``self_attn_full(..., tp=)``, ``swiglu(..., tp=)``): what
+GSPMD derives in the reference from the param specs
+(``launch/partition.py``) is explicit here. Query heads are column-parallel
+where ``wq`` is sharded (n_heads divides the model axis), K/V heads where
+``wk`` is too (n_kv_heads divides it); replicated K/V are projected whole
+and each rank takes the heads its query heads read (32 / 8 heads at 16
+ranks: two query heads and one KV head a rank). ``wo`` is row-parallel,
+then summed over the axis; an MLP's w1 / w3 column- and w2 row-parallel.
+Where no weight is sharded the layer runs whole on every rank and
+communicates nothing. A weight that stays replicated inside a sharded
+region (``q_norm`` over the local heads) enters through
+``collectives.copy_to``, so its gradient is summed over the ranks.
 """
 from __future__ import annotations
 
@@ -32,6 +45,7 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
+from repro_torch import collectives as C
 from repro_torch.kernels.flash_attention import (FlashAttentionCrossFn, FlashAttentionFn,
                                                  flash_attention, flash_attention_bwd_plain,
                                                  flash_attention_chunk,
@@ -257,28 +271,53 @@ def flash_attention_xla(q, k, v, window, causal=True, q_block=512, kv_block=512)
     return _FlashAttentionXLA.apply(q, k, v, window, causal, q_block, kv_block)
 
 
-def _qkv(x, p, dims: AttnDims, positions, use_rope=True):
+def _qkv(x, p, dims: AttnDims, positions, use_rope=True, tp: Optional[C.Axis] = None):
+    """q, k, v [B,S,heads,hd]. ``tp``: the model axis where ``wq`` is this
+    rank's column block (module docstring): x enters through ``copy_to``,
+    the query heads are the rank's, and so are the KV heads where ``wk`` is
+    sharded too; where it is whole the KV heads are projected whole and the
+    ones the local query heads read are taken after ``copy_to``."""
     B, S, _ = x.shape
-    H, Hkv, hd = dims.n_heads, dims.n_kv_heads, dims.head_dim
-    q = linear(x, p["wq"])
-    k = linear(x, p["wk"])
-    v = linear(x, p["wv"])
+    hd = dims.head_dim
+    xin = C.copy_to(x, tp)
+    q = linear(xin, p["wq"])
+    h_loc = q.shape[-1] // hd
+    whole_kv = h_loc < dims.n_heads and p["wk"].shape[-1] == dims.n_kv_heads * hd
+    kin = x if whole_kv else xin
+    k = linear(kin, p["wk"])
+    v = linear(kin, p["wv"])
     if dims.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(B, S, H, hd)
-    k = k.reshape(B, S, Hkv, hd)
-    v = v.reshape(B, S, Hkv, hd)
+    q = q.reshape(B, S, -1, hd)
+    k = k.reshape(B, S, -1, hd)
+    v = v.reshape(B, S, -1, hd)
     if dims.qk_norm:
-        q = rms_norm(q, p["q_norm"], dims.rms_eps)
-        k = rms_norm(k, p["k_norm"], dims.rms_eps)
+        q = rms_norm(q, C.copy_to(p["q_norm"], tp), dims.rms_eps)
+        k = rms_norm(k, p["k_norm"] if whole_kv else C.copy_to(p["k_norm"], tp), dims.rms_eps)
+    if whole_kv:
+        sel = _local_kv(tp.index * h_loc, h_loc, dims.n_heads // dims.n_kv_heads)
+        k, v = C.copy_to(k, tp)[:, :, sel], C.copy_to(v, tp)[:, :, sel].contiguous()
     if use_rope:
         q = rope(q, positions, dims.rope_theta)
         k = rope(k, positions, dims.rope_theta)
     return q, k, v
 
 
+def _local_kv(q0: int, n: int, group: int):
+    """The KV heads query heads q0 .. q0 + n - 1 read (head h reads h //
+    group): a slice where each is read by n / (their count) consecutive
+    query heads (a uniform group for the kernel), else a list with one KV
+    head per query head (group 1)."""
+    heads = [(q0 + i) // group for i in range(n)]
+    n_kv = heads[-1] - heads[0] + 1
+    if n % n_kv == 0 and heads == [heads[0] + i // (n // n_kv) for i in range(n)]:
+        return slice(heads[0], heads[-1] + 1)
+    return heads
+
+
 def self_attn_full(x, p, dims: AttnDims, *, window=None, causal=True,
-                   chunked: bool = False, static_window: bool = False):
+                   chunked: bool = False, static_window: bool = False,
+                   tp: Optional[C.Axis] = None):
     """Full-sequence self attention (train / prefill). x: [B,S,d].
     Returns (out [B,S,d], (k, v) each [B,S,Hkv,hd]).
 
@@ -289,10 +328,16 @@ def self_attn_full(x, p, dims: AttnDims, *, window=None, causal=True,
     ``attention_chunked_windowed`` for a causal ``static_window`` > 0 (the
     reference takes it for a window that is a Python int, as
     ``build_dense_pattern``'s are), else ``flash_attention_xla``; when not
-    chunked the full ``attention``, differentiated by autograd."""
+    chunked the full ``attention``, differentiated by autograd.
+
+    ``tp``: the model axis, ``p`` this rank's slice (module docstring); the
+    attention runs over the local heads and the output projection is
+    summed over the axis. (k, v) are the local KV heads."""
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None, :]
-    q, k, v = _qkv(x, p, dims, positions)
+    if p["wq"].shape[-1] == dims.n_heads * dims.head_dim:
+        tp = None                  # no rule shards the heads: the layer runs whole
+    q, k, v = _qkv(x, p, dims, positions, tp=tp)
     win = -1 if window is None else int(window)
     if x.is_cuda:
         if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
@@ -306,7 +351,7 @@ def self_attn_full(x, p, dims: AttnDims, *, window=None, causal=True,
     else:
         o = attention(q, k, v, q_pos=positions, k_pos=positions,
                       window=window, causal=causal)
-    return linear(o.reshape(B, S, -1), p["wo"]), (k, v)
+    return C.reduce_from(linear(o.reshape(B, S, -1), p["wo"]), tp), (k, v)
 
 
 def self_attn_decode(x, p, dims: AttnDims, cache_k, cache_v, slot_pos, slot: int,
@@ -555,9 +600,11 @@ def swiglu_hidden(x, w1, w3):
     return silu(x @ w1) * (x @ w3)
 
 
-def swiglu(x, w1, w3, w2):
+def swiglu(x, w1, w3, w2, tp: Optional[C.Axis] = None):
     """The shared-expert FFN. Its three products go through ``linear``, so
     a row's output does not depend on the rows beside it on the card (a
     decode batch, a prefill chunk or a whole prompt); on the CPU the plain
-    products, as before."""
-    return linear(silu(linear(x, w1)) * linear(x, w3), w2)
+    products, as before. ``tp``: w1 / w3 column- and w2 row-parallel over
+    the model axis (this rank's slices of the hidden dim), summed over it."""
+    x = C.copy_to(x, tp)
+    return C.reduce_from(linear(silu(linear(x, w1)) * linear(x, w3), w2), tp)

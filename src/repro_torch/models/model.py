@@ -27,6 +27,15 @@ position per slot (-1 = empty) and ``pos``; ``pad_cache`` grows the ring
 after prefill. ssm cache: ``ssm [L,B,h,n,p]`` f32, ``conv_x/B/C
 [L,B,C,K]`` bf16 and ``pos``. The other builders' caches are the
 reference's, key for key and shape for shape (each builder's docstring).
+
+Under a (data, model) mesh (``build(cfg, mesh_info=)``, ``build_dense``
+only) each rank runs its data shard of the batch on its blocks of the
+params (``models/params.py shard_params`` under ``launch/partition.py
+param_specs``), with the collectives of ``models/layers.py`` and
+``moe_layer.moe_ffn``; the embedding is vocab-parallel where the padded
+vocabulary divides the model axis, so ``forward``'s logits are then this
+rank's vocabulary block (``training/train_loop.py`` takes the loss over
+the blocks). The other families refuse a mesh.
 """
 from __future__ import annotations
 
@@ -36,6 +45,7 @@ from typing import Callable, Dict, Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import collectives as C
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models import moe_layer as M
@@ -70,14 +80,28 @@ class ModelBundle:
     decode_step: Callable  # (params, step, cache) -> (logits, cache)
     init_cache: Callable   # (batch_size, ...) -> cache
     ring_axes: Dict[str, int] = dataclasses.field(default_factory=dict)
+    mesh_info: Optional[dict] = None   # the mesh the bundle runs on (build_dense)
 
 
-def build(cfg: ArchConfig, capacity_factor: Optional[float] = None) -> ModelBundle:
+# ROADMAP Queue A: the families the mesh does not reach yet
+MESH_FAMILIES_TODO = "ROADMAP Queue A 4: the other families under a mesh"
+
+
+def build(cfg: ArchConfig, capacity_factor: Optional[float] = None,
+          mesh_info: Optional[dict] = None) -> ModelBundle:
     """The family's builder; a dense local:global stack under
     ``REPRO_OPT_STATIC_WINDOW`` takes ``build_dense_pattern``, as the
     reference's ``build`` does. ``capacity_factor`` goes to ``build_dense``
-    (MoE configs)."""
-    if cfg.family == "dense" and cfg.local_global_pattern and opt_flags.static_window():
+    (MoE configs), and so does ``mesh_info``: under a mesh any other
+    builder raises ``NotImplementedError``."""
+    pattern = (cfg.family == "dense" and cfg.local_global_pattern
+               and opt_flags.static_window())
+    if mesh_info is not None:
+        if cfg.family not in ("dense", "moe") or pattern:
+            raise NotImplementedError(f"{cfg.name}: {'build_dense_pattern' if pattern else cfg.family}"
+                                      f" under a mesh is not ported ({MESH_FAMILIES_TODO})")
+        return build_dense(cfg, capacity_factor, mesh_info)
+    if pattern:
         return build_dense_pattern(cfg)
     if cfg.family == "moe":
         return build_dense(cfg, capacity_factor)
@@ -115,28 +139,54 @@ def pad_cache(cache, new_capacity: int, ring_axes: Dict[str, int]):
 # ---------------------------------------------------------------------------
 
 
-def _ffn_apply(xn, lp, cfg: ArchConfig, dropless: bool, cf: Optional[float] = None):
+@dataclasses.dataclass(frozen=True)
+class _Shard:
+    """A stack's place on the mesh: the mesh, its model axis, and whether
+    the stack's MLP hidden dim is sharded over it (``param_specs``: when it
+    divides the axis)."""
+    mesh_info: dict
+    tp: C.Axis
+    ff_split: bool
+
+
+def _ffn_apply(xn, lp, cfg: ArchConfig, dropless: bool, cf: Optional[float] = None,
+               shard: Optional[_Shard] = None):
     """The block's FFN: the MLP, or the MoE FFN at capacity T * k
     (``dropless``, decode), at ``capacity_for(T, cf)`` for a given ``cf``,
-    else at the exact capacity T."""
+    else at the exact capacity T (under a mesh ``moe_ffn``'s per-shard
+    capacity)."""
     if "moe" in lp:
         if dropless:
             cf = float(cfg.top_k * M.n_experts_padded(cfg))  # => C = T*k
-        return M.moe_ffn(xn, lp["moe"], cfg, capacity_factor=cf)
-    return L.swiglu(xn, lp["mlp"]["w1"], lp["mlp"]["w3"], lp["mlp"]["w2"]), 0.0
+        return M.moe_ffn(xn, lp["moe"], cfg, capacity_factor=cf,
+                         mesh_info=shard.mesh_info if shard else None)
+    m = lp["mlp"]
+    tp = shard.tp if shard is not None and shard.ff_split else None
+    return L.swiglu(xn, m["w1"], m["w3"], m["w2"], tp=tp), 0.0
+
+
+def _seq_parallel_pin(x, mesh_info):
+    """The reference's REPRO_OPT_SEQ_PARALLEL pin: a sharding constraint
+    that lets GSPMD lower the block outputs' all-reduces to reduce-scatter
+    + all-gather. It changes no value, and the port's collectives are
+    explicit, so it pins nothing here."""
+    return x
 
 
 def _block_full(x, lp, win: int, cfg: ArchConfig, chunked: bool, static: bool = False,
-                cf: Optional[float] = None):
+                cf: Optional[float] = None, shard: Optional[_Shard] = None):
     """One decoder block over a whole sequence (``static``: the window is
     the pattern stack's static one; ``cf``: the MoE capacity factor,
-    ``_ffn_apply``). Returns (x, (k, v), aux)."""
+    ``_ffn_apply``; ``shard``: its place on a mesh). Returns (x, (k, v),
+    aux)."""
+    mesh_info = shard.mesh_info if shard else None
     h, kv = L.self_attn_full(L.rms_norm(x, lp["ln1"], cfg.rms_eps), lp["attn"],
                              attn_dims(cfg), window=win, chunked=chunked,
-                             static_window=static)
-    x = x + h
-    y, aux = _ffn_apply(L.rms_norm(x, lp["ln2"], cfg.rms_eps), lp, cfg, dropless=False, cf=cf)
-    return x + y, kv, aux
+                             static_window=static, tp=shard.tp if shard else None)
+    x = _seq_parallel_pin(x + h, mesh_info)
+    y, aux = _ffn_apply(L.rms_norm(x, lp["ln2"], cfg.rms_eps), lp, cfg, dropless=False, cf=cf,
+                        shard=shard)
+    return _seq_parallel_pin(x + y, mesh_info), kv, aux
 
 
 def _block_decode(x, lp, win: int, cfg: ArchConfig, ck, cv, sp, slot: int, pos):
@@ -202,43 +252,84 @@ def _slot(cache, ring: torch.Tensor):
     return slot, sp
 
 
-def build_dense(cfg: ArchConfig, capacity_factor: Optional[float] = None) -> ModelBundle:
+def _embed_tp(embed, tokens, vp: int, tp: C.Axis):
+    """The vocab-parallel lookup: ids clipped into [0, vp) (the reference's
+    ``mode="clip"``), each rank's rows of its vocabulary block and zeros
+    elsewhere, summed over the model axis."""
+    v_loc = embed.shape[0]
+    ids = tokens.long().clamp(0, vp - 1) - tp.index * v_loc
+    hit = (ids >= 0) & (ids < v_loc)
+    return C.reduce_from(embed[ids.clamp(0, v_loc - 1)] * hit[..., None], tp)
+
+
+def build_dense(cfg: ArchConfig, capacity_factor: Optional[float] = None,
+                mesh_info: Optional[dict] = None) -> ModelBundle:
     """Dense and MoE decoders. ``capacity_factor``: forward and prefill
     dispatch each MoE layer's T tokens into a buffer of ``capacity_for(T,
     capacity_factor)`` rows an expert, as the reference's sharded
     ``moe_ffn`` does per data shard (``launch/dryrun.py`` runs the
     reference dry-run's step so), instead of the exact T (the default:
-    drops nothing); decode stays at T * k."""
+    drops nothing); decode stays at T * k.
+
+    ``mesh_info`` (``launch/mesh.py mesh_info``): the bundle runs on one
+    rank of that mesh. ``init`` draws the whole tree, its experts padded by
+    the model axis (``shard_params`` then cuts the rank's blocks);
+    ``forward`` and ``prefill`` take the rank's data shard and its param
+    blocks, and the MoE layers dispatch at ``capacity_for`` the shard's
+    tokens (``capacity_factor``, the config's when None), as the
+    reference's ``shard_map`` body does. ``forward``'s logits are the
+    rank's vocabulary block where the embedding is sharded; ``prefill``'s
+    last logits are gathered whole, its cache holds the rank's KV heads.
+    ``decode_step`` and ``init_cache`` raise: the sharded decode is ROADMAP
+    Queue A 2."""
     n_dense = cfg.n_dense_layers
     windows = [cfg.window_for_layer(l) for l in range(n_dense, cfg.n_layers)]
+    vp = L.vocab_pad_of(cfg.vocab)
+    tp = None
+    shards = {"": None, "0": None}
+    if mesh_info is not None:
+        tp = mesh_info["mesh"].axis(mesh_info["tp"])
+        shards = {key: _Shard(mesh_info, tp, ff % tp.size == 0)
+                  for key, ff in (("", cfg.d_ff), ("0", cfg.dense_d_ff))}
+    n_model = tp.size if tp is not None else 16
 
     def init(seed: int = 0, device="cuda"):
-        return init_params(cfg, seed, device, expert_slabs="device")
+        return init_params(cfg, seed, device, expert_slabs="device", n_model=n_model)
 
     def _stacks(params):
         """(cache key, layer params, window) of every layer, in order."""
         out = [("0", lp, -1) for lp in _stack(params, "dense0")] if n_dense else []
         return out + [("", lp, w) for lp, w in zip(_stack(params, "layers"), windows)]
 
+    def _head(params, tokens):
+        """(embedded tokens, the tied output projection's function)."""
+        embed = params["embed"]
+        if tp is None or embed.shape[0] == vp:
+            return _embed(embed, tokens), lambda x: _logits(x, embed)
+        return (_embed_tp(embed, tokens, vp, tp),
+                lambda x: _logits(C.copy_to(x, tp), embed))
+
     def forward(params, batch):
         tokens = batch["tokens"]
-        x = _embed(params["embed"], tokens)
+        x, head = _head(params, tokens)
         chunked = tokens.shape[1] >= CHUNKED_MIN_SEQ
         aux = 0.0
-        for _, lp, win in _stacks(params):
-            x, _, a = _run(_block_full, x, lp, win, cfg, chunked, False, capacity_factor)
+        for key, lp, win in _stacks(params):
+            x, _, a = _run(_block_full, x, lp, win, cfg, chunked, False, capacity_factor,
+                           shards[key])
             aux = aux + a
         x = L.rms_norm(x, params["ln_f"], cfg.rms_eps)
-        return _logits(x, params["embed"]), aux / cfg.n_layers
+        return head(x), aux / cfg.n_layers
 
     def prefill(params, batch):
         tokens = batch["tokens"]
         B, Ssz = tokens.shape
-        x = _embed(params["embed"], tokens)
+        x, head = _head(params, tokens)
         chunked = Ssz >= CHUNKED_MIN_SEQ
         kv = {"": [], "0": []}
         for key, lp, win in _stacks(params):
-            x, (k, v), _ = _block_full(x, lp, win, cfg, chunked, False, capacity_factor)
+            x, (k, v), _ = _block_full(x, lp, win, cfg, chunked, False, capacity_factor,
+                                       shards[key])
             kv[key].append((k, v))
         cache = {}
         for key, rows in kv.items():
@@ -247,9 +338,15 @@ def build_dense(cfg: ArchConfig, capacity_factor: Optional[float] = None) -> Mod
                 cache["v" + key] = torch.stack([v for _, v in rows])
         cache.update(_ring(Ssz, Ssz, tokens.device))
         x = L.rms_norm(x, params["ln_f"], cfg.rms_eps)
-        return _logits(x[:, -1], params["embed"]), cache
+        logits = head(x[:, -1])
+        if logits.shape[-1] < vp:
+            logits = C.all_gather(logits, tp, -1)
+        return logits, cache
 
     def decode_step(params, step, cache):
+        if mesh_info is not None:
+            raise NotImplementedError("decode under a mesh is not ported (ROADMAP Queue A 2: "
+                                      "the sharded decode)")
         x = _embed(params["embed"], step["token"])
         pos = cache["pos"]
         slot, sp = _slot(cache, cache["k"])
@@ -267,6 +364,9 @@ def build_dense(cfg: ArchConfig, capacity_factor: Optional[float] = None) -> Mod
         return _logits(x[:, -1], params["embed"]), new
 
     def init_cache(batch_size: int, capacity: int, extras=None, device="cuda"):
+        if mesh_info is not None:
+            raise NotImplementedError("a decode cache under a mesh is not ported (ROADMAP "
+                                      "Queue A 2: the sharded decode)")
         shape = (batch_size, capacity, cfg.n_kv_heads, cfg.hd)
         c = {"k": torch.zeros((cfg.n_layers - n_dense,) + shape, dtype=L.PDT, device=device),
              **_ring(capacity, 0, device)}
@@ -277,7 +377,7 @@ def build_dense(cfg: ArchConfig, capacity_factor: Optional[float] = None) -> Mod
         return c
 
     return ModelBundle(cfg, init, forward, prefill, decode_step, init_cache,
-                       ring_axes={"k": 2, "v": 2, "k0": 2, "v0": 2})
+                       ring_axes={"k": 2, "v": 2, "k0": 2, "v0": 2}, mesh_info=mesh_info)
 
 
 # ---------------------------------------------------------------------------

@@ -12,8 +12,18 @@ rows are neither written nor read, as the reference's ``mode="drop"`` /
 ``mode="fill"`` scatter and gather drop them. The expert GEMMs run
 ``kernels.expert_ffn.ExpertFFNFn``: the hand-written kernel on the card
 (the reference's ``REPRO_MOE_PALLAS=1`` route), its plain version on the
-CPU, with a gradient. The reference's ``shard_map`` branch (expert or
-hidden sharding over a pod's model axis) is pod tooling and not ported.
+CPU, with a gradient.
+
+Under a mesh (``moe_ffn(..., mesh_info=)``, the reference's ``shard_map``
+body) tokens arrive replicated over the model axis and each model rank
+holds a slice of the experts: whole experts (``"expert"`` mode, E_pad /
+n_model of them from ``e_start``) or every expert's hidden dim (``"hidden"``
+mode, when E < n_model); the shared experts' hidden dim is sharded in
+either. Each rank routes every token (the router is replicated), dispatches
+the assignments its slice owns into a buffer of ``capacity_for`` its data
+shard's tokens, and the partial outputs are summed over the model axis
+(``collectives.reduce_from``: one all-reduce a layer); the aux loss is
+averaged over every axis.
 
 The serving engines run the experts themselves (serving/engine.py) and
 take only ``route`` and ``n_experts_padded`` from here.
@@ -25,6 +35,7 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch import collectives as C
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.expert_ffn import ExpertFFNFn
 from repro_torch.models import layers as L
@@ -40,21 +51,38 @@ def n_experts_padded(cfg: ArchConfig, n_model: int = 16) -> int:
     return e
 
 
-def moe_params(cfg: ArchConfig, normal: Callable, n: int, slabs=None) -> dict:
+def expert_shard_mode(cfg: ArchConfig, n_model: int = 16) -> str:
+    """'expert' = experts over the model axis; 'hidden' = d_expert over it."""
+    return "expert" if cfg.n_experts >= n_model else "hidden"
+
+
+def expert_start(mode: str, tp_index: int, e_loc: int) -> int:
+    """The first global expert id a model rank's slice holds (0 in
+    ``"hidden"`` mode: every rank holds a part of every expert)."""
+    return tp_index * e_loc if mode == "expert" else 0
+
+
+def moe_params(cfg: ArchConfig, normal: Callable, n: int, slabs=None,
+               n_model: int = 16) -> dict:
     """A stack of ``n`` MoE FFNs' params, in the reference's draw order:
     router [n,d,E_pad] f32, w1/w3 [n,E_pad,d,de], w2 [n,E_pad,de,d], and
-    for shared experts sw1/sw3 [n,d,S·de], sw2 [n,S·de,d]. ``normal(shape,
+    for shared experts sw1/sw3 [n,d,S·de], sw2 [n,S·de,d]; E_pad is padded
+    by the mesh's model axis ``n_model`` (the reference's default 16 without
+    a mesh). ``normal(shape,
     scale, dtype=bf16)`` draws one tensor; the slabs are drawn one expert
     at a time (bounding the draw's scratch) into ``slabs[name]`` where
     given (the serving engines' pinned host buffer), else into tensors on
     the router's device."""
     d, de = cfg.d_model, cfg.d_expert
-    ep = n_experts_padded(cfg)
+    ep = n_experts_padded(cfg, n_model)
     p = {"router": normal((n, d, ep), d ** -0.5, torch.float32)}
     for name, shape, scale in (("w1", (d, de), d ** -0.5), ("w3", (d, de), d ** -0.5),
                                ("w2", (de, d), de ** -0.5)):
         out = (slabs[name] if slabs is not None else
                torch.empty((n, ep) + shape, dtype=L.PDT, device=p["router"].device))
+        if out.device.type == "meta":   # shapes only: nothing to draw
+            p[name] = out
+            continue
         for l in range(n):
             for e in range(ep):
                 out[l, e].copy_(normal(shape, scale))
@@ -143,15 +171,27 @@ def load_balance_loss(probs: torch.Tensor, ids: torch.Tensor, n_real: int) -> to
     return n_real * (f[:n_real] * p[:n_real]).sum() / k
 
 
-def moe_ffn_local(x2d, p, cfg: ArchConfig, *, capacity: int, e_start: int = 0):
+def moe_ffn_local(x2d, p, cfg: ArchConfig, *, capacity: int, e_start: int = 0,
+                  tp: Optional[C.Axis] = None):
     """The MoE FFN on [T, d]: route, dispatch at ``capacity``, shared
-    experts. Returns (y [T, d], aux)."""
+    experts. Returns (y [T, d], aux). ``tp``: the model axis, ``p`` this
+    rank's slice of the experts (from ``e_start``) and of the shared
+    experts' hidden dim; the routed and the sharded shared outputs are
+    summed over the axis, a shared FFN whose hidden dim does not divide it
+    runs whole on every rank after the sum."""
     w, ids, probs = route(x2d, p["router"], cfg.n_experts, cfg.top_k)
     amax = active_gather_max(x2d.shape[0], cfg.top_k, p["w1"].shape[0],
                              n_experts_padded(cfg))
-    y = _dispatch_compute_combine(x2d, w, ids, p["w1"], p["w3"], p["w2"],
+    # the region of this rank's part: x and the router weights enter it
+    xin = C.copy_to(x2d, tp)
+    y = _dispatch_compute_combine(xin, C.copy_to(w, tp), ids, p["w1"], p["w3"], p["w2"],
                                   capacity=capacity, e_start=e_start, active_max=amax)
-    if "sw1" in p:
+    shared = "sw1" in p
+    split = shared and p["sw1"].shape[-1] < cfg.n_shared_experts * cfg.d_expert
+    if shared and (tp is None or split):
+        y = y + L.swiglu(xin, p["sw1"], p["sw3"], p["sw2"])
+    y = C.reduce_from(y, tp)
+    if shared and tp is not None and not split:
         y = y + L.swiglu(x2d, p["sw1"], p["sw3"], p["sw2"])
     return y, load_balance_loss(probs, ids, cfg.n_experts)
 
@@ -164,18 +204,43 @@ def capacity_for(t_local: int, cfg: ArchConfig, e_pad: int,
     return max(c, 8) if t_local >= 8 else max(c, cfg.top_k)
 
 
-def moe_ffn(x, p, cfg: ArchConfig, *, capacity_factor: Optional[float] = None):
-    """MoE FFN on [B, S, d] (or [T, d]), on one device. Exact by default:
-    top-k ids are distinct per token, so capacity T drops nothing, and
-    prefill, decode and teacher-forced forward agree; an explicit
-    ``capacity_factor`` bounds the buffer (``capacity_for``). Returns
-    (y in x's shape, aux)."""
+def moe_ffn(x, p, cfg: ArchConfig, *, capacity_factor: Optional[float] = None,
+            mesh_info: Optional[dict] = None):
+    """MoE FFN on [B, S, d] (or [T, d]). Returns (y in x's shape, aux).
+
+    On one device exact by default: top-k ids are distinct per token, so
+    capacity T drops nothing, and prefill, decode and teacher-forced
+    forward agree; an explicit ``capacity_factor`` bounds the buffer
+    (``capacity_for``).
+
+    Under a mesh (``mesh_info``: ``launch/mesh.py mesh_info``) ``x`` is this
+    rank's tokens, replicated over the model axis (its data shard, or the
+    whole batch where the batch does not divide the data axes, as
+    ``launch/partition.py batch_specs`` leaves it), ``p`` its slice
+    (``launch/partition.py param_specs``), and the buffer holds
+    ``capacity_for`` those tokens at ``capacity_factor`` (the config's when
+    None), as the reference's ``shard_map`` body sizes it per data shard;
+    aux is averaged over every axis."""
     shp = x.shape
     x2d = x.reshape(-1, shp[-1])
     t_loc = x2d.shape[0]
-    cap = t_loc if capacity_factor is None else capacity_for(
-        t_loc, cfg, p["w1"].shape[0], capacity_factor)
-    y, aux = moe_ffn_local(x2d, p, cfg, capacity=cap)
+    if mesh_info is None:
+        cap = t_loc if capacity_factor is None else capacity_for(
+            t_loc, cfg, p["w1"].shape[0], capacity_factor)
+        y, aux = moe_ffn_local(x2d, p, cfg, capacity=cap)
+        return y.reshape(shp), aux
+    mesh, tp_name = mesh_info["mesh"], mesh_info["tp"]
+    tp = mesh.axis(tp_name)
+    mode = expert_shard_mode(cfg, tp.size)
+    e_loc = p["w1"].shape[0]
+    if mode == "hidden" and cfg.d_expert % tp.size:
+        raise ValueError(f"{cfg.name}: d_expert {cfg.d_expert} does not divide the "
+                         f"{tp.size}-way model axis")
+    e_pad = e_loc * tp.size if mode == "expert" else e_loc
+    cap = capacity_for(t_loc, cfg, e_pad, capacity_factor)
+    y, aux = moe_ffn_local(x2d, p, cfg, capacity=cap, e_start=expert_start(mode, tp.index, e_loc),
+                           tp=tp)
+    aux = C.pmean(aux, mesh.axis(tuple(mesh_info["dp"]) + (tp_name,)))
     return y.reshape(shp), aux
 
 

@@ -11,6 +11,9 @@ enc-dec (``enc``, ``ln_enc``, ``dec`` with ``ln_x`` / ``xattn``, ``proj``);
 [n_pat, per], ``tail``) out of a dense one as views. ``params_from_jax``
 carries a JAX parameter tree of any of them across (as numpy arrays) so
 both packages can be held against each other on the same weights.
+``shard_params`` cuts a rank's blocks out of a tree by its partition specs
+(``launch/partition.py``): drawn whole from a seed and then cut, each
+rank's shard equals the slice of the tree one device draws from that seed.
 
 Placement of the routed-expert slabs (``layers.moe.w1/w3/w2``):
 ``expert_slabs="host"`` (the serving engines' default) keeps them in host
@@ -42,12 +45,14 @@ def attn_dims(cfg: ArchConfig) -> L.AttnDims:
 
 
 def init_params(cfg: ArchConfig, seed: int = 0, device="cuda",
-                expert_slabs: str = "host") -> Dict:
+                expert_slabs: str = "host", n_model: int = 16) -> Dict:
     """Random params: normal(0, 1) * fan_in**-0.5 weights, zero norms (the
     ``(1 + w)`` RMSNorm scale), the reference's f32 leaves (MoE router; SSM
     A_log, D, dt_bias). Draws on ``device``, one expert slab at a time, so
     host slabs are generated on the card and copied once into pinned
-    memory. On ``meta`` the tree's shapes and dtypes, nothing drawn."""
+    memory. On ``meta`` the tree's shapes and dtypes, nothing drawn. The
+    routed experts are padded by ``n_model``, the mesh's model axis (the
+    reference's 16 without a mesh; ``moe_layer.n_experts_padded``)."""
     if expert_slabs not in PLACEMENTS:
         raise ValueError(f"expert_slabs must be one of {PLACEMENTS}")
     device = torch.device(device)
@@ -57,19 +62,20 @@ def init_params(cfg: ArchConfig, seed: int = 0, device="cuda",
     if cfg.family in ("hybrid", "vlm", "encdec"):
         return {"hybrid": _init_hybrid, "vlm": _init_vlm,
                 "encdec": _init_encdec}[cfg.family](_Draw(cfg, g, device))
-    return _init_dense(cfg, g, device, expert_slabs)
+    return _init_dense(cfg, g, device, expert_slabs, n_model)
 
 
-def _init_dense(cfg: ArchConfig, g: torch.Generator, device, expert_slabs: str) -> Dict:
+def _init_dense(cfg: ArchConfig, g: torch.Generator, device, expert_slabs: str,
+                n_model: int) -> Dict:
     """``build_dense``'s tree. Draw order: each stack's attention, then its
     FFN (``layers``, then ``dense0``), the embedding last."""
     draw = _Draw(cfg, g, device)
     n_dense = cfg.n_dense_layers
     n_scan = cfg.n_layers - n_dense
     if cfg.is_moe:
-        slabs = _host_slabs(cfg, n_scan, device) if expert_slabs == "host" else None
+        slabs = _host_slabs(cfg, n_scan, device, n_model) if expert_slabs == "host" else None
         layers = draw.block((n_scan,), ("moe", lambda: moe_params(cfg, draw.normal, n_scan,
-                                                                   slabs)))
+                                                                   slabs, n_model)))
     else:
         layers = draw.block((n_scan,))
     p = {"layers": layers}
@@ -80,13 +86,13 @@ def _init_dense(cfg: ArchConfig, g: torch.Generator, device, expert_slabs: str) 
     return p
 
 
-def _host_slabs(cfg: ArchConfig, n: int, device) -> Dict:
+def _host_slabs(cfg: ArchConfig, n: int, device, n_model: int = 16) -> Dict:
     """w1, w3 and w2 of n layers as views of ONE host buffer, pinned for a
     CUDA ``device``: PyTorch's caching host allocator rounds each pinned
     allocation up to a power of two and keeps it when freed
     (ATen/core/CachingHostAllocator.h), so three buffers of 10.3 GB
     (DeepSeekMoE-16B) would pin 3 x 16 GiB where one pins 32 GiB."""
-    d, de, ep = cfg.d_model, cfg.d_expert, n_experts_padded(cfg)
+    d, de, ep = cfg.d_model, cfg.d_expert, n_experts_padded(cfg, n_model)
     m = n * ep * d * de
     host = torch.empty(3 * m, dtype=L.PDT, pin_memory=torch.device(device).type == "cuda")
     return {name: host[i * m:(i + 1) * m].view((n, ep) + shape)
@@ -248,3 +254,17 @@ def params_from_jax(tree, device="cuda", expert_slabs: str = "host") -> Dict:
         return t.to(device)
 
     return conv(dict(tree), ())
+
+
+def shard_params(params: Dict, specs: Dict, mesh) -> Dict:
+    """This rank's block of every leaf (``launch/partition.py shard_leaf``
+    under ``specs``, e.g. ``param_specs`` of the whole tree): new
+    contiguous tensors on each leaf's device."""
+    from repro_torch.launch.partition import shard_leaf
+
+    def cut(node, spec):
+        if isinstance(node, dict):
+            return {k: cut(v, spec[k]) for k, v in node.items()}
+        return shard_leaf(node, spec, mesh)
+
+    return cut(params, specs)

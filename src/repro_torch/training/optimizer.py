@@ -20,6 +20,12 @@ Two interfaces over one update:
   temporaries stay a piece's and not a stacked leaf's;
 * the torch one the ExpertMLP predictor trains with: ``AdamW(params,
   ...)``, ``zero_grad()``, ``step()`` from the parameters' ``.grad``.
+
+``ZeRO1`` runs the functional update on a (data, model) mesh with the
+moments sharded over the data axes (``launch/partition.py zero_specs``, the
+reference dry-run's ZeRO-1): each rank keeps and updates only its slice of
+each leaf's moments and parameters, then the parameters are all-gathered
+over the data axes.
 """
 from __future__ import annotations
 
@@ -27,6 +33,8 @@ import math
 from typing import Callable, Dict, Iterable, List, NamedTuple, Optional, Union
 
 import torch
+
+from repro_torch import collectives as C
 
 
 # elements of one piece of the update: the f32 temporaries of a whole
@@ -103,15 +111,16 @@ class AdamW:
         return AdamWState(0, tree_map(zeros, params), tree_map(zeros, params))
 
     @torch.no_grad()
-    def update(self, grads, state: AdamWState, params):
+    def update(self, grads, state: AdamWState, params, grad_norm=None):
         """One AdamW step over matching trees; returns (params, state,
         global gradient norm before clipping), the tensors updated in
-        place."""
+        place. ``grad_norm``: the global norm, where ``grads`` hold only a
+        part of the gradient (``ZeRO1``)."""
         step = state.step + 1
         lr = self.lr(step) if callable(self.lr) else self.lr
         g_leaves = tree_leaves(grads)
-        gn = torch.sqrt(sum((g.float() * g.float()).sum()
-                            for leaf in g_leaves for (g,) in _pieces(leaf)))
+        gn = grad_norm if grad_norm is not None else torch.sqrt(
+            sum((g.float() * g.float()).sum() for leaf in g_leaves for (g,) in _pieces(leaf)))
         scale = torch.clamp(self.grad_clip / torch.clamp(gn, min=1e-9), max=1.0)
         bc1 = 1 - self.b1 ** step
         bc2 = 1 - self.b2 ** step
@@ -145,6 +154,83 @@ class AdamW:
                  for i, p in enumerate(self.params)}
         _, self.state, gn = self.update(grads, self.state, dict(enumerate(self.params)))
         return gn
+
+
+class ZeRO1:
+    """``opt``'s update with the moments sharded over a mesh's data axes.
+
+    ``pspecs`` / ``zspecs``: ``launch/partition.py``'s ``param_specs`` and
+    ``zero_specs`` of the whole tree; the params this rank holds are its
+    ``pspecs`` blocks. A leaf whose ZeRO spec adds the data axes to dim
+    ``i`` keeps moments for this rank's block of dim ``i`` (``slices``);
+    a leaf with no such dim keeps whole moments, updated alike on every
+    data rank. ``reduce`` sums a gradient leaf over the data axes and keeps
+    the slice; ``update`` takes the averaged slices
+    (``training/train_loop.py``), updates each slice in place, and
+    all-gathers the params over the data axes."""
+
+    def __init__(self, opt: AdamW, pspecs, zspecs, mesh_info: dict):
+        self.opt = opt
+        mesh = mesh_info["mesh"]
+        dp, tp = tuple(mesh_info["dp"]), mesh_info["tp"]
+        self.dp = mesh.axis(dp)
+        self.world = mesh.axis(mesh.axis_names)
+        self.dims, self.shares = [], []
+        for ps, zs in zip(tree_leaves(pspecs), tree_leaves(zspecs)):
+            zdim = [i for i, e in enumerate(zs) if e is not None
+                    and (i >= len(ps) or ps[i] is None)]
+            self.dims.append(zdim[0] if zdim else None)
+            # ranks holding the same slice: the leaf's sum of squares counts once
+            copies = (1 if zdim else self.dp.size) * (
+                1 if any(e == tp or (isinstance(e, tuple) and tp in e) for e in ps)
+                else mesh.size(tp))
+            self.shares.append(1.0 / copies)
+
+    def reduce(self, g: torch.Tensor, i: int) -> torch.Tensor:
+        """Leaf ``i``'s gradient summed over the data axes in f32, this
+        rank's slice of it (a new tensor): reduce-scattered where the leaf's
+        moments are sliced, else all-reduced. The f32 copy of ``g`` is the
+        only full-size tensor it makes."""
+        dim = self.dims[i]
+        if dim is None:
+            return C.psum(g.to(torch.float32, memory_format=torch.contiguous_format),
+                          self.dp, inplace=True)
+        src = g.movedim(dim, 0).to(torch.float32, memory_format=torch.contiguous_format)
+        return C.reduce_scatter(src, self.dp).movedim(0, dim).contiguous()
+
+    def slices(self, tree) -> list:
+        """This rank's slice (a view) of each leaf (``tree_leaves`` order)."""
+        return [t if dim is None else t.chunk(self.dp.size, dim)[self.dp.index]
+                for t, dim in zip(tree_leaves(tree), self.dims)]
+
+    def init(self, params) -> AdamWState:
+        zeros = [torch.zeros_like(t, dtype=torch.float32, memory_format=torch.contiguous_format)
+                 for t in self.slices(params)]
+        return AdamWState(0, tree_unflatten(params, zeros),
+                          tree_unflatten(params, [torch.zeros_like(z) for z in zeros]))
+
+    @torch.no_grad()
+    def update(self, grads, state: AdamWState, params):
+        """grads: the averaged gradient's slices (f32), in ``params``' tree."""
+        grads = tree_leaves(grads)
+        sq = sum(float(share) * (g.float() * g.float()).sum()
+                 for g, share in zip(grads, self.shares))
+        gn = torch.sqrt(C.psum(torch.as_tensor(sq, dtype=torch.float32,
+                                               device=grads[0].device).reshape(1), self.world)[0])
+        views = self.slices(params)
+        like = {i: t for i, t in enumerate(views)}
+        _, state, gn = self.opt.update({i: g for i, g in enumerate(grads)},
+                                       AdamWState(state.step, _keyed(state.m), _keyed(state.v)),
+                                       like, grad_norm=gn)
+        for t, dim, view in zip(tree_leaves(params), self.dims, views):
+            if dim is not None:
+                t.copy_(C.all_gather(view, self.dp, dim))
+        return params, AdamWState(state.step, tree_unflatten(params, tree_leaves(state.m)),
+                                  tree_unflatten(params, tree_leaves(state.v))), gn
+
+
+def _keyed(tree) -> dict:
+    return {i: t for i, t in enumerate(tree_leaves(tree))}
 
 
 def cosine_schedule(peak: float, warmup: int, total: int, floor: float = 0.1):

@@ -1469,3 +1469,36 @@ def test_example_main_on_card(cuda, released, name, argv, tmp_path, capsys):
         assert np.isfinite(rec["loss"]).all()
     if name == "serve_cluster":
         assert rec["one_replica_parity"] and (tmp_path / "trace.json").is_file()
+
+
+# -- the kernels at the shapes a rank of a (data, model) mesh gives them --------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,C,d,f", [
+    (30, 688, 2048, 1408),   # Qwen2-MoE-A2.7B: 60 experts over 2 model ranks, 2 x 4096 tokens
+    (8, 512, 4096, 896),     # Mixtral-8x7B's hidden mode: f = 14336 / 16
+])
+def test_expert_ffn_at_rank_shapes(cuda, released, E, C, d, f):
+    from repro_torch.kernels.expert_ffn import expert_ffn, expert_ffn_plain
+    x, w1, w3, w2 = _ffn_case(cuda, E, C, d, f, E, seed=11)
+    n = expert_ffn.launches
+    got = expert_ffn(x, w1, w3, w2)
+    assert expert_ffn.launches == n + 1
+    torch.testing.assert_close(got, expert_ffn_plain(x, w1, w3, w2), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,Hkv", [(8, 8), (2, 1)])   # 16 / 16 over 2 ranks; 32 / 8 over 16
+def test_flash_attention_at_rank_heads(cuda, H, Hkv):
+    from repro_torch.kernels.flash_attention import FlashAttentionFn
+    g = torch.Generator(device=cuda).manual_seed(12)
+    r = lambda *s: torch.randn(s, generator=g, device=cuda).to(torch.bfloat16)
+    q, k, v = r(2, 1024, H, 128), r(2, 1024, Hkv, 128), r(2, 1024, Hkv, 128)
+    want = flash_attention_plain(q, k, v)
+    torch.testing.assert_close(flash_attention(q, k, v), want, rtol=2e-2, atol=2e-2)
+    qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+    out = FlashAttentionFn.apply(qg, kg, vg, True, -1)
+    torch.testing.assert_close(out, want, rtol=2e-2, atol=2e-2)
+    out.float().square().sum().backward()
+    assert all(torch.isfinite(t.grad.float()).all() for t in (qg, kg, vg))
