@@ -354,7 +354,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                plain versions and timed (``expert_ffn`` at Qwen2-MoE's 30
                local experts of the phase's capacity and at Mixtral-8x7B's
                hidden-mode slice, f = 14336 / 16; ``flash_attention`` at 8 /
-               8 local heads and at 32 / 8 over 16 model ranks, 2 / 1).
+               8 local heads and at 32 / 8 over 16 model ranks, 2 / 1;
+               ``flash_decode`` with ``lse`` at 48 / 1 over a 2048-slot
+               block and 8 / 8 over 4096 slots, B=2).
                Then Qwen2-MoE-A2.7B at published widths, ``MESH_LAYERS``
                layers, experts padded by the model axis (60), global batch
                4 x 4096: the unsharded step on the card (the MoE at the
@@ -377,7 +379,25 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                params). Per rank: peak memory, step ms, the collectives'
                counts and bytes (gloo between processes on one card: no
                figure of them is NVLink's), its kernels' launches, which
-               must be > 0. ``--mesh`` runs only this phase.
+               must be > 0. Then, in the same 4 processes, the sharded
+               decode (``MESH_DECODE_RUNS``: Qwen2-MoE-A2.7B, its KV heads
+               over the model axis, and Granite-34B, MQA, its ring's slots
+               over it, each at 2 layers and published widths): B=4
+               prompts of 2044 tokens prefilled, the cache taken to 4096
+               slots (``decode_cache``), 8 steps fed the unsharded
+               run's tokens (the MoE replaying its experts), so Granite's
+               writes cross into model rank 1's block, empty until step
+               4. Held: each rank's logits against the unsharded decode's
+               on the card (``BUNDLE_TOL``), its own greedy tokens (a
+               difference only at a ``TIE``), Granite's blocks' valid and
+               written slots before and after, a fault (the partials
+               averaged without their log-sum-exp weights) that must
+               fail; beside the host syncs of one unsharded decode step
+               (``step_syncs``; ``--decode-syncs SRC`` counts another
+               tree's) and ``mesh_kernel`` lines of ``flash_decode`` with
+               ``lse`` at both rank shapes, an empty row among them, and
+               without it as Qwen2-MoE's heads-sharded path calls it.
+               ``--mesh`` runs only this phase.
 
 Every phase line carries ``t_s``, the seconds since the script started.
 The last three lines are the card's ``nvidia-smi`` name and power limit,
@@ -397,6 +417,7 @@ import re
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 from typing import Callable, NamedTuple
 
@@ -4431,6 +4452,37 @@ def decode_step_only(src: Path, layers: int, seed: int) -> int:
     return 0
 
 
+def decode_syncs_only(src: Path, seed: int) -> int:
+    """``--decode-syncs SRC``: the host syncs of one unsharded ``build_dense``
+    decode step (``step_syncs``) of each of ``MESH_DECODE_RUNS``, B=2 after
+    a 128-token prefill into 256 slots and one step, with the port's
+    package from ``src``, so two trees are counted by the same code in one
+    call. Prints the card and one ``decode_syncs`` line a model."""
+    sys.path.insert(0, str(src))
+    from repro_torch.kernels import _build
+    from repro_torch.models.model import build, greedy_token, pad_cache
+    emit(dict(phase="device", nvidia_smi=nvidia_smi(), name=torch.cuda.get_device_name(0),
+              torch=torch.__version__, cuda=torch.version.cuda))
+    _build.build_all()
+    for arch, _ in MESH_DECODE_RUNS:
+        cfg = mesh_decode_cfg(arch)
+        bundle = build(cfg)
+        params = bundle.init(seed, device="cuda")
+        tokens = mesh_decode_prompts(cfg, seed)[:2, :128].cuda()
+        with torch.no_grad():
+            logits, cache = bundle.prefill(params, {"tokens": tokens})
+            cache = pad_cache(cache, 256, bundle.ring_axes)
+            tok = greedy_token(logits, cfg.vocab)
+            logits, cache = bundle.decode_step(params, {"token": tok}, cache)
+            tok = greedy_token(logits, cfg.vocab)
+            syncs = step_syncs(lambda: bundle.decode_step(params, {"token": tok}, cache))
+        emit(dict(phase="decode_syncs", src=str(src), model=cfg.name, layers=cfg.n_layers,
+                  **syncs))
+        del params, cache
+        release()
+    return 0
+
+
 # -- phase 20: the (data, model) mesh ------------------------------------------
 
 MESH_ARCH = "qwen2_moe_a2_7b"
@@ -4462,7 +4514,11 @@ def mesh_kernel_checks(g) -> dict:
     ranks) of the mesh phase's capacity rows (``capacity_for`` 2 x 4096
     tokens) and at Mixtral-8x7B's hidden-mode slice (8 experts, f = 14336 /
     16, 4096 rows); the attention at 8 / 8 local heads (Qwen2-MoE's 16 / 16
-    over 2) and 2 / 1 (32 / 8 heads over 16 model ranks), B=2 x 4096."""
+    over 2) and 2 / 1 (32 / 8 heads over 16 model ranks), B=2 x 4096; the
+    decode attention at the mesh phase's rank shapes: with ``lse`` at
+    Granite-34B's slot block and Qwen2-MoE's 8 / 8 heads (``lse_decode``,
+    an empty row among them), and Qwen2-MoE's call as its heads-sharded
+    path makes it (``decode_attention``, no ``lse``)."""
     from repro_torch.configs.base import get_config
     from repro_torch.models.moe_layer import capacity_for
     cfg = get_config(MESH_ARCH)
@@ -4484,7 +4540,65 @@ def mesh_kernel_checks(g) -> dict:
         emit(dict(phase="mesh_kernel", kernel="flash_attention", **rec))
         out["flash_attention"].append(rec)
         release()
+    out["flash_decode"] = []
+    for variant, make in (
+            ("granite_slots_48_1",
+             lambda: lse_decode(48, 1, 128, MESH_DECODE_W // MESH_GRID[1], g)),
+            ("qwen2_moe_heads_8_8_lse", lambda: lse_decode(8, 8, 128, MESH_DECODE_W, g)),
+            # the call the heads-sharded path makes: no lse, both rows at
+            # position 2047 (prompt 2044 + the steps) of the 4096-slot ring
+            ("qwen2_moe_heads_8_8",
+             lambda: decode_attention(dataclasses.replace(
+                 cfg, n_heads=cfg.n_heads // MESH_GRID[1],
+                 n_kv_heads=cfg.n_kv_heads // MESH_GRID[1], head_dim=cfg.hd),
+                 MESH_DECODE_W, [2047] * 2))):
+        rec = dict(variant=variant, **make())
+        emit(dict(phase="mesh_kernel", kernel="flash_decode", **rec))
+        out["flash_decode"].append(rec)
+        release()
     return out
+
+
+def lse_decode(H, Hkv, D, W, g, valid: int = 2048, reps: int = 20) -> dict:
+    """``flash_decode(return_lse=True)`` at a mesh rank's decode shape, B=2:
+    row 0 holds positions 0 .. valid - 1 (a full block of a slot-sharded
+    ring, or half of a whole one), row 1 no valid slot (model rank 1's
+    block before the ring reaches it). Held against the plain version: o
+    (``rows``) and the log-sum-exp of row 0 (``TOL_F32``), row 1's -inf
+    exactly and its output 0. Timed beside SDPA over the same mask
+    (which has no log-sum-exp output) and the plain version; bound: q, o
+    and lse once, the valid slots' K and V rows once."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_decode import flash_decode, flash_decode_plain, n_splits
+    B = 2
+    r = lambda *s: torch.randn(s, generator=g, device="cuda").to(torch.bfloat16)
+    q, k, v = r(B, H, D), r(B, W, Hkv, D), r(B, W, Hkv, D)
+    slots = torch.arange(W, dtype=torch.int32, device="cuda")
+    sp = torch.stack([torch.where(slots < valid, slots, -1), torch.full_like(slots, -1)])
+    pos = torch.full((B,), valid - 1, dtype=torch.int32, device="cuda")
+    args = (q, k, v, pos, sp)
+    o, lse = flash_decode(*args, return_lse=True)
+    o_p, lse_p = flash_decode_plain(*args, return_lse=True)
+    err = max_err(o[:1], o_p[:1], rows=True)
+    lse_err = max_err(lse[:1], lse_p[:1], TOL_F32)
+    if not (torch.isneginf(lse[1]).all() and torch.isneginf(lse_p[1]).all()
+            and torch.equal(o[1], torch.zeros_like(o[1]))):
+        raise AssertionError("flash_decode: a row with no valid slot must give lse -inf "
+                             "and an output of 0")
+    mask = ((sp >= 0) & (sp <= pos[:, None]))[:, None, None, :]
+    timed = device_vs_library(lambda: flash_decode(*args, return_lse=True),
+                              lambda: F.scaled_dot_product_attention(
+                                  q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+                                  attn_mask=mask, enable_gqa=True), reps)
+    plain_ms = time_ms(lambda: flash_decode_plain(*args, return_lse=True), reps=5)
+    n_valid = int(mask.sum())
+    bms, by = bound(2 * (2 * B * H * D + 2 * n_valid * Hkv * D) + 4 * B * (W + 1 + H),
+                    4 * H * D * n_valid)
+    return dict(shape=dict(B=B, H=H, Hkv=Hkv, D=D, W=W, valid=[valid, 0],
+                           n_split=n_splits(Hkv, W)),
+                max_abs_err=err, lse_max_abs_err=lse_err, empty_row_lse="-inf",
+                plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                bound_share=bms / timed["device_ms"], **timed)
 
 
 def mesh_cfg():
@@ -4620,6 +4734,10 @@ def mesh_rank(local_rank: int, port: int, tmp: str, seed: int, fault: bool) -> N
                    params=[t.cpu() for t in tree_leaves(params)])
     if not fault:
         out["route_flips_at_ties"] = flips(own, ref)
+        del params, state
+        run.params = run.state = run.opt = None
+        release()
+        out["decode"] = mesh_decode_rank(run, tmp, seed)
     torch.save(out, tmp / f"rank{run.mesh.rank}.pt")
     dist.barrier()
     dist.destroy_process_group()
@@ -4677,6 +4795,210 @@ def mesh_held(ranks: list, ref: dict, cfg) -> dict:
                 param_update_rel_err=math.sqrt(num / den))
 
 
+# -- phase 20, decode: the sharded decode on the mesh --------------------------
+
+# (arch, layers): Qwen2-MoE-A2.7B's 16 KV heads shard over the model axis;
+# Granite-34B's one (MQA) does not, so its ring's slots do
+MESH_DECODE_RUNS = (("qwen2_moe_a2_7b", 2), ("granite_34b", 2))
+MESH_DECODE_B = 4          # global batch, one shard of 2 a data rank
+MESH_DECODE_PROMPT = 2044  # prompt tokens: slots 0..2043 of
+MESH_DECODE_W = 4096       # the ring, so step 4 (position 2048) writes model rank 1's first slot
+MESH_DECODE_STEPS = 8
+
+
+def mesh_decode_cfg(arch: str):
+    from repro_torch.configs.base import get_config
+    return dataclasses.replace(get_config(arch), n_layers=dict(MESH_DECODE_RUNS)[arch])
+
+
+def mesh_decode_prompts(cfg, seed: int) -> torch.Tensor:
+    from repro_torch.data.pipeline import SyntheticLM
+    it = SyntheticLM(cfg.vocab, seed=seed).batches(MESH_DECODE_B, MESH_DECODE_PROMPT)
+    return torch.from_numpy(next(it))
+
+
+def step_syncs(step) -> dict:
+    """The host syncs ``step()`` makes, by call site: the device audit's
+    ``audit_callbacks`` (the sync debug mode, each sync's own warning
+    counted, not the mode's one-time notice) with ``step`` as the audited
+    engine's step."""
+    from repro_torch.analysis.device_audit import audit_callbacks
+    eng = types.SimpleNamespace(device=torch.device("cuda"), step=step, running=())
+    _, r = audit_callbacks(eng, set())
+    return dict(syncs=r["syncs"], sites={s["site"]: s["syncs"] for s in r["sites"]})
+
+
+def mesh_decode_unsharded(arch: str, seed: int, tmp: Path) -> dict:
+    """The function the mesh's decode computes, on one card: params from
+    ``seed`` (experts padded by the model axis), each data shard's rows
+    prefilled at the config's capacity factor (a shard's dispatch), the
+    cache taken to ``MESH_DECODE_W`` slots (``decode_cache``), then
+    ``MESH_DECODE_STEPS`` greedy steps. Each shard's tokens (step t's input
+    at t, the prefill's greedy token first) and router calls go to
+    ``tmp/decode_<arch>_<d>.pt``; the logits [rows, 1 + steps, V] stay on
+    the host. Then the host syncs of one more step (``step_syncs``)."""
+    from repro_torch.models.model import build, decode_cache, greedy_token
+    from repro_torch.models.params import init_params
+    cfg = mesh_decode_cfg(arch)
+    n_dp = MESH_GRID[0]
+    bundle = build(cfg, capacity_factor=cfg.capacity_factor)
+    params = init_params(cfg, seed, "cuda", expert_slabs="device", n_model=MESH_GRID[1])
+    prompts = mesh_decode_prompts(cfg, seed)
+    rows = MESH_DECODE_B // n_dp
+    out = dict(logits=[], tokens=[], step_ms=[])
+    for d in range(n_dp):
+        with routes() as rec, torch.no_grad():
+            logits, cache = bundle.prefill(params, {"tokens": prompts[d * rows:(d + 1) * rows]
+                                                    .cuda()})
+            cache = decode_cache(bundle, cache, MESH_DECODE_W)
+            lg, toks = [logits.float().cpu()], [greedy_token(logits, cfg.vocab)]
+            for _ in range(MESH_DECODE_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits, cache = bundle.decode_step(params, {"token": toks[-1]}, cache)
+                torch.cuda.synchronize()
+                out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+                lg.append(logits.float().cpu())
+                toks.append(greedy_token(logits, cfg.vocab))
+        toks = [t.cpu() for t in toks]
+        torch.save(dict(tokens=toks, routes=rec), tmp / f"decode_{arch}_{d}.pt")
+        out["logits"].append(torch.stack(lg, 1))
+        out["tokens"].append(torch.cat(toks, 1))
+    tok = toks[-1].cuda()
+    with torch.no_grad():
+        out["decode_step_syncs"] = step_syncs(
+            lambda: bundle.decode_step(params, {"token": tok}, cache))
+    del params, cache
+    release()
+    return out
+
+
+def mesh_decode_rank(run, tmp: Path, seed: int) -> dict:
+    """A rank's decode part, after its train steps: each of
+    ``MESH_DECODE_RUNS`` built on the rank's mesh, its whole tree drawn from
+    ``seed`` and cut to the rank's blocks; its data shard prefilled, the
+    cache taken to the decode layout at ``MESH_DECODE_W`` slots
+    (``decode_cache``), then ``MESH_DECODE_STEPS`` steps fed the unsharded
+    run's tokens, the MoE replaying the unsharded run's experts. Kept: the
+    logits (gathered whole), the rank's own greedy tokens, walls, the
+    kernels' launches and the collectives of the run (counts reset just
+    before it), and the valid slots of the rank's block of the ring before
+    and after (by ``slot_pos`` and by the K rows written). Where the slots
+    are sharded, a fault run after it: the partials averaged without their
+    log-sum-exp weights (``collectives.lse_combine`` replaced)."""
+    from repro_torch import collectives
+    from repro_torch.kernels.expert_ffn import expert_ffn
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.launch.partition import param_specs
+    from repro_torch.models.model import build, decode_cache, greedy_token
+    from repro_torch.models.params import shard_params
+    d, m = run.mesh.coords["data"], run.mesh.coords["model"]
+    kernels = (expert_ffn, flash_attention, flash_decode)
+    out = {}
+
+    def block_slots(cache):
+        """(valid slots of this rank's block by slot_pos, its slots whose
+        K rows of layer 0, row 0 are written)."""
+        W_loc = cache["k"].shape[2]
+        lo = m * W_loc if W_loc < MESH_DECODE_W else 0
+        valid = int((cache["slot_pos"][lo:lo + W_loc] >= 0).sum())
+        return valid, int((cache["k"][0, 0] != 0).flatten(1).any(1).sum())
+
+    for arch, _ in MESH_DECODE_RUNS:
+        cfg = mesh_decode_cfg(arch)
+        bundle = build(cfg, mesh_info=run.mesh_info)
+        whole = bundle.init(seed, device=run.device)
+        params = shard_params(whole, param_specs(cfg, whole, n_model=MESH_GRID[1]), run.mesh)
+        del whole
+        release()
+        ref = torch.load(tmp / f"decode_{arch}_{d}.pt")
+        batch = run.shard_batch({"tokens": mesh_decode_prompts(cfg, seed)})
+        for fn in kernels:
+            fn.launches = 0
+        collectives.reset()
+        torch.cuda.reset_peak_memory_stats()
+        rec = {}
+        with routes(replay=ref["routes"] or None) as own, torch.no_grad():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = bundle.prefill(params, batch)
+            cache = decode_cache(bundle, cache, MESH_DECODE_W)
+            torch.cuda.synchronize()
+            rec["prefill_s"] = time.perf_counter() - t0
+            rec["block_slots_before"] = block_slots(cache)
+            start = cache
+            lg, mine, step_ms = [logits.float().cpu()], [greedy_token(logits, cfg.vocab).cpu()], []
+            for t in range(MESH_DECODE_STEPS):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                logits, cache = bundle.decode_step(params, {"token": ref["tokens"][t].cuda()},
+                                                   cache)
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t1) * 1e3)
+                lg.append(logits.float().cpu())
+                mine.append(greedy_token(logits, cfg.vocab).cpu())
+        rec.update(logits=torch.stack(lg, 1), tokens=torch.cat(mine, 1), step_ms=step_ms,
+                   launches={fn.__name__: fn.launches for fn in kernels},
+                   collectives=collectives.record(),
+                   max_memory_allocated=torch.cuda.max_memory_allocated(),
+                   cache_k=list(cache["k"].shape), block_slots_after=block_slots(cache),
+                   route_flips_at_ties=flips(own, ref["routes"]) if ref["routes"] else 0)
+        if cache["k"].shape[2] < MESH_DECODE_W:
+            def averaged(o, lse, ax):
+                return collectives.all_gather(o.float()[None], ax, 0).mean(0).to(o.dtype)
+            combine, collectives.lse_combine = collectives.lse_combine, averaged
+            try:
+                with torch.no_grad():
+                    c, fl = start, []
+                    for t in range(MESH_DECODE_STEPS):
+                        lgf, c = bundle.decode_step(params, {"token": ref["tokens"][t].cuda()}, c)
+                        fl.append(lgf.float().cpu())
+            finally:
+                collectives.lse_combine = combine
+            rec["fault_logits"] = torch.stack(fl, 1)
+        out[arch] = rec
+        del params, cache, start
+        release()
+    return out
+
+
+def mesh_decode_held(arch: str, ref: dict, ranks: list) -> dict:
+    """A model's decode on the ranks against the unsharded run: per rank
+    the logits of the prefill and every step (``logit_err``, its data
+    shard's rows), its own greedy tokens against the unsharded ones (a
+    difference only where the unsharded logits tie the two within
+    ``TIE``), the valid slots of its block, and the fault run's logits,
+    which must part beyond the limit."""
+    cfg = mesh_decode_cfg(arch)
+    per_rank, ok, caught = [], True, None
+    for r in ranks:
+        d = r["coords"]["data"]
+        x = r["decode"][arch]
+        want = ref["logits"][d]
+        err, within = logit_err(x["logits"], want)
+        ties = []
+        for b, t in zip(*np.nonzero((x["tokens"] != ref["tokens"][d]).numpy())):
+            gap = float(want[b, t, ref["tokens"][d][b, t]] - want[b, t, x["tokens"][b, t]])
+            ties.append(dict(row=int(b), step=int(t), logit_gap=gap))
+            within &= gap <= TIE
+        ok &= within
+        row = dict(rank=r["rank"], coords=r["coords"], logits_max_abs_err=err, ok=within,
+                   token_ties=ties, prefill_s=x["prefill_s"], step_ms=x["step_ms"],
+                   max_memory_allocated=x["max_memory_allocated"], cache_k=x["cache_k"],
+                   block_slots_before=x["block_slots_before"],
+                   block_slots_after=x["block_slots_after"], launches=x["launches"],
+                   collectives=x["collectives"], route_flips_at_ties=x["route_flips_at_ties"])
+        if "fault_logits" in x:
+            f_err, f_ok = logit_err(x["fault_logits"], want[:, 1:])
+            row["averaged_partials_logits_max_abs_err"] = f_err
+            caught = (caught if caught is not None else True) and not f_ok
+        per_rank.append(row)
+    slots = cfg.n_kv_heads % MESH_GRID[1] != 0
+    return dict(model=cfg.name, layers=cfg.n_layers, layout="slots" if slots else "heads",
+                ok=ok, averaged_partials_failed=caught, ranks=per_rank)
+
+
 def mesh_phase(seed: int) -> dict:
     """Phase 20 (module docstring)."""
     import tempfile
@@ -4685,6 +5007,7 @@ def mesh_phase(seed: int) -> dict:
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         tmp = Path(tmp)
         ref = mesh_unsharded(seed, tmp)
+        dec_ref = {arch: mesh_decode_unsharded(arch, seed, tmp) for arch, _ in MESH_DECODE_RUNS}
         t_ref = time.perf_counter()
         ranks = mesh_ranks(tmp, seed, fault=False)
         t_ranks = time.perf_counter()
@@ -4709,11 +5032,18 @@ def mesh_phase(seed: int) -> dict:
                              route_flips_at_ties=r["route_flips_at_ties"]))
     held = mesh_held(ranks, ref, cfg)
     control = mesh_held(faulty, ref, cfg)
+    decode = {arch: mesh_decode_held(arch, dec_ref[arch], ranks) for arch, _ in MESH_DECODE_RUNS}
     e_start = [logits_of(r) for r in faulty]
     launches = {}
     for r in ranks:
-        for k, v in r["launches"].items():
-            launches[k] = launches.get(k, 0) + v
+        for part in [r["launches"]] + [x["launches"] for x in r["decode"].values()]:
+            for k, v in part.items():
+                launches[k] = launches.get(k, 0) + v
+    # each decode model's kernels, from its run on the ranks
+    decode_bad = [(arch, n) for arch, _ in MESH_DECODE_RUNS
+                  for n in ("flash_attention", "flash_decode")
+                  + (("expert_ffn",) if mesh_decode_cfg(arch).is_moe else ())
+                  if not sum(r["decode"][arch]["launches"][n] for r in ranks)]
     limits = dict(loss_rel_err=MESH_LOSS_TOL, grad_norm_rel_err=MESH_GN_TOL,
                   grad_leaf_rel_err=MESH_GRAD_TOL, param_update_rel_err=MESH_PARAM_TOL)
     res = dict(phase="mesh", model=cfg.name, layers=cfg.n_layers,
@@ -4731,16 +5061,36 @@ def mesh_phase(seed: int) -> dict:
                              e_start_logits_failed=not all(ok for _, ok in e_start),
                              **control),
                launches=launches,
+               decode=dict(batch=MESH_DECODE_B, prompt=MESH_DECODE_PROMPT, W=MESH_DECODE_W,
+                           steps=MESH_DECODE_STEPS, logits_tol=BUNDLE_TOL, tie=TIE,
+                           planted=("the ranks' partials averaged without their log-sum-exp "
+                                    "weights (slot-sharded model)"),
+                           unsharded={a: dict(step_ms=r["step_ms"],
+                                              decode_step_syncs=r["decode_step_syncs"])
+                                      for a, r in dec_ref.items()},
+                           models=list(decode.values())),
                seconds=dict(unsharded=t_ref - t0, ranks=t_ranks - t_ref,
                             fault=t_fault - t_ranks, held=time.perf_counter() - t_fault))
-    bad = [n for n in ("expert_ffn", "flash_attention") if not launches.get(n)]
+    bad = [n for n in ("expert_ffn", "flash_attention") if not launches.get(n)] + decode_bad
     sound = all(r["logits_ok"] for r in per_rank) and all(held[k] <= v for k, v in limits.items())
     caught = res["controls"]["e_start_logits_failed"] and all(
         control[k] > v for k, v in limits.items())
-    if not (sound and caught and not bad):
+    # the decode: every rank within the limit, the slot-sharded model's
+    # writes crossed into model rank 1's block (empty at the start), its
+    # fault caught
+    granite = decode["granite_34b"]
+    crossed = all(r["block_slots_before"][0] == (MESH_DECODE_PROMPT if r["coords"]["model"] == 0
+                                                 else 0)
+                  and r["block_slots_after"][0] == r["block_slots_after"][1] > 0
+                  for r in granite["ranks"])
+    dec_sound = all(x["ok"] for x in decode.values()) and crossed
+    dec_caught = granite["averaged_partials_failed"] is True
+    if not (sound and caught and dec_sound and dec_caught and not bad):
         emit(res)
         raise AssertionError(f"mesh: the 2 x 2 step parts from the unsharded one ({sound=}), "
-                             f"or a control passed ({caught=}), or kernels never launched {bad}")
+                             f"or a control passed ({caught=}), or the decode parts from the "
+                             f"unsharded one ({dec_sound=}, {crossed=}) or its fault passed "
+                             f"({dec_caught=}), or kernels never launched {bad}")
     return res
 
 
@@ -4763,6 +5113,9 @@ def main() -> int:
                          "arch x input shape matrix), and print its lines")
     ap.add_argument("--mesh", action="store_true",
                     help="only build the kernels and run the mesh phase, and print its lines")
+    ap.add_argument("--decode-syncs", metavar="SRC", default=None,
+                    help="only count the host syncs of one unsharded build_dense decode step "
+                         "(decode_syncs_only) with the port's package taken from SRC")
     ap.add_argument("--flash-attention", metavar="SRC", default=None,
                     help="only time flash_attention, _cross and _chunk at every shape a main "
                          "path runs (flash_attention_shapes) with the port's package taken "
@@ -4777,6 +5130,8 @@ def main() -> int:
         return flash_decode_only(Path(args.flash_decode).resolve())
     if args.decode_step:
         return decode_step_only(Path(args.decode_step).resolve(), args.layers, args.seed)
+    if args.decode_syncs:
+        return decode_syncs_only(Path(args.decode_syncs).resolve(), args.seed)
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _build
     from repro_torch.kernels.expert_ffn import expert_ffn, expert_ffn_from_pool

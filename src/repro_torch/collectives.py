@@ -32,6 +32,12 @@ through unchanged: the data-parallel gradients are averaged once, after
 the backward (``training/train_loop.py``), so each rank's own contribution
 is what its backward must carry.
 
+``lse_combine(o, lse, ax)`` merges attention partials over the ranks'
+blocks of keys (a decode ring whose slots are sharded over the model
+axis) by their log-sum-exps: one all-gather of the packed (o, lse), then
+the same f32 merge in rank order on every rank, so the ranks hold
+bit-equal results.
+
 Every collective adds its result's bytes to ``RECORD[op]`` (``count``,
 ``bytes``), the form of the reference dry-run's ``parse_collectives``, and
 the host wall of the blocking call (``seconds``).
@@ -169,3 +175,33 @@ def pmean(x: torch.Tensor, ax: Optional[Axis]) -> torch.Tensor:
     if ax is None or ax.size == 1:
         return x
     return _PMean.apply(torch.as_tensor(x), ax)
+
+
+def lse_combine(o: torch.Tensor, lse: torch.Tensor, ax: Optional[Axis]) -> torch.Tensor:
+    """Softmax attention over the union of the ranks' key blocks from each
+    rank's partial: o [B,H,D] (normalised over its block) and lse [B,H]
+    f32, its log-sum-exp of the scaled logits; one all-gather of the pair
+    packed in f32, then ``merge_partials``. Over no axis, o."""
+    if ax is None or ax.size == 1:
+        return o
+    packed = torch.cat([o.float(), lse.float()[..., None]], -1)
+    return merge_partials(all_gather(packed[None], ax, 0)).to(o.dtype)
+
+
+def merge_partials(parts: torch.Tensor) -> torch.Tensor:
+    """parts [n,B,H,D+1]: block r's (o_r, lse_r) packed along the last dim
+    -> sum_r w_r o_r / sum_r w_r in f32, w_r = exp(lse_r - max_r lse_r),
+    summed in block order. A block with lse = -inf (no valid key) has
+    weight 0 whatever its o; where every block has -inf the result is 0."""
+    D = parts.shape[-1] - 1
+    lses = parts[..., D]
+    m = lses.amax(0)
+    m = torch.where(torch.isneginf(m), torch.zeros_like(m), m)
+    acc = torch.zeros(parts.shape[1:-1] + (D,), dtype=torch.float32, device=parts.device)
+    den = torch.zeros(parts.shape[1:-1], dtype=torch.float32, device=parts.device)
+    for r in range(parts.shape[0]):
+        w = torch.exp(lses[r] - m)
+        acc = acc + torch.where(torch.isneginf(lses[r])[..., None], 0.0,
+                                w[..., None] * parts[r, ..., :D])
+        den = den + w
+    return acc / den.clamp(min=1e-30)[..., None]

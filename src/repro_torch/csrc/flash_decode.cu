@@ -53,6 +53,11 @@
 //     rescale, skipping ranges with no valid slot, and the groups are
 //     merged in fixed order. A row with no valid slot at all gives the mean
 //     of V over the W slots, as the plain version does (every p is 1 there).
+//     Where the caller asks for it, the combine also writes each head's
+//     log-sum-exp of the scaled logits in natural log, -inf for a row with
+//     no valid slot (a mesh rank's empty block of a slot-sharded ring: its
+//     partial then takes zero weight in the cross-rank merge), and such a
+//     row's output is 0, not the mean of V.
 // Measured (chip_smoke.py --flash-decode, NVIDIA H100 80GB HBM3): the B=8
 // row and G=48 run well below SDPA; the cross decode stays behind it, held
 // by the combine's second launch (about 3.5 us at every shape) and the
@@ -399,13 +404,16 @@ constexpr int COMBINE_GROUPS = 8;  // its range groups: 16 x 8 threads
 // (its loads issued together; a range with no valid slot, m_i = -1e30,
 // wrote no acc and is skipped), then thread (d, 0) merges the CS groups in
 // fixed order. Blocks this small fit beside the split pass's, so they are
-// resident and waiting when it ends.
+// resident and waiting when it ends. With lse (else null) the column-0
+// block's thread (0, 0) writes lse[b, h] = ln 2 (mx + log2 den), the
+// statistics being in the exp2 domain, or -inf where no slot is valid.
 template <int D>
 __global__ void __launch_bounds__(COMBINE_COLS * COMBINE_GROUPS)
     decode_combine_kernel(const float* __restrict__ part, const float* __restrict__ stats,
-                          const bf16* __restrict__ v, bf16* __restrict__ o, int W, int Hkv,
-                          int G, int n_split, long long svb, long long svw, long long svh,
-                          long long sob, long long soh) {
+                          const bf16* __restrict__ v, bf16* __restrict__ o,
+                          float* __restrict__ lse, int W, int Hkv, int G, int n_split,
+                          long long svb, long long svw, long long svh, long long sob,
+                          long long soh) {
   constexpr int CC = COMBINE_COLS, CS = COMBINE_GROUPS;
   __shared__ float s_m[CS], s_l[CS], s_acc[CS][CC];
   // the split pass's partials are complete and visible past this point
@@ -434,7 +442,10 @@ __global__ void __launch_bounds__(COMBINE_COLS * COMBINE_GROUPS)
   float mx = s_m[0];
 #pragma unroll
   for (int k = 1; k < CS; ++k) mx = fmaxf(mx, s_m[k]);
-  if (mx <= KERNEL_NEG_INF) {  // no valid slot in the row: every p is 1, the mean of V
+  // no valid slot in the row: every p is 1, the mean of V; with lse the
+  // output is 0 instead (its weight in a merge is 0, and the mean's W-slot
+  // read would cost more than the rest of the call)
+  if (mx <= KERNEL_NEG_INF && lse == nullptr) {
     const bf16* vr = v + b * svb + hk * svh + d;
     float sum = 0.0f;
     for (int w = c; w < W; w += CS) sum += __bfloat162float(vr[(long long)w * svw]);
@@ -450,6 +461,9 @@ __global__ void __launch_bounds__(COMBINE_COLS * COMBINE_GROUPS)
       sum += w * s_acc[k][dl];
       den += w * s_l[k];
     }
+    if (lse != nullptr && d == 0)  // 0xff800000: -inf
+      lse[(long long)b * Hkv * G + h] =
+          mx > KERNEL_NEG_INF ? (mx + log2f(den)) * 0.69314718055994531f : __int_as_float(0xff800000);
     if (mx <= KERNEL_NEG_INF) den = (float)W;
     o[b * sob + h * soh + d] = __float2bfloat16(sum / fmaxf(den, 1e-20f));
   }
@@ -503,8 +517,8 @@ int launch_split(const void* q, const void* k, const void* v, const void* pos,
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, const void* pos, const void* slot_pos,
-           void* o, float* scratch, int B, int H, int Hkv, int W, const long long* st,
-           int window, float scale, int n_split, cudaStream_t s) {
+           void* o, float* lse, float* scratch, int B, int H, int Hkv, int W,
+           const long long* st, int window, float scale, int n_split, cudaStream_t s) {
   const int G = H / Hkv;
   float* part = scratch;
   float* stats = scratch + (long long)B * H * n_split * D;
@@ -535,38 +549,41 @@ int launch(const void* q, const void* k, const void* v, const void* pos, const v
   const float* cstats = stats;
   const bf16* cv = static_cast<const bf16*>(v);
   bf16* co = static_cast<bf16*>(o);
-  return cudaLaunchKernelEx(&cfg, decode_combine_kernel<D>, cpart, cstats, cv, co, W, Hkv, G,
-                            n_split, st[5], st[6], st[7], st[9], st[10]);
+  return cudaLaunchKernelEx(&cfg, decode_combine_kernel<D>, cpart, cstats, cv, co, lse, W, Hkv,
+                            G, n_split, st[5], st[6], st[7], st[9], st[10]);
 }
 
 }  // namespace
 
 // q [B,H,D]; k, v [B,W,Hkv,D]; pos [B] int32; slot_pos [B,W] int32; o [B,H,D];
-// scratch: B*H*n_split*(D + 2) floats (partial acc, then (m, l) pairs).
+// lse: null, or [B,H] f32 contiguous (each head's log-sum-exp, -inf where no
+// slot is valid); scratch: B*H*n_split*(D + 2) floats (partial acc, then
+// (m, l) pairs).
 // strides (elements): q b,h; k b,w,h; v b,w,h; slot_pos b; o b,h — 11 values
 // (slot_pos may have batch stride 0). D must be 64, 112, 128 or 256,
 // G = H / Hkv at most 64, the q/k/v pointers and strides 16-byte aligned,
 // and a range at most 64 tiles of 64 slots (n_split >= ceil(W / 4096)).
 extern "C" int flash_decode_fwd(const void* q, const void* k, const void* v, const void* pos,
-                                const void* slot_pos, void* o, void* scratch, int B, int H,
-                                int Hkv, int W, int D, const long long* strides, int window,
-                                float scale, int n_split, void* stream) {
+                                const void* slot_pos, void* o, void* lse, void* scratch, int B,
+                                int H, int Hkv, int W, int D, const long long* strides,
+                                int window, float scale, int n_split, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int T = (W + TILE - 1) / TILE;
   if (Hkv < 1 || H % Hkv != 0 || H / Hkv > 64 || W < 1 || n_split < 1 || n_split > T)
     return cudaErrorInvalidValue;
   float* f = static_cast<float*>(scratch);
+  float* l = static_cast<float*>(lse);
   if (D == 128)
-    return launch<128>(q, k, v, pos, slot_pos, o, f, B, H, Hkv, W, strides, window, scale,
+    return launch<128>(q, k, v, pos, slot_pos, o, l, f, B, H, Hkv, W, strides, window, scale,
                        n_split, s);
   if (D == 64)
-    return launch<64>(q, k, v, pos, slot_pos, o, f, B, H, Hkv, W, strides, window, scale,
+    return launch<64>(q, k, v, pos, slot_pos, o, l, f, B, H, Hkv, W, strides, window, scale,
                       n_split, s);
   if (D == 112)
-    return launch<112>(q, k, v, pos, slot_pos, o, f, B, H, Hkv, W, strides, window, scale,
+    return launch<112>(q, k, v, pos, slot_pos, o, l, f, B, H, Hkv, W, strides, window, scale,
                        n_split, s);
   if (D == 256)
-    return launch<256>(q, k, v, pos, slot_pos, o, f, B, H, Hkv, W, strides, window, scale,
+    return launch<256>(q, k, v, pos, slot_pos, o, l, f, B, H, Hkv, W, strides, window, scale,
                        n_split, s);
   return cudaErrorInvalidValue;
 }

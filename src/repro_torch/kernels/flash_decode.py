@@ -16,6 +16,13 @@ combine pass, both from one C call; on a CPU tensor it runs
 output is bit-equal alone and in any batch. The kernel takes head_dim 64,
 112, 128 and 256 and up to ``MAX_GROUP`` query heads per KV head.
 ``flash_decode.launches`` counts wrapper calls that launched the kernels.
+
+``return_lse`` adds each head's log-sum-exp of the scaled logits [B,H] f32
+(natural log), written by the combine pass; a row with no valid slot gets
+``-inf`` and an output of 0 (not the mean of V, whose read of every slot
+would cost more than the rest of the call), so its partial takes zero
+weight where a mesh merges the ranks' blocks of a slot-sharded ring
+(``collectives.lse_combine``).
 """
 from __future__ import annotations
 
@@ -31,9 +38,9 @@ TILE_SLOTS = 64         # slots of a tile (csrc/flash_decode.cu TILE)
 MAX_RANGE_TILES = 64    # tiles a range holds at most (csrc/flash_decode.cu MAX_TILES)
 MAX_GROUP = 64          # query heads a block serves: four 16-row mma tiles
 HEAD_DIMS = (64, 112, 128, 256)
-# q, k, v, pos, slot_pos, o, scratch, B, H, Hkv, W, D, strides, window,
+# q, k, v, pos, slot_pos, o, lse, scratch, B, H, Hkv, W, D, strides, window,
 # scale, n_split, stream
-_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
              + [ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_int,
                 ctypes.c_void_p])
 _SMS = {}
@@ -59,9 +66,12 @@ def split_plan(B: int, H: int, Hkv: int, W: int, D: int, sms: int = H100_SMS) ->
     return dict(n_split=n, scratch=B * H * n * (D + 2))
 
 
-def flash_decode_plain(q, k, v, pos, slot_pos, *, window: int = -1):
+def flash_decode_plain(q, k, v, pos, slot_pos, *, window: int = -1,
+                       return_lse: bool = False):
     """Plain PyTorch version: one softmax over all slots, the kernel's
-    arithmetic (unnormalised p rounded to bf16, divided by the f32 sum)."""
+    arithmetic (unnormalised p rounded to bf16, divided by the f32 sum).
+    ``return_lse``: also each head's log-sum-exp [B,H] f32, -inf for a row
+    with no valid slot, whose output is then 0."""
     B, H, D = q.shape
     Hkv = k.shape[2]
     G = H // Hkv
@@ -72,20 +82,28 @@ def flash_decode_plain(q, k, v, pos, slot_pos, *, window: int = -1):
     if window > 0:
         ok &= sp > p_ - window
     s = s.masked_fill(~ok[:, None, None, :], NEG_INF)
-    p = torch.exp(s - s.amax(-1, keepdim=True))
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
     l = p.sum(-1, keepdim=True)
     o = torch.einsum("bhgw,bwhd->bhgd", p.to(v.dtype).float(), v.float())
-    return (o / torch.clamp(l, min=1e-20)).reshape(B, H, D).to(q.dtype)
+    o = (o / torch.clamp(l, min=1e-20)).reshape(B, H, D).to(q.dtype)
+    if not return_lse:
+        return o
+    empty = ~ok.any(-1)[:, None]
+    lse = (m + torch.log(l)).reshape(B, H).masked_fill(empty, float("-inf"))
+    return o.masked_fill(empty[..., None], 0), lse
 
 
-def flash_decode(q, k, v, pos, slot_pos, *, window: int = -1):
+def flash_decode(q, k, v, pos, slot_pos, *, window: int = -1, return_lse: bool = False):
     """q: [B,H,D]; k, v: [B,W,Hkv,D]; pos: [B] int32; slot_pos: [B,W]
-    int32 (a broadcast batch stride of 0 is fine) -> [B,H,D]."""
+    int32 (a broadcast batch stride of 0 is fine) -> [B,H,D], and with
+    ``return_lse`` also the log-sum-exp [B,H] f32 (module docstring)."""
     tensors = (q, k, v, pos, slot_pos)
     if not q.is_cuda:
         if any(t.is_cuda for t in tensors):
             raise ValueError("flash_decode: mixed CPU/CUDA tensors")
-        return flash_decode_plain(q, k, v, pos, slot_pos, window=window)
+        return flash_decode_plain(q, k, v, pos, slot_pos, window=window,
+                                  return_lse=return_lse)
     B, H, D = q.shape
     W, Hkv = k.shape[1], k.shape[2]
     if (k.shape != (B, W, Hkv, D) or v.shape != k.shape or H % Hkv
@@ -115,17 +133,19 @@ def flash_decode(q, k, v, pos, slot_pos, *, window: int = -1):
         _SMS[q.device] = torch.cuda.get_device_properties(q.device).multi_processor_count
     plan = split_plan(B, H, Hkv, W, D, _SMS[q.device])
     o = torch.empty((B, H, D), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H), dtype=torch.float32, device=q.device) if return_lse else None
     scratch = torch.empty(plan["scratch"], dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 11)(
         q.stride(0), q.stride(1), *k.stride()[:3], *v.stride()[:3],
         slot_pos.stride(0), o.stride(0), o.stride(1))
     fn = _build.function("flash_decode", "flash_decode_fwd", _ARGTYPES)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
-            slot_pos.data_ptr(), o.data_ptr(), scratch.data_ptr(), B, H, Hkv, W,
+            slot_pos.data_ptr(), o.data_ptr(), lse.data_ptr() if return_lse else None,
+            scratch.data_ptr(), B, H, Hkv, W,
             D, strides, int(window), D ** -0.5, plan["n_split"], _build.stream_ptr(q))
     _build.check(_build.load("flash_decode"), rc, "flash_decode")
     flash_decode.launches += 1
-    return o
+    return (o, lse) if return_lse else o
 
 
 flash_decode.launches = 0

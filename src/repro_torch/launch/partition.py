@@ -11,7 +11,7 @@ names.
 
 ``shard_leaf`` cuts this rank's block of a tensor out by its spec and a
 ``Mesh``'s coordinates (``models/params.py shard_params`` maps it over a
-tree).
+tree); ``block_shape`` is that block's shape.
 """
 from __future__ import annotations
 
@@ -199,6 +199,16 @@ def _at(tree, path):
     for k in path:
         tree = tree[k]
     return tree
+
+
+def block_shape(shape: tuple, spec, mesh) -> tuple:
+    """The shape of a rank's block of a leaf of ``shape`` under ``spec``
+    (``shard_leaf``'s cut)."""
+    out = list(shape)
+    for dim, entry in enumerate(spec):
+        if entry is not None:
+            out[dim] //= mesh.size(entry)
+    return tuple(out)
 
 
 def shard_leaf(t: torch.Tensor, spec, mesh) -> torch.Tensor:

@@ -14,17 +14,41 @@ On the card the model runs at its published widths, ``--layers`` cutting
 its depth (each layer's routed experts are pinned in host memory); the
 ``reduced()`` configs run on the CPU only, since their head_dim of 32 is
 outside the CUDA attention kernels.
+
+``--mesh DxM`` is the reference's full mode: the sharded prefill and
+decode steps of ``build_dense`` on a (data, model) mesh, one process a
+rank, started by ``torchrun`` or by ``--spawn`` (``launch/train.py``'s
+rules for ``--backend``, devices and ranks a card). The ``--requests``
+prompts, each cut to ``PROMPT_LEN`` tokens, are one batch sharded over
+the data axis; each rank keeps its param blocks (seed 0), prefills its
+shard, takes the cache to the decode layout at ``PROMPT_LEN + max-new``
+slots (``models/model.py decode_cache``: KV heads or else slots over the
+model axis, ``launch/partition.py cache_specs``) and decodes greedily. Rank 0
+prints each request's tokens with the batch's TTFT and E2E walls; every
+rank prints one JSON line: coordinates, device, walls, peak memory, the
+collectives' counts and bytes, its kernels' launches. Other families are
+refused.
+
+  python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b --layers 2 --mesh 2x2 \
+      --backend gloo --spawn
+  python -m repro_torch.launch.serve --arch granite-34b --reduced --device cpu \
+      --mesh 2x2 --backend gloo --spawn
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
+import math
+import sys
+import time
 from typing import Optional, Sequence
 
 from repro_torch.configs.base import get_config, reduced
 from repro_torch.configs.paper_models import PAPER_MODELS
 
 POLICIES = ("odf", "lfp", "mif", "duo", "duo+")
+PROMPT_LEN = 32   # tokens of each served prompt (the shortest SQuAD-like prompt's)
 # head dims the CUDA attention kernels are built for
 # (kernels/flash_attention.py, kernels/flash_decode.py)
 KERNEL_HEAD_DIMS = (64, 128)
@@ -57,7 +81,15 @@ def main(argv: Optional[Sequence[str]] = None):
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the depth to this many layers")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--mesh", default=None,
+                    help="DxM (data x model): serve as one rank of this mesh")
+    ap.add_argument("--backend", choices=("nccl", "gloo"), default=None,
+                    help="the collectives' backend under --mesh (no default)")
+    ap.add_argument("--spawn", action="store_true",
+                    help="start the mesh's ranks on this host")
     args = ap.parse_args(argv)
+    if args.mesh:
+        return _mesh_main(ap, args, list(argv) if argv is not None else sys.argv[1:])
 
     import torch
 
@@ -94,7 +126,7 @@ def main(argv: Optional[Sequence[str]] = None):
                            predictor=predictor)
     ttfts, e2es, toks = [], [], 0
     for i, (p, _) in enumerate(wl.prompts(args.requests)):
-        r = eng.serve(p[:32], max_new=args.max_new)
+        r = eng.serve(p[:PROMPT_LEN], max_new=args.max_new)
         ttfts.append(r.ttft_wall)
         e2es.append(r.e2e_wall)
         toks += len(r.tokens)
@@ -107,6 +139,98 @@ def main(argv: Optional[Sequence[str]] = None):
           f"mean_ttft={q.mean_ttft:.2f}s mean_e2e={q.mean_e2e:.2f}s "
           f"p95={q.p95_e2e:.2f}s tok/s={q.tokens_per_s:.2f}")
     return q
+
+
+def _mesh_main(ap, args, argv: list):
+    """``--mesh``: spawn the ranks, or serve as one (module docstring)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.train import _free_port, _spawned_rank, kernel_misfit, parse_mesh
+    try:
+        shape, axes = parse_mesh(args.mesh)
+    except ValueError as e:
+        ap.error(str(e))
+    if args.backend is None:
+        ap.error("--mesh needs --backend nccl or gloo")
+    cfg = resolve_config(args.arch, use_reduced=args.reduced, layers=args.layers)
+    if cfg.family not in ("dense", "moe") or cfg.local_global_pattern:
+        ap.error(f"{cfg.name}: only build_dense configs serve under --mesh")
+    if args.device != "cpu":
+        misfit = kernel_misfit(cfg)
+        if misfit:
+            ap.error(f"{cfg.name}: {misfit}")
+    world = math.prod(shape)
+    if args.spawn:
+        import torch.multiprocessing as mp
+        rest = [a for a in argv if a != "--spawn"]
+        print(f"spawning {world} ranks, backend={args.backend}", flush=True)
+        mp.start_processes(_spawned_rank, args=(rest, _free_port(), world, main), nprocs=world,
+                           start_method="spawn")
+        return None
+
+    import torch.distributed as dist
+
+    from repro_torch import collectives
+    from repro_torch.data.pipeline import PromptWorkload, squad_like
+    from repro_torch.kernels.expert_ffn import expert_ffn
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.launch.train import rank_setup
+    from repro_torch.models.model import decode_cache, greedy_token
+
+    run = rank_setup(cfg, shape, axes, args.backend, args.device, seed=0)
+    cuda = run.device.type == "cuda"
+    S, n_new = PROMPT_LEN, args.max_new
+    wl = PromptWorkload(squad_like(cfg.vocab), seed=11)
+    prompts = np.stack([p[:S] for p, _ in wl.prompts(args.requests)])
+    batch = run.shard_batch({"tokens": torch.from_numpy(prompts)})
+    kernels = (expert_ffn, flash_attention, flash_decode)
+    for fn in kernels:
+        fn.launches = 0
+    collectives.reset()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits, cache = run.bundle.prefill(run.params, batch)
+        cache = decode_cache(run.bundle, cache, S + n_new)
+        tok = greedy_token(logits, cfg.vocab)
+        sync()
+        ttft = time.perf_counter() - t0
+        out = [tok]
+        for _ in range(n_new - 1):
+            logits, cache = run.bundle.decode_step(run.params, {"token": tok}, cache)
+            tok = greedy_token(logits, cfg.vocab)
+            out.append(tok)
+        sync()
+    e2e = time.perf_counter() - t0
+    tokens = torch.cat(out, 1)
+    dp = tuple(run.mesh_info["dp"])
+    if tokens.shape[0] < args.requests:          # the batch is sharded over the data axes
+        tokens = collectives.all_gather(tokens, run.mesh.axis(dp), 0)
+    rank = run.mesh.rank
+    if rank == 0:
+        where = torch.cuda.get_device_name(run.device) if cuda else "cpu"
+        print(f"mesh={dict(run.mesh.shape)} arch={cfg.name} layers={cfg.n_layers} "
+              f"requests={args.requests} prompt_len={S} max_new={n_new} "
+              f"backend={args.backend} ranks_per_card={run.ranks_per_card} on {where}",
+              flush=True)
+        for i, row in enumerate(tokens.cpu().tolist()):
+            print(f"req {i}: tokens={row} ttft={ttft:.3f}s e2e={e2e:.3f}s", flush=True)
+    rec = dict(rank=rank, coords=run.mesh.coords, device=str(run.device),
+               backend=args.backend, ranks_per_card=run.ranks_per_card, ttft_s=ttft,
+               e2e_s=e2e, cache={k: list(v.shape) for k, v in cache.items()},
+               max_memory_allocated=torch.cuda.max_memory_allocated() if cuda else None,
+               collectives=collectives.record(),
+               launches={fn.__name__: fn.launches for fn in kernels})
+    dist.barrier()
+    sys.stdout.write(json.dumps(rec) + "\n")   # one write: the ranks share the stream
+    sys.stdout.flush()
+    dist.destroy_process_group()
+    return tokens
 
 
 if __name__ == "__main__":

@@ -201,10 +201,11 @@ class RankRun:
         return {k: shard_leaf(v, specs[k], self.mesh).to(self.device) for k, v in batch.items()}
 
 
-def rank_setup(cfg, shape, axes, backend: str, device: str, seed: int, lr) -> RankRun:
+def rank_setup(cfg, shape, axes, backend: str, device: str, seed: int, lr=None) -> RankRun:
     """Initialize this process as a rank (``launch/mesh.py init_rank``),
     build its mesh and bundle, draw the whole tree from ``seed`` on its
-    device and keep its blocks, and a ZeRO-1 ``AdamW(lr=lr)``."""
+    device and keep its blocks, and a ZeRO-1 ``AdamW(lr=lr)`` (none, and no
+    state, where ``lr`` is None: a serving rank)."""
     import torch
 
     from repro_torch.launch.mesh import init_rank, make_mesh, mesh_info
@@ -232,9 +233,9 @@ def rank_setup(cfg, shape, axes, backend: str, device: str, seed: int, lr) -> Ra
     del whole
     if dev.type == "cuda":
         torch.cuda.empty_cache()
-    opt = ZeRO1(AdamW(lr=lr), pspecs, zspecs, minfo)
-    return RankRun(cfg, mesh, minfo, bundle, params, pspecs, zspecs, opt, opt.init(params),
-                   dev, per_card)
+    opt = None if lr is None else ZeRO1(AdamW(lr=lr), pspecs, zspecs, minfo)
+    return RankRun(cfg, mesh, minfo, bundle, params, pspecs, zspecs, opt,
+                   None if opt is None else opt.init(params), dev, per_card)
 
 
 def _free_port() -> int:
@@ -243,11 +244,13 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _spawned_rank(local_rank: int, argv: list, port: int, world: int) -> None:
+def _spawned_rank(local_rank: int, argv: list, port: int, world: int, entry=None) -> None:
+    """A rank started by ``--spawn``: torchrun's environment for it, then
+    ``entry(argv)`` (a launcher's ``main``, this one's by default)."""
     os.environ.update(RANK=str(local_rank), LOCAL_RANK=str(local_rank),
                       WORLD_SIZE=str(world), LOCAL_WORLD_SIZE=str(world),
                       MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
-    main(argv)
+    (entry or main)(argv)
 
 
 def _mesh_main(ap, args, argv: list):

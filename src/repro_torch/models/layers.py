@@ -35,7 +35,11 @@ then summed over the axis; an MLP's w1 / w3 column- and w2 row-parallel.
 Where no weight is sharded the layer runs whole on every rank and
 communicates nothing. A weight that stays replicated inside a sharded
 region (``q_norm`` over the local heads) enters through
-``collectives.copy_to``, so its gradient is summed over the ranks.
+``collectives.copy_to``, so its gradient is summed over the ranks. Decode
+(``self_attn_decode(..., tp=)``) follows the cache's layout
+(``launch/partition.py cache_specs``): KV heads sharded as above, or the
+ring's slots sharded, the ranks' blocks merged by log-sum-exp
+(``collectives.lse_combine``).
 """
 from __future__ import annotations
 
@@ -275,8 +279,8 @@ def _qkv(x, p, dims: AttnDims, positions, use_rope=True, tp: Optional[C.Axis] = 
     """q, k, v [B,S,heads,hd]. ``tp``: the model axis where ``wq`` is this
     rank's column block (module docstring): x enters through ``copy_to``,
     the query heads are the rank's, and so are the KV heads where ``wk`` is
-    sharded too; where it is whole the KV heads are projected whole and the
-    ones the local query heads read are taken after ``copy_to``."""
+    sharded too; where it is whole the KV heads are projected whole, all of
+    them (``_select_kv`` takes the ones the local query heads read)."""
     B, S, _ = x.shape
     hd = dims.head_dim
     xin = C.copy_to(x, tp)
@@ -294,13 +298,17 @@ def _qkv(x, p, dims: AttnDims, positions, use_rope=True, tp: Optional[C.Axis] = 
     if dims.qk_norm:
         q = rms_norm(q, C.copy_to(p["q_norm"], tp), dims.rms_eps)
         k = rms_norm(k, p["k_norm"] if whole_kv else C.copy_to(p["k_norm"], tp), dims.rms_eps)
-    if whole_kv:
-        sel = _local_kv(tp.index * h_loc, h_loc, dims.n_heads // dims.n_kv_heads)
-        k, v = C.copy_to(k, tp)[:, :, sel], C.copy_to(v, tp)[:, :, sel].contiguous()
     if use_rope:
         q = rope(q, positions, dims.rope_theta)
         k = rope(k, positions, dims.rope_theta)
     return q, k, v
+
+
+def _select_kv(k, v, tp: C.Axis, h_loc: int, dims: AttnDims):
+    """Of whole k, v [B,S,Hkv,hd], the KV heads this rank's ``h_loc`` query
+    heads read, after ``copy_to`` (their gradient is a partial sum)."""
+    sel = _local_kv(tp.index * h_loc, h_loc, dims.n_heads // dims.n_kv_heads)
+    return C.copy_to(k, tp)[:, :, sel], C.copy_to(v, tp)[:, :, sel].contiguous()
 
 
 def _local_kv(q0: int, n: int, group: int):
@@ -332,12 +340,17 @@ def self_attn_full(x, p, dims: AttnDims, *, window=None, causal=True,
 
     ``tp``: the model axis, ``p`` this rank's slice (module docstring); the
     attention runs over the local heads and the output projection is
-    summed over the axis. (k, v) are the local KV heads."""
+    summed over the axis. (k, v) are the local KV heads where ``wk`` is
+    sharded, else all of them (the decode cache's layout, ``launch/
+    partition.py cache_specs``: its slots are sharded then, not its heads)."""
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None, :]
     if p["wq"].shape[-1] == dims.n_heads * dims.head_dim:
         tp = None                  # no rule shards the heads: the layer runs whole
     q, k, v = _qkv(x, p, dims, positions, tp=tp)
+    kv = (k, v)
+    if tp is not None and k.shape[2] == dims.n_kv_heads:   # wk whole, wq sharded
+        k, v = _select_kv(k, v, tp, q.shape[2], dims)
     win = -1 if window is None else int(window)
     if x.is_cuda:
         if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
@@ -351,35 +364,96 @@ def self_attn_full(x, p, dims: AttnDims, *, window=None, causal=True,
     else:
         o = attention(q, k, v, q_pos=positions, k_pos=positions,
                       window=window, causal=causal)
-    return C.reduce_from(linear(o.reshape(B, S, -1), p["wo"]), tp), (k, v)
+    return C.reduce_from(linear(o.reshape(B, S, -1), p["wo"]), tp), kv
 
 
-def self_attn_decode(x, p, dims: AttnDims, cache_k, cache_v, slot_pos, slot: int,
-                     pos: Union[int, torch.Tensor], *, window=None):
+def write_slot(cache: torch.Tensor, new: torch.Tensor, slot, lo: Optional[int] = None) -> None:
+    """cache[:, slot] = new IN PLACE. cache [B,W,...], new [B,...]; ``slot``
+    an int, or a tensor of one element on the cache's device (the decode
+    step's ``pos % W``, never read on the host: an ``index_copy_``).
+    With ``lo`` the cache is a block of a ring's slots, lo .. lo + W - 1,
+    and only a slot inside it is written (at slot - lo): on the device the
+    block's row at the clamped index is rewritten with the new row or with
+    itself."""
+    W = cache.shape[1]
+    if isinstance(slot, int):
+        if lo is None:
+            cache[:, slot] = new
+        elif lo <= slot < lo + W:
+            cache[:, slot - lo] = new
+        return
+    i = slot.reshape(1).long()
+    if lo is None:
+        cache.index_copy_(1, i, new[:, None])
+        return
+    i = i - lo
+    own = ((i >= 0) & (i < W)).reshape((1,) * cache.dim())
+    i = i.clamp(0, W - 1)
+    cache.index_copy_(1, i, torch.where(own, new[:, None], cache.index_select(1, i)))
+
+
+def self_attn_decode(x, p, dims: AttnDims, cache_k, cache_v, slot_pos, slot,
+                     pos: Union[int, torch.Tensor], *, window=None,
+                     tp: Optional[C.Axis] = None):
     """One-token decode against a ring-buffer cache.
 
     x: [B,1,d]; cache_k/v: [B,W,Hkv,hd], written IN PLACE at ``slot`` (the
     reference returns fresh arrays; the port saves the copy); slot_pos: [W]
     absolute position per slot, already holding ``pos`` at ``slot`` (-1 =
-    empty); pos: absolute position of the new token, an int or an int32
-    tensor of shape [] / [B] on x's device. Returns (out, cache_k, cache_v).
-    """
+    empty); slot: an int, or a one-element tensor on x's device (read on
+    the device only); pos: absolute position of the new token, an int or
+    an int32 tensor of shape [] / [B] on x's device. Returns (out,
+    cache_k, cache_v).
+
+    ``tp``: the model axis, ``p`` this rank's slice, the cache this rank's
+    block in ``launch/partition.py cache_specs``' layout:
+
+    * heads sharded (the KV heads divide the axis): as ``self_attn_full``,
+      the local query and KV heads, ``wo`` summed over the axis;
+    * slots sharded (cache_k [B,W/n,Hkv,hd] beside slot_pos [W]): every KV
+      head is projected, the query heads gathered over the axis, the new
+      K/V written only by the rank whose block holds ``slot``, and
+      ``flash_decode`` runs over the rank's block with its log-sum-exp;
+      the partials merge over the axis (``collectives.lse_combine``), the
+      rank keeps its own heads for its rows of ``wo``, summed over the
+      axis. A cache that neither divides (replicated) takes this path with
+      one block and no merge."""
     B = x.shape[0]
     pos_b = torch.as_tensor(pos, dtype=torch.int32,
                             device=x.device).reshape(-1).expand(B)
     positions = pos_b[:, None]
-    q, k, v = _qkv(x, p, dims, positions)
-    cache_k[:, slot] = k[:, 0]
-    cache_v[:, slot] = v[:, 0]
-    if x.is_cuda:
-        o = flash_decode(q[:, 0], cache_k, cache_v, pos_b,
-                         slot_pos[None].expand(B, -1),
-                         window=-1 if window is None else int(window))
-        o = o[:, None]
+    win = -1 if window is None else int(window)
+    if tp is not None and p["wq"].shape[-1] == dims.n_heads * dims.head_dim:
+        tp_q = None                # wq whole: every rank computes every head
     else:
-        o = attention(q, cache_k, cache_v, q_pos=positions,
-                      k_pos=slot_pos[None], window=window, causal=True)
-    return linear(o.reshape(B, 1, -1), p["wo"]), cache_k, cache_v
+        tp_q = tp
+    if tp is None or tp.size == 1 or cache_k.shape[2] < dims.n_kv_heads:
+        q, k, v = _qkv(x, p, dims, positions, tp=tp_q)
+        write_slot(cache_k, k[:, 0], slot)
+        write_slot(cache_v, v[:, 0], slot)
+        if x.is_cuda:
+            o = flash_decode(q[:, 0], cache_k, cache_v, pos_b,
+                             slot_pos[None].expand(B, -1), window=win)[:, None]
+        else:
+            o = attention(q, cache_k, cache_v, q_pos=positions,
+                          k_pos=slot_pos[None], window=window, causal=True)
+        return C.reduce_from(linear(o.reshape(B, 1, -1), p["wo"]), tp_q), cache_k, cache_v
+    q, k, v = _qkv(x, p, dims, positions, tp=tp_q)
+    h_loc = q.shape[2]
+    q = C.all_gather(q, tp_q, 2)
+    W_loc = cache_k.shape[1]
+    lo = tp.index * W_loc if W_loc < slot_pos.shape[0] else None   # the rank's block
+    write_slot(cache_k, k[:, 0], slot, lo)
+    write_slot(cache_v, v[:, 0], slot, lo)
+    start = lo or 0
+    o, lse = flash_decode(q[:, 0], cache_k, cache_v, pos_b,
+                          slot_pos[start:start + W_loc][None].expand(B, -1), window=win,
+                          return_lse=True)
+    if lo is not None:
+        o = C.lse_combine(o, lse, tp)
+    if tp_q is not None:
+        o = o[:, tp.index * h_loc:(tp.index + 1) * h_loc]
+    return C.reduce_from(linear(o.reshape(B, 1, -1), p["wo"]), tp_q), cache_k, cache_v
 
 
 def self_attn_prefill_chunk(x, p, dims: AttnDims, cache_k, cache_v, slot_pos,

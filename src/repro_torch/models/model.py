@@ -189,13 +189,17 @@ def _block_full(x, lp, win: int, cfg: ArchConfig, chunked: bool, static: bool = 
     return _seq_parallel_pin(x + y, mesh_info), kv, aux
 
 
-def _block_decode(x, lp, win: int, cfg: ArchConfig, ck, cv, sp, slot: int, pos):
+def _block_decode(x, lp, win: int, cfg: ArchConfig, ck, cv, sp, slot, pos,
+                  shard: Optional[_Shard] = None):
     """One decoder block for one token; writes its K/V into ck, cv at
-    ``slot`` in place. Returns (x, aux)."""
+    ``slot`` in place (``shard``: its place on a mesh, the cache this
+    rank's block). Returns (x, aux)."""
     h, _, _ = L.self_attn_decode(L.rms_norm(x, lp["ln1"], cfg.rms_eps), lp["attn"],
-                                 attn_dims(cfg), ck, cv, sp, slot, pos, window=win)
+                                 attn_dims(cfg), ck, cv, sp, slot, pos, window=win,
+                                 tp=shard.tp if shard else None)
     x = x + h
-    y, aux = _ffn_apply(L.rms_norm(x, lp["ln2"], cfg.rms_eps), lp, cfg, dropless=True)
+    y, aux = _ffn_apply(L.rms_norm(x, lp["ln2"], cfg.rms_eps), lp, cfg, dropless=True,
+                        shard=shard)
     return x + y, aux
 
 
@@ -242,14 +246,51 @@ def _ring(capacity: int, filled: int, device):
             "pos": torch.tensor(filled, dtype=torch.int32, device=device)}
 
 
-def _slot(cache, ring: torch.Tensor):
-    """(slot, new slot_pos) of the next decode step over a ring of
-    ``ring.shape[-3]`` slots: slot = pos % W, slot_pos[slot] = pos."""
+def _slot(cache):
+    """(slot, new slot_pos) of the next decode step over the ring of W =
+    ``slot_pos``' length slots: slot = pos % W, a one-element tensor on the
+    cache's device (the reference's ``pos % W``: nothing is read on the
+    host), and slot_pos[slot] = pos."""
     pos = cache["pos"]
-    slot = int(pos) % ring.shape[-3]
-    sp = cache["slot_pos"].clone()
-    sp[slot] = pos
-    return slot, sp
+    sp = cache["slot_pos"]
+    slot = (pos.long() % sp.shape[0]).reshape(1)
+    return slot, sp.index_copy(0, slot, pos.reshape(1).to(sp.dtype))
+
+
+def _kv_specs(cfg: ArchConfig, shapes: Dict[str, tuple], mesh_info: dict) -> list:
+    """``cache_specs`` of the K ring leaves of these whole shapes (the V
+    leaves share them) over the mesh."""
+    from repro_torch.launch.partition import cache_specs
+    mesh = mesh_info["mesh"]
+    dp = tuple(mesh_info["dp"])
+    meta = {key: torch.empty(s, device="meta") for key, s in shapes.items()}
+    specs = cache_specs(cfg, meta, dp=dp if len(dp) > 1 else dp[0], tp=mesh_info["tp"],
+                        n_model=mesh.size(mesh_info["tp"]), n_dp=mesh.size(dp))
+    return [specs[key] for key in shapes]
+
+
+def decode_cache(bundle: ModelBundle, cache: dict, capacity: int) -> dict:
+    """Prefill's cache as decode's at ``capacity`` slots: the ring padded
+    (``pad_cache``), then, on a mesh, this rank's block of slots where
+    ``cache_specs`` shards them (blocks of the padded ring, so the padding
+    comes first). Prefill's cache already holds this rank's data shard and
+    its KV heads where those are sharded, and every KV head where they are
+    not (``layers.self_attn_full``)."""
+    from repro_torch.launch.partition import shard_leaf
+    cache = pad_cache(cache, capacity, bundle.ring_axes)
+    minfo = bundle.mesh_info
+    if minfo is None:
+        return cache
+    keys = [key for key in ("k", "k0") if key in cache]
+    whole = {key: cache[key].shape[:-2] + (bundle.cfg.n_kv_heads, bundle.cfg.hd)
+             for key in keys}    # the rule reads the whole head count
+    specs = _kv_specs(bundle.cfg, whole, minfo)
+    for key, spec in zip(keys, specs):
+        w_dim = cache[key].ndim - 3
+        only_w = tuple(e if d == w_dim else None for d, e in enumerate(spec))
+        for leaf in (key, "v" + key[1:]):
+            cache[leaf] = shard_leaf(cache[leaf], only_w, minfo["mesh"])
+    return cache
 
 
 def _embed_tp(embed, tokens, vp: int, tp: C.Axis):
@@ -279,9 +320,15 @@ def build_dense(cfg: ArchConfig, capacity_factor: Optional[float] = None,
     tokens (``capacity_factor``, the config's when None), as the
     reference's ``shard_map`` body does. ``forward``'s logits are the
     rank's vocabulary block where the embedding is sharded; ``prefill``'s
-    last logits are gathered whole, its cache holds the rank's KV heads.
-    ``decode_step`` and ``init_cache`` raise: the sharded decode is ROADMAP
-    Queue A 2."""
+    and ``decode_step``'s last logits are gathered whole. ``prefill``'s
+    cache holds the rank's data shard and its KV heads where they divide
+    the model axis, else all of them; ``decode_cache`` takes it to the
+    decode layout. ``init_cache(batch_size, ...)`` gives this rank's block
+    of the whole batch's cache under ``launch/partition.py cache_specs``
+    (batch over the data axes, KV heads or else slots over the model
+    axis; ``slot_pos`` and ``pos`` whole), and ``decode_step`` runs on such
+    a block: ``layers.self_attn_decode(tp=)`` in either layout, the MoE
+    layers through the sharded ``moe_ffn`` at the decode capacity T * k."""
     n_dense = cfg.n_dense_layers
     windows = [cfg.window_for_layer(l) for l in range(n_dense, cfg.n_layers)]
     vp = L.vocab_pad_of(cfg.vocab)
@@ -344,12 +391,9 @@ def build_dense(cfg: ArchConfig, capacity_factor: Optional[float] = None,
         return logits, cache
 
     def decode_step(params, step, cache):
-        if mesh_info is not None:
-            raise NotImplementedError("decode under a mesh is not ported (ROADMAP Queue A 2: "
-                                      "the sharded decode)")
-        x = _embed(params["embed"], step["token"])
+        x, head = _head(params, step["token"])
         pos = cache["pos"]
-        slot, sp = _slot(cache, cache["k"])
+        slot, sp = _slot(cache)
         new = dict(cache, slot_pos=sp, pos=pos + 1)
         for key in ("k", "v", "k0", "v0"):
             if key in cache:
@@ -359,21 +403,26 @@ def build_dense(cfg: ArchConfig, capacity_factor: Optional[float] = None,
             l = count[key]
             count[key] += 1
             x, _ = _block_decode(x, lp, win, cfg, new["k" + key][l], new["v" + key][l],
-                                 sp, slot, pos)
+                                 sp, slot, pos, shards[key])
         x = L.rms_norm(x, params["ln_f"], cfg.rms_eps)
-        return _logits(x[:, -1], params["embed"]), new
+        logits = head(x[:, -1])
+        if logits.shape[-1] < vp:
+            logits = C.all_gather(logits, tp, -1)
+        return logits, new
 
     def init_cache(batch_size: int, capacity: int, extras=None, device="cuda"):
-        if mesh_info is not None:
-            raise NotImplementedError("a decode cache under a mesh is not ported (ROADMAP "
-                                      "Queue A 2: the sharded decode)")
         shape = (batch_size, capacity, cfg.n_kv_heads, cfg.hd)
-        c = {"k": torch.zeros((cfg.n_layers - n_dense,) + shape, dtype=L.PDT, device=device),
-             **_ring(capacity, 0, device)}
-        c["v"] = torch.zeros_like(c["k"])
+        kv = {"k": (cfg.n_layers - n_dense,) + shape}
         if n_dense:
-            c["k0"] = torch.zeros((n_dense,) + shape, dtype=L.PDT, device=device)
-            c["v0"] = torch.zeros_like(c["k0"])
+            kv["k0"] = (n_dense,) + shape
+        if mesh_info is not None:
+            from repro_torch.launch.partition import block_shape
+            kv = {key: block_shape(s, spec, mesh_info["mesh"])
+                  for (key, s), spec in zip(kv.items(), _kv_specs(cfg, kv, mesh_info))}
+        c = _ring(capacity, 0, device)
+        for key, s in kv.items():
+            c[key] = torch.zeros(s, dtype=L.PDT, device=device)
+            c["v" + key[1:]] = torch.zeros_like(c[key])
         return c
 
     return ModelBundle(cfg, init, forward, prefill, decode_step, init_cache,
@@ -453,7 +502,7 @@ def build_dense_pattern(cfg: ArchConfig) -> ModelBundle:
     def decode_step(params, step, cache):
         x = _embed(params["embed"], step["token"])
         pos = cache["pos"]
-        slot, sp = _slot(cache, cache["k"])
+        slot, sp = _slot(cache)
         new = dict(cache, slot_pos=sp, pos=pos + 1)
         for key in ("k", "v", "kt", "vt"):
             if key in cache:
@@ -554,7 +603,7 @@ def build_vlm(cfg: ArchConfig) -> ModelBundle:
     def decode_step(params, step, cache):
         x = _embed(params["embed"], step["token"])
         pos = cache["pos"]
-        slot, sp = _slot(cache, cache["k"])
+        slot, sp = _slot(cache)
         new = dict(cache, k=cache["k"].clone(), v=cache["v"].clone(), slot_pos=sp, pos=pos + 1)
         for b in range(n_blocks):
             blk = _at(params["blocks"], b)
@@ -652,7 +701,7 @@ def build_encdec(cfg: ArchConfig) -> ModelBundle:
     def decode_step(params, step, cache):
         x = _embed(params["embed"], step["token"])
         pos = cache["pos"]
-        slot, sp = _slot(cache, cache["k"])
+        slot, sp = _slot(cache)
         new = dict(cache, k=cache["k"].clone(), v=cache["v"].clone(), slot_pos=sp, pos=pos + 1)
         for l, lp in enumerate(_stack(params, "dec")):
             h, _, _ = L.self_attn_decode(L.rms_norm(x, lp["ln1"], cfg.rms_eps), lp["attn"],
@@ -841,7 +890,7 @@ def build_hybrid(cfg: ArchConfig) -> ModelBundle:
     def decode_step(params, step, cache):
         x = _embed(params["embed"], step["token"])
         pos = cache["pos"]
-        slot, sp = _slot(cache, cache["ak"])
+        slot, sp = _slot(cache)
         new = dict(cache, ak=cache["ak"].clone(), av=cache["av"].clone(), slot_pos=sp,
                    pos=pos + 1)
         for k in ("ssm", "conv_x", "conv_B", "conv_C"):

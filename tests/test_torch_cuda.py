@@ -192,6 +192,47 @@ def test_flash_decode_kernel_splits(cuda, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", ["mixed", "all_empty", "window", "granite_rank", "d64"])
+def test_flash_decode_kernel_lse(cuda, case):
+    """``return_lse``: the output equal to the call without it where a row
+    has a valid slot and 0 where it has none, each head's log-sum-exp
+    against the plain version's (f32: 1e-3), at rows that are full, holed,
+    windowed and with no valid slot (-inf, never NaN), and at a
+    slot-sharded mesh rank's shape (Granite-34B: 48 query heads on one KV
+    head over a 2048-slot block, one row's block empty)."""
+    B, W, H, Hkv, D = 3, 545, 32, 8, 128
+    if case == "granite_rank":
+        B, W, H, Hkv = 2, 2048, 48, 1
+    if case == "d64":
+        H, Hkv, D = 16, 4, 64
+    q, k, v, sp = _decode_case(cuda, B, W, H, Hkv, D, seed=9)
+    pos = torch.full((B,), W - 1, dtype=torch.int32, device=cuda)
+    window = 40 if case == "window" else -1
+    if case in ("mixed", "window", "d64"):
+        sp[1, 100:300] = -1
+        sp[2] = -1
+        pos[0] = 200
+    elif case == "all_empty":
+        sp[:] = -1
+    else:
+        sp[1] = -1
+    launches = flash_decode.launches
+    o, lse = flash_decode(q, k, v, pos, sp, window=window, return_lse=True)
+    assert flash_decode.launches == launches + 1
+    o_p, lse_p = flash_decode_plain(q, k, v, pos, sp, window=window, return_lse=True)
+    torch.testing.assert_close(o, o_p, rtol=2e-2, atol=2e-2)
+    assert lse.dtype == torch.float32 and lse.shape == (B, H)
+    assert torch.equal(torch.isneginf(lse), torch.isneginf(lse_p))
+    assert not torch.isnan(lse).any() and torch.isfinite(o.float()).all()
+    empty = torch.isneginf(lse_p)
+    assert empty.any() and (case == "all_empty") == bool(empty.all())
+    torch.testing.assert_close(lse[~empty], lse_p[~empty], rtol=1e-3, atol=1e-3)
+    rows = ~empty.all(1)
+    assert torch.equal(o[rows], flash_decode(q, k, v, pos, sp, window=window)[rows])
+    assert torch.equal(o[~rows], torch.zeros_like(o[~rows]))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("B,S,H,G,P,N,dtype", [
     (1, 512, 4, 1, 64, 128, torch.bfloat16),
     (2, 300, 8, 2, 64, 128, torch.bfloat16),   # ragged S, two groups, B=2
