@@ -397,6 +397,33 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                tree's) and ``mesh_kernel`` lines of ``flash_decode`` with
                ``lse`` at both rank shapes, an empty row among them, and
                without it as Qwen2-MoE's heads-sharded path calls it.
+               Then, in the same 4 processes, the ssm and hybrid families
+               (``MESH_FAMILY_RUNS``: Mamba2-2.7B at 2 of 64 layers, global
+               batch 4 x 4096, and Zamba2-7B at 7 of 81, 4 x 5120 past its
+               4096 window), each head-sharded (``models/ssm.py``:
+               ``ssd_scan`` on a rank's 40 / 56 heads, the gated norm's
+               statistic all-reduced, B / C replicated and their gradients
+               summed, the decode conv stepped on the rank's block of B / C
+               channels and gathered), against the unsharded run on the
+               card: the forward's logits, two AdamW steps (loss, gradient
+               norm, every gradient leaf of step 1, the params after step
+               2, as for Qwen2-MoE), and the decode of B=4 prompts of 2044
+               / 5116 tokens (Zamba2's ring wraps), prefill,
+               ``decode_cache`` and 8 steps fed the unsharded tokens
+               (``BUNDLE_TOL``, tokens apart only at a ``TIE``; Zamba2,
+               past two layers, by the f32 witness past the limits, as
+               ``decode_vs_cpu`` holds the matrix's deep stacks); beside
+               three planted faults that must fail: the gated norm over a
+               rank's own channels (logits), B / C without ``copy_to``
+               (their weights' gradient leaves), the conv state stepped
+               without the gather (decode logits). Per rank and family:
+               peak memory, step ms, collectives, and the launches of
+               ``ssd_scan`` (and Zamba2's ``flash_attention`` /
+               ``flash_decode``), each of which must be > 0; ``mesh_kernel``
+               lines of ``ssd_scan`` at the ranks' 40 / 56 heads and the
+               16-rank 5 / 7, ``flash_attention`` at Zamba2's 16 / 16
+               heads, D=112, window 4096 over 5120, and ``flash_decode``
+               at 16 / 16 over its 4096-slot ring.
                ``--mesh`` runs only this phase.
 
 Every phase line carries ``t_s``, the seconds since the script started.
@@ -3739,8 +3766,9 @@ def attention_err(B, Sq, Sk, H, Hkv, D, g, cross: bool = False, window: int = -1
                    flash_attention_plain(q, k, v, window=window), rows=True)
 
 
-def ring_decode(cfg, W: int, pos: int, window: int, g, reps: int = 20, timed: bool = True):
-    """``flash_decode`` at one row's step of position ``pos`` over a ring of
+def ring_decode(cfg, W: int, pos: int, window: int, g, reps: int = 20, timed: bool = True,
+                B: int = 1):
+    """``flash_decode`` at B rows' step of position ``pos`` over a ring of
     W slots that has wrapped (``launch.input_specs.ring_slot_pos``: slot s
     holds the newest position up to ``pos`` that is s mod W), under
     ``window``: held against the plain version (``rows``),
@@ -3752,14 +3780,14 @@ def ring_decode(cfg, W: int, pos: int, window: int, g, reps: int = 20, timed: bo
     from repro_torch.launch.input_specs import ring_slot_pos
     H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     r = lambda *s: torch.randn(s, generator=g, device="cuda").to(torch.bfloat16)
-    q, k, v = r(1, H, D), r(1, W, Hkv, D), r(1, W, Hkv, D)
-    sp = ring_slot_pos(W, pos + 1, "cuda")[None]
-    p = torch.full((1,), pos, dtype=torch.int32, device="cuda")
+    q, k, v = r(B, H, D), r(B, W, Hkv, D), r(B, W, Hkv, D)
+    sp = ring_slot_pos(W, pos + 1, "cuda")[None].expand(B, -1).contiguous()
+    p = torch.full((B,), pos, dtype=torch.int32, device="cuda")
     args = (q, k, v, p, sp)
     out = flash_decode(*args, window=window)
     err = max_err(out, flash_decode_plain(*args, window=window), rows=True)
     ok = (sp >= 0) & (sp <= pos) & ((sp > pos - window) if window > 0 else True)
-    rec = dict(B=1, W=W, H=H, Hkv=Hkv, D=D, pos=pos, window=window, live=int(ok.sum()),
+    rec = dict(B=B, W=W, H=H, Hkv=Hkv, D=D, pos=pos, window=window, live=int(ok.sum()),
                n_split=n_splits(Hkv, W), max_abs_err=err,
                planted=decode_faults(out, *args, window=window))
     if not timed:
@@ -3770,7 +3798,7 @@ def ring_decode(cfg, W: int, pos: int, window: int, g, reps: int = 20, timed: bo
                                   q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
                                   attn_mask=mask, enable_gqa=True), reps)
     plain_ms = time_ms(lambda: flash_decode_plain(*args, window=window), reps=5)
-    bms, by = decode_bound(H, Hkv, D, rec["live"], 1, W)
+    bms, by = decode_bound(H, Hkv, D, rec["live"], B, W)
     return dict(rec, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                 bound_share=bms / timed["device_ms"], **timed)
 
@@ -4556,6 +4584,45 @@ def mesh_kernel_checks(g) -> dict:
         emit(dict(phase="mesh_kernel", kernel="flash_decode", **rec))
         out["flash_decode"].append(rec)
         release()
+    out.update(mesh_family_kernel_checks(g))
+    return out
+
+
+def mesh_family_kernel_checks(g) -> dict:
+    """``mesh_kernel`` lines of the ssm and hybrid families' rank shapes:
+    ``ssd_scan`` at a 2 x 2 rank's heads (Mamba2-2.7B 80 / 2 at (P, N) =
+    (64, 128) over its 2 x 4096 shard, Zamba2-7B 112 / 2 at (64, 64) over
+    2 x 5120) and at a 16-way model axis's (5 and 7 heads), no library call
+    computing it; ``flash_attention`` at Zamba2's 16 / 16 heads of D=112
+    under its 4096 window over 2 x 5120; ``flash_decode`` at 16 / 16 over
+    its wrapped 4096-slot ring (position 5123, B=2)."""
+    from repro_torch.configs.base import get_config
+    zcfg = get_config("zamba2_7b")
+    out = {"ssd_scan": [], "flash_attention": [], "flash_decode": []}
+    (_, _, m_s), (z_arch, _, z_s) = MESH_FAMILY_RUNS
+    rows = MESH_B // MESH_GRID[0]
+    for variant, (S, H, P, N) in (("mamba2_rank_40", (m_s, 80 // MESH_GRID[1], 64, 128)),
+                                  ("zamba2_rank_56", (z_s, 112 // MESH_GRID[1], 64, 64)),
+                                  ("mamba2_16_ranks_5", (m_s, 80 // 16, 64, 128)),
+                                  ("zamba2_16_ranks_7", (z_s, 112 // 16, 64, 64))):
+        _, rec = ssd_scan_shape(g, S, H, 1, P, N, B=rows)
+        rec.update(variant=variant, library_ms=None)
+        emit(dict(phase="mesh_kernel", kernel="ssd_scan", **rec))
+        out["ssd_scan"].append(rec)
+        release()
+    H = zcfg.n_heads // MESH_GRID[1]
+    _, rec = prefill_attention(H, H, zcfg.hd, z_s, g, B=rows, window=zcfg.sliding_window)
+    rec["variant"] = "zamba2_16_16_d112_w4096"
+    emit(dict(phase="mesh_kernel", kernel="flash_attention", **rec))
+    out["flash_attention"].append(rec)
+    release()
+    rank = dataclasses.replace(zcfg, n_heads=H, n_kv_heads=H)
+    rec = dict(variant="zamba2_16_16_ring_4096",
+               **ring_decode(rank, zcfg.sliding_window, MESH_FAMILY_DECODE[z_arch] + 7,
+                             zcfg.sliding_window, g, B=rows))
+    emit(dict(phase="mesh_kernel", kernel="flash_decode", **rec))
+    out["flash_decode"].append(rec)
+    release()
     return out
 
 
@@ -4738,6 +4805,7 @@ def mesh_rank(local_rank: int, port: int, tmp: str, seed: int, fault: bool) -> N
         run.params = run.state = run.opt = None
         release()
         out["decode"] = mesh_decode_rank(run, tmp, seed)
+        out["families"] = mesh_family_rank(run, tmp, seed)
     torch.save(out, tmp / f"rank{run.mesh.rank}.pt")
     dist.barrier()
     dist.destroy_process_group()
@@ -4757,11 +4825,15 @@ def mesh_ranks(tmp: Path, seed: int, fault: bool) -> list:
     return [torch.load(tmp / f"rank{r}.pt") for r in range(world)]
 
 
-def mesh_held(ranks: list, ref: dict, cfg) -> dict:
+def mesh_held(ranks: list, ref: dict, cfg, witness=None) -> dict:
     """The ranks' step against the unsharded one: the worst relative error
     of the loss and of the gradient norm over steps and ranks, of a
     gradient leaf (``MESH_GRAD_TOL``'s measure; its leaf named) and the
-    params' update over the whole tree (``MESH_PARAM_TOL``'s)."""
+    params' update over the whole tree (``MESH_PARAM_TOL``'s). With
+    ``witness`` (the unsharded step in f32, ``mesh_family_run``'s record),
+    each loss, gradient norm and leaf past its limit is listed in
+    ``over_limit`` with its ``f32_ratio``: how many times as far from the
+    witness's the rank's reading is as the unsharded bf16 step's."""
     from repro_torch.launch.mesh import logical_mesh
     from repro_torch.launch.partition import param_specs, shard_leaf, zero_specs
     from repro_torch.training.optimizer import tree_leaves
@@ -4773,26 +4845,44 @@ def mesh_held(ranks: list, ref: dict, cfg) -> dict:
     meshes = [dataclasses.replace(logical_mesh(MESH_GRID, ("data", "model")),
                                   coords=dict(r["coords"])) for r in ranks]
     p0, p2 = tree_leaves(ref["p0"]), tree_leaves(ref["p2"])
-    grad, worst, num, den = 0.0, None, 0.0, 0.0
+    grad, worst, num, den, over = 0.0, None, 0.0, 0.0, []
+
+    def past(what, reading, limit, got, want, exact):
+        """A reading past its limit, with its witness ratio."""
+        ratio = float((got - exact).abs().max()) / max(float((want - exact).abs().max()), 1e-30)
+        over.append(dict(what=what, reading=reading, limit=limit, f32_ratio=ratio))
+
     for j, (name, zs, spec) in enumerate(zip(names, zspecs, pspecs)):
         want, a, b = (t.cuda() for t in (ref["m0"][j], p0[j], p2[j]))
+        exact = None if witness is None else witness["m0"][j].cuda() / scale(
+            witness["steps"][0]["grad_norm"])
         for r, mesh in zip(ranks, meshes):
             w = shard_leaf(want, zs, mesh) / js
-            e = float((r["m0"][j].cuda() / scale(r["steps"][0]["grad_norm"]) - w).abs().max()) \
-                / max(float(w.abs().max()), 1e-30)
+            g = r["m0"][j].cuda() / scale(r["steps"][0]["grad_norm"])
+            e = float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
             if e > grad:
                 grad, worst = e, name
+            if e > MESH_GRAD_TOL and exact is not None:
+                past(f"grad {name} rank {r['coords']}", e, MESH_GRAD_TOL, g, w,
+                     shard_leaf(exact, zs, mesh))
             got, a_r, b_r = (t.float() for t in (r["params"][j].cuda(), shard_leaf(a, spec, mesh),
                                                  shard_leaf(b, spec, mesh)))
             num += float((got - b_r).square().sum())
             den += float((b_r - a_r).square().sum())
-        del want, a, b
+        del want, a, b, exact
         release()
+    for k, limit in (("loss", MESH_LOSS_TOL), ("grad_norm", MESH_GN_TOL)):
+        for r in ranks:
+            for i, (s_, w_) in enumerate(zip(r["steps"], ref["steps"])):
+                e = abs(s_[k] - w_[k]) / abs(w_[k])
+                if e > limit and witness is not None:
+                    past(f"{k} step {i} rank {r['coords']}", e, limit, torch.tensor(s_[k]),
+                         torch.tensor(w_[k]), torch.tensor(witness["steps"][i][k]))
     rel = lambda k: max(abs(s[k] - w[k]) / abs(w[k])
                         for r in ranks for s, w in zip(r["steps"], ref["steps"]))
     return dict(loss_rel_err=rel("loss"), grad_norm_rel_err=rel("grad_norm"),
                 grad_leaf_rel_err=grad, grad_worst_leaf=worst,
-                param_update_rel_err=math.sqrt(num / den))
+                param_update_rel_err=math.sqrt(num / den), over_limit=over)
 
 
 # -- phase 20, decode: the sharded decode on the mesh --------------------------
@@ -4999,6 +5089,377 @@ def mesh_decode_held(arch: str, ref: dict, ranks: list) -> dict:
                 ok=ok, averaged_partials_failed=caught, ranks=per_rank)
 
 
+# -- phase 20, families: the ssm and hybrid families on the mesh ---------------
+
+# (arch, layers, train sequence): Mamba2-2.7B at 2 of 64 layers; Zamba2-7B
+# at 7 of 81, the least depth with every kind of layer (a block of 6 Mamba
+# layers, the shared block, a Mamba tail layer), its sequence past the
+# 4096-token window
+MESH_FAMILY_RUNS = (("mamba2_2_7b", 2, 4096), ("zamba2_7b", 7, 5120))
+# decode prompt tokens: Mamba2's as the dense decode's; Zamba2's past its
+# window, so prefill's ring is rolled and the steps write around it
+MESH_FAMILY_DECODE = {"mamba2_2_7b": 2044, "zamba2_7b": 5116}
+BC_LEAVES = ("wB", "wC", "conv_B", "conv_C")
+MESH_FAMILY_LIMITS = dict(loss_rel_err=MESH_LOSS_TOL, grad_norm_rel_err=MESH_GN_TOL,
+                          grad_leaf_rel_err=MESH_GRAD_TOL, param_update_rel_err=MESH_PARAM_TOL)
+
+
+def mesh_family_cfg(arch: str):
+    from repro_torch.configs.base import get_config
+    layers = next(n for a, n, _ in MESH_FAMILY_RUNS if a == arch)
+    return dataclasses.replace(get_config(arch), n_layers=layers)
+
+
+def mesh_family_inputs(cfg, arch: str, seed: int):
+    """(the global batch of each train step, the decode prompts)."""
+    from repro_torch.data.pipeline import SyntheticLM
+    seq = next(S for a, _, S in MESH_FAMILY_RUNS if a == arch)
+    it = SyntheticLM(cfg.vocab, seed=seed).batches(MESH_B, seq)
+    batches = [torch.from_numpy(next(it)) for _ in range(MESH_STEPS)]
+    prompts = next(SyntheticLM(cfg.vocab, seed=seed + 1).batches(MESH_DECODE_B,
+                                                                 MESH_FAMILY_DECODE[arch]))
+    return batches, torch.from_numpy(prompts)
+
+
+@contextlib.contextmanager
+def plain_attention_f32():
+    """The f32 witness's arithmetic on the card: activations in f32
+    (``activations_f32``) and the attention through its plain versions,
+    which take f32 where the kernels take bf16 (``flash_attention_xla``,
+    with its flash backward, for ``flash_attention`` and
+    ``FlashAttentionFn``; ``flash_decode_plain`` for ``flash_decode``)."""
+    from repro_torch.kernels.flash_decode import flash_decode_plain
+    from repro_torch.models import layers as L
+    plain = lambda q, k, v, causal=True, window=-1: L.flash_attention_xla(q, k, v, window, causal)
+    saved = (L.FlashAttentionFn, L.flash_attention, L.flash_decode)
+    L.FlashAttentionFn = types.SimpleNamespace(apply=plain)
+    L.flash_attention, L.flash_decode = plain, flash_decode_plain
+    try:
+        with activations_f32():
+            yield
+    finally:
+        L.FlashAttentionFn, L.flash_attention, L.flash_decode = saved
+
+
+def mesh_family_run(bundle, params, batches, prompts, fed=None) -> dict:
+    """A family's unsharded run on the card: the forward's logits of each
+    data shard's rows of step 0's batch (last ``MESH_TAIL`` positions, f32
+    on the host); each data shard's decode (prefill, ``decode_cache`` at
+    its ring's slots, ``MESH_DECODE_STEPS`` steps, greedy or fed ``fed``'s
+    tokens [rows, 1 + steps] a shard); then ``MESH_STEPS`` AdamW steps,
+    one microbatch a data shard, updating ``params`` in place: each step's
+    loss, gradient norm and wall, the first moments after step 1."""
+    from repro_torch.models.model import decode_cache, greedy_token
+    from repro_torch.training.optimizer import AdamW, tree_leaves
+    from repro_torch.training.train_loop import make_train_step
+    cfg = bundle.cfg
+    n_dp = MESH_GRID[0]
+    rows, drows = MESH_B // n_dp, MESH_DECODE_B // n_dp
+    out = dict(logits=[], decode_logits=[], tokens=[], decode_step_ms=[])
+    with torch.no_grad():
+        for d in range(n_dp):
+            lg = bundle.forward(params, {"tokens": batches[0][d * rows:(d + 1) * rows].cuda()})[0]
+            out["logits"].append(lg[:, -MESH_TAIL:].float().cpu())
+            del lg
+        for d in range(n_dp):
+            logits, cache = bundle.prefill(params, {"tokens": prompts[d * drows:(d + 1) * drows]
+                                                    .cuda()})
+            cache = decode_cache(bundle, cache, ring(cfg, prompts.shape[1] + MESH_DECODE_STEPS))
+            lg, toks = [logits.float().cpu()], [greedy_token(logits, cfg.vocab)]
+            for t in range(MESH_DECODE_STEPS):
+                tok = toks[-1] if fed is None else fed[d][:, t:t + 1].cuda()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits, cache = bundle.decode_step(params, {"token": tok}, cache)
+                torch.cuda.synchronize()
+                out["decode_step_ms"].append((time.perf_counter() - t0) * 1e3)
+                lg.append(logits.float().cpu())
+                toks.append(greedy_token(logits, cfg.vocab))
+            out["decode_logits"].append(torch.stack(lg, 1))
+            out["tokens"].append(torch.cat([t.cpu() for t in toks], 1))
+            del cache
+    opt = AdamW(lr=MESH_LR)
+    state = opt.init(params)
+    step = make_train_step(bundle, opt, microbatches=n_dp)
+    out["steps"] = []
+    for i, b in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, {"tokens": b.cuda()})
+        out["steps"].append(dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                                 ms=(time.perf_counter() - t0) * 1e3))
+        if i == 0:
+            out["m0"] = [t.cpu() for t in tree_leaves(state.m)]
+    out.update(b1=opt.b1, grad_clip=opt.grad_clip)
+    return out
+
+
+def mesh_family_unsharded(arch: str, seed: int, tmp: Path) -> dict:
+    """The function a family's mesh run computes, on one card
+    (``mesh_family_run`` on params from ``seed``), each data shard's decode
+    tokens to ``tmp/family_<arch>_<d>.pt``, the params before and after on
+    the host. For a stack of ``SHAPES_WITNESS_LAYERS`` or more, the f32
+    witness too: the same run with the params cast to f32 under
+    ``plain_attention_f32``, its decode fed the bf16 run's tokens
+    (``f32``)."""
+    from repro_torch.models.model import build
+    from repro_torch.models.params import init_params
+    from repro_torch.training.optimizer import tree_map
+    cfg = mesh_family_cfg(arch)
+    bundle = build(cfg)
+    params = init_params(cfg, seed, "cuda")
+    p0 = to_cpu(params)
+    batches, prompts = mesh_family_inputs(cfg, arch, seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = mesh_family_run(bundle, params, batches, prompts)
+    for d, toks in enumerate(out["tokens"]):
+        torch.save(dict(tokens=toks), tmp / f"family_{arch}_{d}.pt")
+    out.update(p0=p0, p2=to_cpu(params), max_memory_allocated=torch.cuda.max_memory_allocated())
+    del params
+    release()
+    if cfg.n_layers >= SHAPES_WITNESS_LAYERS:
+        exact = tree_map(lambda t: t.float().cuda(), p0)
+        with plain_attention_f32():
+            out["f32"] = mesh_family_run(bundle, exact, batches, prompts, fed=out["tokens"])
+        del exact
+        release()
+    return out
+
+
+def mesh_family_rank(run, tmp: Path, seed: int) -> dict:
+    """A rank's families part, after its decode part: each of
+    ``MESH_FAMILY_RUNS`` built on the rank's mesh, its whole tree drawn from
+    ``seed`` and cut to the rank's blocks; the forward's logits of its
+    shard of step 0's batch, the decode of its shard of the prompts fed the
+    unsharded run's tokens, and ``MESH_STEPS`` ZeRO-1 AdamW steps, the
+    kernels' counts and the collectives reset just before and read just
+    after those. Then the planted faults (``models/ssm.py``'s functions
+    replaced): the gated norm over the rank's own channels (the forward's
+    logits), B / C entering the heads' region without ``copy_to`` (one
+    step's first moments of ``BC_LEAVES``), the conv state stepped without
+    the gather (the decode's logits)."""
+    from repro_torch import collectives
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.launch.partition import param_specs, zero_specs
+    from repro_torch.models import layers as L
+    from repro_torch.models import ssm as S
+    from repro_torch.models.model import build, decode_cache, greedy_token
+    from repro_torch.models.params import shard_params
+    from repro_torch.training.optimizer import AdamW, ZeRO1, tree_leaves
+    from repro_torch.training.train_loop import make_train_step
+    d = run.mesh.coords["data"]
+    kernels = (ssd_scan, flash_attention, flash_decode)
+    faults = {"norm_local": (S, "_norm", lambda y, w, eps, tp, width: L.rms_norm(y, w, eps)),
+              "bc_partial": (S, "_enter_bc", lambda t, tp: t),
+              "no_gather": (S, "_gather_bc",
+                            lambda b, c, tp: (b.repeat(1, tp.size), c.repeat(1, tp.size)))}
+
+    @contextlib.contextmanager
+    def planted_fault(name):
+        obj, attr, value = faults[name]
+        old = getattr(obj, attr)
+        setattr(obj, attr, value)
+        try:
+            yield
+        finally:
+            setattr(obj, attr, old)
+
+    out = {}
+    for arch, *_ in MESH_FAMILY_RUNS:
+        cfg = mesh_family_cfg(arch)
+        bundle = build(cfg, mesh_info=run.mesh_info)
+        whole = bundle.init(seed, device=run.device)
+        pspecs = param_specs(cfg, whole, n_model=MESH_GRID[1])
+        zspecs = zero_specs(whole, pspecs, dp="data", n_dp=MESH_GRID[0])
+        params = shard_params(whole, pspecs, run.mesh)
+        names = leaf_names(whole)
+        del whole
+        release()
+        batches, prompts = mesh_family_inputs(cfg, arch, seed)
+        batches = [run.shard_batch({"tokens": t}) for t in batches]
+        prompt = run.shard_batch({"tokens": prompts})
+        ref_toks = torch.load(tmp / f"family_{arch}_{d}.pt")["tokens"]     # [rows, 1 + steps]
+        capacity = ring(cfg, prompts.shape[1] + MESH_DECODE_STEPS)
+
+        def decode(start):
+            lg, mine, ms = [], [], []
+            c = start
+            for t in range(MESH_DECODE_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits, c = bundle.decode_step(params, {"token": ref_toks[:, t:t + 1].cuda()}, c)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                lg.append(logits.float().cpu())
+                mine.append(greedy_token(logits, cfg.vocab).cpu())
+            return lg, mine, ms
+
+        def steps(p, n):
+            opt = ZeRO1(AdamW(lr=MESH_LR), pspecs, zspecs, run.mesh_info)
+            state = opt.init(p)
+            step = make_train_step(bundle, opt)
+            rows, m0 = [], None
+            for i in range(n):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                p, state, mt = step(p, state, batches[i])
+                rows.append(dict(loss=float(mt["loss"]), grad_norm=float(mt["grad_norm"]),
+                                 ms=(time.perf_counter() - t0) * 1e3))
+                if i == 0:
+                    m0 = [t.cpu() for t in tree_leaves(state.m)]
+            return p, rows, m0
+
+        fresh = [t.clone() for t in tree_leaves(params)]
+        for fn in kernels:
+            fn.launches = 0
+        collectives.reset()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rec = {}
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            rec["logits"] = bundle.forward(params, batches[0])[0][:, -MESH_TAIL:].float().cpu()
+            logits, cache = bundle.prefill(params, prompt)
+            cache = decode_cache(bundle, cache, capacity)
+            torch.cuda.synchronize()
+            rec["prefill_s"] = time.perf_counter() - t0
+            lg, mine, ms = decode(cache)
+        rec.update(decode_logits=torch.stack([logits.float().cpu()] + lg, 1),
+                   tokens=torch.cat([greedy_token(logits, cfg.vocab).cpu()] + mine, 1),
+                   decode_step_ms=ms, cache={k: list(v.shape) for k, v in cache.items()})
+        params, rows, m0 = steps(params, MESH_STEPS)
+        rec.update(steps=rows, m0=m0, params=[t.cpu() for t in tree_leaves(params)],
+                   launches={fn.__name__: fn.launches for fn in kernels},
+                   collectives=collectives.record(),
+                   max_memory_allocated=torch.cuda.max_memory_allocated())
+        # the planted faults, on the params drawn
+        for leaf, t in zip(tree_leaves(params), fresh):
+            leaf.copy_(t)
+        with planted_fault("norm_local"), torch.no_grad():
+            rec["norm_local_logits"] = (bundle.forward(params, batches[0])[0][:, -MESH_TAIL:]
+                                        .float().cpu())
+        with planted_fault("no_gather"), torch.no_grad():
+            rec["no_gather_logits"] = torch.stack(decode(cache)[0], 1)
+        with planted_fault("bc_partial"):
+            _, rec["bc_partial_steps"], m0 = steps(params, 1)
+        rec["bc_partial_m0"] = {n: t for n, t in zip(names, m0) if n.split("/")[-1] in BC_LEAVES}
+        out[arch] = rec
+        del params, cache, fresh, logits
+        release()
+    return out
+
+
+def mesh_family_held(arch: str, ref: dict, ranks: list) -> dict:
+    """A family's mesh run against the unsharded one: per rank the
+    forward's logits (its vocabulary block), the decode's logits and
+    greedy tokens (``mesh_decode_held``'s rules), peak memory, step ms,
+    collectives and launches; the train steps by ``mesh_held``; and the
+    planted faults, each of which must fail its check on every rank. A
+    stack of at most two layers is held within the limits (``BUNDLE_TOL``,
+    ``MESH_*_TOL``); a deeper one (``SHAPES_WITNESS_LAYERS``, as
+    ``decode_vs_cpu`` holds the matrix's: Zamba2's seven) by the f32
+    witness past them: a reading over its limit passes only if the rank is
+    at most ``F32_RATIO`` times as far from the unsharded f32 run as the
+    unsharded bf16 run is (the params' update has no witness: it is held
+    within ``MESH_PARAM_TOL``)."""
+    from repro_torch.launch.mesh import logical_mesh
+    from repro_torch.launch.partition import param_specs, shard_leaf, zero_specs
+    from repro_torch.training.optimizer import tree_leaves
+    cfg = mesh_family_cfg(arch)
+    wit = ref.get("f32")
+    views = [dict(coords=r["coords"], **r["families"][arch]) for r in ranks]
+    V = views[0]["logits"].shape[-1]
+    zspecs = zero_specs(ref["p0"], param_specs(cfg, ref["p0"], n_model=MESH_GRID[1]),
+                        dp="data", n_dp=MESH_GRID[0])
+    names = leaf_names(ref["p0"])
+    zs = dict(zip(names, tree_leaves(zspecs)))
+    index = {n: j for j, n in enumerate(names)}
+    scale = lambda gn: (1 - ref["b1"]) * min(1.0, ref["grad_clip"] / gn)
+
+    def gate(within: bool, got, want, exact) -> tuple:
+        """(passes, witness ratio or None): within the limit, or, with a
+        witness, no more than F32_RATIO times as far from it as want."""
+        if exact is None:
+            return within, None
+        ratio = float((got - exact).abs().max()) / max(float((want - exact).abs().max()), 1e-30)
+        return within or ratio <= F32_RATIO, ratio
+
+    per_rank, sound = [], True
+    caught = {"norm_local": True, "bc_partial": True, "no_gather": True}
+    for x in views:
+        d, m = x["coords"]["data"], x["coords"]["model"]
+        cols = slice(m * V, (m + 1) * V)
+        want, want_dec = ref["logits"][d][..., cols], ref["decode_logits"][d]
+        exact = None if wit is None else wit["logits"][d][..., cols]
+        exact_dec = None if wit is None else wit["decode_logits"][d]
+        err, within = logit_err(x["logits"], want)
+        ok, ratio = gate(within, x["logits"], want, exact)
+        dec_err, within = logit_err(x["decode_logits"], want_dec)
+        dec_ok, dec_ratio = gate(within, x["decode_logits"], want_dec, exact_dec)
+        ties = []
+        for b, t in zip(*np.nonzero((x["tokens"] != ref["tokens"][d]).numpy())):
+            gap = float(want_dec[b, t, ref["tokens"][d][b, t]] - want_dec[b, t, x["tokens"][b, t]])
+            ties.append(dict(row=int(b), step=int(t), logit_gap=gap))
+            dec_ok &= gap <= TIE
+        sound &= ok and dec_ok
+        norm_ok, norm_ratio = gate(logit_err(x["norm_local_logits"], want)[1],
+                                   x["norm_local_logits"], want, exact)
+        gather_ok, gather_ratio = gate(logit_err(x["no_gather_logits"], want_dec[:, 1:])[1],
+                                       x["no_gather_logits"], want_dec[:, 1:],
+                                       None if exact_dec is None else exact_dec[:, 1:])
+        mesh = dataclasses.replace(logical_mesh(MESH_GRID, ("data", "model")),
+                                   coords=dict(x["coords"]))
+        js, rs = scale(ref["steps"][0]["grad_norm"]), scale(x["bc_partial_steps"][0]["grad_norm"])
+        bc_err, bc_ok = 0.0, True
+        for n, t in x["bc_partial_m0"].items():
+            w = shard_leaf(ref["m0"][index[n]].cuda(), zs[n], mesh) / js
+            g = t.cuda() / rs
+            e = float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+            ex = None if wit is None else shard_leaf(wit["m0"][index[n]].cuda(), zs[n], mesh) \
+                / scale(wit["steps"][0]["grad_norm"])
+            bc_ok &= gate(e <= MESH_GRAD_TOL, g, w, ex)[0]
+            bc_err = max(bc_err, e)
+        caught["norm_local"] &= not norm_ok
+        caught["no_gather"] &= not gather_ok
+        caught["bc_partial"] &= not bc_ok
+        per_rank.append(dict(rank=x["coords"], logits_max_abs_err=err, logits_f32_ratio=ratio,
+                             logits_ok=ok, decode_logits_max_abs_err=dec_err,
+                             decode_f32_ratio=dec_ratio, decode_ok=dec_ok, token_ties=ties,
+                             faults=dict(norm_local_logits_max_abs_err=logit_err(
+                                             x["norm_local_logits"], want)[0],
+                                         norm_local_f32_ratio=norm_ratio,
+                                         no_gather_decode_logits_max_abs_err=logit_err(
+                                             x["no_gather_logits"], want_dec[:, 1:])[0],
+                                         no_gather_f32_ratio=gather_ratio,
+                                         bc_partial_grad_leaf_rel_err=bc_err),
+                             max_memory_allocated=x["max_memory_allocated"],
+                             step_ms=[s_["ms"] for s_ in x["steps"]],
+                             loss=[s_["loss"] for s_ in x["steps"]],
+                             grad_norm=[s_["grad_norm"] for s_ in x["steps"]],
+                             prefill_s=x["prefill_s"], decode_step_ms=x["decode_step_ms"],
+                             cache=x["cache"], collectives=x["collectives"],
+                             launches=x["launches"]))
+        release()
+    held = mesh_held(views, ref, cfg, witness=wit)
+    witnessed = ("loss_rel_err", "grad_norm_rel_err", "grad_leaf_rel_err")
+    train_ok = all(held[k] <= v or (k in witnessed and wit is not None)
+                   for k, v in MESH_FAMILY_LIMITS.items()) and all(
+        o["f32_ratio"] <= F32_RATIO for o in held["over_limit"])
+    return dict(model=cfg.name, layers=cfg.n_layers, batch=MESH_B,
+                seq=next(S for a, _, S in MESH_FAMILY_RUNS if a == arch),
+                gate="f32 witness past the limits" if wit is not None else "limits",
+                f32_ratio=F32_RATIO,
+                decode=dict(batch=MESH_DECODE_B, prompt=MESH_FAMILY_DECODE[arch],
+                            steps=MESH_DECODE_STEPS),
+                unsharded=dict(steps=ref["steps"], decode_step_ms=ref["decode_step_ms"],
+                               max_memory_allocated=ref["max_memory_allocated"],
+                               f32_steps=None if wit is None else wit["steps"]),
+                sound=sound and train_ok, faults_failed=caught, ranks=per_rank, **held)
+
+
 def mesh_phase(seed: int) -> dict:
     """Phase 20 (module docstring)."""
     import tempfile
@@ -5008,6 +5469,7 @@ def mesh_phase(seed: int) -> dict:
         tmp = Path(tmp)
         ref = mesh_unsharded(seed, tmp)
         dec_ref = {arch: mesh_decode_unsharded(arch, seed, tmp) for arch, _ in MESH_DECODE_RUNS}
+        fam_ref = {arch: mesh_family_unsharded(arch, seed, tmp) for arch, *_ in MESH_FAMILY_RUNS}
         t_ref = time.perf_counter()
         ranks = mesh_ranks(tmp, seed, fault=False)
         t_ranks = time.perf_counter()
@@ -5033,10 +5495,13 @@ def mesh_phase(seed: int) -> dict:
     held = mesh_held(ranks, ref, cfg)
     control = mesh_held(faulty, ref, cfg)
     decode = {arch: mesh_decode_held(arch, dec_ref[arch], ranks) for arch, _ in MESH_DECODE_RUNS}
+    families = {arch: mesh_family_held(arch, fam_ref[arch], ranks) for arch, *_ in MESH_FAMILY_RUNS}
+    del fam_ref
     e_start = [logits_of(r) for r in faulty]
     launches = {}
     for r in ranks:
-        for part in [r["launches"]] + [x["launches"] for x in r["decode"].values()]:
+        for part in [r["launches"]] + [x["launches"] for x in r["decode"].values()] \
+                + [x["launches"] for x in r["families"].values()]:
             for k, v in part.items():
                 launches[k] = launches.get(k, 0) + v
     # each decode model's kernels, from its run on the ranks
@@ -5044,6 +5509,11 @@ def mesh_phase(seed: int) -> dict:
                   for n in ("flash_attention", "flash_decode")
                   + (("expert_ffn",) if mesh_decode_cfg(arch).is_moe else ())
                   if not sum(r["decode"][arch]["launches"][n] for r in ranks)]
+    # each family's kernels, from its run on the ranks
+    family_bad = [(arch, n) for arch, *_ in MESH_FAMILY_RUNS
+                  for n in ("ssd_scan",) + (("flash_attention", "flash_decode")
+                                            if mesh_family_cfg(arch).family == "hybrid" else ())
+                  if not sum(r["families"][arch]["launches"][n] for r in ranks)]
     limits = dict(loss_rel_err=MESH_LOSS_TOL, grad_norm_rel_err=MESH_GN_TOL,
                   grad_leaf_rel_err=MESH_GRAD_TOL, param_update_rel_err=MESH_PARAM_TOL)
     res = dict(phase="mesh", model=cfg.name, layers=cfg.n_layers,
@@ -5069,6 +5539,13 @@ def mesh_phase(seed: int) -> dict:
                                               decode_step_syncs=r["decode_step_syncs"])
                                       for a, r in dec_ref.items()},
                            models=list(decode.values())),
+               families=dict(limits=limits, logits_tol=BUNDLE_TOL, tie=TIE,
+                             planted=("norm_local: the gated norm over a rank's own channels "
+                                      "(logits); bc_partial: B / C without copy_to (the "
+                                      "gradient leaves of " + " / ".join(BC_LEAVES) + "); "
+                                      "no_gather: the decode conv state stepped without the "
+                                      "gather (decode logits)"),
+                             models=list(families.values())),
                seconds=dict(unsharded=t_ref - t0, ranks=t_ranks - t_ref,
                             fault=t_fault - t_ranks, held=time.perf_counter() - t_fault))
     bad = [n for n in ("expert_ffn", "flash_attention") if not launches.get(n)] + decode_bad
@@ -5085,12 +5562,18 @@ def mesh_phase(seed: int) -> dict:
                   for r in granite["ranks"])
     dec_sound = all(x["ok"] for x in decode.values()) and crossed
     dec_caught = granite["averaged_partials_failed"] is True
-    if not (sound and caught and dec_sound and dec_caught and not bad):
+    fam_sound = {f["model"]: f["sound"] for f in families.values()}
+    fam_caught = {f["model"]: all(f["faults_failed"].values()) for f in families.values()}
+    bad += family_bad
+    if not (sound and caught and dec_sound and dec_caught and all(fam_sound.values())
+            and all(fam_caught.values()) and not bad):
         emit(res)
         raise AssertionError(f"mesh: the 2 x 2 step parts from the unsharded one ({sound=}), "
                              f"or a control passed ({caught=}), or the decode parts from the "
                              f"unsharded one ({dec_sound=}, {crossed=}) or its fault passed "
-                             f"({dec_caught=}), or kernels never launched {bad}")
+                             f"({dec_caught=}), or a family parts from its unsharded run "
+                             f"({fam_sound=}) or a planted fault passed ({fam_caught=}), or "
+                             f"kernels never launched {bad}")
     return res
 
 

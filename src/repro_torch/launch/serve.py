@@ -16,20 +16,25 @@ its depth (each layer's routed experts are pinned in host memory); the
 outside the CUDA attention kernels.
 
 ``--mesh DxM`` is the reference's full mode: the sharded prefill and
-decode steps of ``build_dense`` on a (data, model) mesh, one process a
+decode steps of ``build_dense``, ``build_ssm`` or ``build_hybrid`` on a
+(data, model) mesh, one process a
 rank, started by ``torchrun`` or by ``--spawn`` (``launch/train.py``'s
 rules for ``--backend``, devices and ranks a card). The ``--requests``
 prompts, each cut to ``PROMPT_LEN`` tokens, are one batch sharded over
 the data axis; each rank keeps its param blocks (seed 0), prefills its
 shard, takes the cache to the decode layout at ``PROMPT_LEN + max-new``
-slots (``models/model.py decode_cache``: KV heads or else slots over the
-model axis, ``launch/partition.py cache_specs``) and decodes greedily. Rank 0
-prints each request's tokens with the batch's TTFT and E2E walls; every
-rank prints one JSON line: coordinates, device, walls, peak memory, the
-collectives' counts and bytes, its kernels' launches. Other families are
-refused.
+slots, the hybrid's ring at most its window (``models/model.py
+decode_cache``: KV heads or else slots over the model axis, the ssm
+states' heads and channels, ``launch/partition.py cache_specs``) and
+decodes greedily. Rank 0 prints each request's tokens with the batch's
+TTFT and E2E walls; every rank prints one JSON line: coordinates, device,
+walls, peak memory, the collectives' counts and bytes, its kernels'
+launches. The other families (``launch/train.py mesh_misfit``) and the
+static-window pattern stack are refused.
 
   python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b --layers 2 --mesh 2x2 \
+      --backend gloo --spawn
+  python -m repro_torch.launch.serve --arch mamba2-2.7b --layers 2 --mesh 2x2 \
       --backend gloo --spawn
   python -m repro_torch.launch.serve --arch granite-34b --reduced --device cpu \
       --mesh 2x2 --backend gloo --spawn
@@ -146,7 +151,8 @@ def _mesh_main(ap, args, argv: list):
     import numpy as np
     import torch
 
-    from repro_torch.launch.train import _free_port, _spawned_rank, kernel_misfit, parse_mesh
+    from repro_torch.launch.train import (_free_port, _spawned_rank, kernel_misfit, mesh_misfit,
+                                          parse_mesh)
     try:
         shape, axes = parse_mesh(args.mesh)
     except ValueError as e:
@@ -154,8 +160,10 @@ def _mesh_main(ap, args, argv: list):
     if args.backend is None:
         ap.error("--mesh needs --backend nccl or gloo")
     cfg = resolve_config(args.arch, use_reduced=args.reduced, layers=args.layers)
-    if cfg.family not in ("dense", "moe") or cfg.local_global_pattern:
-        ap.error(f"{cfg.name}: only build_dense configs serve under --mesh")
+    if mesh_misfit(cfg):
+        ap.error(f"{cfg.name}: {mesh_misfit(cfg)}")
+    if cfg.local_global_pattern:
+        ap.error(f"{cfg.name}: its local:global stack does not serve under --mesh")
     if args.device != "cpu":
         misfit = kernel_misfit(cfg)
         if misfit:
@@ -176,6 +184,7 @@ def _mesh_main(ap, args, argv: list):
     from repro_torch.kernels.expert_ffn import expert_ffn
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.kernels.ssd_scan import ssd_scan
     from repro_torch.launch.train import rank_setup
     from repro_torch.models.model import decode_cache, greedy_token
 
@@ -185,10 +194,13 @@ def _mesh_main(ap, args, argv: list):
     wl = PromptWorkload(squad_like(cfg.vocab), seed=11)
     prompts = np.stack([p[:S] for p, _ in wl.prompts(args.requests)])
     batch = run.shard_batch({"tokens": torch.from_numpy(prompts)})
-    kernels = (expert_ffn, flash_attention, flash_decode)
+    kernels = (expert_ffn, flash_attention, flash_decode, ssd_scan)
     for fn in kernels:
         fn.launches = 0
     collectives.reset()
+    capacity = S + n_new
+    if cfg.family == "hybrid" and cfg.sliding_window:
+        capacity = min(capacity, cfg.sliding_window)     # its ring holds the window
     if cuda:
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
@@ -196,7 +208,7 @@ def _mesh_main(ap, args, argv: list):
     t0 = time.perf_counter()
     with torch.no_grad():
         logits, cache = run.bundle.prefill(run.params, batch)
-        cache = decode_cache(run.bundle, cache, S + n_new)
+        cache = decode_cache(run.bundle, cache, capacity)
         tok = greedy_token(logits, cfg.vocab)
         sync()
         ttft = time.perf_counter() - t0

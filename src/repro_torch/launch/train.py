@@ -30,14 +30,18 @@ card is present is refused. Each rank draws the whole tree from the seed
 and keeps its blocks (``launch/partition.py param_specs``,
 ``models/params.py shard_params``), its data shard of each batch
 (``batch_specs``), and ZeRO-1 moments (``zero_specs``,
-``training/optimizer.py ZeRO1``); ``build_dense`` configs only. Rank 0
+``training/optimizer.py ZeRO1``); ``build_dense``, ``build_ssm`` and
+``build_hybrid`` configs (the others: ``models/model.py
+MESH_FAMILIES_TODO``). Rank 0
 prints each step; every rank prints one JSON line at the end: its
 coordinates, device, peak memory, step ms, the collectives' counts, bytes
 and host seconds, and its kernels' launches.
 
   torchrun --nproc-per-node 4 -m repro_torch.launch.train --arch qwen2-moe-a2.7b \
       --layers 2 --mesh 2x2 --backend gloo --batch 4 --seq 4096
-  python -m repro_torch.launch.train --arch qwen2-moe-a2.7b --reduced --device cpu \
+  python -m repro_torch.launch.train --arch zamba2-7b --layers 7 --mesh 2x2 \
+      --backend gloo --spawn --batch 4 --seq 5120
+  python -m repro_torch.launch.train --arch mamba2-2.7b --reduced --device cpu \
       --mesh 2x2 --backend gloo --spawn --steps 2
 """
 from __future__ import annotations
@@ -56,6 +60,14 @@ from repro_torch.launch.serve import resolve_config
 
 # families whose forward needs a frontend's inputs beside the tokens
 FRONTEND_FAMILIES = {"vlm": "patch_embeds", "encdec": "frames"}
+
+
+def mesh_misfit(cfg) -> Optional[str]:
+    """Why ``cfg`` cannot run under ``--mesh``, or None."""
+    from repro_torch.models.model import MESH_FAMILIES, MESH_FAMILIES_TODO
+    if cfg.family not in MESH_FAMILIES:
+        return f"the {cfg.family} family under a mesh is not ported ({MESH_FAMILIES_TODO})"
+    return None
 
 
 def kernel_misfit(cfg) -> Optional[str]:
@@ -279,12 +291,13 @@ def _mesh_main(ap, args, argv: list):
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.kernels.expert_ffn import expert_ffn
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_scan import ssd_scan
     from repro_torch.training.optimizer import cosine_schedule, tree_leaves
     from repro_torch.training.train_loop import make_train_step
 
     cfg = resolve_config(args.arch, use_reduced=args.reduced, layers=args.layers)
-    if cfg.family not in ("dense", "moe"):
-        ap.error(f"{cfg.name}: only build_dense configs run under --mesh")
+    if mesh_misfit(cfg):
+        ap.error(f"{cfg.name}: {mesh_misfit(cfg)}")
     if args.device != "cpu":
         misfit = kernel_misfit(cfg)
         if misfit:
@@ -311,7 +324,7 @@ def _mesh_main(ap, args, argv: list):
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     collectives.reset()
-    kernels = (expert_ffn, flash_attention)
+    kernels = (expert_ffn, flash_attention, ssd_scan)
     for fn in kernels:
         fn.launches = 0
     params, state, step_ms = run.params, run.state, []

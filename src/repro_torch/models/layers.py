@@ -31,7 +31,8 @@ where ``wq`` is sharded (n_heads divides the model axis), K/V heads where
 ``wk`` is too (n_kv_heads divides it); replicated K/V are projected whole
 and each rank takes the heads its query heads read (32 / 8 heads at 16
 ranks: two query heads and one KV head a rank). ``wo`` is row-parallel,
-then summed over the axis; an MLP's w1 / w3 column- and w2 row-parallel.
+then summed over the axis; an MLP's w1 / w3 column- and w2 row-parallel
+(``row_parallel``: the partial products summed in f32, rounded once).
 Where no weight is sharded the layer runs whole on every rank and
 communicates nothing. A weight that stays replicated inside a sharded
 region (``q_norm`` over the local heads) enters through
@@ -364,7 +365,7 @@ def self_attn_full(x, p, dims: AttnDims, *, window=None, causal=True,
     else:
         o = attention(q, k, v, q_pos=positions, k_pos=positions,
                       window=window, causal=causal)
-    return C.reduce_from(linear(o.reshape(B, S, -1), p["wo"]), tp), kv
+    return row_parallel(o.reshape(B, S, -1), p["wo"], tp), kv
 
 
 def write_slot(cache: torch.Tensor, new: torch.Tensor, slot, lo: Optional[int] = None) -> None:
@@ -437,7 +438,7 @@ def self_attn_decode(x, p, dims: AttnDims, cache_k, cache_v, slot_pos, slot,
         else:
             o = attention(q, cache_k, cache_v, q_pos=positions,
                           k_pos=slot_pos[None], window=window, causal=True)
-        return C.reduce_from(linear(o.reshape(B, 1, -1), p["wo"]), tp_q), cache_k, cache_v
+        return row_parallel(o.reshape(B, 1, -1), p["wo"], tp_q), cache_k, cache_v
     q, k, v = _qkv(x, p, dims, positions, tp=tp_q)
     h_loc = q.shape[2]
     q = C.all_gather(q, tp_q, 2)
@@ -453,7 +454,7 @@ def self_attn_decode(x, p, dims: AttnDims, cache_k, cache_v, slot_pos, slot,
         o = C.lse_combine(o, lse, tp)
     if tp_q is not None:
         o = o[:, tp.index * h_loc:(tp.index + 1) * h_loc]
-    return C.reduce_from(linear(o.reshape(B, 1, -1), p["wo"]), tp_q), cache_k, cache_v
+    return row_parallel(o.reshape(B, 1, -1), p["wo"], tp_q), cache_k, cache_v
 
 
 def self_attn_prefill_chunk(x, p, dims: AttnDims, cache_k, cache_v, slot_pos,
@@ -625,6 +626,19 @@ def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return _row_blocks(x.reshape(-1, x.shape[-1]), w).reshape(*x.shape[:-1], w.shape[1])
 
 
+def row_parallel(x: torch.Tensor, w: torch.Tensor, tp: Optional[C.Axis]) -> torch.Tensor:
+    """``linear(x, w)`` where w's rows (x's last dim) are this rank's block
+    of the model axis, summed over it. The partial products come in f32
+    (``mm_f32``), are summed in f32 and rounded once to x's type, so the
+    result is the unsharded product up to the order of its f32 sums; bf16
+    partials summed in bf16 would round each rank's part and then the sum.
+    Without an axis, ``linear``."""
+    if tp is None or tp.size == 1:
+        return linear(x, w)
+    part = mm_f32(x.reshape(-1, x.shape[-1]), w).reshape(*x.shape[:-1], w.shape[1])
+    return C.reduce_from(part, tp).to(x.dtype)
+
+
 def matmul_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` whose every row is the same whatever the number of rows of
     ``a``: a single row is padded to two, because the CPU's f32 product
@@ -681,4 +695,4 @@ def swiglu(x, w1, w3, w2, tp: Optional[C.Axis] = None):
     products, as before. ``tp``: w1 / w3 column- and w2 row-parallel over
     the model axis (this rank's slices of the hidden dim), summed over it."""
     x = C.copy_to(x, tp)
-    return C.reduce_from(linear(silu(linear(x, w1)) * linear(x, w3), w2), tp)
+    return row_parallel(silu(linear(x, w1)) * linear(x, w3), w2, tp)

@@ -28,14 +28,16 @@ after prefill. ssm cache: ``ssm [L,B,h,n,p]`` f32, ``conv_x/B/C
 [L,B,C,K]`` bf16 and ``pos``. The other builders' caches are the
 reference's, key for key and shape for shape (each builder's docstring).
 
-Under a (data, model) mesh (``build(cfg, mesh_info=)``, ``build_dense``
-only) each rank runs its data shard of the batch on its blocks of the
-params (``models/params.py shard_params`` under ``launch/partition.py
-param_specs``), with the collectives of ``models/layers.py`` and
-``moe_layer.moe_ffn``; the embedding is vocab-parallel where the padded
-vocabulary divides the model axis, so ``forward``'s logits are then this
-rank's vocabulary block (``training/train_loop.py`` takes the loss over
-the blocks). The other families refuse a mesh.
+Under a (data, model) mesh (``build(cfg, mesh_info=)``: ``build_dense``,
+``build_ssm`` and ``build_hybrid``) each rank runs its data shard of the
+batch on its blocks of the params (``models/params.py shard_params`` under
+``launch/partition.py param_specs``), with the collectives of
+``models/layers.py``, ``models/ssm.py`` and ``moe_layer.moe_ffn``; the
+embedding is vocab-parallel where the padded vocabulary divides the model
+axis, so ``forward``'s logits are then this rank's vocabulary block
+(``training/train_loop.py`` takes the loss over the blocks). The vlm, the
+enc-dec and the static-window pattern stack refuse a mesh
+(``MESH_FAMILIES_TODO``).
 """
 from __future__ import annotations
 
@@ -80,11 +82,13 @@ class ModelBundle:
     decode_step: Callable  # (params, step, cache) -> (logits, cache)
     init_cache: Callable   # (batch_size, ...) -> cache
     ring_axes: Dict[str, int] = dataclasses.field(default_factory=dict)
-    mesh_info: Optional[dict] = None   # the mesh the bundle runs on (build_dense)
+    mesh_info: Optional[dict] = None   # the mesh the bundle runs on
 
 
-# ROADMAP Queue A: the families the mesh does not reach yet
-MESH_FAMILIES_TODO = "ROADMAP Queue A 4: the other families under a mesh"
+# the families whose bundles run on a mesh; ROADMAP Queue A: the others
+MESH_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+MESH_FAMILIES_TODO = ("ROADMAP Queue A 4: the vlm, the enc-dec and the static-window "
+                      "pattern stack under a mesh")
 
 
 def build(cfg: ArchConfig, capacity_factor: Optional[float] = None,
@@ -92,24 +96,22 @@ def build(cfg: ArchConfig, capacity_factor: Optional[float] = None,
     """The family's builder; a dense local:global stack under
     ``REPRO_OPT_STATIC_WINDOW`` takes ``build_dense_pattern``, as the
     reference's ``build`` does. ``capacity_factor`` goes to ``build_dense``
-    (MoE configs), and so does ``mesh_info``: under a mesh any other
-    builder raises ``NotImplementedError``."""
+    (MoE configs); ``mesh_info`` to the builders of ``MESH_FAMILIES``:
+    under a mesh any other builder raises ``NotImplementedError``."""
     pattern = (cfg.family == "dense" and cfg.local_global_pattern
                and opt_flags.static_window())
-    if mesh_info is not None:
-        if cfg.family not in ("dense", "moe") or pattern:
-            raise NotImplementedError(f"{cfg.name}: {'build_dense_pattern' if pattern else cfg.family}"
-                                      f" under a mesh is not ported ({MESH_FAMILIES_TODO})")
-        return build_dense(cfg, capacity_factor, mesh_info)
+    if mesh_info is not None and (pattern or cfg.family not in MESH_FAMILIES):
+        raise NotImplementedError(f"{cfg.name}: {'build_dense_pattern' if pattern else cfg.family}"
+                                  f" under a mesh is not ported ({MESH_FAMILIES_TODO})")
     if pattern:
         return build_dense_pattern(cfg)
-    if cfg.family == "moe":
-        return build_dense(cfg, capacity_factor)
-    builders = {"dense": build_dense, "moe": build_dense, "vlm": build_vlm,
-                "encdec": build_encdec, "ssm": build_ssm, "hybrid": build_hybrid}
+    if cfg.family in ("dense", "moe"):
+        return build_dense(cfg, capacity_factor, mesh_info)
+    builders = {"vlm": build_vlm, "encdec": build_encdec, "ssm": build_ssm,
+                "hybrid": build_hybrid}
     if cfg.family not in builders:
         raise KeyError(f"{cfg.name}: no builder for family {cfg.family!r}")
-    return builders[cfg.family](cfg)
+    return builders[cfg.family](cfg) if mesh_info is None else builders[cfg.family](cfg, mesh_info)
 
 
 def pad_cache(cache, new_capacity: int, ring_axes: Dict[str, int]):
@@ -269,28 +271,75 @@ def _kv_specs(cfg: ArchConfig, shapes: Dict[str, tuple], mesh_info: dict) -> lis
     return [specs[key] for key in shapes]
 
 
+def _kv_blocks(cfg: ArchConfig, shapes: Dict[str, tuple], mesh_info: Optional[dict]) -> dict:
+    """The rank's block shape of each whole K ring shape under
+    ``cache_specs`` (the shapes themselves without a mesh)."""
+    if mesh_info is None:
+        return dict(shapes)
+    from repro_torch.launch.partition import block_shape
+    return {key: block_shape(s, spec, mesh_info["mesh"])
+            for (key, s), spec in zip(shapes.items(), _kv_specs(cfg, shapes, mesh_info))}
+
+
+def _batch_block(batch_size: int, mesh_info: Optional[dict]) -> int:
+    """Rows of a whole batch's cache this rank holds: its data shard where
+    the data axes divide the batch (``cache_specs``), else all of them."""
+    if mesh_info is None:
+        return batch_size
+    n_dp = mesh_info["mesh"].size(tuple(mesh_info["dp"]))
+    return batch_size // n_dp if batch_size % n_dp == 0 else batch_size
+
+
+def _v_key(key: str) -> str:
+    """The V leaf beside a K ring leaf: k -> v, k0 -> v0, ak -> av."""
+    return key.replace("k", "v", 1)
+
+
 def decode_cache(bundle: ModelBundle, cache: dict, capacity: int) -> dict:
     """Prefill's cache as decode's at ``capacity`` slots: the ring padded
     (``pad_cache``), then, on a mesh, this rank's block of slots where
     ``cache_specs`` shards them (blocks of the padded ring, so the padding
     comes first). Prefill's cache already holds this rank's data shard and
     its KV heads where those are sharded, and every KV head where they are
-    not (``layers.self_attn_full``)."""
+    not (``layers.self_attn_full``); the ssm leaves are already its blocks
+    (``models/ssm.py ssd_forward``)."""
     from repro_torch.launch.partition import shard_leaf
     cache = pad_cache(cache, capacity, bundle.ring_axes)
     minfo = bundle.mesh_info
     if minfo is None:
         return cache
-    keys = [key for key in ("k", "k0") if key in cache]
+    keys = [key for key in ("k", "k0", "ak") if key in cache]
     whole = {key: cache[key].shape[:-2] + (bundle.cfg.n_kv_heads, bundle.cfg.hd)
              for key in keys}    # the rule reads the whole head count
     specs = _kv_specs(bundle.cfg, whole, minfo)
     for key, spec in zip(keys, specs):
         w_dim = cache[key].ndim - 3
         only_w = tuple(e if d == w_dim else None for d, e in enumerate(spec))
-        for leaf in (key, "v" + key[1:]):
+        for leaf in (key, _v_key(key)):
             cache[leaf] = shard_leaf(cache[leaf], only_w, minfo["mesh"])
     return cache
+
+
+def _model_axis(mesh_info: Optional[dict]) -> Optional[C.Axis]:
+    return None if mesh_info is None else mesh_info["mesh"].axis(mesh_info["tp"])
+
+
+def _vocab_head(params, tokens, vp: int, tp: Optional[C.Axis]):
+    """(embedded tokens, the tied output projection's function): the
+    vocab-parallel pair where the embedding is this rank's block of the
+    padded vocabulary (``_embed_tp``, the output's columns this block),
+    else the whole table."""
+    embed = params["embed"]
+    if tp is None or embed.shape[0] == vp:
+        return _embed(embed, tokens), lambda x: _logits(x, embed)
+    return (_embed_tp(embed, tokens, vp, tp),
+            lambda x: _logits(C.copy_to(x, tp), embed))
+
+
+def _whole_vocab(logits, vp: int, tp: Optional[C.Axis]):
+    """Last logits [B, V] gathered over the model axis where they are a
+    vocabulary block."""
+    return C.all_gather(logits, tp, -1) if logits.shape[-1] < vp else logits
 
 
 def _embed_tp(embed, tokens, vp: int, tp: C.Axis):
@@ -332,10 +381,9 @@ def build_dense(cfg: ArchConfig, capacity_factor: Optional[float] = None,
     n_dense = cfg.n_dense_layers
     windows = [cfg.window_for_layer(l) for l in range(n_dense, cfg.n_layers)]
     vp = L.vocab_pad_of(cfg.vocab)
-    tp = None
+    tp = _model_axis(mesh_info)
     shards = {"": None, "0": None}
-    if mesh_info is not None:
-        tp = mesh_info["mesh"].axis(mesh_info["tp"])
+    if tp is not None:
         shards = {key: _Shard(mesh_info, tp, ff % tp.size == 0)
                   for key, ff in (("", cfg.d_ff), ("0", cfg.dense_d_ff))}
     n_model = tp.size if tp is not None else 16
@@ -348,17 +396,9 @@ def build_dense(cfg: ArchConfig, capacity_factor: Optional[float] = None,
         out = [("0", lp, -1) for lp in _stack(params, "dense0")] if n_dense else []
         return out + [("", lp, w) for lp, w in zip(_stack(params, "layers"), windows)]
 
-    def _head(params, tokens):
-        """(embedded tokens, the tied output projection's function)."""
-        embed = params["embed"]
-        if tp is None or embed.shape[0] == vp:
-            return _embed(embed, tokens), lambda x: _logits(x, embed)
-        return (_embed_tp(embed, tokens, vp, tp),
-                lambda x: _logits(C.copy_to(x, tp), embed))
-
     def forward(params, batch):
         tokens = batch["tokens"]
-        x, head = _head(params, tokens)
+        x, head = _vocab_head(params, tokens, vp, tp)
         chunked = tokens.shape[1] >= CHUNKED_MIN_SEQ
         aux = 0.0
         for key, lp, win in _stacks(params):
@@ -371,7 +411,7 @@ def build_dense(cfg: ArchConfig, capacity_factor: Optional[float] = None,
     def prefill(params, batch):
         tokens = batch["tokens"]
         B, Ssz = tokens.shape
-        x, head = _head(params, tokens)
+        x, head = _vocab_head(params, tokens, vp, tp)
         chunked = Ssz >= CHUNKED_MIN_SEQ
         kv = {"": [], "0": []}
         for key, lp, win in _stacks(params):
@@ -385,13 +425,10 @@ def build_dense(cfg: ArchConfig, capacity_factor: Optional[float] = None,
                 cache["v" + key] = torch.stack([v for _, v in rows])
         cache.update(_ring(Ssz, Ssz, tokens.device))
         x = L.rms_norm(x, params["ln_f"], cfg.rms_eps)
-        logits = head(x[:, -1])
-        if logits.shape[-1] < vp:
-            logits = C.all_gather(logits, tp, -1)
-        return logits, cache
+        return _whole_vocab(head(x[:, -1]), vp, tp), cache
 
     def decode_step(params, step, cache):
-        x, head = _head(params, step["token"])
+        x, head = _vocab_head(params, step["token"], vp, tp)
         pos = cache["pos"]
         slot, sp = _slot(cache)
         new = dict(cache, slot_pos=sp, pos=pos + 1)
@@ -405,20 +442,14 @@ def build_dense(cfg: ArchConfig, capacity_factor: Optional[float] = None,
             x, _ = _block_decode(x, lp, win, cfg, new["k" + key][l], new["v" + key][l],
                                  sp, slot, pos, shards[key])
         x = L.rms_norm(x, params["ln_f"], cfg.rms_eps)
-        logits = head(x[:, -1])
-        if logits.shape[-1] < vp:
-            logits = C.all_gather(logits, tp, -1)
-        return logits, new
+        return _whole_vocab(head(x[:, -1]), vp, tp), new
 
     def init_cache(batch_size: int, capacity: int, extras=None, device="cuda"):
         shape = (batch_size, capacity, cfg.n_kv_heads, cfg.hd)
         kv = {"k": (cfg.n_layers - n_dense,) + shape}
         if n_dense:
             kv["k0"] = (n_dense,) + shape
-        if mesh_info is not None:
-            from repro_torch.launch.partition import block_shape
-            kv = {key: block_shape(s, spec, mesh_info["mesh"])
-                  for (key, s), spec in zip(kv.items(), _kv_specs(cfg, kv, mesh_info))}
+        kv = _kv_blocks(cfg, kv, mesh_info)
         c = _ring(capacity, 0, device)
         for key, s in kv.items():
             c[key] = torch.zeros(s, dtype=L.PDT, device=device)
@@ -737,68 +768,86 @@ def _layer(params, l: int):
     return params["layers"]["ln"][l], {k: v[l] for k, v in params["layers"]["ssm"].items()}
 
 
-def _mamba_full(x, lp, cfg: ArchConfig):
+def _mamba_full(x, lp, cfg: ArchConfig, tp: Optional[C.Axis] = None):
     """One pre-norm Mamba2 layer (``lp``: ``ln`` and ``ssm``) over a whole
-    sequence. Returns (x, final state, conv tails)."""
-    y, hfin, tails = S.ssd_forward(L.rms_norm(x, lp["ln"], cfg.rms_eps), lp["ssm"], cfg)
+    sequence (``tp``: the model axis, ``models/ssm.py``). Returns (x, final
+    state, conv tails)."""
+    y, hfin, tails = S.ssd_forward(L.rms_norm(x, lp["ln"], cfg.rms_eps), lp["ssm"], cfg,
+                                   tp=tp)
     return x + y, hfin, tails
 
 
-def build_ssm(cfg: ArchConfig) -> ModelBundle:
+def _ssm_cache_block(cfg: ArchConfig, batch_size: int, lead: tuple, mesh_info, device) -> dict:
+    """Zeros of the ssm / conv_* leaves [*lead, B, ...] of a whole batch's
+    cache, this rank's block under ``cache_specs`` on a mesh."""
+    one = S.init_ssm_cache(cfg, _batch_block(batch_size, mesh_info), device=device,
+                           tp=_model_axis(mesh_info))
+    return {k: torch.zeros(lead + v.shape, dtype=v.dtype, device=device) for k, v in one.items()}
+
+
+def build_ssm(cfg: ArchConfig, mesh_info: Optional[dict] = None) -> ModelBundle:
+    """Mamba2 layers. Cache ``ssm`` [L,B,h,n,p] f32, ``conv_x/B/C`` [L,B,C,K]
+    and ``pos``. ``mesh_info``: the bundle runs on one rank of that mesh,
+    each layer on the rank's heads (``models/ssm.py``), the embedding and
+    logits vocab-parallel as ``build_dense``'s; ``init_cache`` gives the
+    rank's block of a whole batch's cache under ``cache_specs``, which
+    ``prefill`` also returns."""
+    vp = L.vocab_pad_of(cfg.vocab)
+    tp = _model_axis(mesh_info)
+    S.ssm_axis(cfg, tp)            # refuses a mesh that splits channels but not heads
 
     def init(seed: int = 0, device="cuda"):
         return init_params(cfg, seed, device)
 
     def _run_full(params, tokens, emit_state):
-        x = _embed(params["embed"], tokens)
+        x, head = _vocab_head(params, tokens, vp, tp)
         states = []
         for lp in _stack(params, "layers"):
-            x, hfin, tails = _run(_mamba_full, x, lp, cfg)
+            x, hfin, tails = _run(_mamba_full, x, lp, cfg, tp)
             if emit_state:
                 states.append((hfin, tails))
-        return L.rms_norm(x, params["ln_f"], cfg.rms_eps), states
+        return head, L.rms_norm(x, params["ln_f"], cfg.rms_eps), states
 
     def forward(params, batch):
-        x, _ = _run_full(params, batch["tokens"], emit_state=False)
-        return _logits(x, params["embed"]), 0.0
+        head, x, _ = _run_full(params, batch["tokens"], emit_state=False)
+        return head(x), 0.0
 
     def prefill(params, batch):
         tokens = batch["tokens"]
-        x, states = _run_full(params, tokens, emit_state=True)
+        head, x, states = _run_full(params, tokens, emit_state=True)
         cache = {"ssm": torch.stack([h for h, _ in states]),
                  "pos": torch.tensor(tokens.shape[1], dtype=torch.int32,
                                      device=params["embed"].device)}
         for k in ("x", "B", "C"):
             cache[f"conv_{k}"] = torch.stack([t[k] for _, t in states])
-        return _logits(x[:, -1], params["embed"]), cache
+        return _whole_vocab(head(x[:, -1]), vp, tp), cache
 
     def decode_step(params, step, cache):
-        x = _embed(params["embed"], step["token"])
+        x, head = _vocab_head(params, step["token"], vp, tp)
         new = {k: torch.empty_like(cache[k])
                for k in ("ssm", "conv_x", "conv_B", "conv_C")}
         for l in range(cfg.n_layers):
             ln, lp = _layer(params, l)
             y, st, conv = S.ssd_decode_step(
                 L.rms_norm(x, ln, cfg.rms_eps), lp, cfg, cache["ssm"][l],
-                {k: cache[f"conv_{k}"][l] for k in ("x", "B", "C")})
+                {k: cache[f"conv_{k}"][l] for k in ("x", "B", "C")}, tp=tp)
             new["ssm"][l] = st
             for k in ("x", "B", "C"):
                 new[f"conv_{k}"][l] = conv[k]
             x = x + y
         new["pos"] = cache["pos"] + 1
         x = L.rms_norm(x, params["ln_f"], cfg.rms_eps)
-        return _logits(x[:, -1], params["embed"]), new
+        return _whole_vocab(head(x[:, -1]), vp, tp), new
 
     def init_cache(batch_size: int, capacity: int = 0, extras=None, device="cuda"):
         """The reference's signature; the state has no slots, so
         ``capacity`` and ``extras`` are unused."""
-        one = S.init_ssm_cache(cfg, batch_size, device=device)
-        cache = {k: torch.zeros((cfg.n_layers,) + v.shape, dtype=v.dtype, device=device)
-                 for k, v in one.items()}
+        cache = _ssm_cache_block(cfg, batch_size, (cfg.n_layers,), mesh_info, device)
         cache["pos"] = torch.tensor(0, dtype=torch.int32, device=device)
         return cache
 
-    return ModelBundle(cfg, init, forward, prefill, decode_step, init_cache)
+    return ModelBundle(cfg, init, forward, prefill, decode_step, init_cache,
+                       mesh_info=mesh_info)
 
 
 # ---------------------------------------------------------------------------
@@ -810,7 +859,7 @@ def _tail_key(k: str) -> str:
     return "ssm_t" if k == "ssm" else k + "t"
 
 
-def build_hybrid(cfg: ArchConfig) -> ModelBundle:
+def build_hybrid(cfg: ArchConfig, mesh_info: Optional[dict] = None) -> ModelBundle:
     """``n_layers // hybrid_attn_every`` blocks of ``hybrid_attn_every`` Mamba2
     layers, each followed by one application of a single weight-shared
     attention + MLP block (``shared``) over the window ``sliding_window``,
@@ -820,11 +869,22 @@ def build_hybrid(cfg: ArchConfig) -> ModelBundle:
     as ``ssm_t``, ``conv_xt/Bt/Ct`` [n_tail, B, ...]) and, per application of
     the shared block, its own ring ``ak``, ``av`` [n_blocks, B, W, Hkv, hd]
     of W = min(S, window) slots, with one ``slot_pos`` [W] and ``pos``.
-    Prefill keeps the last W keys, rolled so that slot == pos % W."""
+    Prefill keeps the last W keys, rolled so that slot == pos % W.
+
+    ``mesh_info``: the bundle runs on one rank of that mesh, the Mamba
+    layers as ``build_ssm``'s, the shared block as ``build_dense``'s blocks
+    (its heads and MLP hidden dim over the model axis where they divide
+    it); ``init_cache`` gives the rank's block of a whole batch's cache
+    under ``cache_specs`` (the rings' KV heads, else their slots, as
+    ``build_dense``'s, which ``decode_cache`` takes prefill's rings to)."""
     per = cfg.hybrid_attn_every
     n_blocks = cfg.n_layers // per
     n_tail = cfg.n_layers - n_blocks * per
     win = cfg.sliding_window or -1
+    vp = L.vocab_pad_of(cfg.vocab)
+    tp = _model_axis(mesh_info)
+    S.ssm_axis(cfg, tp)            # refuses a mesh that splits channels but not heads
+    shard = None if tp is None else _Shard(mesh_info, tp, cfg.d_ff % tp.size == 0)
 
     def init(seed: int = 0, device="cuda"):
         return init_params(cfg, seed, device)
@@ -834,7 +894,7 @@ def build_hybrid(cfg: ArchConfig) -> ModelBundle:
         leaves ``key(name)`` read from ``cache``, written into ``new``."""
         conv = {k: cache[key(f"conv_{k}")][idx] for k in ("x", "B", "C")}
         y, st, conv = S.ssd_decode_step(L.rms_norm(x, lp["ln"], cfg.rms_eps), lp["ssm"], cfg,
-                                        cache[key("ssm")][idx], conv)
+                                        cache[key("ssm")][idx], conv, tp=tp)
         new[key("ssm")][idx] = st
         for k in ("x", "B", "C"):
             new[key(f"conv_{k}")][idx] = conv[k]
@@ -842,22 +902,23 @@ def build_hybrid(cfg: ArchConfig) -> ModelBundle:
 
     def _run_full(params, tokens, emit):
         chunked = tokens.shape[1] >= CHUNKED_MIN_SEQ
-        x = _embed(params["embed"], tokens)
+        x, head = _vocab_head(params, tokens, vp, tp)
         states, kvs, tail = [], [], []
         for b in range(n_blocks):
             blk = _at(params["mamba"], b)
             for i in range(per):
-                x, hfin, tails = _run(_mamba_full, x, _at(blk, i), cfg)
+                x, hfin, tails = _run(_mamba_full, x, _at(blk, i), cfg, tp)
                 if emit:
                     states.append((hfin, tails))
-            x, kv, _ = _run(_block_full, x, params["shared"], win, cfg, chunked)
+            x, kv, _ = _run(_block_full, x, params["shared"], win, cfg, chunked, False, None,
+                            shard)
             if emit:
                 kvs.append(kv)
         for i in range(n_tail):
-            x, hfin, tails = _run(_mamba_full, x, _at(params["tail"], i), cfg)
+            x, hfin, tails = _run(_mamba_full, x, _at(params["tail"], i), cfg, tp)
             if emit:
                 tail.append((hfin, tails))
-        return L.rms_norm(x, params["ln_f"], cfg.rms_eps), states, kvs, tail
+        return head, L.rms_norm(x, params["ln_f"], cfg.rms_eps), states, kvs, tail
 
     def _ssm_cache(states, lead):
         """ssm / conv_* leaves of a list of (final state, conv tails)."""
@@ -867,13 +928,13 @@ def build_hybrid(cfg: ArchConfig) -> ModelBundle:
         return {k: v.reshape(lead + v.shape[1:]) for k, v in out.items()}
 
     def forward(params, batch):
-        x, _, _, _ = _run_full(params, batch["tokens"], emit=False)
-        return _logits(x, params["embed"]), 0.0
+        head, x, _, _, _ = _run_full(params, batch["tokens"], emit=False)
+        return head(x), 0.0
 
     def prefill(params, batch):
         tokens = batch["tokens"]
         Ssz = tokens.shape[1]
-        x, states, kvs, tail = _run_full(params, tokens, emit=True)
+        head, x, states, kvs, tail = _run_full(params, tokens, emit=True)
         W = min(Ssz, cfg.sliding_window or Ssz)
         shift = (Ssz - W) % W
         roll = lambda t: torch.roll(t, shift, dims=2)
@@ -885,10 +946,10 @@ def build_hybrid(cfg: ArchConfig) -> ModelBundle:
         cache["pos"] = torch.tensor(Ssz, dtype=torch.int32, device=tokens.device)
         if n_tail:
             cache.update({_tail_key(k): v for k, v in _ssm_cache(tail, (n_tail,)).items()})
-        return _logits(x[:, -1], params["embed"]), cache
+        return _whole_vocab(head(x[:, -1]), vp, tp), cache
 
     def decode_step(params, step, cache):
-        x = _embed(params["embed"], step["token"])
+        x, head = _vocab_head(params, step["token"], vp, tp)
         pos = cache["pos"]
         slot, sp = _slot(cache)
         new = dict(cache, ak=cache["ak"].clone(), av=cache["av"].clone(), slot_pos=sp,
@@ -903,23 +964,24 @@ def build_hybrid(cfg: ArchConfig) -> ModelBundle:
             for i in range(per):
                 x = _mamba_decode(x, _at(blk, i), cache, (b, i), new, same)
             x, _ = _block_decode(x, params["shared"], win, cfg, new["ak"][b], new["av"][b],
-                                 sp, slot, pos)
+                                 sp, slot, pos, shard)
         for i in range(n_tail):
             x = _mamba_decode(x, _at(params["tail"], i), cache, i, new, _tail_key)
         x = L.rms_norm(x, params["ln_f"], cfg.rms_eps)
-        return _logits(x[:, -1], params["embed"]), new
+        return _whole_vocab(head(x[:, -1]), vp, tp), new
 
     def init_cache(batch_size: int, capacity: int, extras=None, device="cuda"):
-        one = S.init_ssm_cache(cfg, batch_size, device=device)
         W = min(capacity, cfg.sliding_window or capacity)
-        z = lambda shape, dtype=L.PDT: torch.zeros(shape, dtype=dtype, device=device)
-        c = {k: z((n_blocks, per) + v.shape, v.dtype) for k, v in one.items()}
-        c["ak"] = z((n_blocks, batch_size, W, cfg.n_kv_heads, cfg.hd))
+        c = _ssm_cache_block(cfg, batch_size, (n_blocks, per), mesh_info, device)
+        ak = _kv_blocks(cfg, {"ak": (n_blocks, batch_size, W, cfg.n_kv_heads, cfg.hd)},
+                        mesh_info)["ak"]
+        c["ak"] = torch.zeros(ak, dtype=L.PDT, device=device)
         c["av"] = torch.zeros_like(c["ak"])
         c.update(_ring(W, 0, device))
         if n_tail:
-            c.update({_tail_key(k): z((n_tail,) + v.shape, v.dtype) for k, v in one.items()})
+            c.update({_tail_key(k): v for k, v in _ssm_cache_block(
+                cfg, batch_size, (n_tail,), mesh_info, device).items()})
         return c
 
     return ModelBundle(cfg, init, forward, prefill, decode_step, init_cache,
-                       ring_axes={"ak": 2, "av": 2})
+                       ring_axes={"ak": 2, "av": 2}, mesh_info=mesh_info)

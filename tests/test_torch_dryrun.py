@@ -18,6 +18,10 @@ wrapped 131072-slot ring).
 * The plan: parameter bytes equal the built params' bytes; the pairs that
   do not fit one H100, and the batches cut for memory, pinned.
 * The CLI: one pair's record; no card -> exit 2.
+* The pod-mesh plan (``--mesh 16x16``) of every Mamba2-2.7B and Zamba2-7B
+  pair: planned, each decode record's cache bytes the sum of its leaves'
+  ``cache_specs`` blocks (the ssm states over heads, the conv tails over
+  channels, Zamba2's rings over KV heads) and under the 16-way split.
 
 Tolerances, each for its reason (tests/test_torch_bundles.py's and
 tests/test_torch_training.py's): logits ``DEEP`` rtol = atol = 5e-2 (bf16
@@ -214,3 +218,32 @@ def test_cli_without_a_card_exits_2(capsys):
         pytest.skip("a CUDA device is present: the refusal needs none")
     assert D.main(["--all"]) == 2
     assert "no CUDA device" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-7b"])
+def test_mesh_plan_of_the_ssm_and_hybrid_pairs(arch, tmp_path):
+    from repro_torch.launch.input_specs import decode_inputs
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.partition import block_shape, cache_specs
+    from repro_torch.models.model import build
+    mesh = make_production_mesh()
+    todo = [(c, sh) for c, sh in pairs() if c.name == arch]
+    assert todo
+    for cfg, shape in todo:
+        rec = D.mesh_plan(cfg, shape, multi_pod=False)
+        assert rec["planned"], rec
+        assert D.main(["--arch", arch, "--shape", shape.name, "--mesh", "16x16", "--out",
+                       str(tmp_path)]) == 0
+        written = json.loads((tmp_path / f"{arch.replace('.', '_')}__{shape.name}__single.json")
+                             .read_text())
+        assert written["planned"] and written["bytes_per_device"] == rec["bytes_per_device"]
+        if shape.kind != "decode":
+            continue
+        _, cache = decode_inputs(cfg, shape, build(cfg), shape.global_batch, device="meta")
+        specs = cache_specs(cfg, cache, dp="data", n_model=16, n_dp=16)
+        blocks = {k: block_shape(tuple(t.shape), specs[k], mesh) for k, t in cache.items()}
+        want = sum(int(np.prod(b)) * cache[k].element_size() for k, b in blocks.items())
+        assert rec["bytes_per_device"]["cache"] == want
+        whole = sum(t.numel() * t.element_size() for t in cache.values())
+        assert want * 16 < whole * 1.01          # split over the model axis too
+        assert specs["ssm" if "ssm" in specs else "ssm_t"][-3] == "model"

@@ -423,8 +423,8 @@ def test_launcher_mesh_on_the_cpu():
     """``--mesh 2x2 --backend gloo --spawn`` on the CPU: four ranks, each
     printing its record; the first step's loss is the one-device step's on
     the same seed and batch (capacity per data shard, one microbatch a
-    shard). Without ``--backend``, and for a family outside
-    ``build_dense``, it refuses."""
+    shard). Without ``--backend``, and for a family the mesh does not
+    reach yet (the enc-dec), it refuses."""
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.models.params import init_params
     import json
@@ -451,6 +451,6 @@ def test_launcher_mesh_on_the_cpu():
     np.testing.assert_allclose(losses[0], float(m["loss"]), rtol=1e-2)
     from repro_torch.launch.train import main
     for extra in (["--arch", "qwen2-moe-a2.7b", "--mesh", "2x2"],
-                  ["--arch", "mamba2-2.7b", "--mesh", "1x1", "--backend", "gloo"]):
+                  ["--arch", "seamless-m4t-medium", "--mesh", "1x1", "--backend", "gloo"]):
         with pytest.raises(SystemExit):
             main(base[3:] + extra)

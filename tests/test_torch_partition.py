@@ -8,7 +8,9 @@ names. The reference's trees come from ``jax.eval_shape`` (MoE experts
 padded by the mesh's model axis, as its ``build_dense(cfg, mesh_info)``
 pads them), the port's on the ``meta`` device. Then ``shard_leaf`` /
 ``shard_params`` against numpy slicing, the logical production meshes, and
-the builders' refusal of a mesh outside ``build_dense``.
+the builders' refusal of a mesh outside ``build_dense``, ``build_ssm`` and
+``build_hybrid``; the ssm and hybrid trees' specs again at a 2-way model
+axis, and a built rank's param blocks and cache under them.
 """
 import dataclasses
 import functools
@@ -186,19 +188,75 @@ def test_production_meshes_and_info_match_the_reference():
     assert (TMESH.PEAK_FLOPS_BF16, TMESH.HBM_BW) == (989e12, 3.35e12)
 
 
-@pytest.mark.parametrize("arch", ["mamba2_2_7b", "zamba2_7b", "seamless_m4t_medium",
-                                  "llama_3_2_vision_90b"])
-def test_other_families_refuse_a_mesh(arch):
+@pytest.mark.parametrize("arch", ["seamless_m4t_medium", "llama_3_2_vision_90b", "gemma3_1b"])
+def test_other_families_refuse_a_mesh(arch, monkeypatch):
+    """The vlm, the enc-dec and (under ``REPRO_OPT_STATIC_WINDOW``) the
+    pattern stack refuse a mesh, naming ROADMAP Queue A 4."""
+    monkeypatch.setenv("REPRO_OPT_STATIC_WINDOW", "1")
     info = TMESH.mesh_info(TMESH.make_production_mesh())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue A 4"):
         build(reduced(get_config(arch)), mesh_info=info)
+
+
+SSM_ARCHS = ["mamba2_2_7b", "zamba2_7b"]
+
+
+@pytest.mark.parametrize("n_model", [2, 16])
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_ssm_and_hybrid_specs_equal_the_reference(arch, n_model):
+    """``param_specs`` of the ssm and hybrid trees and ``cache_specs`` of
+    their decode caches (B = 32, 64 slots, the hybrid's ring at its
+    window) equal the reference's leaf by leaf at a 2- and a 16-way model
+    axis: every head-indexed leaf over the model axis, ``wB`` / ``wC`` /
+    ``conv_B`` / ``conv_C`` replicated, the states' heads and the conv
+    channels over it in the cache."""
+    cfg, jcfg = get_config(arch), jget(arch)
+    jparams, tparams = _ref_params(arch, n_model), _port_params(arch, n_model)
+    assert _port_leaves(TP.param_specs(cfg, tparams, n_model=n_model)) == \
+        _ref_leaves(jparams, JP.param_specs(jcfg, jparams, n_model=n_model))
+    B, W = 32, 64
+    jcache = jax.eval_shape(lambda: jbuild(jcfg).init_cache(B, W))
+    cache = build(cfg).init_cache(B, W, device="meta")
+    for n_dp in (2, 16):
+        want = JP.cache_specs(jcfg, jcache, dp="data", n_model=n_model, n_dp=n_dp)
+        got = TP.cache_specs(cfg, cache, dp="data", n_model=n_model, n_dp=n_dp)
+        assert _port_leaves(got) == _ref_leaves(jcache, want)
+        assert got["ssm"][-3] == "model" and got["conv_B"][-2] == "model"
+
+
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_ssm_and_hybrid_rank_blocks(arch):
+    """On a logical 2 x 2 mesh a rank's ``shard_params`` blocks are its
+    heads' slices of the reduced tree, and its ``init_cache`` is its
+    block of the whole cache under ``cache_specs``."""
+    cfg = reduced(get_config(arch))
+    whole = init_params(cfg, 0, "cpu")
+    specs = TP.param_specs(cfg, whole, n_model=2)
+    cache = build(cfg).init_cache(4, 16, device="meta")
+    cspecs = TP.cache_specs(cfg, cache, dp="data", n_model=2, n_dp=2)
+    for d in range(2):
+        for m in range(2):
+            mesh = _mesh((2, 2), ("data", "model"), (d, m))
+            mesh.groups[("model",)] = None           # a logical mesh: no collectives run
+            info = TMESH.mesh_info(mesh)
+            got = shard_params(whole, specs, mesh)
+            stack = got["layers"] if cfg.family == "ssm" else got["mamba"]
+            ref = whole["layers"] if cfg.family == "ssm" else whole["mamba"]
+            assert torch.equal(stack["ssm"]["A_log"], ref["ssm"]["A_log"][..., 16 * m:16 * (m + 1)])
+            assert torch.equal(stack["ssm"]["wB"], ref["ssm"]["wB"])
+            blocks = build(cfg, mesh_info=info).init_cache(4, 16, device="meta")
+            for key, t in cache.items():
+                assert tuple(blocks[key].shape) == TP.block_shape(tuple(t.shape), cspecs[key],
+                                                                  mesh), key
 
 
 @pytest.mark.parametrize("multi", [False, True])
 def test_dryrun_mesh_plan_follows_the_reference(multi, tmp_path):
-    """``launch/dryrun.py --mesh``: for every ``build_dense`` pair, the
-    per-device bytes reckoned from the reference's own specs of its own
-    tree, and its FSDP rule (``state_gb_dev > 8.0``, dryrun.py:110-121)."""
+    """``launch/dryrun.py --mesh``: for every pair of a family the mesh
+    reaches (``build_dense``, the ssm, the hybrid), the per-device bytes
+    reckoned from the reference's own specs of its own tree, and its FSDP
+    rule (``state_gb_dev > 8.0``, dryrun.py:110-121); the vlm and the
+    enc-dec are not planned."""
     from repro_torch.launch.dryrun import BUDGET_BYTES, main, mesh_plan
     sizes = {"pod": 2, "data": 16, "model": 16}
     dp, n_dp = (("pod", "data"), 32) if multi else ("data", 16)
@@ -214,8 +272,8 @@ def test_dryrun_mesh_plan_follows_the_reference(multi, tmp_path):
 
     for cfg, shape in jpairs():
         rec = mesh_plan(get_config(cfg.name), INPUT_SHAPES[shape.name], multi_pod=multi)
-        if cfg.family not in ("dense", "moe"):
-            assert not rec["planned"]
+        if cfg.family in ("vlm", "encdec"):
+            assert not rec["planned"] and "Queue A 4" in rec["reason"]
             continue
         jparams = _ref_params(cfg.name, 16)
         jspecs = JP.param_specs(cfg, jparams, n_model=16)
