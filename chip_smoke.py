@@ -160,10 +160,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                ``--decode-step SRC`` runs only this timing, on the package
                under SRC (another tree's ``src/``).
   8c. examples — each port example's ``main`` (``repro_torch.examples``)
-               on the card at published widths, 4 layers: quickstart,
+               on the card at published widths, 2 layers: quickstart,
                serve_e2e (2 requests), serve_concurrent --smoke and
-               serve_cluster --smoke (2 layers: its 12 engines' expert
-               pools) on Mixtral-8x7B, train_moe (3 steps) and
+               serve_cluster --smoke on Mixtral-8x7B, train_moe (3 steps) and
                preprocess_pipeline on Qwen2-MoE-A2.7B; each holds its
                own assertions, and prints a line of its wall, launches and
                readings. The serving and training kernels' counts are reset
@@ -188,8 +187,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                within 5e-2, greedy tokens equal.
  12. paper   — the paper's Table I models at their published widths, random
                weights from ``--seed``, one after another, each released
-               before the next: DeepSeekMoE-16B at 14 of 28 layers,
-               Qwen3-30B-A3B at 12 of 48, Mixtral-8x22B at 4 of 56 (host
+               before the next: DeepSeekMoE-16B at 8 of 28 layers,
+               Qwen3-30B-A3B at 6 of 48, Mixtral-8x22B at 4 of 56 (host
                RAM). Per model: its kernel shapes held against their plain
                versions and timed (uncounted), ODF traces over 3 squad-like
                prompts and the ExpertMLP trained on the card, then
@@ -397,33 +396,42 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                tree's) and ``mesh_kernel`` lines of ``flash_decode`` with
                ``lse`` at both rank shapes, an empty row among them, and
                without it as Qwen2-MoE's heads-sharded path calls it.
-               Then, in the same 4 processes, the ssm and hybrid families
+               Then, in the same 4 processes, every other family
                (``MESH_FAMILY_RUNS``: Mamba2-2.7B at 2 of 64 layers, global
-               batch 4 x 4096, and Zamba2-7B at 7 of 81, 4 x 5120 past its
-               4096 window), each head-sharded (``models/ssm.py``:
-               ``ssd_scan`` on a rank's 40 / 56 heads, the gated norm's
-               statistic all-reduced, B / C replicated and their gradients
-               summed, the decode conv stepped on the rank's block of B / C
-               channels and gathered), against the unsharded run on the
-               card: the forward's logits, two AdamW steps (loss, gradient
-               norm, every gradient leaf of step 1, the params after step
-               2, as for Qwen2-MoE), and the decode of B=4 prompts of 2044
-               / 5116 tokens (Zamba2's ring wraps), prefill,
+               batch 4 x 4096; Zamba2-7B at 7 of 81, 4 x 5120 past its 4096
+               window; Llama-3.2-Vision-90B at 5 of 100, one block of 4
+               self and 1 cross layer over 1601 patches, no train step;
+               SeamlessM4T-medium at 1 + 1, 4 x 2048; gemma3-1b at 7
+               through ``build_dense_pattern``, 4 x 2048), each rank's
+               blocks drawn leaf by leaf, against the unsharded run on the
+               card: the forward's logits, two AdamW steps where the
+               family takes them (loss, gradient norm, every gradient leaf
+               of step 1, the params after step 2, as for Qwen2-MoE), and
+               the decode of B=4 prompts (2044 / 5116 / 2048 / 2044 / 2560
+               tokens: Zamba2's ring wraps, gemma3's local windows lie in
+               model rank 1's block of its 4096 slots), prefill,
                ``decode_cache`` and 8 steps fed the unsharded tokens
-               (``BUNDLE_TOL``, tokens apart only at a ``TIE``; Zamba2,
-               past two layers, by the f32 witness past the limits, as
+               (``BUNDLE_TOL``, tokens apart only at a ``TIE``; a stack
+               past two layers by the f32 witness past the limits, as
                ``decode_vs_cpu`` holds the matrix's deep stacks); beside
-               three planted faults that must fail: the gated norm over a
-               rank's own channels (logits), B / C without ``copy_to``
-               (their weights' gradient leaves), the conv state stepped
-               without the gather (decode logits). Per rank and family:
-               peak memory, step ms, collectives, and the launches of
-               ``ssd_scan`` (and Zamba2's ``flash_attention`` /
-               ``flash_decode``), each of which must be > 0; ``mesh_kernel``
-               lines of ``ssd_scan`` at the ranks' 40 / 56 heads and the
-               16-rank 5 / 7, ``flash_attention`` at Zamba2's 16 / 16
-               heads, D=112, window 4096 over 5120, and ``flash_decode``
-               at 16 / 16 over its 4096-slot ring.
+               the planted faults (``family_faults``) that must fail: the
+               gated norm over a rank's own channels (logits), B / C
+               without ``copy_to`` (their weights' gradient leaves), the
+               conv state stepped without the gather (decode logits),
+               Seamless's ``proj`` gather summing its gradient over the
+               model axis (the ``proj`` leaf), gemma3's local windows left
+               out on the slot-sharded decode (decode logits). Per rank and
+               family: peak memory, step ms, collectives, and the launches
+               of the family's kernels (``family_kernels``), each of which
+               must be > 0; ``mesh_kernel`` lines of ``ssd_scan`` at the
+               ranks' 40 / 56 heads and the 16-rank 5 / 7,
+               ``flash_attention`` at Zamba2's 16 / 16 heads, D=112, window
+               4096 over 5120 and at Seamless's non-causal encoder's 8 / 8,
+               ``flash_attention_cross`` at Llama-Vision's 32 / 4 and
+               Seamless's 8 / 8 heads, and ``flash_decode`` at Zamba2's 16
+               / 16 over its 4096-slot ring, at Llama-Vision's cross 32 / 4
+               over the patches and at gemma3's windowed 2048-slot block
+               with ``lse`` (the other block none of the window).
                ``--mesh`` runs only this phase.
 
 Every phase line carries ``t_s``, the seconds since the script started.
@@ -1377,9 +1385,10 @@ def analyse(mixtral, seed: int):
 # holds 2.6 GiB of pinned host expert weights), Qwen2-MoE-A2.7B as train;
 # serve_cluster keeps 12 engines alive, each with its own expert pool (duo+
 # holds 20 slabs of 336 MiB at 4 layers: 79 GB in all, past the card), so
-# it runs at 2 layers (14 slabs an engine)
-EXAMPLE_LAYERS = dict(quickstart=4, serve_e2e=4, serve_concurrent=4, serve_cluster=2,
-                      train_moe=4, preprocess_pipeline=4)
+# it runs at 2 layers (14 slabs an engine), as the others do since the mesh
+# phase took in every family (4 before: the script's limit did not grow)
+EXAMPLE_LAYERS = dict(quickstart=2, serve_e2e=2, serve_concurrent=2, serve_cluster=2,
+                      train_moe=2, preprocess_pipeline=2)
 # the examples' own request and step counts, cut for time (each cut printed)
 EXAMPLE_CUTS = {"serve_e2e": ("--requests", "2"), "train_moe": ("--steps", "3")}
 
@@ -2455,14 +2464,15 @@ def check_paper_small(seed: int):
 
 # -- phase 12: the paper's Table I models at their published widths -------------
 
-# (model, layers, max_seq): DeepSeekMoE-16B at 14 of 28 layers, Qwen3-30B-A3B
-# at 12 of 48, Mixtral-8x22B at 4 of 56 (19.3 GB of pinned host expert
+# (model, layers, max_seq): DeepSeekMoE-16B at 8 of 28 layers, Qwen3-30B-A3B
+# at 6 of 48, Mixtral-8x22B at 4 of 56 (19.3 GB of pinned host expert
 # slabs; host RAM). The first two ran at 28 (31.0 GB) and 24 (29.0 GB) until
 # the shapes phase needed their time: the paper phase was about half of the
-# script's 650 s, and the script's limit did not grow. max_seq: each model's
-# own choice (batch invariance holds at any max_seq: flash_decode's ranges
-# come from Hkv and W)
-PAPER_RUNS = (("deepseekmoe-16b", 14, 2048), ("qwen3-30b-a3b", 12, 4096),
+# script's 650 s, and the script's limit did not grow (28 / 24 layers cut to
+# 14 / 12 then, and to 8 / 6 when the mesh phase took in every family).
+# max_seq: each model's own choice (batch invariance holds at any max_seq:
+# flash_decode's ranges come from Hkv and W)
+PAPER_RUNS = (("deepseekmoe-16b", 8, 2048), ("qwen3-30b-a3b", 6, 4096),
               ("mixtral-8x22b", 4, 2048))
 PAPER_NEW_TOKENS = 16
 # the policy comparison's new tokens: LFP stages every expert of the next
@@ -4584,7 +4594,9 @@ def mesh_kernel_checks(g) -> dict:
         emit(dict(phase="mesh_kernel", kernel="flash_decode", **rec))
         out["flash_decode"].append(rec)
         release()
-    out.update(mesh_family_kernel_checks(g))
+    for part in (mesh_family_kernel_checks(g), mesh_cross_kernel_checks(g)):
+        for kernel, recs in part.items():
+            out.setdefault(kernel, []).extend(recs)
     return out
 
 
@@ -4599,7 +4611,7 @@ def mesh_family_kernel_checks(g) -> dict:
     from repro_torch.configs.base import get_config
     zcfg = get_config("zamba2_7b")
     out = {"ssd_scan": [], "flash_attention": [], "flash_decode": []}
-    (_, _, m_s), (z_arch, _, z_s) = MESH_FAMILY_RUNS
+    m_s, z_s = MESH_FAMILY_RUNS["mamba2_2_7b"][1], MESH_FAMILY_RUNS["zamba2_7b"][1]
     rows = MESH_B // MESH_GRID[0]
     for variant, (S, H, P, N) in (("mamba2_rank_40", (m_s, 80 // MESH_GRID[1], 64, 128)),
                                   ("zamba2_rank_56", (z_s, 112 // MESH_GRID[1], 64, 64)),
@@ -4618,7 +4630,7 @@ def mesh_family_kernel_checks(g) -> dict:
     release()
     rank = dataclasses.replace(zcfg, n_heads=H, n_kv_heads=H)
     rec = dict(variant="zamba2_16_16_ring_4096",
-               **ring_decode(rank, zcfg.sliding_window, MESH_FAMILY_DECODE[z_arch] + 7,
+               **ring_decode(rank, zcfg.sliding_window, MESH_FAMILY_RUNS["zamba2_7b"][2] + 7,
                              zcfg.sliding_window, g, B=rows))
     emit(dict(phase="mesh_kernel", kernel="flash_decode", **rec))
     out["flash_decode"].append(rec)
@@ -5089,16 +5101,26 @@ def mesh_decode_held(arch: str, ref: dict, ranks: list) -> dict:
                 ok=ok, averaged_partials_failed=caught, ranks=per_rank)
 
 
-# -- phase 20, families: the ssm and hybrid families on the mesh ---------------
+# -- phase 20, families: every other family on the mesh -------------------------
 
-# (arch, layers, train sequence): Mamba2-2.7B at 2 of 64 layers; Zamba2-7B
-# at 7 of 81, the least depth with every kind of layer (a block of 6 Mamba
-# layers, the shared block, a Mamba tail layer), its sequence past the
-# 4096-token window
-MESH_FAMILY_RUNS = (("mamba2_2_7b", 2, 4096), ("zamba2_7b", 7, 5120))
-# decode prompt tokens: Mamba2's as the dense decode's; Zamba2's past its
-# window, so prefill's ring is rolled and the steps write around it
-MESH_FAMILY_DECODE = {"mamba2_2_7b": 2044, "zamba2_7b": 5116}
+# phase 20's families, arch -> (config changes, train seq (0: no train step),
+# decode prompt tokens, decode slots). Mamba2-2.7B at 2 of 64 layers;
+# Zamba2-7B at 7 of 81, the least depth with every kind of layer (a block of
+# 6 Mamba layers, the shared block, a Mamba tail layer), its sequence and
+# prompt past its 4096-token window, so prefill's ring is rolled and the
+# steps write around it;
+# Llama-3.2-Vision-90B at one block of 4 self and 1 cross layer (its train
+# step does not fit four ranks on one card); SeamlessM4T-medium at 1 + 1;
+# gemma3-1b at 7 (one pattern block of 6 and a tail layer) through
+# build_dense_pattern, its 2560-token prompt into a 4096-slot ring, so every
+# local layer's 512-token window lies in model rank 1's block
+MESH_FAMILY_RUNS = {"mamba2_2_7b": ({"n_layers": 2}, 4096, 2044, 2044 + MESH_DECODE_STEPS),
+                    "zamba2_7b": ({"n_layers": 7}, 5120, 5116, 4096),
+                    "llama_3_2_vision_90b": ({"n_layers": 5}, 0, 2048, 2048 + MESH_DECODE_STEPS),
+                    "seamless_m4t_medium": ({"n_layers": 1, "enc_layers": 1}, 2048, 2044,
+                                            2044 + MESH_DECODE_STEPS),
+                    "gemma3_1b": ({"n_layers": 7}, 2048, 2560, 4096)}
+MESH_FORWARD_SEQ = 2048    # the forward's tokens of a family that takes no train step
 BC_LEAVES = ("wB", "wC", "conv_B", "conv_C")
 MESH_FAMILY_LIMITS = dict(loss_rel_err=MESH_LOSS_TOL, grad_norm_rel_err=MESH_GN_TOL,
                           grad_leaf_rel_err=MESH_GRAD_TOL, param_update_rel_err=MESH_PARAM_TOL)
@@ -5106,19 +5128,65 @@ MESH_FAMILY_LIMITS = dict(loss_rel_err=MESH_LOSS_TOL, grad_norm_rel_err=MESH_GN_
 
 def mesh_family_cfg(arch: str):
     from repro_torch.configs.base import get_config
-    layers = next(n for a, n, _ in MESH_FAMILY_RUNS if a == arch)
-    return dataclasses.replace(get_config(arch), n_layers=layers)
+    return dataclasses.replace(get_config(arch), **MESH_FAMILY_RUNS[arch][0])
+
+
+def family_kernels(cfg) -> tuple:
+    """The names of the kernels a family's mesh run must launch."""
+    if cfg.family == "ssm":
+        return ("ssd_scan",)
+    if cfg.family == "hybrid":
+        return ("ssd_scan", "flash_attention", "flash_decode")
+    cross = ("flash_attention_cross",) if cfg.family in ("vlm", "encdec") else ()
+    return ("flash_attention", "flash_decode") + cross
+
+
+@contextlib.contextmanager
+def static_window(cfg):
+    """``REPRO_OPT_STATIC_WINDOW`` on for a local:global stack (``build``
+    then takes ``build_dense_pattern``), as it was otherwise."""
+    old = os.environ.get("REPRO_OPT_STATIC_WINDOW")
+    if cfg.local_global_pattern:
+        os.environ["REPRO_OPT_STATIC_WINDOW"] = "1"
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("REPRO_OPT_STATIC_WINDOW", None)
+        else:
+            os.environ["REPRO_OPT_STATIC_WINDOW"] = old
+
+
+@contextlib.contextmanager
+def patched(obj, attr: str, value):
+    """``obj.attr`` set to ``value`` for the block (a planted fault)."""
+    old = getattr(obj, attr)
+    setattr(obj, attr, value)
+    try:
+        yield
+    finally:
+        setattr(obj, attr, old)
 
 
 def mesh_family_inputs(cfg, arch: str, seed: int):
-    """(the global batch of each train step, the decode prompts)."""
+    """(the forward's global batch, each train step's, the decode prompts):
+    ``SyntheticLM`` tokens, the forward's those of step 0, and the
+    frontend's input (``launch/input_specs.py frontend_inputs``, seeded) of
+    the vlm (its 1601 patches) or the enc-dec (as many frames as tokens)."""
     from repro_torch.data.pipeline import SyntheticLM
-    seq = next(S for a, _, S in MESH_FAMILY_RUNS if a == arch)
-    it = SyntheticLM(cfg.vocab, seed=seed).batches(MESH_B, seq)
-    batches = [torch.from_numpy(next(it)) for _ in range(MESH_STEPS)]
-    prompts = next(SyntheticLM(cfg.vocab, seed=seed + 1).batches(MESH_DECODE_B,
-                                                                 MESH_FAMILY_DECODE[arch]))
-    return batches, torch.from_numpy(prompts)
+    from repro_torch.launch.input_specs import frontend_inputs, generator
+    _, seq, prompt, _ = MESH_FAMILY_RUNS[arch]
+    g = generator(seed + 2, "cpu")
+
+    def batch(tokens):
+        return {"tokens": tokens, **frontend_inputs(cfg, tokens.shape[0], tokens.shape[1], g,
+                                                    "cpu")}
+
+    it = SyntheticLM(cfg.vocab, seed=seed).batches(MESH_B, seq or MESH_FORWARD_SEQ)
+    steps = [batch(torch.from_numpy(next(it))) for _ in range(MESH_STEPS if seq else 1)]
+    prompts = batch(torch.from_numpy(next(SyntheticLM(cfg.vocab, seed=seed + 1).batches(
+        MESH_DECODE_B, prompt))))
+    return steps[0], steps if seq else [], prompts
 
 
 @contextlib.contextmanager
@@ -5127,44 +5195,61 @@ def plain_attention_f32():
     (``activations_f32``) and the attention through its plain versions,
     which take f32 where the kernels take bf16 (``flash_attention_xla``,
     with its flash backward, for ``flash_attention`` and
-    ``FlashAttentionFn``; ``flash_decode_plain`` for ``flash_decode``)."""
+    ``FlashAttentionFn``; ``flash_decode_plain`` for ``flash_decode``; the
+    reference's ``attention(causal=False)`` for ``flash_attention_cross``
+    and ``FlashAttentionCrossFn``)."""
     from repro_torch.kernels.flash_decode import flash_decode_plain
     from repro_torch.models import layers as L
     plain = lambda q, k, v, causal=True, window=-1: L.flash_attention_xla(q, k, v, window, causal)
-    saved = (L.FlashAttentionFn, L.flash_attention, L.flash_decode)
+    cross = lambda q, k, v: L.attention(
+        q, k, v, q_pos=torch.arange(q.shape[1], device=q.device)[None],
+        k_pos=torch.arange(k.shape[1], device=q.device)[None], causal=False)
+    saved = (L.FlashAttentionFn, L.flash_attention, L.flash_decode, L.FlashAttentionCrossFn,
+             L.flash_attention_cross)
     L.FlashAttentionFn = types.SimpleNamespace(apply=plain)
-    L.flash_attention, L.flash_decode = plain, flash_decode_plain
+    L.FlashAttentionCrossFn = types.SimpleNamespace(apply=cross)
+    L.flash_attention, L.flash_decode, L.flash_attention_cross = plain, flash_decode_plain, cross
     try:
         with activations_f32():
             yield
     finally:
-        L.FlashAttentionFn, L.flash_attention, L.flash_decode = saved
+        (L.FlashAttentionFn, L.flash_attention, L.flash_decode, L.FlashAttentionCrossFn,
+         L.flash_attention_cross) = saved
 
 
-def mesh_family_run(bundle, params, batches, prompts, fed=None) -> dict:
+def shard_rows(batch: dict, d: int, n: int) -> dict:
+    """Data shard d's n rows of every leaf of a batch, on the card."""
+    return {k: v[d * n:(d + 1) * n].cuda() for k, v in batch.items()}
+
+
+def mesh_family_run(bundle, params, batches, prompts, fed=None, forward=None,
+                    capacity=None) -> dict:
     """A family's unsharded run on the card: the forward's logits of each
-    data shard's rows of step 0's batch (last ``MESH_TAIL`` positions, f32
-    on the host); each data shard's decode (prefill, ``decode_cache`` at
-    its ring's slots, ``MESH_DECODE_STEPS`` steps, greedy or fed ``fed``'s
-    tokens [rows, 1 + steps] a shard); then ``MESH_STEPS`` AdamW steps,
-    one microbatch a data shard, updating ``params`` in place: each step's
-    loss, gradient norm and wall, the first moments after step 1."""
+    data shard's rows of ``forward`` (step 0's batch by default; last
+    ``MESH_TAIL`` positions, f32 on the host); each data shard's decode
+    (prefill of ``prompts``, ``decode_cache`` at ``capacity`` slots, by
+    default its ring's, ``MESH_DECODE_STEPS`` steps, greedy or fed
+    ``fed``'s tokens [rows, 1 + steps] a shard); then an AdamW step a batch
+    of ``batches``, one microbatch a data shard, updating ``params`` in
+    place: each step's loss, gradient norm and wall, the first moments
+    after step 1. Batches are dicts (``tokens`` and a frontend's input)."""
     from repro_torch.models.model import decode_cache, greedy_token
     from repro_torch.training.optimizer import AdamW, tree_leaves
     from repro_torch.training.train_loop import make_train_step
     cfg = bundle.cfg
     n_dp = MESH_GRID[0]
     rows, drows = MESH_B // n_dp, MESH_DECODE_B // n_dp
-    out = dict(logits=[], decode_logits=[], tokens=[], decode_step_ms=[])
+    forward = batches[0] if forward is None else forward
+    capacity = capacity or ring(cfg, prompts["tokens"].shape[1] + MESH_DECODE_STEPS)
+    out = dict(logits=[], decode_logits=[], tokens=[], decode_step_ms=[], steps=[])
     with torch.no_grad():
         for d in range(n_dp):
-            lg = bundle.forward(params, {"tokens": batches[0][d * rows:(d + 1) * rows].cuda()})[0]
+            lg = bundle.forward(params, shard_rows(forward, d, rows))[0]
             out["logits"].append(lg[:, -MESH_TAIL:].float().cpu())
             del lg
         for d in range(n_dp):
-            logits, cache = bundle.prefill(params, {"tokens": prompts[d * drows:(d + 1) * drows]
-                                                    .cuda()})
-            cache = decode_cache(bundle, cache, ring(cfg, prompts.shape[1] + MESH_DECODE_STEPS))
+            logits, cache = bundle.prefill(params, shard_rows(prompts, d, drows))
+            cache = decode_cache(bundle, cache, capacity)
             lg, toks = [logits.float().cpu()], [greedy_token(logits, cfg.vocab)]
             for t in range(MESH_DECODE_STEPS):
                 tok = toks[-1] if fed is None else fed[d][:, t:t + 1].cuda()
@@ -5178,14 +5263,15 @@ def mesh_family_run(bundle, params, batches, prompts, fed=None) -> dict:
             out["decode_logits"].append(torch.stack(lg, 1))
             out["tokens"].append(torch.cat([t.cpu() for t in toks], 1))
             del cache
+    if not batches:
+        return out
     opt = AdamW(lr=MESH_LR)
     state = opt.init(params)
     step = make_train_step(bundle, opt, microbatches=n_dp)
-    out["steps"] = []
     for i, b in enumerate(batches):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        params, state, m = step(params, state, {"tokens": b.cuda()})
+        params, state, m = step(params, state, {k: v.cuda() for k, v in b.items()})
         out["steps"].append(dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
                                  ms=(time.perf_counter() - t0) * 1e3))
         if i == 0:
@@ -5194,95 +5280,139 @@ def mesh_family_run(bundle, params, batches, prompts, fed=None) -> dict:
     return out
 
 
+
+
 def mesh_family_unsharded(arch: str, seed: int, tmp: Path) -> dict:
     """The function a family's mesh run computes, on one card
-    (``mesh_family_run`` on params from ``seed``), each data shard's decode
-    tokens to ``tmp/family_<arch>_<d>.pt``, the params before and after on
+    (``mesh_family_run`` on params from ``seed``, the vlm's gates at
+    ``FAMILY_GATES``), each data shard's decode tokens to
+    ``tmp/family_<arch>_<d>.pt``, the params before and after the steps on
     the host. For a stack of ``SHAPES_WITNESS_LAYERS`` or more, the f32
     witness too: the same run with the params cast to f32 under
     ``plain_attention_f32``, its decode fed the bf16 run's tokens
     (``f32``)."""
     from repro_torch.models.model import build
-    from repro_torch.models.params import init_params
     from repro_torch.training.optimizer import tree_map
     cfg = mesh_family_cfg(arch)
-    bundle = build(cfg)
-    params = init_params(cfg, seed, "cuda")
-    p0 = to_cpu(params)
-    batches, prompts = mesh_family_inputs(cfg, arch, seed)
+    with static_window(cfg):
+        bundle = build(cfg)
+    params = bundle.init(seed, "cuda")
+    if cfg.family == "vlm":
+        set_gates(params)
+    forward, batches, prompts = mesh_family_inputs(cfg, arch, seed)
+    capacity = MESH_FAMILY_RUNS[arch][3]
+    # the params drawn: on the host where the steps update them in place,
+    # else the tree itself (Llama-Vision's 10.8 GB stay on the card)
+    p0 = to_cpu(params) if batches else params
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    out = mesh_family_run(bundle, params, batches, prompts)
+    out = mesh_family_run(bundle, params, batches, prompts, forward=forward, capacity=capacity)
     for d, toks in enumerate(out["tokens"]):
         torch.save(dict(tokens=toks), tmp / f"family_{arch}_{d}.pt")
-    out.update(p0=p0, p2=to_cpu(params), max_memory_allocated=torch.cuda.max_memory_allocated())
+    out.update(max_memory_allocated=torch.cuda.max_memory_allocated())
+    if batches:
+        out.update(p0=p0, p2=to_cpu(params))
     del params
     release()
-    if cfg.n_layers >= SHAPES_WITNESS_LAYERS:
+    if cfg.n_layers + cfg.enc_layers >= SHAPES_WITNESS_LAYERS:
         exact = tree_map(lambda t: t.float().cuda(), p0)
+        del p0
+        release()
         with plain_attention_f32():
-            out["f32"] = mesh_family_run(bundle, exact, batches, prompts, fed=out["tokens"])
+            out["f32"] = mesh_family_run(bundle, exact, batches, prompts, fed=out["tokens"],
+                                         forward=forward, capacity=capacity)
         del exact
         release()
     return out
 
 
+def family_faults(cfg) -> list:
+    """A family's planted faults: (name, what it breaks, the attribute
+    replaced, the gradient leaves a ``steps`` fault is read from). The ssm
+    and hybrid families (``models/ssm.py``): the gated norm over a rank's
+    own channels (the forward's logits), the decode's conv state stepped
+    without the gather (the decode's logits), B / C entering the heads'
+    region without ``copy_to`` (the first moments of ``BC_LEAVES``). The
+    enc-dec: its ``proj`` gather with a backward that sums the gradient
+    over the model axis (the first moment of ``proj``). The pattern stack:
+    the local layers' window left out on its slot-sharded decode (the
+    decode's logits)."""
+    from repro_torch import collectives
+    from repro_torch.models import layers as L
+    from repro_torch.models import ssm as S
+    if cfg.family in ("ssm", "hybrid"):
+        return [("norm_local", "forward",
+                 (S, "_norm", lambda y, w, eps, tp, width: L.rms_norm(y, w, eps)), ()),
+                ("no_gather", "decode", (S, "_gather_bc", lambda b, c, tp: (
+                    b.repeat(1, tp.size), c.repeat(1, tp.size))), ()),
+                ("bc_partial", "steps", (S, "_enter_bc", lambda t, tp: t), BC_LEAVES)]
+    if cfg.family == "encdec":
+        class GatherSum(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, x, ax, dim):
+                ctx.ax, ctx.dim, ctx.size = ax, dim, x.shape[dim]
+                return collectives.all_gather(x, ax, dim)
+
+            @staticmethod
+            def backward(ctx, grad):
+                whole = collectives.psum(grad, ctx.ax)
+                return whole.narrow(ctx.dim, ctx.ax.index * ctx.size, ctx.size), None, None
+
+        return [("gather_sum", "steps", (collectives, "gather_from", lambda x, ax, dim:
+                                         GatherSum.apply(x, ax, dim % x.ndim)), ("proj",))]
+    if cfg.local_global_pattern:
+        decode = L.flash_decode
+        return [("no_window", "decode", (L, "flash_decode", lambda *a, window=-1, return_lse=False:
+                                         decode(*a, return_lse=True) if return_lse
+                                         else decode(*a, window=window)), ())]
+    return []
+
+
 def mesh_family_rank(run, tmp: Path, seed: int) -> dict:
     """A rank's families part, after its decode part: each of
-    ``MESH_FAMILY_RUNS`` built on the rank's mesh, its whole tree drawn from
-    ``seed`` and cut to the rank's blocks; the forward's logits of its
-    shard of step 0's batch, the decode of its shard of the prompts fed the
-    unsharded run's tokens, and ``MESH_STEPS`` ZeRO-1 AdamW steps, the
+    ``MESH_FAMILY_RUNS`` built on the rank's mesh, its blocks of the tree
+    drawn from ``seed`` leaf by leaf (``init(blocks=True)``: the ranks
+    sharing the card never hold a whole tree; the vlm's gates at
+    ``FAMILY_GATES``); the forward's logits of its shard of the forward batch, the
+    decode of its shard of the prompts fed the unsharded run's tokens, and
+    ``MESH_STEPS`` ZeRO-1 AdamW steps where the family takes them, the
     kernels' counts and the collectives reset just before and read just
-    after those. Then the planted faults (``models/ssm.py``'s functions
-    replaced): the gated norm over the rank's own channels (the forward's
-    logits), B / C entering the heads' region without ``copy_to`` (one
-    step's first moments of ``BC_LEAVES``), the conv state stepped without
-    the gather (the decode's logits)."""
+    after those. Then, on the params drawn, ``family_faults``: a
+    ``forward`` fault's logits, a ``decode`` fault's decode logits, a
+    ``steps`` fault's first moments of its leaves after one step."""
     from repro_torch import collectives
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_cross
     from repro_torch.kernels.flash_decode import flash_decode
     from repro_torch.kernels.ssd_scan import ssd_scan
     from repro_torch.launch.partition import param_specs, zero_specs
-    from repro_torch.models import layers as L
-    from repro_torch.models import ssm as S
     from repro_torch.models.model import build, decode_cache, greedy_token
-    from repro_torch.models.params import shard_params
     from repro_torch.training.optimizer import AdamW, ZeRO1, tree_leaves
     from repro_torch.training.train_loop import make_train_step
     d = run.mesh.coords["data"]
-    kernels = (ssd_scan, flash_attention, flash_decode)
-    faults = {"norm_local": (S, "_norm", lambda y, w, eps, tp, width: L.rms_norm(y, w, eps)),
-              "bc_partial": (S, "_enter_bc", lambda t, tp: t),
-              "no_gather": (S, "_gather_bc",
-                            lambda b, c, tp: (b.repeat(1, tp.size), c.repeat(1, tp.size)))}
-
-    @contextlib.contextmanager
-    def planted_fault(name):
-        obj, attr, value = faults[name]
-        old = getattr(obj, attr)
-        setattr(obj, attr, value)
-        try:
-            yield
-        finally:
-            setattr(obj, attr, old)
-
+    kernels = (ssd_scan, flash_attention, flash_attention_cross, flash_decode)
     out = {}
-    for arch, *_ in MESH_FAMILY_RUNS:
+    for arch, (_, seq, _, capacity) in MESH_FAMILY_RUNS.items():
         cfg = mesh_family_cfg(arch)
-        bundle = build(cfg, mesh_info=run.mesh_info)
-        whole = bundle.init(seed, device=run.device)
+        with static_window(cfg):
+            bundle = build(cfg, mesh_info=run.mesh_info)
+        whole = bundle.init(seed, device="meta")
         pspecs = param_specs(cfg, whole, n_model=MESH_GRID[1])
         zspecs = zero_specs(whole, pspecs, dp="data", n_dp=MESH_GRID[0])
-        params = shard_params(whole, pspecs, run.mesh)
         names = leaf_names(whole)
-        del whole
-        release()
-        batches, prompts = mesh_family_inputs(cfg, arch, seed)
-        batches = [run.shard_batch({"tokens": t}) for t in batches]
-        prompt = run.shard_batch({"tokens": prompts})
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = bundle.init(seed, run.device, blocks=True)
+        if cfg.family == "vlm":
+            set_gates(params)
+        torch.cuda.synchronize()
+        rec = dict(draw_s=time.perf_counter() - t0,
+                   draw_max_memory_allocated=torch.cuda.max_memory_allocated())
+        forward, batches, prompts = mesh_family_inputs(cfg, arch, seed)
+        forward = run.shard_batch(forward)
+        batches = [run.shard_batch(b) for b in batches]
+        prompt = run.shard_batch(prompts)
         ref_toks = torch.load(tmp / f"family_{arch}_{d}.pt")["tokens"]     # [rows, 1 + steps]
-        capacity = ring(cfg, prompts.shape[1] + MESH_DECODE_STEPS)
 
         def decode(start):
             lg, mine, ms = [], [], []
@@ -5312,16 +5442,13 @@ def mesh_family_rank(run, tmp: Path, seed: int) -> dict:
                     m0 = [t.cpu() for t in tree_leaves(state.m)]
             return p, rows, m0
 
-        fresh = [t.clone() for t in tree_leaves(params)]
+        fresh = [t.clone() for t in tree_leaves(params)] if seq else None
         for fn in kernels:
             fn.launches = 0
         collectives.reset()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        rec = {}
         t0 = time.perf_counter()
         with torch.no_grad():
-            rec["logits"] = bundle.forward(params, batches[0])[0][:, -MESH_TAIL:].float().cpu()
+            rec["logits"] = bundle.forward(params, forward)[0][:, -MESH_TAIL:].float().cpu()
             logits, cache = bundle.prefill(params, prompt)
             cache = decode_cache(bundle, cache, capacity)
             torch.cuda.synchronize()
@@ -5329,23 +5456,28 @@ def mesh_family_rank(run, tmp: Path, seed: int) -> dict:
             lg, mine, ms = decode(cache)
         rec.update(decode_logits=torch.stack([logits.float().cpu()] + lg, 1),
                    tokens=torch.cat([greedy_token(logits, cfg.vocab).cpu()] + mine, 1),
-                   decode_step_ms=ms, cache={k: list(v.shape) for k, v in cache.items()})
-        params, rows, m0 = steps(params, MESH_STEPS)
-        rec.update(steps=rows, m0=m0, params=[t.cpu() for t in tree_leaves(params)],
-                   launches={fn.__name__: fn.launches for fn in kernels},
+                   decode_step_ms=ms, cache={k: list(v.shape) for k, v in cache.items()},
+                   steps=[])
+        if seq:
+            params, rec["steps"], rec["m0"] = steps(params, MESH_STEPS)
+            rec["params"] = [t.cpu() for t in tree_leaves(params)]
+        rec.update(launches={fn.__name__: fn.launches for fn in kernels},
                    collectives=collectives.record(),
                    max_memory_allocated=torch.cuda.max_memory_allocated())
-        # the planted faults, on the params drawn
-        for leaf, t in zip(tree_leaves(params), fresh):
-            leaf.copy_(t)
-        with planted_fault("norm_local"), torch.no_grad():
-            rec["norm_local_logits"] = (bundle.forward(params, batches[0])[0][:, -MESH_TAIL:]
-                                        .float().cpu())
-        with planted_fault("no_gather"), torch.no_grad():
-            rec["no_gather_logits"] = torch.stack(decode(cache)[0], 1)
-        with planted_fault("bc_partial"):
-            _, rec["bc_partial_steps"], m0 = steps(params, 1)
-        rec["bc_partial_m0"] = {n: t for n, t in zip(names, m0) if n.split("/")[-1] in BC_LEAVES}
+        if seq:       # the faults run on the params drawn
+            for leaf, t in zip(tree_leaves(params), fresh):
+                leaf.copy_(t)
+        faults = rec["faults"] = {}
+        for name, kind, target, leaves in family_faults(cfg):
+            with patched(*target), torch.set_grad_enabled(kind == "steps"):
+                if kind == "forward":
+                    faults[name] = bundle.forward(params, forward)[0][:, -MESH_TAIL:].float().cpu()
+                elif kind == "decode":
+                    faults[name] = torch.stack(decode(cache)[0], 1)
+                else:
+                    _, (row,), m0 = steps(params, 1)
+                    faults[name] = dict(grad_norm=row["grad_norm"], m0={
+                        n: t for n, t in zip(names, m0) if n.split("/")[-1] in leaves})
         out[arch] = rec
         del params, cache, fresh, logits
         release()
@@ -5369,14 +5501,16 @@ def mesh_family_held(arch: str, ref: dict, ranks: list) -> dict:
     from repro_torch.launch.partition import param_specs, shard_leaf, zero_specs
     from repro_torch.training.optimizer import tree_leaves
     cfg = mesh_family_cfg(arch)
+    _, seq, prompt, capacity = MESH_FAMILY_RUNS[arch]
     wit = ref.get("f32")
     views = [dict(coords=r["coords"], **r["families"][arch]) for r in ranks]
     V = views[0]["logits"].shape[-1]
-    zspecs = zero_specs(ref["p0"], param_specs(cfg, ref["p0"], n_model=MESH_GRID[1]),
-                        dp="data", n_dp=MESH_GRID[0])
-    names = leaf_names(ref["p0"])
-    zs = dict(zip(names, tree_leaves(zspecs)))
-    index = {n: j for j, n in enumerate(names)}
+    if seq:
+        zspecs = zero_specs(ref["p0"], param_specs(cfg, ref["p0"], n_model=MESH_GRID[1]),
+                            dp="data", n_dp=MESH_GRID[0])
+        names = leaf_names(ref["p0"])
+        zs = dict(zip(names, tree_leaves(zspecs)))
+        index = {n: j for j, n in enumerate(names)}
     scale = lambda gn: (1 - ref["b1"]) * min(1.0, ref["grad_clip"] / gn)
 
     def gate(within: bool, got, want, exact) -> tuple:
@@ -5388,7 +5522,7 @@ def mesh_family_held(arch: str, ref: dict, ranks: list) -> dict:
         return within or ratio <= F32_RATIO, ratio
 
     per_rank, sound = [], True
-    caught = {"norm_local": True, "bc_partial": True, "no_gather": True}
+    caught = {name: True for name, *_ in family_faults(cfg)}
     for x in views:
         d, m = x["coords"]["data"], x["coords"]["model"]
         cols = slice(m * V, (m + 1) * V)
@@ -5405,36 +5539,36 @@ def mesh_family_held(arch: str, ref: dict, ranks: list) -> dict:
             ties.append(dict(row=int(b), step=int(t), logit_gap=gap))
             dec_ok &= gap <= TIE
         sound &= ok and dec_ok
-        norm_ok, norm_ratio = gate(logit_err(x["norm_local_logits"], want)[1],
-                                   x["norm_local_logits"], want, exact)
-        gather_ok, gather_ratio = gate(logit_err(x["no_gather_logits"], want_dec[:, 1:])[1],
-                                       x["no_gather_logits"], want_dec[:, 1:],
-                                       None if exact_dec is None else exact_dec[:, 1:])
         mesh = dataclasses.replace(logical_mesh(MESH_GRID, ("data", "model")),
                                    coords=dict(x["coords"]))
-        js, rs = scale(ref["steps"][0]["grad_norm"]), scale(x["bc_partial_steps"][0]["grad_norm"])
-        bc_err, bc_ok = 0.0, True
-        for n, t in x["bc_partial_m0"].items():
-            w = shard_leaf(ref["m0"][index[n]].cuda(), zs[n], mesh) / js
-            g = t.cuda() / rs
-            e = float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
-            ex = None if wit is None else shard_leaf(wit["m0"][index[n]].cuda(), zs[n], mesh) \
-                / scale(wit["steps"][0]["grad_norm"])
-            bc_ok &= gate(e <= MESH_GRAD_TOL, g, w, ex)[0]
-            bc_err = max(bc_err, e)
-        caught["norm_local"] &= not norm_ok
-        caught["no_gather"] &= not gather_ok
-        caught["bc_partial"] &= not bc_ok
+        faults = {}
+        for name, kind, _, _ in family_faults(cfg):
+            got = x["faults"][name]
+            if kind == "steps":     # the worst of its leaves, relative to the leaf's largest entry
+                js, rs = scale(ref["steps"][0]["grad_norm"]), scale(got["grad_norm"])
+                err_, fault_ok = 0.0, True
+                for n, t in got["m0"].items():
+                    w = shard_leaf(ref["m0"][index[n]].cuda(), zs[n], mesh) / js
+                    g = t.cuda() / rs
+                    e = float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+                    ex = None if wit is None else shard_leaf(
+                        wit["m0"][index[n]].cuda(), zs[n], mesh) / scale(
+                        wit["steps"][0]["grad_norm"])
+                    fault_ok &= gate(e <= MESH_GRAD_TOL, g, w, ex)[0]
+                    err_ = max(err_, e)
+                faults[f"{name}_grad_leaf_rel_err"] = err_
+            else:
+                w, ex = (want, exact) if kind == "forward" else (
+                    want_dec[:, 1:], None if exact_dec is None else exact_dec[:, 1:])
+                err_, within = logit_err(got, w)
+                fault_ok, r_ = gate(within, got, w, ex)
+                faults.update({f"{name}_{kind}_logits_max_abs_err": err_, f"{name}_f32_ratio": r_})
+            caught[name] &= not fault_ok
         per_rank.append(dict(rank=x["coords"], logits_max_abs_err=err, logits_f32_ratio=ratio,
                              logits_ok=ok, decode_logits_max_abs_err=dec_err,
                              decode_f32_ratio=dec_ratio, decode_ok=dec_ok, token_ties=ties,
-                             faults=dict(norm_local_logits_max_abs_err=logit_err(
-                                             x["norm_local_logits"], want)[0],
-                                         norm_local_f32_ratio=norm_ratio,
-                                         no_gather_decode_logits_max_abs_err=logit_err(
-                                             x["no_gather_logits"], want_dec[:, 1:])[0],
-                                         no_gather_f32_ratio=gather_ratio,
-                                         bc_partial_grad_leaf_rel_err=bc_err),
+                             faults=faults, draw_s=x["draw_s"],
+                             draw_max_memory_allocated=x["draw_max_memory_allocated"],
                              max_memory_allocated=x["max_memory_allocated"],
                              step_ms=[s_["ms"] for s_ in x["steps"]],
                              loss=[s_["loss"] for s_ in x["steps"]],
@@ -5443,21 +5577,148 @@ def mesh_family_held(arch: str, ref: dict, ranks: list) -> dict:
                              cache=x["cache"], collectives=x["collectives"],
                              launches=x["launches"]))
         release()
-    held = mesh_held(views, ref, cfg, witness=wit)
-    witnessed = ("loss_rel_err", "grad_norm_rel_err", "grad_leaf_rel_err")
-    train_ok = all(held[k] <= v or (k in witnessed and wit is not None)
-                   for k, v in MESH_FAMILY_LIMITS.items()) and all(
-        o["f32_ratio"] <= F32_RATIO for o in held["over_limit"])
-    return dict(model=cfg.name, layers=cfg.n_layers, batch=MESH_B,
-                seq=next(S for a, _, S in MESH_FAMILY_RUNS if a == arch),
-                gate="f32 witness past the limits" if wit is not None else "limits",
-                f32_ratio=F32_RATIO,
-                decode=dict(batch=MESH_DECODE_B, prompt=MESH_FAMILY_DECODE[arch],
-                            steps=MESH_DECODE_STEPS),
-                unsharded=dict(steps=ref["steps"], decode_step_ms=ref["decode_step_ms"],
-                               max_memory_allocated=ref["max_memory_allocated"],
-                               f32_steps=None if wit is None else wit["steps"]),
-                sound=sound and train_ok, faults_failed=caught, ranks=per_rank, **held)
+    res = dict(model=cfg.name, layers=cfg.n_layers, enc_layers=cfg.enc_layers, batch=MESH_B,
+               seq=seq or MESH_FORWARD_SEQ, train_steps=MESH_STEPS if seq else 0,
+               gate="f32 witness past the limits" if wit is not None else "limits",
+               f32_ratio=F32_RATIO,
+               decode=dict(batch=MESH_DECODE_B, prompt=prompt, slots=capacity,
+                           steps=MESH_DECODE_STEPS),
+               unsharded=dict(steps=ref["steps"], decode_step_ms=ref["decode_step_ms"],
+                              max_memory_allocated=ref["max_memory_allocated"],
+                              f32_steps=None if wit is None else wit["steps"]),
+               faults_failed=caught, ranks=per_rank)
+    train_ok = True
+    if seq:
+        held = mesh_held(views, ref, cfg, witness=wit)
+        witnessed = ("loss_rel_err", "grad_norm_rel_err", "grad_leaf_rel_err")
+        train_ok = all(held[k] <= v or (k in witnessed and wit is not None)
+                       for k, v in MESH_FAMILY_LIMITS.items()) and all(
+            o["f32_ratio"] <= F32_RATIO for o in held["over_limit"])
+        res.update(held)
+    res["sound"] = sound and train_ok
+    return res
+
+
+def encoder_attention(B, S, H, D, g, reps: int = 20, plain_reps: int = 5):
+    """The enc-dec encoder's non-causal ``flash_attention`` of B S-token
+    sequences: held against the plain version (``rows``), a planted fault
+    (the plain version with the causal mask) failing the same check, timed
+    beside the plain version and beside SDPA held to its fused kernels.
+    Bound: q, k, v read and o written once; 4 D operations per (query,
+    key) pair of each head."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+    r = lambda *s: torch.randn(s, generator=g, device="cuda").to(torch.bfloat16)
+    q, k, v = r(B, S, H, D), r(B, S, H, D), r(B, S, H, D)
+    o = flash_attention(q, k, v, causal=False)
+    err = max_err(o, flash_attention_plain(q, k, v, causal=False), rows=True)
+    faults = planted({"the causal mask": lambda: max_err(
+        o, flash_attention_plain(q, k, v, causal=True), rows=True)})
+    del o
+    library = lambda: F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                                     v.transpose(1, 2))
+    timed = device_vs_library(lambda: flash_attention(q, k, v, causal=False),
+                              fused_sdpa(library), reps)
+    plain_ms = time_ms(lambda: flash_attention_plain(q, k, v, causal=False), reps=plain_reps,
+                       warmup=min(3, plain_reps))
+    bms, by = bound(2 * 4 * B * S * H * D, 4 * B * H * D * S * S)
+    return dict(shape=dict(B=B, S=S, H=H, Hkv=H, D=D, causal=False), max_abs_err=err,
+                planted=faults, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                bound_share=bms / timed["device_ms"], **timed)
+
+
+def window_lse_decode(H, Hkv, D, W, window: int, filled: int, g, reps: int = 20) -> dict:
+    """``flash_decode(return_lse=True)`` under a window over the two blocks
+    of a slot-sharded ring of 2 W slots, as a 2 x 2 mesh's decode gives
+    them (B=2): row 0 model rank 1's block, whose first ``filled`` slots
+    hold positions W .. W + filled - 1, the query at the last of them;
+    row 1 model rank 0's block, its W slots filled with positions 0 .. W -
+    1, none of them inside the window of that query. Held against the
+    plain version: o (``rows``) and the log-sum-exp of row 0
+    (``TOL_F32``), row 1's -inf exactly and its output 0; a planted fault
+    (the plain version without the window) failing the same check. Timed
+    beside SDPA over the same mask (no log-sum-exp output) and the plain
+    version; bound: q, o and lse once, the valid slots' K and V rows
+    once."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_decode import flash_decode, flash_decode_plain, n_splits
+    B = 2
+    r = lambda *s: torch.randn(s, generator=g, device="cuda").to(torch.bfloat16)
+    q, k, v = r(B, H, D), r(B, W, Hkv, D), r(B, W, Hkv, D)
+    slots = torch.arange(W, dtype=torch.int32, device="cuda")
+    sp = torch.stack([torch.where(slots < filled, slots + W, -1), slots])
+    pos = torch.full((B,), W + filled - 1, dtype=torch.int32, device="cuda")
+    args = (q, k, v, pos, sp)
+    o, lse = flash_decode(*args, window=window, return_lse=True)
+    o_p, lse_p = flash_decode_plain(*args, window=window, return_lse=True)
+    err = max_err(o[:1], o_p[:1], rows=True)
+    lse_err = max_err(lse[:1], lse_p[:1], TOL_F32)
+    if not (torch.isneginf(lse[1]).all() and torch.isneginf(lse_p[1]).all()
+            and torch.equal(o[1], torch.zeros_like(o[1]))):
+        raise AssertionError("flash_decode: a block with no slot in the window must give "
+                             "lse -inf and an output of 0")
+    faults = planted({"no window": lambda: max_err(
+        o[:1], flash_decode_plain(*args, return_lse=True)[0][:1], rows=True)})
+    ok = (sp >= 0) & (sp <= pos[:, None]) & (sp > pos[:, None] - window)
+    mask = ok[:, None, None, :]
+    timed = device_vs_library(lambda: flash_decode(*args, window=window, return_lse=True),
+                              lambda: F.scaled_dot_product_attention(
+                                  q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+                                  attn_mask=mask, enable_gqa=True), reps)
+    plain_ms = time_ms(lambda: flash_decode_plain(*args, window=window, return_lse=True), reps=5)
+    n_valid = int(ok.sum())
+    bms, by = bound(2 * (2 * B * H * D + 2 * n_valid * Hkv * D) + 4 * B * (W + 1 + H),
+                    4 * H * D * n_valid)
+    return dict(shape=dict(B=B, H=H, Hkv=Hkv, D=D, W=W, window=window, filled=[filled, W],
+                           valid=[int(ok[0].sum()), int(ok[1].sum())],
+                           n_split=n_splits(Hkv, W)),
+                max_abs_err=err, lse_max_abs_err=lse_err, empty_row_lse="-inf",
+                planted=faults, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                bound_share=bms / timed["device_ms"], **timed)
+
+
+def mesh_cross_kernel_checks(g) -> dict:
+    """``mesh_kernel`` lines of the frontend and pattern families' rank
+    shapes on the 2 x 2 mesh (B = 2 rows a data shard):
+    ``flash_attention_cross`` at 32 / 4 of Llama-3.2-Vision's 64 / 8 heads
+    (2048 queries over its 1601 patches) and at 8 / 8 of SeamlessM4T's 16
+    / 16 (D=64, 2048 over 2048 frames); Seamless's non-causal encoder
+    ``flash_attention`` at 8 / 8 over 2048 frames; the cross ``flash_decode``
+    at Llama-Vision's 32 / 4 over the 1601 patches; gemma3's windowed
+    ``flash_decode`` with its log-sum-exp over a 2048-slot block of its
+    4096-slot ring (window 512, the 2568th position: one block holds the
+    window, the other none of it)."""
+    from repro_torch.configs.base import get_config
+    vision, seamless, gemma = (get_config(a) for a in ("llama_3_2_vision_90b",
+                                                       "seamless_m4t_medium", "gemma3_1b"))
+    n_model = MESH_GRID[1]
+    rows = MESH_B // MESH_GRID[0]
+    out = {"flash_attention_cross": [], "flash_attention": [], "flash_decode": []}
+
+    def add(kernel, variant, rec):
+        rec = dict(variant=variant, **rec)
+        emit(dict(phase="mesh_kernel", kernel=kernel, **rec))
+        out[kernel].append(rec)
+        release()
+
+    Hv, Hkv_v = vision.n_heads // n_model, vision.n_kv_heads // n_model
+    add("flash_attention_cross", f"llama_vision_cross_{Hv}_{Hkv_v}",
+        cross_attention(rows, MESH_FORWARD_SEQ, vision.n_frontend_tokens, Hv, Hkv_v, vision.hd,
+                        g)[1])
+    Hs = seamless.n_heads // n_model
+    seq = MESH_FAMILY_RUNS["seamless_m4t_medium"][1]
+    add("flash_attention_cross", f"seamless_cross_{Hs}_{Hs}",
+        cross_attention(rows, seq, seq, Hs, Hs, seamless.hd, g)[1])
+    add("flash_attention", f"seamless_encoder_{Hs}_{Hs}",
+        encoder_attention(rows, seq, Hs, seamless.hd, g))
+    add("flash_decode", f"llama_vision_cross_decode_{Hv}_{Hkv_v}",
+        cross_decode(rows, vision.n_frontend_tokens, Hv, Hkv_v, vision.hd, g))
+    _, _, prompt, slots = MESH_FAMILY_RUNS["gemma3_1b"]
+    W = slots // n_model
+    add("flash_decode", f"gemma3_window_lse_block_{W}",
+        window_lse_decode(gemma.n_heads, gemma.n_kv_heads, gemma.hd, W, gemma.sliding_window,
+                          prompt + MESH_DECODE_STEPS - W, g))
+    return out
 
 
 def mesh_phase(seed: int) -> dict:
@@ -5469,10 +5730,24 @@ def mesh_phase(seed: int) -> dict:
         tmp = Path(tmp)
         ref = mesh_unsharded(seed, tmp)
         dec_ref = {arch: mesh_decode_unsharded(arch, seed, tmp) for arch, _ in MESH_DECODE_RUNS}
-        fam_ref = {arch: mesh_family_unsharded(arch, seed, tmp) for arch, *_ in MESH_FAMILY_RUNS}
+        fam_ref = {arch: mesh_family_unsharded(arch, seed, tmp) for arch in MESH_FAMILY_RUNS}
         t_ref = time.perf_counter()
         ranks = mesh_ranks(tmp, seed, fault=False)
         t_ranks = time.perf_counter()
+        # held before the fault run, whose ranks need the host memory the
+        # families' gradients and params take here
+        held = mesh_held(ranks, ref, cfg)
+        decode = {arch: mesh_decode_held(arch, dec_ref[arch], ranks)
+                  for arch, _ in MESH_DECODE_RUNS}
+        families = {arch: mesh_family_held(arch, fam_ref[arch], ranks)
+                    for arch in MESH_FAMILY_RUNS}
+        del fam_ref
+        for r in ranks:
+            for part in [r] + list(r["families"].values()):
+                part.pop("m0", None)
+                part.pop("params", None)
+        release()
+        t_held = time.perf_counter()
         faulty = mesh_ranks(tmp, seed, fault=True)
     t_fault = time.perf_counter()
     V = ranks[0]["logits"].shape[-1]
@@ -5492,16 +5767,12 @@ def mesh_phase(seed: int) -> dict:
                              collectives=r["collectives"], launches=r["launches"],
                              logits_max_abs_err=err, logits_ok=ok,
                              route_flips_at_ties=r["route_flips_at_ties"]))
-    held = mesh_held(ranks, ref, cfg)
     control = mesh_held(faulty, ref, cfg)
-    decode = {arch: mesh_decode_held(arch, dec_ref[arch], ranks) for arch, _ in MESH_DECODE_RUNS}
-    families = {arch: mesh_family_held(arch, fam_ref[arch], ranks) for arch, *_ in MESH_FAMILY_RUNS}
-    del fam_ref
     e_start = [logits_of(r) for r in faulty]
     launches = {}
     for r in ranks:
-        for part in [r["launches"]] + [x["launches"] for x in r["decode"].values()] \
-                + [x["launches"] for x in r["families"].values()]:
+        for part in [r["launches"]] + [x["launches"] for key in ("decode", "families")
+                                       for x in r[key].values()]:
             for k, v in part.items():
                 launches[k] = launches.get(k, 0) + v
     # each decode model's kernels, from its run on the ranks
@@ -5510,9 +5781,8 @@ def mesh_phase(seed: int) -> dict:
                   + (("expert_ffn",) if mesh_decode_cfg(arch).is_moe else ())
                   if not sum(r["decode"][arch]["launches"][n] for r in ranks)]
     # each family's kernels, from its run on the ranks
-    family_bad = [(arch, n) for arch, *_ in MESH_FAMILY_RUNS
-                  for n in ("ssd_scan",) + (("flash_attention", "flash_decode")
-                                            if mesh_family_cfg(arch).family == "hybrid" else ())
+    family_bad = [(arch, n) for arch in MESH_FAMILY_RUNS
+                  for n in family_kernels(mesh_family_cfg(arch))
                   if not sum(r["families"][arch]["launches"][n] for r in ranks)]
     limits = dict(loss_rel_err=MESH_LOSS_TOL, grad_norm_rel_err=MESH_GN_TOL,
                   grad_leaf_rel_err=MESH_GRAD_TOL, param_update_rel_err=MESH_PARAM_TOL)
@@ -5539,15 +5809,19 @@ def mesh_phase(seed: int) -> dict:
                                               decode_step_syncs=r["decode_step_syncs"])
                                       for a, r in dec_ref.items()},
                            models=list(decode.values())),
-               families=dict(limits=limits, logits_tol=BUNDLE_TOL, tie=TIE,
+               families=dict(limits=limits, logits_tol=BUNDLE_TOL, tie=TIE, gates=FAMILY_GATES,
                              planted=("norm_local: the gated norm over a rank's own channels "
                                       "(logits); bc_partial: B / C without copy_to (the "
                                       "gradient leaves of " + " / ".join(BC_LEAVES) + "); "
                                       "no_gather: the decode conv state stepped without the "
-                                      "gather (decode logits)"),
+                                      "gather (decode logits); gather_sum: Seamless's proj "
+                                      "gather with a backward that sums the gradient over "
+                                      "the model axis (the proj gradient leaf); no_window: "
+                                      "gemma3's local windows left out on the slot-sharded "
+                                      "decode (decode logits)"),
                              models=list(families.values())),
-               seconds=dict(unsharded=t_ref - t0, ranks=t_ranks - t_ref,
-                            fault=t_fault - t_ranks, held=time.perf_counter() - t_fault))
+               seconds=dict(unsharded=t_ref - t0, ranks=t_ranks - t_ref, held=t_held - t_ranks,
+                            fault=t_fault - t_held, fault_held=time.perf_counter() - t_fault))
     bad = [n for n in ("expert_ffn", "flash_attention") if not launches.get(n)] + decode_bad
     sound = all(r["logits_ok"] for r in per_rank) and all(held[k] <= v for k, v in limits.items())
     caught = res["controls"]["e_start_logits_failed"] and all(

@@ -8,8 +8,8 @@ its process group, its size and this rank's index along it
 (``launch/mesh.py`` builds them). Over an axis of size 1 every function
 here returns its input and communicates nothing.
 
-Two autograd operators carry tensor parallelism (Megatron-LM's ``f`` and
-``g``):
+Three autograd operators carry tensor parallelism (Megatron-LM's ``f``,
+``g`` and its gather):
 
 * ``copy_to(x, ax)`` — identity forward, all-reduce (sum) backward. It
   enters a region whose ranks each compute a part (column-parallel
@@ -20,6 +20,14 @@ Two autograd operators carry tensor parallelism (Megatron-LM's ``f`` and
   leaves such a region (row-parallel products, the combined expert output,
   the masked embedding lookup): every rank receives the same gradient of
   the sum, which is the gradient of each part.
+* ``gather_from(x, ax, dim)`` — all-gather forward, the rank's slice
+  backward. It leaves a region whose ranks each hold a block of a dim (a
+  column-parallel product's output, e.g. the frontend projection ``proj``
+  sharded by its last dim): every rank then computes the same function of
+  the whole tensor, so each receives the whole gradient and keeps the
+  slice of its own block. Where the gathered tensor enters a sharded region
+  again its gradient there is a partial sum, and ``copy_to`` at that entry
+  makes it whole first.
 
 ``torch.distributed.nn.functional.all_reduce`` is not ``reduce_from``: its
 backward all-reduces the gradient too, which multiplies a replicated
@@ -146,6 +154,17 @@ class _ReduceFrom(torch.autograd.Function):
         return g, None
 
 
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax, dim):
+        ctx.ax, ctx.dim, ctx.size = ax, dim, x.shape[dim]
+        return all_gather(x, ax, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.ax.index * ctx.size, ctx.size), None, None
+
+
 class _PMean(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, ax):
@@ -168,6 +187,14 @@ def reduce_from(x: torch.Tensor, ax: Optional[Axis]) -> torch.Tensor:
     if ax is None or ax.size == 1:
         return x
     return _ReduceFrom.apply(x, ax)
+
+
+def gather_from(x: torch.Tensor, ax: Optional[Axis], dim: int) -> torch.Tensor:
+    """All-gather along ``dim`` forward, the rank's slice of the gradient
+    backward (module docstring)."""
+    if ax is None or ax.size == 1:
+        return x
+    return _GatherFrom.apply(x, ax, dim % x.ndim)
 
 
 def pmean(x: torch.Tensor, ax: Optional[Axis]) -> torch.Tensor:

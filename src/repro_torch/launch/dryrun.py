@@ -57,15 +57,14 @@ back.
   python -m repro_torch.launch.dryrun --all --reduced --device cpu
 
 ``--mesh 16x16`` (or ``2x16x16``) runs nothing: it reckons each pair's
-per-device plan on the reference's pod mesh for the families whose
-bundles run on a mesh (``mesh_plan``: ``build_dense``, the ssm and the
-hybrid), the vlm and the enc-dec being recorded as not planned:
-parameter bytes under ``launch/partition.py param_specs``, AdamW moment
+per-device plan on the reference's pod mesh for every family
+(``mesh_plan``): parameter bytes under ``launch/partition.py param_specs``, AdamW moment
 bytes (8 a parameter) and, in training with microbatches (the reference's
 rule), f32 accumulator bytes (4) under ``zero_specs``; FSDP (params
 stored under ``zero_specs`` too) where the reference's rule says so, its
 state at tensor parallelism alone above 8 GB a device; the decode cache
-under ``cache_specs`` (the rings, and the ssm states and conv tails); beside
+under ``cache_specs`` (the rings, the cross attention's memory ``mk`` /
+``mv``, and the ssm states and conv tails); beside
 this card's ``BUDGET_BYTES``. The reference
 lowers the step and reads XLA's cost; PyTorch has no HLO, so only bytes.
 
@@ -448,9 +447,6 @@ def mesh_plan(cfg: ArchConfig, shape: InputShape, multi_pod: bool) -> dict:
     dp = minfo["dp"] if len(minfo["dp"]) > 1 else minfo["dp"][0]
     rec = dict(arch=cfg.name, shape=shape.name, mesh="2x16x16" if multi_pod else "16x16",
                chips=n_chips(mesh), kind=shape.kind, budget_bytes=BUDGET_BYTES)
-    from repro_torch.launch.train import mesh_misfit
-    if mesh_misfit(cfg):
-        return dict(rec, planned=False, reason=mesh_misfit(cfg))
     params = init_params(cfg, device="meta", expert_slabs="device", n_model=n_model)
     pspecs = param_specs(cfg, params, n_model=n_model)
     zspecs = zero_specs(params, pspecs, dp=dp, n_dp=n_dp)
@@ -525,15 +521,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         todo = pairs() if args.all else [(get_config(args.arch), INPUT_SHAPES[args.shape])]
         for cfg, shape in todo:
             rec = mesh_plan(cfg, shape, multi_pod=args.mesh == "2x16x16")
-            if rec["planned"]:
-                b = rec["bytes_per_device"]
-                print(f"[dryrun {args.mesh}] {cfg.name} / {shape.name}: "
-                      + " ".join(f"{k} {v / 1e9:.2f} GB" for k, v in b.items())
-                      + (f" fsdp={rec['fsdp']}" if "fsdp" in rec else "")
-                      + f" (budget {BUDGET_BYTES / 1e9:.1f} GB)", flush=True)
-            else:
-                print(f"[dryrun {args.mesh}] {cfg.name} / {shape.name}: not planned: "
-                      f"{rec['reason']}", flush=True)
+            b = rec["bytes_per_device"]
+            print(f"[dryrun {args.mesh}] {cfg.name} / {shape.name}: "
+                  + " ".join(f"{k} {v / 1e9:.2f} GB" for k, v in b.items())
+                  + (f" fsdp={rec['fsdp']}" if "fsdp" in rec else "")
+                  + f" (budget {BUDGET_BYTES / 1e9:.1f} GB)", flush=True)
             args.out.mkdir(parents=True, exist_ok=True)
             tag = "multi" if args.mesh == "2x16x16" else "single"
             (args.out / f"{rec['arch'].replace('.', '_')}__{shape.name}__{tag}.json").write_text(

@@ -63,11 +63,21 @@ def train_batch(cfg: ArchConfig, shape: InputShape, batch: int, seed: int = 0,
     g = generator(seed, device)
     B, S = batch, shape.seq_len
     out = {"tokens": _randint(cfg.vocab, (B, S), g, device)}
-    if cfg.family == "vlm":
-        out["patch_embeds"] = _normal((B, cfg.n_frontend_tokens, cfg.frontend_dim), g, device)
-    if cfg.family == "encdec":
-        out["frames"] = _normal((B, S, cfg.frontend_dim), g, device)
+    out.update(frontend_inputs(cfg, B, S, g, device))
     return out
+
+
+def frontend_inputs(cfg: ArchConfig, batch: int, seq_len: int, g,
+                    device) -> Dict[str, torch.Tensor]:
+    """The modality frontend's stub input drawn from ``g``: ``patch_embeds``
+    [B,P,frontend_dim] (vlm), ``frames`` [B,S,frontend_dim] (enc-dec), bf16;
+    nothing for the other families."""
+    if cfg.family == "vlm":
+        return {"patch_embeds": _normal((batch, cfg.n_frontend_tokens, cfg.frontend_dim), g,
+                                        device)}
+    if cfg.family == "encdec":
+        return {"frames": _normal((batch, seq_len, cfg.frontend_dim), g, device)}
+    return {}
 
 
 def ring_slot_pos(capacity: int, pos: int, device="cpu") -> torch.Tensor:

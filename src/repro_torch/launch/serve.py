@@ -16,21 +16,23 @@ its depth (each layer's routed experts are pinned in host memory); the
 outside the CUDA attention kernels.
 
 ``--mesh DxM`` is the reference's full mode: the sharded prefill and
-decode steps of ``build_dense``, ``build_ssm`` or ``build_hybrid`` on a
-(data, model) mesh, one process a
-rank, started by ``torchrun`` or by ``--spawn`` (``launch/train.py``'s
-rules for ``--backend``, devices and ranks a card). The ``--requests``
-prompts, each cut to ``PROMPT_LEN`` tokens, are one batch sharded over
-the data axis; each rank keeps its param blocks (seed 0), prefills its
-shard, takes the cache to the decode layout at ``PROMPT_LEN + max-new``
-slots, the hybrid's ring at most its window (``models/model.py
-decode_cache``: KV heads or else slots over the model axis, the ssm
-states' heads and channels, ``launch/partition.py cache_specs``) and
-decodes greedily. Rank 0 prints each request's tokens with the batch's
-TTFT and E2E walls; every rank prints one JSON line: coordinates, device,
-walls, peak memory, the collectives' counts and bytes, its kernels'
-launches. The other families (``launch/train.py mesh_misfit``) and the
-static-window pattern stack are refused.
+decode steps of any family's bundle on a (data, model) mesh (the
+static-window pattern stack under ``REPRO_OPT_STATIC_WINDOW``, which the
+spawned ranks inherit), one process a rank, started by ``torchrun`` or by
+``--spawn`` (``launch/train.py``'s rules for ``--backend``, devices and
+ranks a card). The ``--requests`` prompts, each cut to ``PROMPT_LEN``
+tokens, are one batch sharded over the data axis, with the vlm's
+``patch_embeds`` or the enc-dec's ``frames`` (``PROMPT_LEN`` of them) drawn
+from seed 0 (``launch/input_specs.py frontend_inputs``) and sharded with
+it; each rank keeps its param blocks (seed 0), prefills its shard, takes
+the cache to the decode layout at ``PROMPT_LEN + max-new`` slots, the
+hybrid's ring at most its window (``models/model.py decode_cache``: KV
+heads or else slots over the model axis, the cross attention's memory
+likewise, the ssm states' heads and channels, ``launch/partition.py
+cache_specs``) and decodes greedily. Rank 0 prints each request's tokens
+with the batch's TTFT and E2E walls; every rank prints one JSON line:
+coordinates, device, walls, peak memory, the collectives' counts and
+bytes, its kernels' launches.
 
   python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b --layers 2 --mesh 2x2 \
       --backend gloo --spawn
@@ -38,6 +40,10 @@ static-window pattern stack are refused.
       --backend gloo --spawn
   python -m repro_torch.launch.serve --arch granite-34b --reduced --device cpu \
       --mesh 2x2 --backend gloo --spawn
+  python -m repro_torch.launch.serve --arch llama-3.2-vision-90b --reduced \
+      --device cpu --mesh 2x2 --backend gloo --spawn
+  REPRO_OPT_STATIC_WINDOW=1 python -m repro_torch.launch.serve --arch gemma3-1b \
+      --layers 7 --mesh 2x2 --backend gloo --spawn
 """
 from __future__ import annotations
 
@@ -151,8 +157,7 @@ def _mesh_main(ap, args, argv: list):
     import numpy as np
     import torch
 
-    from repro_torch.launch.train import (_free_port, _spawned_rank, kernel_misfit, mesh_misfit,
-                                          parse_mesh)
+    from repro_torch.launch.train import _free_port, _spawned_rank, kernel_misfit, parse_mesh
     try:
         shape, axes = parse_mesh(args.mesh)
     except ValueError as e:
@@ -160,10 +165,6 @@ def _mesh_main(ap, args, argv: list):
     if args.backend is None:
         ap.error("--mesh needs --backend nccl or gloo")
     cfg = resolve_config(args.arch, use_reduced=args.reduced, layers=args.layers)
-    if mesh_misfit(cfg):
-        ap.error(f"{cfg.name}: {mesh_misfit(cfg)}")
-    if cfg.local_global_pattern:
-        ap.error(f"{cfg.name}: its local:global stack does not serve under --mesh")
     if args.device != "cpu":
         misfit = kernel_misfit(cfg)
         if misfit:
@@ -182,9 +183,10 @@ def _mesh_main(ap, args, argv: list):
     from repro_torch import collectives
     from repro_torch.data.pipeline import PromptWorkload, squad_like
     from repro_torch.kernels.expert_ffn import expert_ffn
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_cross
     from repro_torch.kernels.flash_decode import flash_decode
     from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.launch.input_specs import frontend_inputs, generator
     from repro_torch.launch.train import rank_setup
     from repro_torch.models.model import decode_cache, greedy_token
 
@@ -193,8 +195,9 @@ def _mesh_main(ap, args, argv: list):
     S, n_new = PROMPT_LEN, args.max_new
     wl = PromptWorkload(squad_like(cfg.vocab), seed=11)
     prompts = np.stack([p[:S] for p, _ in wl.prompts(args.requests)])
-    batch = run.shard_batch({"tokens": torch.from_numpy(prompts)})
-    kernels = (expert_ffn, flash_attention, flash_decode, ssd_scan)
+    batch = run.shard_batch({"tokens": torch.from_numpy(prompts),
+                             **frontend_inputs(cfg, args.requests, S, generator(0, "cpu"), "cpu")})
+    kernels = (expert_ffn, flash_attention, flash_attention_cross, flash_decode, ssd_scan)
     for fn in kernels:
         fn.launches = 0
     collectives.reset()

@@ -30,9 +30,10 @@ card is present is refused. Each rank draws the whole tree from the seed
 and keeps its blocks (``launch/partition.py param_specs``,
 ``models/params.py shard_params``), its data shard of each batch
 (``batch_specs``), and ZeRO-1 moments (``zero_specs``,
-``training/optimizer.py ZeRO1``); ``build_dense``, ``build_ssm`` and
-``build_hybrid`` configs (the others: ``models/model.py
-MESH_FAMILIES_TODO``). Rank 0
+``training/optimizer.py ZeRO1``); every family but the vlm and the
+enc-dec, whose batches are refused here as they are without a mesh
+(``frontend_misfit``), the static-window pattern stack under
+``REPRO_OPT_STATIC_WINDOW`` (the spawned ranks inherit it). Rank 0
 prints each step; every rank prints one JSON line at the end: its
 coordinates, device, peak memory, step ms, the collectives' counts, bytes
 and host seconds, and its kernels' launches.
@@ -43,6 +44,8 @@ and host seconds, and its kernels' launches.
       --backend gloo --spawn --batch 4 --seq 5120
   python -m repro_torch.launch.train --arch mamba2-2.7b --reduced --device cpu \
       --mesh 2x2 --backend gloo --spawn --steps 2
+  REPRO_OPT_STATIC_WINDOW=1 python -m repro_torch.launch.train --arch gemma3-1b \
+      --reduced --device cpu --mesh 2x2 --backend gloo --spawn --steps 2
 """
 from __future__ import annotations
 
@@ -62,11 +65,13 @@ from repro_torch.launch.serve import resolve_config
 FRONTEND_FAMILIES = {"vlm": "patch_embeds", "encdec": "frames"}
 
 
-def mesh_misfit(cfg) -> Optional[str]:
-    """Why ``cfg`` cannot run under ``--mesh``, or None."""
-    from repro_torch.models.model import MESH_FAMILIES, MESH_FAMILIES_TODO
-    if cfg.family not in MESH_FAMILIES:
-        return f"the {cfg.family} family under a mesh is not ported ({MESH_FAMILIES_TODO})"
+def frontend_misfit(cfg) -> Optional[str]:
+    """Why this launcher cannot train ``cfg`` (with or without a mesh), or
+    None: a forward that needs a frontend's inputs beside the tokens."""
+    if cfg.family in FRONTEND_FAMILIES:
+        return (f"the {cfg.family} family's forward needs '{FRONTEND_FAMILIES[cfg.family]}' "
+                "beside the tokens, and this launcher's batches are tokens only; train it "
+                "through make_train_step with that input")
     return None
 
 
@@ -120,11 +125,8 @@ def main(argv: Optional[Sequence[str]] = None):
 
     cfg = resolve_config(args.arch, use_reduced=args.reduced, layers=args.layers)
     device = torch.device(args.device)
-    if cfg.family in FRONTEND_FAMILIES:
-        ap.error(f"{cfg.name}: the {cfg.family} family's forward needs "
-                 f"'{FRONTEND_FAMILIES[cfg.family]}' beside the tokens, and this "
-                 "launcher's batches are tokens only; train it through "
-                 "make_train_step with that input")
+    if frontend_misfit(cfg):
+        ap.error(f"{cfg.name}: {frontend_misfit(cfg)}")
     misfit = kernel_misfit(cfg) if device.type == "cuda" else None
     if misfit:
         ap.error(f"{cfg.name}: {misfit}; run it with --device cpu")
@@ -215,15 +217,16 @@ class RankRun:
 
 def rank_setup(cfg, shape, axes, backend: str, device: str, seed: int, lr=None) -> RankRun:
     """Initialize this process as a rank (``launch/mesh.py init_rank``),
-    build its mesh and bundle, draw the whole tree from ``seed`` on its
-    device and keep its blocks, and a ZeRO-1 ``AdamW(lr=lr)`` (none, and no
+    build its mesh and bundle, draw its blocks of the tree from ``seed`` on
+    its device (``init(blocks=True)``: each leaf cut as it is drawn, so
+    the ranks sharing a card never hold the whole tree; an MoE tree is
+    drawn whole and cut) and a ZeRO-1 ``AdamW(lr=lr)`` (none, and no
     state, where ``lr`` is None: a serving rank)."""
     import torch
 
     from repro_torch.launch.mesh import init_rank, make_mesh, mesh_info
     from repro_torch.launch.partition import param_specs, zero_specs
     from repro_torch.models.model import build
-    from repro_torch.models.params import shard_params
     from repro_torch.training.optimizer import AdamW, ZeRO1
 
     local_world = int(os.environ.get("LOCAL_WORLD_SIZE", math.prod(shape)))
@@ -237,12 +240,11 @@ def rank_setup(cfg, shape, axes, backend: str, device: str, seed: int, lr=None) 
     mesh = make_mesh(shape, axes, backend, dev)
     minfo = mesh_info(mesh)
     bundle = build(cfg, mesh_info=minfo)
-    whole = bundle.init(seed, device=dev)
+    whole = bundle.init(seed, device="meta")
     pspecs = param_specs(cfg, whole, n_model=mesh.shape["model"])
     dp = tuple(minfo["dp"])
     zspecs = zero_specs(whole, pspecs, dp=dp if len(dp) > 1 else dp[0], n_dp=mesh.size(dp))
-    params = shard_params(whole, pspecs, mesh)
-    del whole
+    params = bundle.init(seed, device=dev, blocks=True)
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     opt = None if lr is None else ZeRO1(AdamW(lr=lr), pspecs, zspecs, minfo)
@@ -296,8 +298,8 @@ def _mesh_main(ap, args, argv: list):
     from repro_torch.training.train_loop import make_train_step
 
     cfg = resolve_config(args.arch, use_reduced=args.reduced, layers=args.layers)
-    if mesh_misfit(cfg):
-        ap.error(f"{cfg.name}: {mesh_misfit(cfg)}")
+    if frontend_misfit(cfg):
+        ap.error(f"{cfg.name}: {frontend_misfit(cfg)}")
     if args.device != "cpu":
         misfit = kernel_misfit(cfg)
         if misfit:

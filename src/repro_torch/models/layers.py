@@ -40,7 +40,11 @@ region (``q_norm`` over the local heads) enters through
 (``self_attn_decode(..., tp=)``) follows the cache's layout
 (``launch/partition.py cache_specs``): KV heads sharded as above, or the
 ring's slots sharded, the ranks' blocks merged by log-sum-exp
-(``collectives.lse_combine``).
+(``collectives.lse_combine``). Cross attention (``cross_kv``,
+``cross_attn_full``, ``cross_attn_decode``, each with ``tp=``) follows the
+same rules, its memory K/V in ``cache_specs``' layout: KV heads sharded,
+the memory's slots sharded (the decode's blocks merged by log-sum-exp), or
+replicated.
 """
 from __future__ import annotations
 
@@ -305,6 +309,13 @@ def _qkv(x, p, dims: AttnDims, positions, use_rope=True, tp: Optional[C.Axis] = 
     return q, k, v
 
 
+def _heads_axis(p, dims: AttnDims, tp: Optional[C.Axis]) -> Optional[C.Axis]:
+    """``tp`` where ``wq`` is sharded over it, else None (the layer whole)."""
+    if tp is None or tp.size == 1 or p["wq"].shape[-1] == dims.n_heads * dims.head_dim:
+        return None
+    return tp
+
+
 def _select_kv(k, v, tp: C.Axis, h_loc: int, dims: AttnDims):
     """Of whole k, v [B,S,Hkv,hd], the KV heads this rank's ``h_loc`` query
     heads read, after ``copy_to`` (their gradient is a partial sum)."""
@@ -346,8 +357,7 @@ def self_attn_full(x, p, dims: AttnDims, *, window=None, causal=True,
     partition.py cache_specs``: its slots are sharded then, not its heads)."""
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None, :]
-    if p["wq"].shape[-1] == dims.n_heads * dims.head_dim:
-        tp = None                  # no rule shards the heads: the layer runs whole
+    tp = _heads_axis(p, dims, tp)
     q, k, v = _qkv(x, p, dims, positions, tp=tp)
     kv = (k, v)
     if tp is not None and k.shape[2] == dims.n_kv_heads:   # wk whole, wq sharded
@@ -424,10 +434,7 @@ def self_attn_decode(x, p, dims: AttnDims, cache_k, cache_v, slot_pos, slot,
                             device=x.device).reshape(-1).expand(B)
     positions = pos_b[:, None]
     win = -1 if window is None else int(window)
-    if tp is not None and p["wq"].shape[-1] == dims.n_heads * dims.head_dim:
-        tp_q = None                # wq whole: every rank computes every head
-    else:
-        tp_q = tp
+    tp_q = _heads_axis(p, dims, tp)
     if tp is None or tp.size == 1 or cache_k.shape[2] < dims.n_kv_heads:
         q, k, v = _qkv(x, p, dims, positions, tp=tp_q)
         write_slot(cache_k, k[:, 0], slot)
@@ -511,34 +518,54 @@ def self_attn_decode_batched(x, p, dims: AttnDims, cache_k, cache_v, slot_pos,
     return linear(o.reshape(B, 1, -1), p["wo"]), cache_k, cache_v
 
 
-def cross_kv(mem, p, dims: AttnDims):
+def cross_kv(mem, p, dims: AttnDims, tp: Optional[C.Axis] = None):
     """Memory tokens [B,M,d] projected once to cross-attention K, V, each
-    [B,M,Hkv,hd] (k normed with ``qk_norm``); no rope."""
+    [B,M,Hkv,hd] (k normed with ``qk_norm``); no rope. ``tp``: the model
+    axis where ``wk`` / ``wv`` are this rank's column blocks: the memory
+    enters through ``copy_to`` and K, V are the rank's KV heads; where they
+    are whole every KV head is projected (the memory cache's layout,
+    ``launch/partition.py cache_specs``: its slots are sharded then, or
+    nothing)."""
     B, M, _ = mem.shape
-    k = linear(mem, p["wk"]).reshape(B, M, dims.n_kv_heads, dims.head_dim)
-    v = linear(mem, p["wv"]).reshape(B, M, dims.n_kv_heads, dims.head_dim)
+    hd = dims.head_dim
+    local = tp is not None and p["wk"].shape[-1] < dims.n_kv_heads * hd
+    tp = tp if local else None
+    xin = C.copy_to(mem, tp)
+    k = linear(xin, p["wk"]).reshape(B, M, -1, hd)
+    v = linear(xin, p["wv"]).reshape(B, M, -1, hd)
     if dims.qk_norm:
-        k = rms_norm(k, p["k_norm"], dims.rms_eps)
+        k = rms_norm(k, C.copy_to(p["k_norm"], tp), dims.rms_eps)
     return k, v
 
 
-def _cross_q(x, p, dims: AttnDims):
+def _cross_q(x, p, dims: AttnDims, tp: Optional[C.Axis] = None):
+    """The queries [B,S,heads,hd]: the rank's heads where ``wq`` is its
+    column block (x entering through ``copy_to``), else all of them."""
     B, S, _ = x.shape
-    q = linear(x, p["wq"]).reshape(B, S, dims.n_heads, dims.head_dim)
+    q = linear(C.copy_to(x, tp), p["wq"]).reshape(B, S, -1, dims.head_dim)
     if dims.qk_norm:
-        q = rms_norm(q, p["q_norm"], dims.rms_eps)
+        q = rms_norm(q, C.copy_to(p["q_norm"], tp), dims.rms_eps)
     return q
 
 
-def cross_attn_full(x, p, dims: AttnDims, mem_k, mem_v):
+def cross_attn_full(x, p, dims: AttnDims, mem_k, mem_v, tp: Optional[C.Axis] = None):
     """Cross attention of x [B,S,d] to a fixed memory mem_k, mem_v
     [B,M,Hkv,hd]: every memory key valid for every query, no rope. On the
     card ``flash_attention_cross``; where autograd records,
     ``FlashAttentionCrossFn`` (the kernel's forward, a plain flash
     backward). On the CPU the reference's ``attention(causal=False)``,
-    differentiated by autograd."""
+    differentiated by autograd.
+
+    ``tp``: the model axis, ``p`` this rank's slice, the memory in
+    ``cross_kv(tp=)``'s layout: the query heads are the rank's where ``wq``
+    is sharded, the KV heads the rank's where the memory holds them (else
+    ``_select_kv`` picks the ones its query heads read), ``wo`` summed
+    over the axis (``self_attn_full``'s rules)."""
     B, S, _ = x.shape
-    q = _cross_q(x, p, dims)
+    tp = _heads_axis(p, dims, tp)
+    q = _cross_q(x, p, dims, tp)
+    if tp is not None and mem_k.shape[2] == dims.n_kv_heads:   # wk whole, wq sharded
+        mem_k, mem_v = _select_kv(mem_k, mem_v, tp, q.shape[2], dims)
     if x.is_cuda:
         if torch.is_grad_enabled() and any(t.requires_grad for t in (q, mem_k, mem_v)):
             o = FlashAttentionCrossFn.apply(q, mem_k, mem_v)
@@ -548,26 +575,52 @@ def cross_attn_full(x, p, dims: AttnDims, mem_k, mem_v):
         o = attention(q, mem_k, mem_v, q_pos=torch.arange(S, device=x.device)[None],
                       k_pos=torch.arange(mem_k.shape[1], device=x.device)[None],
                       causal=False)
-    return linear(o.reshape(B, S, -1), p["wo"])
+    return row_parallel(o.reshape(B, S, -1), p["wo"], tp)
 
 
-def cross_attn_decode(x, p, dims: AttnDims, mem_k, mem_v):
+def cross_attn_decode(x, p, dims: AttnDims, mem_k, mem_v, tp: Optional[C.Axis] = None,
+                      mem_slots: Optional[int] = None):
     """One token x [B,1,d] against a cached memory mem_k, mem_v
     [B,M,Hkv,hd]. The reference puts the query and every memory slot at
     position 0 without a causal mask; on the card ``flash_decode`` with
-    ``pos`` 0 and every slot's position 0 computes the same."""
+    ``pos`` 0 and every slot's position 0 computes the same.
+
+    ``tp``: the model axis, ``p`` this rank's slice, the memory this rank's
+    block in ``launch/partition.py cache_specs``' layout (``mem_slots``:
+    the whole memory's slot count):
+
+    * heads sharded (mem_k holds fewer than ``n_kv_heads``): the rank's
+      query and KV heads, ``wo`` summed over the axis;
+    * slots sharded (mem_k [B, mem_slots / n, Hkv, hd]): the query heads
+      gathered over the axis where ``wq`` is sharded, ``flash_decode`` over
+      the rank's block of slots with its log-sum-exp, the blocks merged
+      over the axis (``collectives.lse_combine``), the rank's own heads kept
+      for its rows of ``wo``, summed over the axis;
+    * replicated (neither divides): that path over the one whole block,
+      with no merge."""
     B = x.shape[0]
-    q = _cross_q(x, p, dims)
     M = mem_k.shape[1]
     zero = torch.zeros((B,), dtype=torch.int32, device=x.device)
-    if x.is_cuda:
-        sp = torch.zeros((M,), dtype=torch.int32, device=x.device)[None].expand(B, M)
-        o = flash_decode(q[:, 0], mem_k, mem_v, zero, sp)[:, None]
-    else:
-        o = attention(q, mem_k, mem_v, q_pos=zero[:, None],
-                      k_pos=torch.zeros((1, M), dtype=torch.int32, device=x.device),
-                      causal=False)
-    return linear(o.reshape(B, 1, -1), p["wo"])
+    tp_q = _heads_axis(p, dims, tp)
+    q = _cross_q(x, p, dims, tp_q)
+    if tp is None or tp.size == 1 or mem_k.shape[2] < dims.n_kv_heads:
+        if x.is_cuda:
+            sp = torch.zeros((M,), dtype=torch.int32, device=x.device)[None].expand(B, M)
+            o = flash_decode(q[:, 0], mem_k, mem_v, zero, sp)[:, None]
+        else:
+            o = attention(q, mem_k, mem_v, q_pos=zero[:, None],
+                          k_pos=torch.zeros((1, M), dtype=torch.int32, device=x.device),
+                          causal=False)
+        return row_parallel(o.reshape(B, 1, -1), p["wo"], tp_q)
+    h_loc = q.shape[2]
+    q = C.all_gather(q, tp_q, 2)
+    sp = torch.zeros((M,), dtype=torch.int32, device=x.device)[None].expand(B, M)
+    o, lse = flash_decode(q[:, 0], mem_k, mem_v, zero, sp, return_lse=True)
+    if mem_slots is not None and M < mem_slots:
+        o = C.lse_combine(o, lse, tp)
+    if tp_q is not None:
+        o = o[:, tp.index * h_loc:(tp.index + 1) * h_loc]
+    return row_parallel(o.reshape(B, 1, -1), p["wo"], tp_q)
 
 
 ROW_BLOCK = 128   # rows of every product ``linear`` issues on the card

@@ -28,16 +28,18 @@ after prefill. ssm cache: ``ssm [L,B,h,n,p]`` f32, ``conv_x/B/C
 [L,B,C,K]`` bf16 and ``pos``. The other builders' caches are the
 reference's, key for key and shape for shape (each builder's docstring).
 
-Under a (data, model) mesh (``build(cfg, mesh_info=)``: ``build_dense``,
-``build_ssm`` and ``build_hybrid``) each rank runs its data shard of the
-batch on its blocks of the params (``models/params.py shard_params`` under
-``launch/partition.py param_specs``), with the collectives of
-``models/layers.py``, ``models/ssm.py`` and ``moe_layer.moe_ffn``; the
-embedding is vocab-parallel where the padded vocabulary divides the model
-axis, so ``forward``'s logits are then this rank's vocabulary block
-(``training/train_loop.py`` takes the loss over the blocks). The vlm, the
-enc-dec and the static-window pattern stack refuse a mesh
-(``MESH_FAMILIES_TODO``).
+Under a (data, model) mesh (``build(cfg, mesh_info=)``, every family) each
+rank runs its data shard of the batch on its blocks of the params
+(``models/params.py shard_params`` under ``launch/partition.py
+param_specs``; ``init(seed, device, blocks=True)`` draws them leaf by leaf),
+with the collectives of ``models/layers.py``, ``models/ssm.py`` and
+``moe_layer.moe_ffn``; the embedding is vocab-parallel where the padded
+vocabulary divides the model axis, so ``forward``'s logits are then this
+rank's vocabulary block (``training/train_loop.py`` takes the loss over the
+blocks). The vlm's and the enc-dec's frontend projection ``proj`` is
+column-parallel where its last dim divides the axis, its output gathered
+whole (``collectives.gather_from``); their cross attention keeps its
+memory K/V in ``cache_specs``' layout (``layers.cross_kv``).
 """
 from __future__ import annotations
 
@@ -53,7 +55,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe_layer as M
 from repro_torch.models import opt_flags
 from repro_torch.models import ssm as S
-from repro_torch.models.params import attn_dims, init_params, pattern_params
+from repro_torch.models.params import attn_dims, init_blocks, init_params, pattern_params
 
 CHUNKED_MIN_SEQ = 2048  # the reference's switch to chunked (flash) attention
 
@@ -85,33 +87,36 @@ class ModelBundle:
     mesh_info: Optional[dict] = None   # the mesh the bundle runs on
 
 
-# the families whose bundles run on a mesh; ROADMAP Queue A: the others
-MESH_FAMILIES = ("dense", "moe", "ssm", "hybrid")
-MESH_FAMILIES_TODO = ("ROADMAP Queue A 4: the vlm, the enc-dec and the static-window "
-                      "pattern stack under a mesh")
-
-
 def build(cfg: ArchConfig, capacity_factor: Optional[float] = None,
           mesh_info: Optional[dict] = None) -> ModelBundle:
     """The family's builder; a dense local:global stack under
     ``REPRO_OPT_STATIC_WINDOW`` takes ``build_dense_pattern``, as the
     reference's ``build`` does. ``capacity_factor`` goes to ``build_dense``
-    (MoE configs); ``mesh_info`` to the builders of ``MESH_FAMILIES``:
-    under a mesh any other builder raises ``NotImplementedError``."""
-    pattern = (cfg.family == "dense" and cfg.local_global_pattern
-               and opt_flags.static_window())
-    if mesh_info is not None and (pattern or cfg.family not in MESH_FAMILIES):
-        raise NotImplementedError(f"{cfg.name}: {'build_dense_pattern' if pattern else cfg.family}"
-                                  f" under a mesh is not ported ({MESH_FAMILIES_TODO})")
-    if pattern:
-        return build_dense_pattern(cfg)
+    (MoE configs), ``mesh_info`` to every builder."""
+    if cfg.family == "dense" and cfg.local_global_pattern and opt_flags.static_window():
+        return build_dense_pattern(cfg, mesh_info)
     if cfg.family in ("dense", "moe"):
         return build_dense(cfg, capacity_factor, mesh_info)
     builders = {"vlm": build_vlm, "encdec": build_encdec, "ssm": build_ssm,
                 "hybrid": build_hybrid}
     if cfg.family not in builders:
         raise KeyError(f"{cfg.name}: no builder for family {cfg.family!r}")
-    return builders[cfg.family](cfg) if mesh_info is None else builders[cfg.family](cfg, mesh_info)
+    return builders[cfg.family](cfg, mesh_info)
+
+
+def _init_fn(cfg: ArchConfig, mesh_info: Optional[dict], post=None, **kw) -> Callable:
+    """A bundle's ``init(seed, device, blocks=False)``: ``init_params(cfg,
+    seed, device, **kw)`` through ``post``; with ``blocks`` this rank's
+    blocks of it on the bundle's mesh, drawn and cut leaf by leaf
+    (``models/params.py init_blocks``)."""
+    post = post or (lambda p: p)
+
+    def init(seed: int = 0, device="cuda", blocks: bool = False):
+        if blocks:
+            return post(init_blocks(cfg, seed, device, mesh_info, **kw))
+        return post(init_params(cfg, seed, device, **kw))
+
+    return init
 
 
 def pad_cache(cache, new_capacity: int, ring_axes: Dict[str, int]):
@@ -260,15 +265,19 @@ def _slot(cache):
 
 
 def _kv_specs(cfg: ArchConfig, shapes: Dict[str, tuple], mesh_info: dict) -> list:
-    """``cache_specs`` of the K ring leaves of these whole shapes (the V
-    leaves share them) over the mesh."""
+    """``cache_specs`` of the K leaves of these whole shapes (the V leaves
+    share them) over the mesh, each by the rule of the rings' ``k``: the
+    same rule as ``k0`` / ``ak`` / ``mk``'s, and the pattern stack's tail
+    ring ``kt``, which the reference's rule does not name (it leaves it
+    whole, where a rank here holds its data shard's rows), is laid out as
+    ``k``."""
     from repro_torch.launch.partition import cache_specs
     mesh = mesh_info["mesh"]
     dp = tuple(mesh_info["dp"])
-    meta = {key: torch.empty(s, device="meta") for key, s in shapes.items()}
+    meta = {key: {"k": torch.empty(s, device="meta")} for key, s in shapes.items()}
     specs = cache_specs(cfg, meta, dp=dp if len(dp) > 1 else dp[0], tp=mesh_info["tp"],
                         n_model=mesh.size(mesh_info["tp"]), n_dp=mesh.size(dp))
-    return [specs[key] for key in shapes]
+    return [specs[key]["k"] for key in shapes]
 
 
 def _kv_blocks(cfg: ArchConfig, shapes: Dict[str, tuple], mesh_info: Optional[dict]) -> dict:
@@ -299,25 +308,64 @@ def decode_cache(bundle: ModelBundle, cache: dict, capacity: int) -> dict:
     """Prefill's cache as decode's at ``capacity`` slots: the ring padded
     (``pad_cache``), then, on a mesh, this rank's block of slots where
     ``cache_specs`` shards them (blocks of the padded ring, so the padding
-    comes first). Prefill's cache already holds this rank's data shard and
+    comes first), of the rings (``k``, ``k0``, ``ak``, ``kt``) and of the
+    cross attention's memory (``mk``: not a ring, never padded; where its
+    slots are cut the cache gains ``mslot_pos``, the whole memory's slot
+    positions, all 0, which ``layers.cross_attn_decode`` reads its slot
+    count from). Prefill's cache already holds this rank's data shard and
     its KV heads where those are sharded, and every KV head where they are
-    not (``layers.self_attn_full``); the ssm leaves are already its blocks
-    (``models/ssm.py ssd_forward``)."""
+    not (``layers.self_attn_full``, ``layers.cross_kv``); the ssm leaves are
+    already its blocks (``models/ssm.py ssd_forward``)."""
     from repro_torch.launch.partition import shard_leaf
     cache = pad_cache(cache, capacity, bundle.ring_axes)
     minfo = bundle.mesh_info
     if minfo is None:
         return cache
-    keys = [key for key in ("k", "k0", "ak") if key in cache]
+    keys = [key for key in ("k", "k0", "ak", "kt", "mk") if key in cache]
     whole = {key: cache[key].shape[:-2] + (bundle.cfg.n_kv_heads, bundle.cfg.hd)
              for key in keys}    # the rule reads the whole head count
     specs = _kv_specs(bundle.cfg, whole, minfo)
     for key, spec in zip(keys, specs):
         w_dim = cache[key].ndim - 3
         only_w = tuple(e if d == w_dim else None for d, e in enumerate(spec))
+        if key == "mk" and only_w[w_dim] is not None:
+            cache["mslot_pos"] = _mem_pos(cache[key].shape[w_dim], cache[key].device)
         for leaf in (key, _v_key(key)):
             cache[leaf] = shard_leaf(cache[leaf], only_w, minfo["mesh"])
     return cache
+
+
+def _mem_pos(slots: int, device) -> torch.Tensor:
+    """``mslot_pos``: a memory of ``slots`` slots, each at position 0."""
+    return torch.zeros((slots,), dtype=torch.int32, device=device)
+
+
+def _mem_slots(cache) -> Optional[int]:
+    """The whole memory's slot count where the cache holds a block of its
+    slots (``mslot_pos``), else None (``layers.cross_attn_decode``)."""
+    sp = cache.get("mslot_pos")
+    return None if sp is None else sp.shape[0]
+
+
+def _kv_cache(cfg: ArchConfig, shapes: Dict[str, tuple], mesh_info, device) -> dict:
+    """Zero K/V leaves of these whole K shapes (the V leaf beside each),
+    this rank's blocks under ``cache_specs`` on a mesh; ``mslot_pos`` where
+    the memory's (``mk``) slots are cut."""
+    out = {}
+    for key, s in _kv_blocks(cfg, shapes, mesh_info).items():
+        out[key] = torch.zeros(s, dtype=L.PDT, device=device)
+        out[_v_key(key)] = torch.zeros_like(out[key])
+        if key == "mk" and s[-3] < shapes[key][-3]:
+            out["mslot_pos"] = _mem_pos(shapes[key][-3], device)
+    return out
+
+
+def _frontend(x, proj, d_model: int, tp: Optional[C.Axis]):
+    """A frontend's inputs [B,N,frontend_dim] projected to d_model: ``x @
+    proj`` where ``proj`` is whole, else this rank's column block of it,
+    gathered whole over the model axis (``collectives.gather_from``)."""
+    y = L.linear(x.to(L.PDT), proj)
+    return C.gather_from(y, tp, -1) if proj.shape[-1] < d_model else y
 
 
 def _model_axis(mesh_info: Optional[dict]) -> Optional[C.Axis]:
@@ -388,8 +436,7 @@ def build_dense(cfg: ArchConfig, capacity_factor: Optional[float] = None,
                   for key, ff in (("", cfg.d_ff), ("0", cfg.dense_d_ff))}
     n_model = tp.size if tp is not None else 16
 
-    def init(seed: int = 0, device="cuda"):
-        return init_params(cfg, seed, device, expert_slabs="device", n_model=n_model)
+    init = _init_fn(cfg, mesh_info, expert_slabs="device", n_model=n_model)
 
     def _stacks(params):
         """(cache key, layer params, window) of every layer, in order."""
@@ -449,12 +496,7 @@ def build_dense(cfg: ArchConfig, capacity_factor: Optional[float] = None,
         kv = {"k": (cfg.n_layers - n_dense,) + shape}
         if n_dense:
             kv["k0"] = (n_dense,) + shape
-        kv = _kv_blocks(cfg, kv, mesh_info)
-        c = _ring(capacity, 0, device)
-        for key, s in kv.items():
-            c[key] = torch.zeros(s, dtype=L.PDT, device=device)
-            c["v" + key[1:]] = torch.zeros_like(c[key])
-        return c
+        return dict(_ring(capacity, 0, device), **_kv_cache(cfg, kv, mesh_info, device))
 
     return ModelBundle(cfg, init, forward, prefill, decode_step, init_cache,
                        ring_axes={"k": 2, "v": 2, "k0": 2, "v0": 2}, mesh_info=mesh_info)
@@ -466,7 +508,12 @@ def build_dense(cfg: ArchConfig, capacity_factor: Optional[float] = None,
 # ---------------------------------------------------------------------------
 
 
-def build_dense_pattern(cfg: ArchConfig) -> ModelBundle:
+def _shard_of(cfg: ArchConfig, tp: Optional[C.Axis], mesh_info) -> Optional[_Shard]:
+    """A stack's ``_Shard`` of ``d_ff`` on the mesh, None without one."""
+    return None if tp is None else _Shard(mesh_info, tp, cfg.d_ff % tp.size == 0)
+
+
+def build_dense_pattern(cfg: ArchConfig, mesh_info: Optional[dict] = None) -> ModelBundle:
     """The dense stack as ``n_pat`` blocks of ``per`` layers, then a tail:
     params ``blocks`` [n_pat, per, ...] and ``tail`` [n_tail, ...]
     (``models.params.pattern_params`` cuts them out of ``build_dense``'s
@@ -475,7 +522,15 @@ def build_dense_pattern(cfg: ArchConfig) -> ModelBundle:
     window is static, so on the CPU a chunked local layer takes the
     band-restricted ``attention_chunked_windowed``; on the card the kernel
     skips the key tiles outside the window either way, and the logits equal
-    ``build_dense``'s."""
+    ``build_dense``'s.
+
+    ``mesh_info``: the bundle runs on one rank of that mesh, each layer as
+    ``build_dense``'s (``_block_full`` / ``_block_decode`` with the stack's
+    ``_Shard``), the embedding vocab-parallel; ``init_cache`` gives the
+    rank's blocks of ``k`` and ``kt`` under ``cache_specs`` (gemma3's one KV
+    head: the ring's slots over the model axis, a local layer's window
+    then often wholly inside one rank's block, the other's log-sum-exp
+    -inf and its weight 0)."""
     if not cfg.local_global_pattern or cfg.is_moe or cfg.n_dense_layers:
         raise ValueError(f"{cfg.name}: build_dense_pattern takes a dense local:global stack")
     per = cfg.local_global_pattern + 1
@@ -483,9 +538,10 @@ def build_dense_pattern(cfg: ArchConfig) -> ModelBundle:
     n_tail = cfg.n_layers - n_pat * per
     win_in = [cfg.window_for_layer(i) for i in range(per)]
     win_tail = [cfg.window_for_layer(n_pat * per + i) for i in range(n_tail)]
-
-    def init(seed: int = 0, device="cuda"):
-        return pattern_params(init_params(cfg, seed, device), cfg)
+    vp = L.vocab_pad_of(cfg.vocab)
+    tp = _model_axis(mesh_info)
+    shard = _shard_of(cfg, tp, mesh_info)
+    init = _init_fn(cfg, mesh_info, post=lambda p: pattern_params(p, cfg))
 
     def _layers(params):
         """(cache key, index, layer params, window) of every layer, in order."""
@@ -499,23 +555,22 @@ def build_dense_pattern(cfg: ArchConfig) -> ModelBundle:
 
     def _run_full(params, tokens, emit_kv):
         chunked = tokens.shape[1] >= CHUNKED_MIN_SEQ
-        x = _embed(params["embed"], tokens)
+        x, head = _vocab_head(params, tokens, vp, tp)
         kv = {"": [], "t": []}
         for key, _, lp, win in _layers(params):
-            x, (k, v), _ = _run(_block_full, x, lp, win, cfg, chunked, True)
+            x, (k, v), _ = _run(_block_full, x, lp, win, cfg, chunked, True, None, shard)
             if emit_kv:
                 kv[key].append((k, v))
-        return L.rms_norm(x, params["ln_f"], cfg.rms_eps), kv
+        return head, L.rms_norm(x, params["ln_f"], cfg.rms_eps), kv
 
     def forward(params, batch):
-        x, _ = _run_full(params, batch["tokens"], emit_kv=False)
-        return _logits(x, params["embed"]), 0.0
+        head, x, _ = _run_full(params, batch["tokens"], emit_kv=False)
+        return head(x), 0.0
 
     def prefill(params, batch):
         tokens = batch["tokens"]
-        B, Ssz = tokens.shape
-        x, kv = _run_full(params, tokens, emit_kv=True)
-        shape = (B, Ssz, cfg.n_kv_heads, cfg.hd)
+        head, x, kv = _run_full(params, tokens, emit_kv=True)
+        shape = (kv[""] or kv["t"])[0][0].shape     # [B, S, the rank's KV heads, hd]
 
         def stacked(rows, lead):   # n_pat may be 0 (fewer layers than a block)
             t = (torch.stack(rows) if rows
@@ -524,14 +579,14 @@ def build_dense_pattern(cfg: ArchConfig) -> ModelBundle:
 
         cache = {"k": stacked([k for k, _ in kv[""]], (n_pat, per)),
                  "v": stacked([v for _, v in kv[""]], (n_pat, per)),
-                 **_ring(Ssz, Ssz, tokens.device)}
+                 **_ring(tokens.shape[1], tokens.shape[1], tokens.device)}
         if n_tail:
             cache["kt"] = stacked([k for k, _ in kv["t"]], (n_tail,))
             cache["vt"] = stacked([v for _, v in kv["t"]], (n_tail,))
-        return _logits(x[:, -1], params["embed"]), cache
+        return _whole_vocab(head(x[:, -1]), vp, tp), cache
 
     def decode_step(params, step, cache):
-        x = _embed(params["embed"], step["token"])
+        x, head = _vocab_head(params, step["token"], vp, tp)
         pos = cache["pos"]
         slot, sp = _slot(cache)
         new = dict(cache, slot_pos=sp, pos=pos + 1)
@@ -540,22 +595,20 @@ def build_dense_pattern(cfg: ArchConfig) -> ModelBundle:
                 new[key] = cache[key].clone()
         for key, idx, lp, win in _layers(params):
             x, _ = _block_decode(x, lp, win, cfg, new["k" + key][idx], new["v" + key][idx],
-                                 sp, slot, pos)
+                                 sp, slot, pos, shard)
         x = L.rms_norm(x, params["ln_f"], cfg.rms_eps)
-        return _logits(x[:, -1], params["embed"]), new
+        return _whole_vocab(head(x[:, -1]), vp, tp), new
 
     def init_cache(batch_size: int, capacity: int, extras=None, device="cuda"):
         shape = (batch_size, capacity, cfg.n_kv_heads, cfg.hd)
-        c = {"k": torch.zeros((n_pat, per) + shape, dtype=L.PDT, device=device),
-             **_ring(capacity, 0, device)}
-        c["v"] = torch.zeros_like(c["k"])
+        kv = {"k": (n_pat, per) + shape}
         if n_tail:
-            c["kt"] = torch.zeros((n_tail,) + shape, dtype=L.PDT, device=device)
-            c["vt"] = torch.zeros_like(c["kt"])
-        return c
+            kv["kt"] = (n_tail,) + shape
+        c = _kv_cache(cfg, kv, mesh_info, device)
+        return dict(c, **_ring(capacity, 0, device))
 
     return ModelBundle(cfg, init, forward, prefill, decode_step, init_cache,
-                       ring_axes={"k": 3, "v": 3, "kt": 2, "vt": 2})
+                       ring_axes={"k": 3, "v": 3, "kt": 2, "vt": 2}, mesh_info=mesh_info)
 
 
 # ---------------------------------------------------------------------------
@@ -568,7 +621,7 @@ def _gate(g, like):
     return torch.tanh(g.float()).to(like.dtype)
 
 
-def build_vlm(cfg: ArchConfig) -> ModelBundle:
+def build_vlm(cfg: ArchConfig, mesh_info: Optional[dict] = None) -> ModelBundle:
     """``n_layers / cross_attn_every`` blocks of ``cross_attn_every - 1``
     self-attention layers and one gated cross-attention layer over the
     projected patch embeddings (``proj``: frontend_dim -> d_model). Params
@@ -576,63 +629,77 @@ def build_vlm(cfg: ArchConfig) -> ModelBundle:
     with scalar ``gate_attn`` and ``gate_mlp`` (zero at init: a fresh cross
     layer is the identity); cache ``k``, ``v`` [n_blocks, n_self, B, W, Hkv,
     hd], the memory's ``mk``, ``mv`` [n_blocks, B, P, Hkv, hd], ``slot_pos``,
-    ``pos``."""
+    ``pos``.
+
+    ``mesh_info``: the bundle runs on one rank of that mesh: the self
+    layers as ``build_dense``'s, the cross layer's attention tensor-parallel
+    (``layers.cross_kv`` / ``cross_attn_full`` / ``cross_attn_decode`` with
+    ``tp``) and its MLP as a block's, the gates whole; the embedding
+    vocab-parallel; the projected patches gathered whole where ``proj`` is
+    sharded (``_frontend``). ``prefill``'s memory K/V hold the rank's data
+    shard and its KV heads where ``wk`` is sharded, else every head and
+    every slot (``decode_cache`` cuts the slots where ``cache_specs`` does);
+    ``init_cache`` gives the rank's blocks of ``k`` and ``mk`` under
+    ``cache_specs``."""
     n_self = cfg.cross_attn_every - 1
     n_blocks = cfg.n_layers // cfg.cross_attn_every
     if n_blocks * cfg.cross_attn_every != cfg.n_layers:
         raise ValueError(f"{cfg.name}: {cfg.n_layers} layers are not whole blocks")
     dims = attn_dims(cfg)
-
-    def init(seed: int = 0, device="cuda"):
-        return init_params(cfg, seed, device)
+    vp = L.vocab_pad_of(cfg.vocab)
+    tp = _model_axis(mesh_info)
+    shard = _shard_of(cfg, tp, mesh_info)
+    ff_tp = shard.tp if shard is not None and shard.ff_split else None
+    init = _init_fn(cfg, mesh_info)
 
     def _cross_rest(x, cp, h):
         """The cross layer after its attention h: both gated residuals."""
         x = x + _gate(cp["gate_attn"], x) * h
         y = L.swiglu(L.rms_norm(x, cp["ln2"], cfg.rms_eps),
-                     cp["mlp"]["w1"], cp["mlp"]["w3"], cp["mlp"]["w2"])
+                     cp["mlp"]["w1"], cp["mlp"]["w3"], cp["mlp"]["w2"], tp=ff_tp)
         return x + _gate(cp["gate_mlp"], x) * y
 
     def _cross_full(x, cp, mk, mv):
         return _cross_rest(x, cp, L.cross_attn_full(L.rms_norm(x, cp["ln1"], cfg.rms_eps),
-                                                    cp["attn"], dims, mk, mv))
+                                                    cp["attn"], dims, mk, mv, tp=tp))
 
     def _run_full(params, batch, emit_kv):
         tokens = batch["tokens"]
         chunked = tokens.shape[1] >= CHUNKED_MIN_SEQ
-        mem = L.linear(batch["patch_embeds"].to(L.PDT), params["proj"])
-        x = _embed(params["embed"], tokens)
+        mem = _frontend(batch["patch_embeds"], params["proj"], cfg.d_model, tp)
+        x, head = _vocab_head(params, tokens, vp, tp)
         self_kv, cross_kv = [], []
         for b in range(n_blocks):
             blk = _at(params["blocks"], b)
             for i in range(n_self):
-                x, kv, _ = _run(_block_full, x, _at(blk["self"], i), -1, cfg, chunked)
+                x, kv, _ = _run(_block_full, x, _at(blk["self"], i), -1, cfg, chunked, False,
+                                None, shard)
                 if emit_kv:
                     self_kv.append(kv)
-            mk, mv = L.cross_kv(mem, blk["cross"]["attn"], dims)
+            mk, mv = L.cross_kv(mem, blk["cross"]["attn"], dims, tp)
             x = _run(_cross_full, x, blk["cross"], mk, mv)
             if emit_kv:
                 cross_kv.append((mk, mv))
-        return L.rms_norm(x, params["ln_f"], cfg.rms_eps), self_kv, cross_kv
+        return head, L.rms_norm(x, params["ln_f"], cfg.rms_eps), self_kv, cross_kv
 
     def forward(params, batch):
-        x, _, _ = _run_full(params, batch, emit_kv=False)
-        return _logits(x, params["embed"]), 0.0
+        head, x, _, _ = _run_full(params, batch, emit_kv=False)
+        return head(x), 0.0
 
     def prefill(params, batch):
         tokens = batch["tokens"]
         Ssz = tokens.shape[1]
-        x, self_kv, cross_kv = _run_full(params, batch, emit_kv=True)
+        head, x, self_kv, cross_kv = _run_full(params, batch, emit_kv=True)
         ks, vs = torch.stack([k for k, _ in self_kv]), torch.stack([v for _, v in self_kv])
         cache = {"k": ks.reshape((n_blocks, n_self) + ks.shape[1:]),
                  "v": vs.reshape((n_blocks, n_self) + vs.shape[1:]),
                  "mk": torch.stack([k for k, _ in cross_kv]),
                  "mv": torch.stack([v for _, v in cross_kv]),
                  **_ring(Ssz, Ssz, tokens.device)}
-        return _logits(x[:, -1], params["embed"]), cache
+        return _whole_vocab(head(x[:, -1]), vp, tp), cache
 
     def decode_step(params, step, cache):
-        x = _embed(params["embed"], step["token"])
+        x, head = _vocab_head(params, step["token"], vp, tp)
         pos = cache["pos"]
         slot, sp = _slot(cache)
         new = dict(cache, k=cache["k"].clone(), v=cache["v"].clone(), slot_pos=sp, pos=pos + 1)
@@ -640,25 +707,23 @@ def build_vlm(cfg: ArchConfig) -> ModelBundle:
             blk = _at(params["blocks"], b)
             for i in range(n_self):
                 x, _ = _block_decode(x, _at(blk["self"], i), -1, cfg, new["k"][b, i],
-                                     new["v"][b, i], sp, slot, pos)
+                                     new["v"][b, i], sp, slot, pos, shard)
             cp = blk["cross"]
             x = _cross_rest(x, cp, L.cross_attn_decode(
                 L.rms_norm(x, cp["ln1"], cfg.rms_eps), cp["attn"], dims, cache["mk"][b],
-                cache["mv"][b]))
+                cache["mv"][b], tp=tp, mem_slots=_mem_slots(cache)))
         x = L.rms_norm(x, params["ln_f"], cfg.rms_eps)
-        return _logits(x[:, -1], params["embed"]), new
+        return _whole_vocab(head(x[:, -1]), vp, tp), new
 
     def init_cache(batch_size: int, capacity: int, extras=None, device="cuda"):
         hkv, hd = cfg.n_kv_heads, cfg.hd
-        z = lambda *shape: torch.zeros(shape, dtype=L.PDT, device=device)
-        return {"k": z(n_blocks, n_self, batch_size, capacity, hkv, hd),
-                "v": z(n_blocks, n_self, batch_size, capacity, hkv, hd),
-                "mk": z(n_blocks, batch_size, cfg.n_frontend_tokens, hkv, hd),
-                "mv": z(n_blocks, batch_size, cfg.n_frontend_tokens, hkv, hd),
-                **_ring(capacity, 0, device)}
+        return dict(_kv_cache(cfg, {
+            "k": (n_blocks, n_self, batch_size, capacity, hkv, hd),
+            "mk": (n_blocks, batch_size, cfg.n_frontend_tokens, hkv, hd)}, mesh_info, device),
+            **_ring(capacity, 0, device))
 
     return ModelBundle(cfg, init, forward, prefill, decode_step, init_cache,
-                       ring_axes={"k": 3, "v": 3})
+                       ring_axes={"k": 3, "v": 3}, mesh_info=mesh_info)
 
 
 # ---------------------------------------------------------------------------
@@ -666,27 +731,39 @@ def build_vlm(cfg: ArchConfig) -> ModelBundle:
 # ---------------------------------------------------------------------------
 
 
-def build_encdec(cfg: ArchConfig) -> ModelBundle:
+def build_encdec(cfg: ArchConfig, mesh_info: Optional[dict] = None) -> ModelBundle:
     """A non-causal encoder of ``enc_layers`` over the projected frames
     (``proj``, ``enc``, ``ln_enc``) and a causal decoder of ``n_layers``
     whose blocks add cross attention to the encoder output (``dec`` with
     ``ln_x`` / ``xattn``). Cache ``k``, ``v`` [L, B, W, Hkv, hd], the
     encoder output's ``mk``, ``mv`` [L, B, M, Hkv, hd] (``init_cache`` takes
-    M from ``extras["mem_len"]``, else the capacity), ``slot_pos``, ``pos``."""
-    dims = attn_dims(cfg)
+    M from ``extras["mem_len"]``, else the capacity), ``slot_pos``, ``pos``.
 
-    def init(seed: int = 0, device="cuda"):
-        return init_params(cfg, seed, device)
+    ``mesh_info``: the bundle runs on one rank of that mesh: the encoder's
+    layers and the decoder's self, cross (``xattn``) and MLP layers
+    tensor-parallel as ``build_vlm``'s, the projected frames gathered whole
+    where ``proj`` is sharded, the embedding vocab-parallel; the caches as
+    ``build_vlm``'s (``init_cache``: the rank's blocks of ``k`` and ``mk``
+    under ``cache_specs``)."""
+    dims = attn_dims(cfg)
+    vp = L.vocab_pad_of(cfg.vocab)
+    tp = _model_axis(mesh_info)
+    shard = _shard_of(cfg, tp, mesh_info)
+    ff_tp = shard.tp if shard is not None and shard.ff_split else None
+    init = _init_fn(cfg, mesh_info)
+
+    def _mlp(x, lp):
+        return L.swiglu(L.rms_norm(x, lp["ln2"], cfg.rms_eps),
+                        lp["mlp"]["w1"], lp["mlp"]["w3"], lp["mlp"]["w2"], tp=ff_tp)
 
     def _enc_block(x, lp, chunked):
         h, _ = L.self_attn_full(L.rms_norm(x, lp["ln1"], cfg.rms_eps), lp["attn"], dims,
-                                causal=False, chunked=chunked)
+                                causal=False, chunked=chunked, tp=tp)
         x = x + h
-        return x + L.swiglu(L.rms_norm(x, lp["ln2"], cfg.rms_eps),
-                            lp["mlp"]["w1"], lp["mlp"]["w3"], lp["mlp"]["w2"])
+        return x + _mlp(x, lp)
 
     def encode(params, frames):
-        x = L.linear(frames.to(L.PDT), params["proj"])
+        x = _frontend(frames, params["proj"], cfg.d_model, tp)
         chunked = x.shape[1] >= CHUNKED_MIN_SEQ
         for lp in _stack(params, "enc"):
             x = _run(_enc_block, x, lp, chunked)
@@ -694,69 +771,64 @@ def build_encdec(cfg: ArchConfig) -> ModelBundle:
 
     def _dec_block(x, lp, enc_out, chunked):
         h, kv = L.self_attn_full(L.rms_norm(x, lp["ln1"], cfg.rms_eps), lp["attn"], dims,
-                                 chunked=chunked)
+                                 chunked=chunked, tp=tp)
         x = x + h
-        mk, mv = L.cross_kv(enc_out, lp["xattn"], dims)
+        mk, mv = L.cross_kv(enc_out, lp["xattn"], dims, tp)
         x = x + L.cross_attn_full(L.rms_norm(x, lp["ln_x"], cfg.rms_eps), lp["xattn"], dims,
-                                  mk, mv)
-        y = L.swiglu(L.rms_norm(x, lp["ln2"], cfg.rms_eps),
-                     lp["mlp"]["w1"], lp["mlp"]["w3"], lp["mlp"]["w2"])
-        return x + y, kv, (mk, mv)
+                                  mk, mv, tp=tp)
+        return x + _mlp(x, lp), kv, (mk, mv)
 
     def _dec_full(params, tokens, enc_out, emit_kv):
         chunked = tokens.shape[1] >= CHUNKED_MIN_SEQ
-        x = _embed(params["embed"], tokens)
+        x, head = _vocab_head(params, tokens, vp, tp)
         kvs = []
         for lp in _stack(params, "dec"):
             x, kv, mkv = _run(_dec_block, x, lp, enc_out, chunked)
             if emit_kv:
                 kvs.append((kv, mkv))
-        return L.rms_norm(x, params["ln_f"], cfg.rms_eps), kvs
+        return head, L.rms_norm(x, params["ln_f"], cfg.rms_eps), kvs
 
     def forward(params, batch):
         enc_out = encode(params, batch["frames"])
-        x, _ = _dec_full(params, batch["tokens"], enc_out, emit_kv=False)
-        return _logits(x, params["embed"]), 0.0
+        head, x, _ = _dec_full(params, batch["tokens"], enc_out, emit_kv=False)
+        return head(x), 0.0
 
     def prefill(params, batch):
         tokens = batch["tokens"]
         Ssz = tokens.shape[1]
         enc_out = encode(params, batch["frames"])
-        x, kvs = _dec_full(params, tokens, enc_out, emit_kv=True)
+        head, x, kvs = _dec_full(params, tokens, enc_out, emit_kv=True)
         cache = {name: torch.stack([pick(kv) for kv in kvs]) for name, pick in (
             ("k", lambda e: e[0][0]), ("v", lambda e: e[0][1]),
             ("mk", lambda e: e[1][0]), ("mv", lambda e: e[1][1]))}
         cache.update(_ring(Ssz, Ssz, tokens.device))
-        return _logits(x[:, -1], params["embed"]), cache
+        return _whole_vocab(head(x[:, -1]), vp, tp), cache
 
     def decode_step(params, step, cache):
-        x = _embed(params["embed"], step["token"])
+        x, head = _vocab_head(params, step["token"], vp, tp)
         pos = cache["pos"]
         slot, sp = _slot(cache)
         new = dict(cache, k=cache["k"].clone(), v=cache["v"].clone(), slot_pos=sp, pos=pos + 1)
         for l, lp in enumerate(_stack(params, "dec")):
             h, _, _ = L.self_attn_decode(L.rms_norm(x, lp["ln1"], cfg.rms_eps), lp["attn"],
-                                         dims, new["k"][l], new["v"][l], sp, slot, pos)
+                                         dims, new["k"][l], new["v"][l], sp, slot, pos, tp=tp)
             x = x + h
             x = x + L.cross_attn_decode(L.rms_norm(x, lp["ln_x"], cfg.rms_eps), lp["xattn"],
-                                        dims, cache["mk"][l], cache["mv"][l])
-            x = x + L.swiglu(L.rms_norm(x, lp["ln2"], cfg.rms_eps),
-                             lp["mlp"]["w1"], lp["mlp"]["w3"], lp["mlp"]["w2"])
+                                        dims, cache["mk"][l], cache["mv"][l], tp=tp,
+                                        mem_slots=_mem_slots(cache))
+            x = x + _mlp(x, lp)
         x = L.rms_norm(x, params["ln_f"], cfg.rms_eps)
-        return _logits(x[:, -1], params["embed"]), new
+        return _whole_vocab(head(x[:, -1]), vp, tp), new
 
     def init_cache(batch_size: int, capacity: int, extras=None, device="cuda"):
         hkv, hd = cfg.n_kv_heads, cfg.hd
         mem_len = extras["mem_len"] if extras else capacity
-        z = lambda *shape: torch.zeros(shape, dtype=L.PDT, device=device)
-        return {"k": z(cfg.n_layers, batch_size, capacity, hkv, hd),
-                "v": z(cfg.n_layers, batch_size, capacity, hkv, hd),
-                "mk": z(cfg.n_layers, batch_size, mem_len, hkv, hd),
-                "mv": z(cfg.n_layers, batch_size, mem_len, hkv, hd),
-                **_ring(capacity, 0, device)}
+        return dict(_kv_cache(cfg, {"k": (cfg.n_layers, batch_size, capacity, hkv, hd),
+                                    "mk": (cfg.n_layers, batch_size, mem_len, hkv, hd)},
+                              mesh_info, device), **_ring(capacity, 0, device))
 
     return ModelBundle(cfg, init, forward, prefill, decode_step, init_cache,
-                       ring_axes={"k": 2, "v": 2})
+                       ring_axes={"k": 2, "v": 2}, mesh_info=mesh_info)
 
 
 # ---------------------------------------------------------------------------
@@ -796,8 +868,7 @@ def build_ssm(cfg: ArchConfig, mesh_info: Optional[dict] = None) -> ModelBundle:
     tp = _model_axis(mesh_info)
     S.ssm_axis(cfg, tp)            # refuses a mesh that splits channels but not heads
 
-    def init(seed: int = 0, device="cuda"):
-        return init_params(cfg, seed, device)
+    init = _init_fn(cfg, mesh_info)
 
     def _run_full(params, tokens, emit_state):
         x, head = _vocab_head(params, tokens, vp, tp)
@@ -886,8 +957,7 @@ def build_hybrid(cfg: ArchConfig, mesh_info: Optional[dict] = None) -> ModelBund
     S.ssm_axis(cfg, tp)            # refuses a mesh that splits channels but not heads
     shard = None if tp is None else _Shard(mesh_info, tp, cfg.d_ff % tp.size == 0)
 
-    def init(seed: int = 0, device="cuda"):
-        return init_params(cfg, seed, device)
+    init = _init_fn(cfg, mesh_info)
 
     def _mamba_decode(x, lp, cache, idx, new, key):
         """One Mamba layer for one token; its state at ``idx`` of the cache

@@ -25,7 +25,7 @@ under either placement.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -45,31 +45,63 @@ def attn_dims(cfg: ArchConfig) -> L.AttnDims:
 
 
 def init_params(cfg: ArchConfig, seed: int = 0, device="cuda",
-                expert_slabs: str = "host", n_model: int = 16) -> Dict:
+                expert_slabs: str = "host", n_model: int = 16,
+                keep: Optional[Callable] = None) -> Dict:
     """Random params: normal(0, 1) * fan_in**-0.5 weights, zero norms (the
     ``(1 + w)`` RMSNorm scale), the reference's f32 leaves (MoE router; SSM
     A_log, D, dt_bias). Draws on ``device``, one expert slab at a time, so
     host slabs are generated on the card and copied once into pinned
     memory. On ``meta`` the tree's shapes and dtypes, nothing drawn. The
     routed experts are padded by ``n_model``, the mesh's model axis (the
-    reference's 16 without a mesh; ``moe_layer.n_experts_padded``)."""
+    reference's 16 without a mesh; ``moe_layer.n_experts_padded``).
+    ``keep``: a function each leaf goes through as soon as it is drawn, in
+    draw order (``init_blocks``); not for an MoE config, whose expert slabs
+    are drawn an expert at a time."""
     if expert_slabs not in PLACEMENTS:
         raise ValueError(f"expert_slabs must be one of {PLACEMENTS}")
+    if keep is not None and cfg.is_moe:
+        raise ValueError(f"{cfg.name}: an MoE tree's expert slabs are not drawn a leaf a call")
     device = torch.device(device)
     g = None if device.type == "meta" else torch.Generator(device=device).manual_seed(seed)
+    draw = _Draw(cfg, g, device, keep)
     if cfg.family == "ssm":
-        return _init_ssm(cfg, g, device)
+        return _init_ssm(draw)
     if cfg.family in ("hybrid", "vlm", "encdec"):
-        return {"hybrid": _init_hybrid, "vlm": _init_vlm,
-                "encdec": _init_encdec}[cfg.family](_Draw(cfg, g, device))
-    return _init_dense(cfg, g, device, expert_slabs, n_model)
+        return {"hybrid": _init_hybrid, "vlm": _init_vlm, "encdec": _init_encdec}[cfg.family](draw)
+    return _init_dense(draw, expert_slabs, n_model)
 
 
-def _init_dense(cfg: ArchConfig, g: torch.Generator, device, expert_slabs: str,
-                n_model: int) -> Dict:
+def init_blocks(cfg: ArchConfig, seed: int, device, mesh_info: dict, **kw) -> Dict:
+    """This rank's blocks of ``init_params(cfg, seed, device, **kw)`` under
+    ``launch/partition.py param_specs`` on the mesh of ``mesh_info``, each
+    leaf cut as soon as it is drawn (``keep``), so a rank holds its blocks
+    and one whole leaf at a time, not the whole tree: the values are
+    ``shard_params``' of the whole draw. The specs come from the tree on
+    ``meta``, whose leaves map to the draws in draw order. An MoE tree is
+    drawn whole and then cut (``init_params``' ``keep``)."""
+    from repro_torch.launch.partition import param_specs, shard_leaf
+    mesh = mesh_info["mesh"]
+    n_model = mesh.shape[mesh_info["tp"]]
+    if cfg.is_moe:
+        whole = init_params(cfg, seed, device, **kw)
+        return shard_params(whole, param_specs(cfg, whole, n_model=n_model), mesh)
+    drawn = []
+    meta = init_params(cfg, seed, "meta", keep=lambda t: drawn.append(t) or t, **kw)
+    spec_of = dict(zip(map(id, _leaves(meta)),
+                       _leaves(param_specs(cfg, meta, n_model=n_model))))
+    specs = iter([spec_of[id(t)] for t in drawn])
+    return init_params(cfg, seed, device, keep=lambda t: shard_leaf(t, next(specs), mesh), **kw)
+
+
+def _leaves(tree) -> list:
+    """The leaves of a nested dict (a spec's tuple is one leaf), in order."""
+    return [x for v in tree.values() for x in (_leaves(v) if isinstance(v, dict) else [v])]
+
+
+def _init_dense(draw: "_Draw", expert_slabs: str, n_model: int) -> Dict:
     """``build_dense``'s tree. Draw order: each stack's attention, then its
     FFN (``layers``, then ``dense0``), the embedding last."""
-    draw = _Draw(cfg, g, device)
+    cfg, device = draw.cfg, draw.device
     n_dense = cfg.n_dense_layers
     n_scan = cfg.n_layers - n_dense
     if cfg.is_moe:
@@ -100,26 +132,29 @@ def _host_slabs(cfg: ArchConfig, n: int, device, n_model: int = 16) -> Dict:
                                                ("w2", (de, d))))}
 
 
-def _init_ssm(cfg: ArchConfig, g: torch.Generator, device) -> Dict:
+def _init_ssm(draw: "_Draw") -> Dict:
     """Mamba2 params, stacked over layers: ``layers.ln`` and ``layers.ssm``
     (``ssm_param_shapes``), as ``build_ssm(cfg).init`` builds them."""
-    draw = _Draw(cfg, g, device)
-    layers = draw.mamba((cfg.n_layers,))
+    layers = draw.mamba((draw.cfg.n_layers,))
     return dict(draw.head(), layers=layers)
 
 
 class _Draw:
     """The leaves of a param tree, drawn from ``g`` on ``device`` in call
-    order: normal(0, 1) * scale weights (one draw per leaf), zero norms."""
+    order: normal(0, 1) * scale weights (one draw per leaf), zero norms;
+    each through ``keep`` where given (``init_params``)."""
 
-    def __init__(self, cfg: ArchConfig, g: torch.Generator, device):
+    def __init__(self, cfg: ArchConfig, g: torch.Generator, device,
+                 keep: Optional[Callable] = None):
         self.cfg, self.g, self.device = cfg, g, device
+        self.keep = keep or (lambda t: t)
 
     def normal(self, shape, scale, dtype=L.PDT):
-        return torch.randn(shape, generator=self.g, device=self.device).mul_(scale).to(dtype)
+        return self.keep(torch.randn(shape, generator=self.g,
+                                     device=self.device).mul_(scale).to(dtype))
 
     def zeros(self, shape, dtype=L.PDT):
-        return torch.zeros(shape, dtype=dtype, device=self.device)
+        return self.keep(torch.zeros(shape, dtype=dtype, device=self.device))
 
     def attn(self, lead):
         cfg = self.cfg
@@ -156,7 +191,7 @@ class _Draw:
             if init == "normal":
                 return self.normal(lead + shape, scale, dtype)
             fill = {"zeros": 0.0, "ones": 1.0, "full": scale}[init]
-            return torch.full(lead + shape, fill, dtype=dtype, device=self.device)
+            return self.keep(torch.full(lead + shape, fill, dtype=dtype, device=self.device))
         return {"ln": self.zeros(lead + (self.cfg.d_model,)),
                 "ssm": {k: make(*v) for k, v in ssm_param_shapes(self.cfg).items()}}
 

@@ -342,8 +342,8 @@ def test_serve_mesh_on_the_cpu(started):
     (reduced Mixtral-8x7B): four ranks, each printing its record with the
     decode cache's shapes; rank 0 prints every request's tokens, whose
     first is the one-device prefill's greedy token (or a tie of its
-    logits). Without ``--backend``, and for a family the mesh does not
-    reach yet (the enc-dec), it refuses."""
+    logits). Without ``--backend``, and with a mesh that is neither DxM
+    nor PxDxM, it refuses."""
     import json
 
     from repro_torch.data.pipeline import PromptWorkload, squad_like
@@ -372,7 +372,6 @@ def test_serve_mesh_on_the_cpu(started):
     first = greedy_token(logits, cfg.vocab)[:, 0].tolist()
     for i, t in enumerate(toks):
         assert t[0] == first[i] or _tie(logits[i, :cfg.vocab].float().numpy(), t[0], first[i])
-    for extra in (["--mesh", "2x2"], ["--arch", "seamless-m4t-medium", "--mesh", "1x1",
-                                      "--backend", "gloo"]):
+    for extra in (["--mesh", "2x2"], ["--mesh", "4", "--backend", "gloo"]):
         with pytest.raises(SystemExit):
             main(SERVE[3:6] + extra)

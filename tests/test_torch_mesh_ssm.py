@@ -510,19 +510,6 @@ def test_serve_launcher_mesh_on_the_cpu(started, arch):
         assert t[0] == first[i] or _tie(logits[i, :cfg.vocab].float().numpy(), t[0], first[i])
 
 
-@pytest.mark.parametrize("kind", ["train", "serve"])
-def test_launchers_refuse_the_remaining_families(kind, capsys):
-    """Under ``--mesh`` the vlm and the enc-dec are refused with the
-    ROADMAP's reference."""
-    import importlib
-    main = importlib.import_module(f"repro_torch.launch.{kind}").main
-    for arch in ("llama-3.2-vision-90b", "seamless-m4t-medium"):
-        with pytest.raises(SystemExit):
-            main(["--arch", arch, "--reduced", "--device", "cpu", "--mesh", "1x1",
-                  "--backend", "gloo"])
-        assert "Queue A 4" in capsys.readouterr().err
-
-
 def test_mesh_refuses_channels_split_without_heads():
     """A config whose channels divide the model axis but whose heads do
     not is refused with the reason."""

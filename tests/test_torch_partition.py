@@ -8,9 +8,10 @@ names. The reference's trees come from ``jax.eval_shape`` (MoE experts
 padded by the mesh's model axis, as its ``build_dense(cfg, mesh_info)``
 pads them), the port's on the ``meta`` device. Then ``shard_leaf`` /
 ``shard_params`` against numpy slicing, the logical production meshes, and
-the builders' refusal of a mesh outside ``build_dense``, ``build_ssm`` and
-``build_hybrid``; the ssm and hybrid trees' specs again at a 2-way model
-axis, and a built rank's param blocks and cache under them.
+the vlm, the enc-dec and the pattern stack built under a mesh (the
+leaf-by-leaf draw of a rank's blocks, their caches' blocks); the ssm and
+hybrid trees' specs again at a 2-way model axis, and a built rank's param
+blocks and cache under them.
 """
 import dataclasses
 import functools
@@ -189,13 +190,49 @@ def test_production_meshes_and_info_match_the_reference():
 
 
 @pytest.mark.parametrize("arch", ["seamless_m4t_medium", "llama_3_2_vision_90b", "gemma3_1b"])
-def test_other_families_refuse_a_mesh(arch, monkeypatch):
+def test_every_family_builds_under_a_mesh(arch, monkeypatch):
     """The vlm, the enc-dec and (under ``REPRO_OPT_STATIC_WINDOW``) the
-    pattern stack refuse a mesh, naming ROADMAP Queue A 4."""
+    pattern stack build under a mesh: on each rank of a logical 2 x 2 mesh
+    ``init(blocks=True)``, drawn and cut leaf by leaf, equals
+    ``shard_params`` of the whole draw, and ``init_cache`` is the rank's
+    block of the whole cache under ``cache_specs`` (the memory ``mk`` /
+    ``mv`` among its leaves; the tail ring ``kt`` / ``vt``, which the
+    reference's rule does not name and so leaves whole, laid out as ``k``,
+    ``models/model.py _kv_specs``); the pattern tree's specs (``blocks`` /
+    ``tail``) equal the reference's ``build_dense_pattern`` tree's at a 2-
+    and a 16-way model axis."""
     monkeypatch.setenv("REPRO_OPT_STATIC_WINDOW", "1")
-    info = TMESH.mesh_info(TMESH.make_production_mesh())
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A 4"):
-        build(reduced(get_config(arch)), mesh_info=info)
+    cfg = reduced(get_config(arch))
+    bundle = build(cfg)
+    whole = bundle.init(5, "cpu")
+    specs = TP.param_specs(cfg, whole, n_model=2)
+    extras = {"mem_len": 12} if cfg.family == "encdec" else None
+    cache = bundle.init_cache(4, 16, extras, device="meta")
+    cspecs = TP.cache_specs(cfg, cache, dp="data", n_model=2, n_dp=2)
+    if "kt" in cache:     # the reference's rule names no tail ring; the port lays it as k
+        assert cspecs["kt"] == cspecs["vt"] == TP.P()
+        cspecs["kt"] = cspecs["vt"] = TP.P(*cspecs["k"][1:])
+    for d in range(2):
+        for m in range(2):
+            mesh = _mesh((2, 2), ("data", "model"), (d, m))
+            mesh.groups[("model",)] = None           # a logical mesh: no collectives run
+            sharded = build(cfg, mesh_info=TMESH.mesh_info(mesh))
+            got, want = sharded.init(5, "cpu", blocks=True), shard_params(whole, specs, mesh)
+            assert len(tree_leaves(got)) == len(tree_leaves(want))
+            for a, b in zip(tree_leaves(got), tree_leaves(want)):
+                assert a.shape == b.shape and torch.equal(a, b)
+            blocks = sharded.init_cache(4, 16, extras, device="meta")
+            assert set(cache) <= set(blocks)
+            for key, t in cache.items():
+                assert tuple(blocks[key].shape) == TP.block_shape(tuple(t.shape), cspecs[key],
+                                                                  mesh), key
+    if cfg.local_global_pattern:
+        jcfg = jreduced(jget(arch))
+        jp = jax.eval_shape(lambda: jbuild(jcfg).init(jax.random.PRNGKey(0)))
+        assert "blocks" in jp and "blocks" in whole
+        for n_model in (2, 16):
+            assert _port_leaves(TP.param_specs(cfg, whole, n_model=n_model)) == \
+                _ref_leaves(jp, JP.param_specs(jcfg, jp, n_model=n_model))
 
 
 SSM_ARCHS = ["mamba2_2_7b", "zamba2_7b"]
@@ -234,6 +271,9 @@ def test_ssm_and_hybrid_rank_blocks(arch):
     specs = TP.param_specs(cfg, whole, n_model=2)
     cache = build(cfg).init_cache(4, 16, device="meta")
     cspecs = TP.cache_specs(cfg, cache, dp="data", n_model=2, n_dp=2)
+    if "kt" in cache:     # the reference's rule names no tail ring; the port lays it as k
+        assert cspecs["kt"] == cspecs["vt"] == TP.P()
+        cspecs["kt"] = cspecs["vt"] = TP.P(*cspecs["k"][1:])
     for d in range(2):
         for m in range(2):
             mesh = _mesh((2, 2), ("data", "model"), (d, m))
@@ -252,11 +292,12 @@ def test_ssm_and_hybrid_rank_blocks(arch):
 
 @pytest.mark.parametrize("multi", [False, True])
 def test_dryrun_mesh_plan_follows_the_reference(multi, tmp_path):
-    """``launch/dryrun.py --mesh``: for every pair of a family the mesh
-    reaches (``build_dense``, the ssm, the hybrid), the per-device bytes
-    reckoned from the reference's own specs of its own tree, and its FSDP
-    rule (``state_gb_dev > 8.0``, dryrun.py:110-121); the vlm and the
-    enc-dec are not planned."""
+    """``launch/dryrun.py --mesh``: for every pair of ``pairs()``, every
+    family's, the per-device bytes reckoned from the reference's own specs
+    of its own tree, and its FSDP rule (``state_gb_dev > 8.0``,
+    dryrun.py:110-121); a decode pair's cache bytes from the reference's
+    ``cache_specs`` of its own cache (the vlm's and the enc-dec's memory
+    ``mk`` / ``mv`` among the leaves)."""
     from repro_torch.launch.dryrun import BUDGET_BYTES, main, mesh_plan
     sizes = {"pod": 2, "data": 16, "model": 16}
     dp, n_dp = (("pod", "data"), 32) if multi else ("data", 16)
@@ -272,9 +313,7 @@ def test_dryrun_mesh_plan_follows_the_reference(multi, tmp_path):
 
     for cfg, shape in jpairs():
         rec = mesh_plan(get_config(cfg.name), INPUT_SHAPES[shape.name], multi_pod=multi)
-        if cfg.family in ("vlm", "encdec"):
-            assert not rec["planned"] and "Queue A 4" in rec["reason"]
-            continue
+        assert rec["planned"]
         jparams = _ref_params(cfg.name, 16)
         jspecs = JP.param_specs(cfg, jparams, n_model=16)
         jz = JP.zero_specs(jparams, jspecs, dp=dp, n_dp=n_dp)
@@ -283,6 +322,11 @@ def test_dryrun_mesh_plan_follows_the_reference(multi, tmp_path):
         assert rec["param_bytes"] == nbytes and rec["budget_bytes"] == BUDGET_BYTES
         if shape.kind != "train":
             assert b["params"] == per_device(jparams, jspecs)
+            if shape.kind == "decode":
+                _, jcache = JI.decode_abs(cfg, shape, jbuild(cfg))
+                assert ("mk" in jcache) == (cfg.family in ("vlm", "encdec"))
+                assert b["cache"] == per_device(jcache, JP.cache_specs(
+                    cfg, jcache, dp=dp, n_model=16, n_dp=n_dp))
             continue
         assert rec["fsdp"] == (nbytes * 5 / 16 / 1e9 > 8.0)
         assert b["params"] == per_device(jparams, jz if rec["fsdp"] else jspecs)
