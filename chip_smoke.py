@@ -187,8 +187,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                within 5e-2, greedy tokens equal.
  12. paper   — the paper's Table I models at their published widths, random
                weights from ``--seed``, one after another, each released
-               before the next: DeepSeekMoE-16B at 8 of 28 layers,
-               Qwen3-30B-A3B at 6 of 48, Mixtral-8x22B at 4 of 56 (host
+               before the next: DeepSeekMoE-16B at 2 of 28 layers,
+               Qwen3-30B-A3B at 2 of 48, Mixtral-8x22B at 2 of 56 (host
                RAM). Per model: its kernel shapes held against their plain
                versions and timed (uncounted), ODF traces over 3 squad-like
                prompts and the ExpertMLP trained on the card, then
@@ -272,7 +272,7 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                the vlm's gates, one cancelling bf16 sum each, held to the
                CPU's f32 step by ``F32_RATIO``.
  16c. train_families — published widths, 4 AdamW steps each at lr 1e-5
-               on one batch: Mamba2-2.7B at all 64 layers,
+               on one batch: Mamba2-2.7B at 32 of 64 layers,
                SeamlessM4T-medium at 12 + 12 (2 x 2048 over 2 x 2048
                frames), gemma3-1b at 26 (``build_dense_pattern``), Zamba2-7B
                at ``TRAIN_HYBRID_LAYERS`` of 81 (B=1 x 4096; 12 bytes a
@@ -372,8 +372,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                (``MESH_LOSS_TOL``) and gradient norm (``MESH_GN_TOL``),
                every gradient leaf of step 1 (``MESH_GRAD_TOL``) and the
                params after two steps (``MESH_PARAM_TOL``), beside a fault
-               run that must fail each of them: its forward with model rank
-               1's ``e_start`` off by one shard (logits), its steps with
+               run in the same processes that must fail each of them against
+               the rank's sound run: its forward with model rank 1's
+               ``e_start`` off by one shard (logits), its steps with
                ``copy_to`` left out (loss, gradient norm, gradient leaves,
                params). Per rank: peak memory, step ms, the collectives'
                counts and bytes (gloo between processes on one card: no
@@ -381,7 +382,7 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                must be > 0. Then, in the same 4 processes, the sharded
                decode (``MESH_DECODE_RUNS``: Qwen2-MoE-A2.7B, its KV heads
                over the model axis, and Granite-34B, MQA, its ring's slots
-               over it, each at 2 layers and published widths): B=4
+               over it, each at 1 layer and published widths): B=4
                prompts of 2044 tokens prefilled, the cache taken to 4096
                slots (``decode_cache``), 8 steps fed the unsharded
                run's tokens (the MoE replaying its experts), so Granite's
@@ -432,6 +433,27 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                / 16 over its 4096-slot ring, at Llama-Vision's cross 32 / 4
                over the patches and at gemma3's windowed 2048-slot block
                with ``lse`` (the other block none of the window).
+               Then, in the same 4 processes, FSDP of the params forced on
+               (``launch/train.py rank_model(fsdp=True)``: each rank's
+               params its ``zero_specs`` slices, gathered a layer at a time
+               inside the layer's checkpoint): Qwen2-MoE-A2.7B at 2 layers
+               (replaying the unsharded run's experts) and Mamba2-2.7B at 2,
+               whose ``A_log`` / ``D`` / ``dt_bias`` / ``norm`` take the
+               data axes on the layer dim, each held against its unsharded
+               run (``mesh_held``'s limits) and against the rank's ZeRO-1
+               run (the forward's logits and step 1's loss bit for bit);
+               beside two planted faults on Mamba2 that must fail: the
+               data-axis gather's backward keeping the rank's slice without
+               the sum (a gradient leaf past ``MESH_GRAD_TOL``), and a
+               layer-dim leaf read from the rank's own slice as if the
+               layer dim were whole (logits past ``BUNDLE_TOL`` against the
+               sound forward, on params whose layers differ). Last, in
+               the same processes, what ``launch/train.py --mesh 2x2``
+               runs on each rank (``rank_model``, then 2 steps of its
+               4 x 4096 batch) on Qwen2-MoE-A2.7B at 3 layers, by the rule
+               (``--fsdp auto``: it must turn FSDP on at ``state_gb_dev``
+               10.12) and with FSDP off: each rank's peak must fall by
+               ``FSDP_PEAK_DROP`` at least.
                ``--mesh`` runs only this phase.
 
 Every phase line carries ``t_s``, the seconds since the script started.
@@ -442,6 +464,7 @@ the kernels' JSON summary (with each kernel's ``variants``), and
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import dataclasses
 import gc
@@ -2464,16 +2487,17 @@ def check_paper_small(seed: int):
 
 # -- phase 12: the paper's Table I models at their published widths -------------
 
-# (model, layers, max_seq): DeepSeekMoE-16B at 8 of 28 layers, Qwen3-30B-A3B
-# at 6 of 48, Mixtral-8x22B at 4 of 56 (19.3 GB of pinned host expert
-# slabs; host RAM). The first two ran at 28 (31.0 GB) and 24 (29.0 GB) until
-# the shapes phase needed their time: the paper phase was about half of the
+# (model, layers, max_seq): DeepSeekMoE-16B at 2 of 28 layers, Qwen3-30B-A3B
+# at 2 of 48, Mixtral-8x22B at 2 of 56 (9.7 GB of pinned host expert slabs;
+# host RAM). The first two ran at 28 (31.0 GB) and 24 (29.0 GB) until the
+# shapes phase needed their time: the paper phase was about half of the
 # script's 650 s, and the script's limit did not grow (28 / 24 layers cut to
-# 14 / 12 then, and to 8 / 6 when the mesh phase took in every family).
+# 14 / 12 then, to 8 / 6 when the mesh phase took in every family, and to
+# 2 / 2, Mixtral-8x22B 4 to 2, when it took in FSDP and its launcher runs).
 # max_seq: each model's own choice (batch invariance holds at any max_seq:
 # flash_decode's ranges come from Hkv and W)
-PAPER_RUNS = (("deepseekmoe-16b", 8, 2048), ("qwen3-30b-a3b", 6, 4096),
-              ("mixtral-8x22b", 4, 2048))
+PAPER_RUNS = (("deepseekmoe-16b", 2, 2048), ("qwen3-30b-a3b", 2, 4096),
+              ("mixtral-8x22b", 2, 2048))
 PAPER_NEW_TOKENS = 16
 # the policy comparison's new tokens: LFP stages every expert of the next
 # layer at each decode step (0.59 s a step at 28 layers, NVIDIA H100 80GB
@@ -3552,16 +3576,17 @@ def check_train_families(seed: int):
 
 # (family, config id, layers, batch, tokens) at published widths, every
 # weight, gradient and AdamW moment on the card: 12 bytes a parameter (bf16
-# weights and gradients, f32 m and v). Mamba2-2.7B at all 64 layers (2.7 B
-# parameters, 32 GB), SeamlessM4T-medium at 12 + 12, gemma3-1b at all 26
-# through build_dense_pattern; Zamba2-7B at TRAIN_HYBRID_LAYERS of 81 (6.64 B
-# parameters whole, 80 GB: it does not fit), 12 whole blocks of 6 Mamba
-# layers and one application of the shared block (5.93 B, 71 GB; peak 79.2
-# GB of the card's 85 on NVIDIA H100 80GB HBM3: 13 blocks would need 5.6 GB
-# more); Llama-3.2-Vision-90B at one block of 5 (4 self + 1 cross layers,
+# weights and gradients, f32 m and v). Mamba2-2.7B at 32 of 64 layers (all 64
+# are 2.7 B parameters, 32 GB, peak 39 GB: they ran until the mesh phase took
+# in FSDP and its launcher runs), SeamlessM4T-medium at 12 + 12, gemma3-1b at
+# all 26 through build_dense_pattern; Zamba2-7B at TRAIN_HYBRID_LAYERS of 81,
+# 6 whole blocks of 6 Mamba layers and one application of the shared block
+# (the deepest whole-block cut that fits is 72, 5.93 B parameters, 71 GB, peak
+# 79.2 GB of the card's 85 on NVIDIA H100 80GB HBM3; it ran at 72 until the
+# same cut); Llama-3.2-Vision-90B at one block of 5 (4 self + 1 cross layers,
 # 4.28 B, plus the tied 1.05 B embedding: 5.34 B, 64 GB)
-TRAIN_HYBRID_LAYERS = 72
-TRAIN_FAMILY_RUNS = (("ssm", "mamba2_2_7b", 64, 2, 2048),
+TRAIN_HYBRID_LAYERS = 36
+TRAIN_FAMILY_RUNS = (("ssm", "mamba2_2_7b", 32, 2, 2048),
                      ("encdec", "seamless_m4t_medium", 12, 2, 2048),
                      ("pattern", "gemma3_1b", 26, 2, 2048),
                      ("hybrid", "zamba2_7b", TRAIN_HYBRID_LAYERS, 1, 4096),
@@ -4751,37 +4776,23 @@ def mesh_unsharded(seed: int, tmp: Path) -> dict:
     return out
 
 
-def mesh_rank(local_rank: int, port: int, tmp: str, seed: int, fault: bool) -> None:
-    """One rank of the mesh (a process of its own on the shared card):
-    ``launch/train.py rank_setup``, the forward's logits of its shard of
-    step 0's batch, then ``MESH_STEPS`` steps of ``make_train_step``, its
-    router replaying its data shard's unsharded record. The fault run's
-    forward has model rank 1's ``e_start`` off by one shard, and its steps
-    leave ``copy_to`` out (identity both ways).
-    Writes ``tmp/rank<r>.pt``."""
-    os.environ.update(RANK=str(local_rank), LOCAL_RANK=str(local_rank),
-                      WORLD_SIZE=str(math.prod(MESH_GRID)),
-                      LOCAL_WORLD_SIZE=str(math.prod(MESH_GRID)),
-                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
-    sys.path.insert(0, str(ROOT / "src"))
-    import torch.distributed as dist
+def mesh_zero1(run, batches: list, ref: list, fault: bool) -> dict:
+    """A rank's ZeRO-1 run of the mesh's model (``run``: a ``RankRun``):
+    the forward's logits of its shard of step 0's batch (``batches[0]``),
+    then ``MESH_STEPS`` steps of ``make_train_step``, its router replaying
+    its data shard's unsharded record ``ref``; the kernels' counts, the
+    collectives and the peak reset just before the steps and read just
+    after. The fault run's forward has model rank 1's ``e_start`` off by one
+    shard, and its steps leave ``copy_to`` out (identity both ways)."""
     from repro_torch import collectives
     from repro_torch.kernels.expert_ffn import expert_ffn
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.launch.train import rank_setup
     from repro_torch.models import moe_layer as M
     from repro_torch.training.optimizer import tree_leaves
     from repro_torch.training.train_loop import make_train_step
-    tmp = Path(tmp)
-    cfg = mesh_cfg()
-    run = rank_setup(cfg, MESH_GRID, ("data", "model"), "gloo", "cuda", seed, MESH_LR)
-    d, m = run.mesh.coords["data"], run.mesh.coords["model"]
-    ref = torch.load(tmp / f"routes{d}.pt")
-    batches = [run.shard_batch({"tokens": t}) for t in mesh_batches(cfg, seed)]
-    out = dict(rank=run.mesh.rank, coords=dict(run.mesh.coords), device=str(run.device),
-               ranks_per_card=run.ranks_per_card)
+    out = {}
     start, copy_to = M.expert_start, collectives.copy_to
-    if fault and m == 1:
+    if fault and run.mesh.coords["model"] == 1:
         M.expert_start = lambda mode, i, e_loc: (i - 1) * e_loc
     with routes(replay=ref) as own:
         with torch.no_grad():
@@ -4813,17 +4824,86 @@ def mesh_rank(local_rank: int, port: int, tmp: str, seed: int, fault: bool) -> N
                    params=[t.cpu() for t in tree_leaves(params)])
     if not fault:
         out["route_flips_at_ties"] = flips(own, ref)
-        del params, state
-        run.params = run.state = run.opt = None
-        release()
-        out["decode"] = mesh_decode_rank(run, tmp, seed)
-        out["families"] = mesh_family_rank(run, tmp, seed)
-    torch.save(out, tmp / f"rank{run.mesh.rank}.pt")
+    return out
+
+
+def mesh_fault_control(run, sound: dict, batches: list, ref: list, seed: int) -> dict:
+    """The planted faults of the ZeRO-1 run on this rank, against its sound
+    run (``sound``: ``mesh_zero1``'s record): the fault run (``mesh_zero1``
+    with ``fault``) on params drawn again (``rank_model``); the error of its
+    logits (``logit_err``), each step's relative error of the loss and the
+    gradient norm, its worst gradient leaf of step 1 (``MESH_GRAD_TOL``'s
+    measure) and the squared distance of its params from the sound run's
+    beside the sound run's squared update (the parent sums both over the
+    ranks for ``MESH_PARAM_TOL``'s measure). Only these numbers leave the
+    rank, so the fault run writes no record to the disk."""
+    from repro_torch.launch.train import rank_model
+    from repro_torch.training.optimizer import tree_leaves
+    faulty = rank_model(run.cfg, run.mesh, run.device, run.ranks_per_card, seed, MESH_LR,
+                        fsdp=False)
+    adam = faulty.opt.opt
+    p0 = [t.clone() for t in tree_leaves(faulty.params)]
+    got = mesh_zero1(faulty, batches, ref, fault=True)
+    del faulty
+    scale = lambda gn: (1 - adam.b1) * min(1.0, adam.grad_clip / gn)
+    worst = num = den = 0.0
+    for a, b in zip(got["m0"], sound["m0"]):
+        g = a.cuda() / scale(got["steps"][0]["grad_norm"])
+        w = b.cuda() / scale(sound["steps"][0]["grad_norm"])
+        worst = max(worst, float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30))
+    for a, b, c in zip(got["params"], sound["params"], p0):
+        a, b, c = a.cuda().float(), b.cuda().float(), c.float()
+        num += float((a - b).square().sum())
+        den += float((b - c).square().sum())
+    err, ok = logit_err(got["logits"], sound["logits"])
+    rel = lambda k: max(abs(x[k] - w[k]) / abs(w[k]) for x, w in zip(got["steps"], sound["steps"]))
+    out = dict(logits_max_abs_err=err, logits_ok=ok, loss_rel_err=rel("loss"),
+               grad_norm_rel_err=rel("grad_norm"), grad_leaf_rel_err=worst, param_num=num,
+               param_den=den)
+    del p0, got
+    release()
+    return out
+
+
+def mesh_rank(local_rank: int, port: int, tmp: str, seed: int) -> None:
+    """One rank of the mesh (a process of its own on the shared card):
+    ``launch/train.py rank_setup`` and its ZeRO-1 run (``mesh_zero1``), the
+    planted faults' readings against it (``mesh_fault_control``), then the
+    decode, families, fsdp and rule parts. Writes ``tmp/rank<r>.pt``, and
+    each part's ``HEAVY`` leaves to a file of their own as the part ends
+    (``spill``)."""
+    os.environ.update(RANK=str(local_rank), LOCAL_RANK=str(local_rank),
+                      WORLD_SIZE=str(math.prod(MESH_GRID)),
+                      LOCAL_WORLD_SIZE=str(math.prod(MESH_GRID)),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch.distributed as dist
+    from repro_torch.launch.train import rank_setup
+    tmp = Path(tmp)
+    cfg = mesh_cfg()
+    run = rank_setup(cfg, MESH_GRID, ("data", "model"), "gloo", "cuda", seed, MESH_LR)
+    ref = torch.load(tmp / f"routes{run.mesh.coords['data']}.pt")
+    batches = [run.shard_batch({"tokens": t}) for t in mesh_batches(cfg, seed)]
+    r = run.mesh.rank
+    out = dict(rank=r, coords=dict(run.mesh.coords), device=str(run.device),
+               ranks_per_card=run.ranks_per_card, **mesh_zero1(run, batches, ref, fault=False))
+    run.params = run.state = run.opt = None
+    release()
+    out["control"] = mesh_fault_control(run, out, batches, ref, seed)
+    spill(out, tmp / f"rank{r}_zero1.pt")
+    rank_note(r, "zero1")
+    out["decode"] = mesh_decode_rank(run, tmp, seed)
+    rank_note(r, "decode")
+    out["families"] = mesh_family_rank(run, tmp, seed)
+    out["fsdp"] = mesh_fsdp_rank(run, tmp, seed, out)
+    out["fsdp_rule"] = mesh_fsdp_rule_rank(run, seed)
+    rank_note(r, "fsdp rule")
+    torch.save(out, tmp / f"rank{r}.pt")
     dist.barrier()
     dist.destroy_process_group()
 
 
-def mesh_ranks(tmp: Path, seed: int, fault: bool) -> list:
+def mesh_ranks(tmp: Path, seed: int) -> list:
     """Start the mesh's ranks on this card and return their records."""
     import socket
 
@@ -4832,16 +4912,54 @@ def mesh_ranks(tmp: Path, seed: int, fault: bool) -> list:
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
     world = math.prod(MESH_GRID)
-    mp.start_processes(mesh_rank, args=(port, str(tmp), seed, fault), nprocs=world,
+    mp.start_processes(mesh_rank, args=(port, str(tmp), seed), nprocs=world,
                        start_method="spawn")
-    return [torch.load(tmp / f"rank{r}.pt") for r in range(world)]
+    ranks = []
+    for r in range(world):
+        rec = torch.load(tmp / f"rank{r}.pt")
+        rec.update(torch.load(tmp / f"rank{r}_zero1.pt"))
+        for part in ("family", "fsdp"):
+            for arch, x in rec["families" if part == "family" else "fsdp"].items():
+                x.update(torch.load(tmp / f"rank{r}_{part}_{arch}.pt"))
+        ranks.append(rec)
+    return ranks
 
 
-def mesh_held(ranks: list, ref: dict, cfg, witness=None) -> dict:
+# a rank record's leaves that only the parent's held checks read, written to
+# a file of their own as each part ends and dropped from the rank's memory:
+# four ranks holding every part's beside the parent's unsharded records ran
+# a one-card machine out of its 96 GiB of host memory
+HEAVY = ("m0", "params")
+
+
+def spill(rec: dict, path: Path) -> None:
+    """Write ``rec``'s ``HEAVY`` leaves to ``path`` and drop them from it
+    (``mesh_ranks`` puts them back)."""
+    torch.save({k: rec.pop(k) for k in HEAVY if k in rec}, path)
+    gc.collect()
+
+
+def rank_note(rank: int, part: str) -> None:
+    """One line on stderr as a rank ends a part: the machine's available
+    host memory, its cgroup's use where it has one, and the rank's own
+    resident bytes."""
+    with open("/proc/meminfo") as f:
+        avail = next(int(ln.split()[1]) for ln in f if ln.startswith("MemAvailable"))
+    with open("/proc/self/status") as f:
+        rss = next(int(ln.split()[1]) for ln in f if ln.startswith("VmRSS"))
+    cgroup = Path("/sys/fs/cgroup/memory.current")
+    used = int(cgroup.read_text()) / 2 ** 30 if cgroup.is_file() else None
+    print(json.dumps(dict(mesh_rank=rank, part=part, unix_s=time.time(),
+                          mem_available_gb=avail / 2 ** 20, cgroup_gb=used,
+                          rss_gb=rss / 2 ** 20)), file=sys.stderr, flush=True)
+
+
+def mesh_held(ranks: list, ref: dict, cfg, witness=None, fsdp: bool = False) -> dict:
     """The ranks' step against the unsharded one: the worst relative error
     of the loss and of the gradient norm over steps and ranks, of a
     gradient leaf (``MESH_GRAD_TOL``'s measure; its leaf named) and the
-    params' update over the whole tree (``MESH_PARAM_TOL``'s). With
+    params' update over the whole tree (``MESH_PARAM_TOL``'s; ``fsdp``: the
+    ranks hold their params' ``zero_specs`` slices). With
     ``witness`` (the unsharded step in f32, ``mesh_family_run``'s record),
     each loss, gradient norm and leaf past its limit is listed in
     ``over_limit`` with its ``f32_ratio``: how many times as far from the
@@ -4851,7 +4969,7 @@ def mesh_held(ranks: list, ref: dict, cfg, witness=None) -> dict:
     from repro_torch.training.optimizer import tree_leaves
     pspecs = param_specs(cfg, ref["p0"], n_model=MESH_GRID[1])
     zspecs = tree_leaves(zero_specs(ref["p0"], pspecs, dp="data", n_dp=MESH_GRID[0]))
-    pspecs, names = tree_leaves(pspecs), leaf_names(ref["p0"])
+    pspecs, names = zspecs if fsdp else tree_leaves(pspecs), leaf_names(ref["p0"])
     scale = lambda gn: (1 - ref["b1"]) * min(1.0, ref["grad_clip"] / gn)
     js = scale(ref["steps"][0]["grad_norm"])
     meshes = [dataclasses.replace(logical_mesh(MESH_GRID, ("data", "model")),
@@ -4881,8 +4999,7 @@ def mesh_held(ranks: list, ref: dict, cfg, witness=None) -> dict:
                                                  shard_leaf(b, spec, mesh)))
             num += float((got - b_r).square().sum())
             den += float((b_r - a_r).square().sum())
-        del want, a, b, exact
-        release()
+        del want, a, b, exact   # freed by del: release() would collect the whole heap a leaf
     for k, limit in (("loss", MESH_LOSS_TOL), ("grad_norm", MESH_GN_TOL)):
         for r in ranks:
             for i, (s_, w_) in enumerate(zip(r["steps"], ref["steps"])):
@@ -4901,7 +5018,7 @@ def mesh_held(ranks: list, ref: dict, cfg, witness=None) -> dict:
 
 # (arch, layers): Qwen2-MoE-A2.7B's 16 KV heads shard over the model axis;
 # Granite-34B's one (MQA) does not, so its ring's slots do
-MESH_DECODE_RUNS = (("qwen2_moe_a2_7b", 2), ("granite_34b", 2))
+MESH_DECODE_RUNS = (("qwen2_moe_a2_7b", 1), ("granite_34b", 1))
 MESH_DECODE_B = 4          # global batch, one shard of 2 a data rank
 MESH_DECODE_PROMPT = 2044  # prompt tokens: slots 0..2043 of
 MESH_DECODE_W = 4096       # the ring, so step 4 (position 2048) writes model rank 1's first slot
@@ -5427,7 +5544,7 @@ def mesh_family_rank(run, tmp: Path, seed: int) -> dict:
                 mine.append(greedy_token(logits, cfg.vocab).cpu())
             return lg, mine, ms
 
-        def steps(p, n):
+        def steps(p, n, keep=lambda name: True):
             opt = ZeRO1(AdamW(lr=MESH_LR), pspecs, zspecs, run.mesh_info)
             state = opt.init(p)
             step = make_train_step(bundle, opt)
@@ -5439,7 +5556,8 @@ def mesh_family_rank(run, tmp: Path, seed: int) -> dict:
                 rows.append(dict(loss=float(mt["loss"]), grad_norm=float(mt["grad_norm"]),
                                  ms=(time.perf_counter() - t0) * 1e3))
                 if i == 0:
-                    m0 = [t.cpu() for t in tree_leaves(state.m)]
+                    m0 = {n_: t.cpu() for n_, t in zip(names, tree_leaves(state.m))
+                          if keep(n_)}
             return p, rows, m0
 
         fresh = [t.clone() for t in tree_leaves(params)] if seq else None
@@ -5459,7 +5577,8 @@ def mesh_family_rank(run, tmp: Path, seed: int) -> dict:
                    decode_step_ms=ms, cache={k: list(v.shape) for k, v in cache.items()},
                    steps=[])
         if seq:
-            params, rec["steps"], rec["m0"] = steps(params, MESH_STEPS)
+            params, rec["steps"], m0 = steps(params, MESH_STEPS)
+            rec["m0"] = list(m0.values())
             rec["params"] = [t.cpu() for t in tree_leaves(params)]
         rec.update(launches={fn.__name__: fn.launches for fn in kernels},
                    collectives=collectives.record(),
@@ -5475,12 +5594,13 @@ def mesh_family_rank(run, tmp: Path, seed: int) -> dict:
                 elif kind == "decode":
                     faults[name] = torch.stack(decode(cache)[0], 1)
                 else:
-                    _, (row,), m0 = steps(params, 1)
-                    faults[name] = dict(grad_norm=row["grad_norm"], m0={
-                        n: t for n, t in zip(names, m0) if n.split("/")[-1] in leaves})
+                    _, (row,), m0 = steps(params, 1, lambda n: n.split("/")[-1] in leaves)
+                    faults[name] = dict(grad_norm=row["grad_norm"], m0=m0)
+        spill(rec, tmp / f"rank{run.mesh.rank}_family_{arch}.pt")
         out[arch] = rec
         del params, cache, fresh, logits
         release()
+        rank_note(run.mesh.rank, f"family {arch}")
     return out
 
 
@@ -5576,7 +5696,6 @@ def mesh_family_held(arch: str, ref: dict, ranks: list) -> dict:
                              prefill_s=x["prefill_s"], decode_step_ms=x["decode_step_ms"],
                              cache=x["cache"], collectives=x["collectives"],
                              launches=x["launches"]))
-        release()
     res = dict(model=cfg.name, layers=cfg.n_layers, enc_layers=cfg.enc_layers, batch=MESH_B,
                seq=seq or MESH_FORWARD_SEQ, train_steps=MESH_STEPS if seq else 0,
                gate="f32 witness past the limits" if wit is not None else "limits",
@@ -5597,6 +5716,306 @@ def mesh_family_held(arch: str, ref: dict, ranks: list) -> dict:
         res.update(held)
     res["sound"] = sound and train_ok
     return res
+
+
+# -- phase 20, fsdp: the params FSDP (ZeRO-3) on the mesh ---------------------
+
+MESH_FSDP_RUNS = (MESH_ARCH, "mamba2_2_7b")
+# Qwen2-MoE-A2.7B's least depth at which the reference's rule turns FSDP on
+# for a 2 x 2 mesh (state_gb_dev 10.12 GB; 7.26 at 2 layers)
+FSDP_RULE_LAYERS = 3
+FSDP_RULE_STATE_GB = 10.12
+# each rank's peak under the rule must be this far below ZeRO-1's (fsdp off)
+FSDP_PEAK_DROP = 0.5e9
+# the layer-slice fault's params: layer l of every layer-dim leaf moved by
+# this times l + 1, since the leaves are one fill in every layer as drawn
+FSDP_LAYER_BUMP = 0.1
+
+
+def fsdp_layer_slice(self, l):
+    """The planted fault for ``models/model.py _Sliced.__getitem__``: a leaf
+    whose data-axis dim is the stack's layer dim read as if it were whole,
+    layer l from the rank's own slice."""
+    from repro_torch.models.model import _Sliced
+    if self.dim == 0:
+        return self.t[l % self.t.shape[0]]
+    return _Sliced(self.t[l], self.dim - 1, self.ax)
+
+
+class GatherKeepsSlice(torch.autograd.Function):
+    """The planted fault for ``collectives.gather_params``: the data-axis
+    gather whose backward keeps the rank's slice of its own gradient (no
+    sum over the data axes)."""
+
+    @staticmethod
+    def forward(ctx, w, ax, dim):
+        from repro_torch import collectives
+        ctx.ax, ctx.dim, ctx.size = ax, dim, w.shape[dim]
+        return collectives.all_gather(w, ax, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.ax.index * ctx.size, ctx.size).contiguous(), None, None
+
+
+def mesh_fsdp_rank(run, tmp: Path, seed: int, zero: dict) -> dict:
+    """A rank's fsdp part, after its families part (``zero``: its record so
+    far): each of ``MESH_FSDP_RUNS`` with FSDP forced on
+    (``launch/train.py rank_model``), its slices drawn from ``seed``; the
+    forward's logits of its shard (Qwen2-MoE replaying its data shard's
+    unsharded experts), each equal bit for bit to its ZeRO-1 run's, then
+    ``MESH_STEPS`` AdamW steps, the kernels' counts, the collectives and the
+    peak reset just before and read just after them; step 1's loss against
+    ZeRO-1's, and the worst gradient leaf against ZeRO-1's (the f32 sum
+    there, rounded to bf16 here). On Mamba2, then, the planted faults: one
+    step on the params drawn with the gather's backward keeping the slice
+    (its first moments), and on params whose layer-dim leaves differ by
+    layer the sound forward and the forward reading a layer-dim leaf from
+    the rank's own slice (their logits)."""
+    from repro_torch import collectives
+    from repro_torch.kernels.expert_ffn import expert_ffn
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.launch.partition import data_dims
+    from repro_torch.launch.train import rank_model
+    from repro_torch.models.model import _Sliced
+    from repro_torch.training.optimizer import tree_leaves
+    from repro_torch.training.train_loop import make_train_step
+    d = run.mesh.coords["data"]
+    kernels = (expert_ffn, flash_attention, ssd_scan)
+    out = {}
+    for arch in MESH_FSDP_RUNS:
+        moe = arch == MESH_ARCH
+        cfg = mesh_cfg() if moe else mesh_family_cfg(arch)
+        mine = zero if moe else zero["families"][arch]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = t_part = time.perf_counter()
+        frun = rank_model(cfg, run.mesh, run.device, run.ranks_per_card, seed, MESH_LR,
+                          fsdp=True)
+        torch.cuda.synchronize()
+        rec = dict(draw_s=time.perf_counter() - t0,
+                   draw_max_memory_allocated=torch.cuda.max_memory_allocated(),
+                   state_gb_dev=frun.state_gb_dev, planned_bytes=frun.planned_bytes())
+        if moe:
+            batches = [run.shard_batch({"tokens": t}) for t in mesh_batches(cfg, seed)]
+            forward, replay = batches[0], torch.load(tmp / f"routes{d}.pt")
+        else:
+            fwd, bs, _ = mesh_family_inputs(cfg, arch, seed)
+            forward, batches, replay = run.shard_batch(fwd), [run.shard_batch(b) for b in bs], None
+        fresh = None if moe else [t.clone() for t in tree_leaves(frun.params)]
+        with routes(replay=replay) if moe else contextlib.nullcontext():
+            with torch.no_grad():
+                logits = frun.bundle.forward(frun.params, forward)[0]
+            rec["logits"] = logits[:, -MESH_TAIL:].float().cpu()
+            del logits
+            rec["logits_equal_zero1"] = bool(torch.equal(rec["logits"], mine["logits"].float()))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            collectives.reset()
+            for fn in kernels:
+                fn.launches = 0
+            step = make_train_step(frun.bundle, frun.opt)
+            params, state, rows = frun.params, frun.state, []
+            for s, b in enumerate(batches):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                params, state, mt = step(params, state, b)
+                rows.append(dict(loss=float(mt["loss"]), grad_norm=float(mt["grad_norm"]),
+                                 ms=(time.perf_counter() - t0) * 1e3))
+                if s == 0:
+                    rec["m0"] = [t.cpu() for t in tree_leaves(state.m)]
+        rec.update(steps=rows, max_memory_allocated=torch.cuda.max_memory_allocated(),
+                   collectives=collectives.record(),
+                   launches={fn.__name__: fn.launches for fn in kernels},
+                   params=[t.cpu() for t in tree_leaves(params)],
+                   loss_equal_zero1=rows[0]["loss"] == mine["steps"][0]["loss"])
+        adam = frun.opt.opt
+        scale = lambda gn: (1 - adam.b1) * min(1.0, adam.grad_clip / gn)
+        worst = 0.0
+        zero_m0 = torch.load(tmp / (f"rank{run.mesh.rank}_zero1.pt" if moe else
+                                    f"rank{run.mesh.rank}_family_{arch}.pt"))["m0"]
+        for a, b in zip(rec["m0"], zero_m0):
+            a = a.cuda() / scale(rows[0]["grad_norm"])
+            b = b.cuda() / scale(mine["steps"][0]["grad_norm"])
+            worst = max(worst, float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30))
+        rec["grad_leaf_rel_err_zero1"] = worst
+        del zero_m0
+        del params, state, step
+        if not moe:
+            faults = rec["faults"] = {}
+            for leaf, t in zip(tree_leaves(frun.params), fresh):
+                leaf.copy_(t)
+            with patched(collectives, "gather_params",
+                         lambda w, ax, dim: GatherKeepsSlice.apply(w, ax, dim % w.ndim)):
+                opt = type(frun.opt)(type(adam)(lr=MESH_LR), frun.pspecs, frun.zspecs,
+                                     frun.mesh_info)
+                _, st, mt = make_train_step(frun.bundle, opt)(frun.params, opt.init(frun.params),
+                                                              batches[0])
+                faults["no_sum"] = dict(grad_norm=float(mt["grad_norm"]),
+                                        m0=[t.cpu() for t in tree_leaves(st.m)])
+            del opt, st
+            release()
+            # layer l of each layer-dim leaf (the rank's slice holds whole
+            # layers) moved apart from the others
+            dims = tree_leaves(data_dims(frun.pspecs, frun.zspecs)["layers"])
+            per = None
+            with torch.no_grad():
+                for leaf, dim in zip(tree_leaves(frun.params["layers"]), dims):
+                    if dim == 0:
+                        per = leaf.shape[0]
+                        for i in range(per):
+                            leaf[i] += FSDP_LAYER_BUMP * (d * per + i + 1)
+                sound = frun.bundle.forward(frun.params, forward)[0][:, -MESH_TAIL:].float().cpu()
+                with patched(_Sliced, "__getitem__", fsdp_layer_slice):
+                    bad = frun.bundle.forward(frun.params, forward)[0][:, -MESH_TAIL:].float().cpu()
+            faults["layer_slice"] = dict(layers_a_rank=per, sound=sound, fault=bad)
+        spill(rec, tmp / f"rank{run.mesh.rank}_fsdp_{arch}.pt")
+        out[arch] = rec
+        del frun, fresh
+        release()
+        rec["part_s"] = time.perf_counter() - t_part
+        rank_note(run.mesh.rank, f"fsdp {arch}")
+    return out
+
+
+def fsdp_no_sum_fault(ranks: list, ref: dict, cfg, arch: str) -> list:
+    """Each rank's worst gradient leaf of the no-sum fault's step against the
+    unsharded step's (``MESH_GRAD_TOL``'s measure), on its slice."""
+    from repro_torch.launch.mesh import logical_mesh
+    from repro_torch.launch.partition import param_specs, shard_leaf, zero_specs
+    from repro_torch.training.optimizer import tree_leaves
+    zspecs = tree_leaves(zero_specs(ref["p0"], param_specs(cfg, ref["p0"], n_model=MESH_GRID[1]),
+                                    dp="data", n_dp=MESH_GRID[0]))
+    scale = lambda gn: (1 - ref["b1"]) * min(1.0, ref["grad_clip"] / gn)
+    out = []
+    for r in ranks:
+        mesh = dataclasses.replace(logical_mesh(MESH_GRID, ("data", "model")),
+                                   coords=dict(r["coords"]))
+        fault = r["fsdp"][arch]["faults"]["no_sum"]
+        worst = 0.0
+        for want, got, zs in zip(ref["m0"], fault["m0"], zspecs):
+            w = shard_leaf(want.cuda(), zs, mesh) / scale(ref["steps"][0]["grad_norm"])
+            g = got.cuda() / scale(fault["grad_norm"])
+            worst = max(worst, float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30))
+        out.append(worst)
+    return out
+
+
+def mesh_fsdp_rule_rank(run, seed: int) -> dict:
+    """A rank's rule part, after its fsdp part: what ``launch/train.py
+    --mesh 2x2 --fsdp {auto,off}`` runs on each rank, in this process
+    (saving two launches' start-up): ``rank_model`` of Qwen2-MoE-A2.7B at
+    ``FSDP_RULE_LAYERS`` with ``fsdp`` None (the rule, ``--fsdp auto``) and
+    False (``--fsdp off``), each then ``MESH_STEPS`` steps of the
+    launcher's batch (``SyntheticLM``, ``MESH_B`` x ``MESH_S``); the peak
+    reset just before the draw and read after the steps, the kernels'
+    counts and the collectives over the steps."""
+    from repro_torch import collectives
+    from repro_torch.kernels.expert_ffn import expert_ffn
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.train import rank_model
+    from repro_torch.training.train_loop import make_train_step
+    kernels = (expert_ffn, flash_attention)
+    cfg = dataclasses.replace(mesh_cfg(), n_layers=FSDP_RULE_LAYERS)
+    out = {}
+    for mode, fsdp in (("auto", None), ("off", False)):
+        release()
+        torch.cuda.reset_peak_memory_stats()
+        t_part = time.perf_counter()
+        rr = rank_model(cfg, run.mesh, run.device, run.ranks_per_card, seed, MESH_LR, fsdp=fsdp)
+        batches = [rr.shard_batch({"tokens": t}) for t in mesh_batches(cfg, seed)]
+        collectives.reset()
+        for fn in kernels:
+            fn.launches = 0
+        step = make_train_step(rr.bundle, rr.opt)
+        params, state, rows = rr.params, rr.state, []
+        for b in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, mt = step(params, state, b)
+            rows.append(dict(loss=float(mt["loss"]), grad_norm=float(mt["grad_norm"]),
+                             ms=(time.perf_counter() - t0) * 1e3))
+        out[mode] = dict(fsdp=rr.fsdp, state_gb_dev=rr.state_gb_dev,
+                         planned_bytes=rr.planned_bytes(),
+                         max_memory_allocated=torch.cuda.max_memory_allocated(),
+                         step_ms=[r["ms"] for r in rows], loss=[r["loss"] for r in rows],
+                         grad_norm=[r["grad_norm"] for r in rows],
+                         collectives=collectives.record(),
+                         launches={fn.__name__: fn.launches for fn in kernels},
+                         part_s=time.perf_counter() - t_part)
+        del rr, params, state, step, batches
+    release()
+    return out
+
+
+def fsdp_held(ranks: list, ref: dict, fam_ref: dict) -> dict:
+    """The fsdp part against the unsharded runs (``mesh_held``, the params
+    held as ``zero_specs`` slices) and the ZeRO-1 ranks, and its planted
+    faults."""
+    models = {}
+    for arch in MESH_FSDP_RUNS:
+        moe = arch == MESH_ARCH
+        cfg = mesh_cfg() if moe else mesh_family_cfg(arch)
+        base = ref if moe else fam_ref[arch]
+        views = [dict(coords=r["coords"], **r["fsdp"][arch]) for r in ranks]
+        held = mesh_held(views, base, cfg, fsdp=True)
+        V = views[0]["logits"].shape[-1]
+        per_rank = []
+        for x in views:
+            dd, m = x["coords"]["data"], x["coords"]["model"]
+            err, ok = logit_err(x["logits"], base["logits"][dd][..., m * V:(m + 1) * V])
+            per_rank.append(dict(rank=x["coords"], logits_max_abs_err=err, logits_ok=ok,
+                                 logits_equal_zero1=x["logits_equal_zero1"],
+                                 loss_equal_zero1=x["loss_equal_zero1"],
+                                 grad_leaf_rel_err_zero1=x["grad_leaf_rel_err_zero1"],
+                                 draw_s=x["draw_s"],
+                                 draw_max_memory_allocated=x["draw_max_memory_allocated"],
+                                 max_memory_allocated=x["max_memory_allocated"],
+                                 planned_bytes=x["planned_bytes"],
+                                 step_ms=[s_["ms"] for s_ in x["steps"]],
+                                 loss=[s_["loss"] for s_ in x["steps"]], part_s=x["part_s"],
+                                 collectives=x["collectives"], launches=x["launches"]))
+        res = dict(model=cfg.name, layers=cfg.n_layers, state_gb_dev=views[0]["state_gb_dev"],
+                   ranks=per_rank, **held)
+        res["sound"] = (all(r["logits_ok"] and r["logits_equal_zero1"] and r["loss_equal_zero1"]
+                            for r in per_rank)
+                        and all(held[k] <= v for k, v in MESH_FAMILY_LIMITS.items()))
+        if not moe:
+            no_sum = fsdp_no_sum_fault(ranks, base, cfg, arch)
+            slices = [logit_err(x["faults"]["layer_slice"]["fault"],
+                               x["faults"]["layer_slice"]["sound"]) for x in views]
+            res["faults"] = dict(
+                no_sum_grad_leaf_rel_err=no_sum,
+                layer_slice_logits_max_abs_err=[e for e, _ in slices],
+                layers_a_rank=views[0]["faults"]["layer_slice"]["layers_a_rank"])
+            res["faults_failed"] = dict(no_sum=all(e > MESH_GRAD_TOL for e in no_sum),
+                                        layer_slice=not any(ok for _, ok in slices))
+        models[arch] = res
+    return dict(models=models,
+                planted=("no_sum: the data-axis gather's backward keeping the rank's slice "
+                         "without the sum over the data axes (Mamba2's gradient leaves); "
+                         "layer_slice: a layer-dim leaf read from the rank's own slice as if "
+                         "the layer dim were whole (Mamba2's logits, its layer-dim leaves "
+                         f"moved {FSDP_LAYER_BUMP} x (layer + 1) apart)"))
+
+
+def fsdp_rule_held(ranks: list) -> dict:
+    """The rule parts (``mesh_fsdp_rule_rank``): FSDP by the rule at
+    ``FSDP_RULE_STATE_GB``, none with ``fsdp`` off, each rank's peak at
+    least ``FSDP_PEAK_DROP`` below its ZeRO-1 peak."""
+    auto = [r["fsdp_rule"]["auto"] for r in ranks]
+    off = [r["fsdp_rule"]["off"] for r in ranks]
+    drops = [o["max_memory_allocated"] - a["max_memory_allocated"] for a, o in zip(auto, off)]
+    return dict(
+        layers=FSDP_RULE_LAYERS, batch=MESH_B, seq=MESH_S, steps=MESH_STEPS,
+        ranks={k: [dict(rank=r["rank"], coords=r["coords"], **r["fsdp_rule"][k]) for r in ranks]
+               for k in ("auto", "off")},
+        first_loss_equal=[a["loss"][0] == o["loss"][0] for a, o in zip(auto, off)],
+        peak_drop=drops, peak_drop_limit=FSDP_PEAK_DROP,
+        ok=(all(a["fsdp"] and round(a["state_gb_dev"], 2) == FSDP_RULE_STATE_GB
+                for a in auto)
+            and not any(o["fsdp"] for o in off) and min(drops) >= FSDP_PEAK_DROP))
 
 
 def encoder_attention(B, S, H, D, g, reps: int = 20, plain_reps: int = 5):
@@ -5732,24 +6151,29 @@ def mesh_phase(seed: int) -> dict:
         dec_ref = {arch: mesh_decode_unsharded(arch, seed, tmp) for arch, _ in MESH_DECODE_RUNS}
         fam_ref = {arch: mesh_family_unsharded(arch, seed, tmp) for arch in MESH_FAMILY_RUNS}
         t_ref = time.perf_counter()
-        ranks = mesh_ranks(tmp, seed, fault=False)
+        ranks = mesh_ranks(tmp, seed)
         t_ranks = time.perf_counter()
-        # held before the fault run, whose ranks need the host memory the
-        # families' gradients and params take here
+        held_s = {}
         held = mesh_held(ranks, ref, cfg)
+        held_s["zero1"] = time.perf_counter() - t_ranks
         decode = {arch: mesh_decode_held(arch, dec_ref[arch], ranks)
                   for arch, _ in MESH_DECODE_RUNS}
+        held_s["decode"] = time.perf_counter() - t_ranks - sum(held_s.values())
         families = {arch: mesh_family_held(arch, fam_ref[arch], ranks)
                     for arch in MESH_FAMILY_RUNS}
+        held_s["families"] = time.perf_counter() - t_ranks - sum(held_s.values())
+        fsdp = fsdp_held(ranks, ref, fam_ref)
+        held_s["fsdp"] = time.perf_counter() - t_ranks - sum(held_s.values())
         del fam_ref
         for r in ranks:
-            for part in [r] + list(r["families"].values()):
+            for part in [r] + list(r["families"].values()) + list(r["fsdp"].values()):
                 part.pop("m0", None)
                 part.pop("params", None)
+            for part in r["fsdp"].values():
+                part.pop("faults", None)
+        fsdp["rule"] = fsdp_rule_held(ranks)
         release()
         t_held = time.perf_counter()
-        faulty = mesh_ranks(tmp, seed, fault=True)
-    t_fault = time.perf_counter()
     V = ranks[0]["logits"].shape[-1]
 
     def logits_of(rank):
@@ -5767,14 +6191,24 @@ def mesh_phase(seed: int) -> dict:
                              collectives=r["collectives"], launches=r["launches"],
                              logits_max_abs_err=err, logits_ok=ok,
                              route_flips_at_ties=r["route_flips_at_ties"]))
-    control = mesh_held(faulty, ref, cfg)
-    e_start = [logits_of(r) for r in faulty]
+    ctrl = [r["control"] for r in ranks]
+    control = {k: max(c[k] for c in ctrl)
+               for k in ("loss_rel_err", "grad_norm_rel_err", "grad_leaf_rel_err")}
+    control["param_update_rel_err"] = math.sqrt(sum(c["param_num"] for c in ctrl)
+                                                / sum(c["param_den"] for c in ctrl))
+    e_start = [(c["logits_max_abs_err"], c["logits_ok"]) for c in ctrl]
     launches = {}
     for r in ranks:
-        for part in [r["launches"]] + [x["launches"] for key in ("decode", "families")
+        for part in [r["launches"]] + [x["launches"] for key in ("decode", "families", "fsdp",
+                                                                 "fsdp_rule")
                                        for x in r[key].values()]:
             for k, v in part.items():
                 launches[k] = launches.get(k, 0) + v
+    # each FSDP model's kernels, from its steps on the ranks
+    fsdp_bad = [(arch, n) for arch in MESH_FSDP_RUNS
+                for n in (("expert_ffn", "flash_attention") if arch == MESH_ARCH
+                          else ("ssd_scan",))
+                if not sum(r["fsdp"][arch]["launches"][n] for r in ranks)]
     # each decode model's kernels, from its run on the ranks
     decode_bad = [(arch, n) for arch, _ in MESH_DECODE_RUNS
                   for n in ("flash_attention", "flash_decode")
@@ -5796,7 +6230,8 @@ def mesh_phase(seed: int) -> dict:
                logits_tol=BUNDLE_TOL, logits_positions=MESH_TAIL,
                controls=dict(planted=("the forward with model rank 1's e_start off by one "
                                       "shard (logits); the steps with copy_to left out (loss, "
-                                      "gradient norm, gradient leaves, params)"),
+                                      "gradient norm, gradient leaves, params); each against "
+                                      "the rank's sound run, in its process"),
                              e_start_logits_max_abs_err=[e for e, _ in e_start],
                              e_start_logits_failed=not all(ok for _, ok in e_start),
                              **control),
@@ -5820,8 +6255,10 @@ def mesh_phase(seed: int) -> dict:
                                       "gemma3's local windows left out on the slot-sharded "
                                       "decode (decode logits)"),
                              models=list(families.values())),
+               fsdp=dict(limits=MESH_FAMILY_LIMITS, logits_tol=BUNDLE_TOL, planted=fsdp["planted"],
+                         models=list(fsdp["models"].values()), rule=fsdp["rule"]),
                seconds=dict(unsharded=t_ref - t0, ranks=t_ranks - t_ref, held=t_held - t_ranks,
-                            fault=t_fault - t_held, fault_held=time.perf_counter() - t_fault))
+                            held_parts=held_s, controls=time.perf_counter() - t_held))
     bad = [n for n in ("expert_ffn", "flash_attention") if not launches.get(n)] + decode_bad
     sound = all(r["logits_ok"] for r in per_rank) and all(held[k] <= v for k, v in limits.items())
     caught = res["controls"]["e_start_logits_failed"] and all(
@@ -5838,15 +6275,22 @@ def mesh_phase(seed: int) -> dict:
     dec_caught = granite["averaged_partials_failed"] is True
     fam_sound = {f["model"]: f["sound"] for f in families.values()}
     fam_caught = {f["model"]: all(f["faults_failed"].values()) for f in families.values()}
-    bad += family_bad
+    bad += family_bad + fsdp_bad
+    fsdp_sound = {f["model"]: f["sound"] for f in fsdp["models"].values()}
+    fsdp_caught = fsdp["models"]["mamba2_2_7b"]["faults_failed"]
+    rule_ok = fsdp["rule"]["ok"]
     if not (sound and caught and dec_sound and dec_caught and all(fam_sound.values())
-            and all(fam_caught.values()) and not bad):
+            and all(fam_caught.values()) and all(fsdp_sound.values())
+            and all(fsdp_caught.values()) and rule_ok and not bad):
         emit(res)
         raise AssertionError(f"mesh: the 2 x 2 step parts from the unsharded one ({sound=}), "
                              f"or a control passed ({caught=}), or the decode parts from the "
                              f"unsharded one ({dec_sound=}, {crossed=}) or its fault passed "
                              f"({dec_caught=}), or a family parts from its unsharded run "
                              f"({fam_sound=}) or a planted fault passed ({fam_caught=}), or "
+                             f"an FSDP run parts from its unsharded or ZeRO-1 run "
+                             f"({fsdp_sound=}) or its fault passed ({fsdp_caught=}), or the "
+                             f"FSDP by the rule or its peak drop failed ({rule_ok=}), or "
                              f"kernels never launched {bad}")
     return res
 
@@ -5903,12 +6347,22 @@ def main() -> int:
               cuda=torch.version.cuda))
 
     t0 = time.perf_counter()
-    per_source = _build.build_all()
+
+    def built(name):
+        """One source's nvcc, then its SASS counted while the others build."""
+        t = time.perf_counter()
+        lib = _build.build(name)
+        return time.perf_counter() - t, sass_counts(lib)
+
+    with concurrent.futures.ThreadPoolExecutor(len(_build.SOURCES)) as ex:
+        done = {n: ex.submit(built, n) for n in _build.SOURCES}
+        done = {n: f.result() for n, f in done.items()}
+    per_source = {n: t for n, (t, _) in done.items()}
+    sass = {n: c for n, (_, c) in done.items()}
     logs = {n: _build.library_path(n).with_suffix(".so.log").read_text()
             for n in _build.SOURCES}
     ptxas = {n: [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
              for n, log in logs.items()}
-    sass = {n: sass_counts(_build.library_path(n)) for n in _build.SOURCES}
     attention = ptxas_report(logs["flash_attention"])
     emit(dict(phase="build", seconds=time.perf_counter() - t0,
               per_source_s=per_source, ptxas=ptxas, sass=sass,

@@ -29,6 +29,19 @@ Three autograd operators carry tensor parallelism (Megatron-LM's ``f``,
   again its gradient there is a partial sum, and ``copy_to`` at that entry
   makes it whole first.
 
+FSDP (ZeRO-3) of the params has its own gather over the data axes:
+
+* ``gather_params(w, ax, dim)`` — all-gather forward, reduce-scatter
+  backward. ``w`` is this rank's slice of a weight along ``dim``; every
+  data rank runs its own batch shard through the whole weight, so each
+  rank's gradient of it is its shard's part, and the whole gradient is
+  their sum: the backward casts it to f32, sums it over the axis and cuts
+  out the rank's slice in one reduce-scatter, then rounds it to the
+  weight's type (autograd gives a slice the gradient of its own dtype).
+  ``gather_from``'s backward keeps the slice without the sum, which is
+  right over the model axis, where every rank holds the whole gradient,
+  and would here leave each rank its own shard's part.
+
 ``torch.distributed.nn.functional.all_reduce`` is not ``reduce_from``: its
 backward all-reduces the gradient too, which multiplies a replicated
 gradient by the axis size. Leaving ``copy_to`` out at the entry of a
@@ -165,6 +178,19 @@ class _GatherFrom(torch.autograd.Function):
         return g.narrow(ctx.dim, ctx.ax.index * ctx.size, ctx.size), None, None
 
 
+class _GatherParams(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, w, ax, dim):
+        ctx.ax, ctx.dim = ax, dim
+        return all_gather(w, ax, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        src = g.movedim(ctx.dim, 0).to(torch.float32, memory_format=torch.contiguous_format)
+        part = reduce_scatter(src, ctx.ax).movedim(0, ctx.dim)
+        return part.to(g.dtype, memory_format=torch.contiguous_format), None, None
+
+
 class _PMean(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, ax):
@@ -195,6 +221,15 @@ def gather_from(x: torch.Tensor, ax: Optional[Axis], dim: int) -> torch.Tensor:
     if ax is None or ax.size == 1:
         return x
     return _GatherFrom.apply(x, ax, dim % x.ndim)
+
+
+def gather_params(w: torch.Tensor, ax: Optional[Axis], dim: int) -> torch.Tensor:
+    """A weight's slices gathered along ``dim`` over the data axes forward,
+    the gradient summed in f32 and reduce-scattered to the slice backward
+    (module docstring)."""
+    if ax is None or ax.size == 1:
+        return w
+    return _GatherParams.apply(w, ax, dim % w.ndim)
 
 
 def pmean(x: torch.Tensor, ax: Optional[Axis]) -> torch.Tensor:

@@ -437,8 +437,8 @@ def mesh_plan(cfg: ArchConfig, shape: InputShape, multi_pod: bool) -> dict:
     16) mesh at published depth and the reference's global batch (module
     docstring). Nothing is allocated: the trees are on ``meta``."""
     from repro_torch.launch.mesh import make_production_mesh, mesh_info, n_chips
-    from repro_torch.launch.partition import (batch_specs, cache_specs, param_specs,
-                                              zero_specs)
+    from repro_torch.launch.partition import (batch_specs, cache_specs, fsdp_rule,
+                                              param_specs, zero_specs)
     from repro_torch.models.params import init_params
     mesh = make_production_mesh(multi_pod=multi_pod)
     minfo = mesh_info(mesh)
@@ -456,8 +456,7 @@ def mesh_plan(cfg: ArchConfig, shape: InputShape, multi_pod: bool) -> dict:
     if shape.kind == "train":
         mb = 4 if cfg.d_model < 4096 else (8 if cfg.d_model < 6144 else 16)
         mb = min(mb, max(shape.global_batch // n_dp, 1))
-        state_gb_dev = param_bytes * (1 + 8 / 2) / n_model / 1e9
-        fsdp = state_gb_dev > 8.0
+        state_gb_dev, fsdp = fsdp_rule(param_bytes, n_model)
         if fsdp:
             b["params"] = _sharded_bytes(params, zspecs, mesh)
         b["moments"] = _sharded_bytes(params, zspecs, mesh, 8)

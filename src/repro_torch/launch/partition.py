@@ -12,6 +12,11 @@ names.
 ``shard_leaf`` cuts this rank's block of a tensor out by its spec and a
 ``Mesh``'s coordinates (``models/params.py shard_params`` maps it over a
 tree); ``block_shape`` is that block's shape.
+
+``fsdp_rule`` is the reference dry-run's switch to FSDP (ZeRO-3): where a
+train step's params and AdamW state at tensor-parallel sharding alone
+would pass 8 GB a device, the params themselves are stored under
+``zero_specs`` (``data_dims`` names the data-axis dim of each leaf).
 """
 from __future__ import annotations
 
@@ -193,6 +198,30 @@ def zero_specs(params_abs, pspecs, *, dp, n_dp: int):
         return P(*dims)
 
     return tree_map_with_path(rule, params_abs)
+
+
+# the reference's budget for params + AdamW state a device at tensor-parallel
+# sharding alone (src/repro/launch/dryrun.py): past it the params are FSDP
+FSDP_STATE_GB = 8.0
+
+
+def fsdp_rule(param_bytes: int, n_model: int) -> tuple:
+    """(state_gb_dev, on): the reference dry-run's reckoning of a train
+    step's bf16 params plus f32 AdamW moments (8 bytes an entry: 4 for each
+    byte of a bf16 param) a device under tensor parallelism alone,
+    ``param_bytes * (1 + 8 / 2) / n_model / 1e9``, and whether it passes
+    ``FSDP_STATE_GB``, so the params are stored under ``zero_specs``."""
+    state_gb_dev = param_bytes * (1 + 8 / 2) / n_model / 1e9
+    return state_gb_dev, bool(state_gb_dev > FSDP_STATE_GB)
+
+
+def data_dims(pspecs, zspecs) -> dict:
+    """A tree of ``pspecs``' keys whose leaves are the dim ``zero_specs``
+    adds the data axes to (an int), or None where it adds none."""
+    def dim(ps, zs):
+        new = [i for i, e in enumerate(zs) if e is not None and (i >= len(ps) or ps[i] is None)]
+        return new[0] if new else None
+    return tree_map_with_path(lambda path, zs: dim(_at(pspecs, path), zs), zspecs)
 
 
 def _at(tree, path):

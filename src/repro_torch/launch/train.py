@@ -36,7 +36,20 @@ enc-dec, whose batches are refused here as they are without a mesh
 ``REPRO_OPT_STATIC_WINDOW`` (the spawned ranks inherit it). Rank 0
 prints each step; every rank prints one JSON line at the end: its
 coordinates, device, peak memory, step ms, the collectives' counts, bytes
-and host seconds, and its kernels' launches.
+and host seconds, its kernels' launches, whether its params are FSDP, the
+rule's ``state_gb_dev`` and the bytes it plans for its params, moments
+and accumulator under the specs it holds.
+
+``--fsdp {auto,on,off}`` (default ``auto``): FSDP (ZeRO-3) of the params,
+the reference dry-run's rule (``launch/partition.py fsdp_rule``): where the
+bf16 params plus f32 moments at tensor-parallel sharding alone reckon past
+8 GB a device (``state_gb_dev``), each rank stores its params under
+``zero_specs`` too, its ``param_specs`` blocks cut again over the data
+axes; the forward gathers a layer's slices inside its checkpoint (and the
+recompute again), the gradients reach the slices reduce-scattered, and
+``ZeRO1`` updates the slices with no all-gather (``models/model.py``).
+``on`` and ``off`` force it. Qwen2-MoE-A2.7B at 3 layers on 2 x 2 reckons
+10.12 GB and turns it on; at 2 layers, 7.26 GB, off.
 
   torchrun --nproc-per-node 4 -m repro_torch.launch.train --arch qwen2-moe-a2.7b \
       --layers 2 --mesh 2x2 --backend gloo --batch 4 --seq 4096
@@ -46,6 +59,8 @@ and host seconds, and its kernels' launches.
       --mesh 2x2 --backend gloo --spawn --steps 2
   REPRO_OPT_STATIC_WINDOW=1 python -m repro_torch.launch.train --arch gemma3-1b \
       --reduced --device cpu --mesh 2x2 --backend gloo --spawn --steps 2
+  python -m repro_torch.launch.train --arch qwen2-moe-a2.7b --layers 3 --mesh 2x2 \
+      --backend gloo --spawn --batch 4 --seq 4096 --fsdp auto
 """
 from __future__ import annotations
 
@@ -110,6 +125,9 @@ def main(argv: Optional[Sequence[str]] = None):
                     help="the collectives' backend under --mesh (no default)")
     ap.add_argument("--spawn", action="store_true",
                     help="start the mesh's ranks on this host")
+    ap.add_argument("--fsdp", choices=("auto", "on", "off"), default="auto",
+                    help="FSDP of the params under --mesh: by the reference's rule "
+                         "(auto), or forced")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     if args.mesh:
@@ -192,8 +210,9 @@ def rank_device(backend: str, device: str, local_rank: int, local_world: int):
 
 @dataclasses.dataclass
 class RankRun:
-    """One rank's mesh, bundle, param blocks, specs, ZeRO-1 optimizer and
-    state (``rank_setup``)."""
+    """One rank's mesh, bundle, param blocks (slices under FSDP), specs,
+    ZeRO-1 optimizer and state (``rank_setup``); ``state_gb_dev`` is
+    ``fsdp_rule``'s reckoning, ``fsdp`` whether the params are FSDP."""
     cfg: object
     mesh: object
     mesh_info: dict
@@ -205,6 +224,20 @@ class RankRun:
     state: object
     device: object
     ranks_per_card: Optional[int]
+    fsdp: bool = False
+    state_gb_dev: float = 0.0
+
+    def planned_bytes(self) -> dict:
+        """Bytes this rank holds by plan (``launch/dryrun.py
+        _sharded_bytes``): its params under the specs it stores them by, and
+        the f32 moments and f32 gradient accumulator under ``zero_specs``
+        (the port's step accumulates the slices at any microbatch count)."""
+        from repro_torch.launch.dryrun import _sharded_bytes
+        whole = self.bundle.init(0, device="meta")
+        return dict(params=_sharded_bytes(whole, self.zspecs if self.fsdp else self.pspecs,
+                                          self.mesh),
+                    moments=_sharded_bytes(whole, self.zspecs, self.mesh, 8),
+                    accumulator=_sharded_bytes(whole, self.zspecs, self.mesh, 4))
 
     def shard_batch(self, batch: dict) -> dict:
         """The rank's data shard of a whole batch (``batch_specs``)."""
@@ -215,19 +248,13 @@ class RankRun:
         return {k: shard_leaf(v, specs[k], self.mesh).to(self.device) for k, v in batch.items()}
 
 
-def rank_setup(cfg, shape, axes, backend: str, device: str, seed: int, lr=None) -> RankRun:
+def rank_setup(cfg, shape, axes, backend: str, device: str, seed: int, lr=None,
+               fsdp: Optional[bool] = None) -> RankRun:
     """Initialize this process as a rank (``launch/mesh.py init_rank``),
-    build its mesh and bundle, draw its blocks of the tree from ``seed`` on
-    its device (``init(blocks=True)``: each leaf cut as it is drawn, so
-    the ranks sharing a card never hold the whole tree; an MoE tree is
-    drawn whole and cut) and a ZeRO-1 ``AdamW(lr=lr)`` (none, and no
-    state, where ``lr`` is None: a serving rank)."""
+    build its mesh, then ``rank_model``."""
     import torch
 
-    from repro_torch.launch.mesh import init_rank, make_mesh, mesh_info
-    from repro_torch.launch.partition import param_specs, zero_specs
-    from repro_torch.models.model import build
-    from repro_torch.training.optimizer import AdamW, ZeRO1
+    from repro_torch.launch.mesh import init_rank, make_mesh
 
     local_world = int(os.environ.get("LOCAL_WORLD_SIZE", math.prod(shape)))
     dev, per_card = rank_device(backend, device, int(os.environ.get("LOCAL_RANK", 0)),
@@ -238,18 +265,45 @@ def rank_setup(cfg, shape, axes, backend: str, device: str, seed: int, lr=None) 
         torch.set_num_threads(max(1, (os.cpu_count() or 1) // local_world))
     init_rank(backend)
     mesh = make_mesh(shape, axes, backend, dev)
+    return rank_model(cfg, mesh, dev, per_card, seed, lr, fsdp)
+
+
+def rank_model(cfg, mesh, dev, per_card, seed: int, lr=None,
+               fsdp: Optional[bool] = None) -> RankRun:
+    """A rank's bundle on ``mesh``, its blocks of the tree drawn from
+    ``seed`` on ``dev`` (``init(blocks=True)``: each leaf cut as it is
+    drawn, so the ranks sharing a card never hold the whole tree; an MoE
+    tree is drawn whole and cut) and a ZeRO-1 ``AdamW(lr=lr)`` (none, and
+    no state, where ``lr`` is None: a serving rank, whose params are never
+    FSDP). ``fsdp``: the params FSDP (stored under ``zero_specs``), or not;
+    None applies ``partition.fsdp_rule`` to the tree's bytes and the
+    mesh's model axis. Under FSDP ``mesh_info["fsdp"]`` is the tree of each
+    leaf's data-axis dim (``partition.data_dims``), which the bundle's
+    ``init`` and ``forward`` and ``ZeRO1`` read; else None."""
+    import torch
+
+    from repro_torch.launch.dryrun import tree_bytes
+    from repro_torch.launch.mesh import mesh_info
+    from repro_torch.launch.partition import data_dims, fsdp_rule, param_specs, zero_specs
+    from repro_torch.models.model import build
+    from repro_torch.training.optimizer import AdamW, ZeRO1
+
     minfo = mesh_info(mesh)
-    bundle = build(cfg, mesh_info=minfo)
-    whole = bundle.init(seed, device="meta")
+    whole = build(cfg, mesh_info=minfo).init(seed, device="meta")
+    state_gb_dev, by_rule = fsdp_rule(tree_bytes(whole), mesh.shape["model"])
+    fsdp = lr is not None and (by_rule if fsdp is None else fsdp)
     pspecs = param_specs(cfg, whole, n_model=mesh.shape["model"])
     dp = tuple(minfo["dp"])
     zspecs = zero_specs(whole, pspecs, dp=dp if len(dp) > 1 else dp[0], n_dp=mesh.size(dp))
+    minfo["fsdp"] = data_dims(pspecs, zspecs) if fsdp else None
+    bundle = build(cfg, mesh_info=minfo)
     params = bundle.init(seed, device=dev, blocks=True)
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     opt = None if lr is None else ZeRO1(AdamW(lr=lr), pspecs, zspecs, minfo)
     return RankRun(cfg, mesh, minfo, bundle, params, pspecs, zspecs, opt,
-                   None if opt is None else opt.init(params), dev, per_card)
+                   None if opt is None else opt.init(params), dev, per_card, fsdp,
+                   state_gb_dev)
 
 
 def _free_port() -> int:
@@ -307,7 +361,8 @@ def _mesh_main(ap, args, argv: list):
     B = args.batch or (4 if args.reduced else 2)
     S = args.seq or (32 if args.reduced else 2048)
     run = rank_setup(cfg, shape, axes, args.backend, args.device, args.seed,
-                     cosine_schedule(2e-3, warmup=10, total=args.steps))
+                     cosine_schedule(2e-3, warmup=10, total=args.steps),
+                     fsdp={"auto": None, "on": True, "off": False}[args.fsdp])
     rank = run.mesh.rank
     n_dp = run.mesh.size(tuple(run.mesh_info["dp"]))
     local_b = B // n_dp if B % n_dp == 0 else B
@@ -319,7 +374,8 @@ def _mesh_main(ap, args, argv: list):
         print(f"mesh={dict(run.mesh.shape)} arch={cfg.name} layers={cfg.n_layers} "
               f"batch={B} seq={S} microbatches={args.microbatches} backend={args.backend} "
               f"ranks_per_card={run.ranks_per_card} device={run.device.type} "
-              f"rank0_params={n_params / 1e6:.1f}M", flush=True)
+              f"rank0_params={n_params / 1e6:.1f}M fsdp={run.fsdp} "
+              f"state_gb_dev={run.state_gb_dev:.2f}", flush=True)
     step = make_train_step(run.bundle, run.opt, microbatches=args.microbatches)
     it = SyntheticLM(cfg.vocab, seed=args.seed).batches(B, S)
     cuda = run.device.type == "cuda"
@@ -345,7 +401,9 @@ def _mesh_main(ap, args, argv: list):
                backend=args.backend, ranks_per_card=run.ranks_per_card, step_ms=step_ms,
                max_memory_allocated=torch.cuda.max_memory_allocated() if cuda else None,
                collectives=collectives.record(),
-               launches={fn.__name__: fn.launches for fn in kernels})
+               launches={fn.__name__: fn.launches for fn in kernels},
+               fsdp=run.fsdp, state_gb_dev=run.state_gb_dev,
+               planned_bytes=run.planned_bytes())
     dist.barrier()
     sys.stdout.write(json.dumps(rec) + "\n")   # one write: the ranks share the stream
     sys.stdout.flush()

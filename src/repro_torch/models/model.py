@@ -40,6 +40,25 @@ blocks). The vlm's and the enc-dec's frontend projection ``proj`` is
 column-parallel where its last dim divides the axis, its output gathered
 whole (``collectives.gather_from``); their cross attention keeps its
 memory K/V in ``cache_specs``' layout (``layers.cross_kv``).
+
+FSDP (ZeRO-3, the reference dry-run's rule: ``launch/partition.py
+fsdp_rule``): where ``mesh_info["fsdp"]`` is set (the tree of each leaf's
+data-axis dim, ``partition.data_dims``) a rank holds each leaf as its
+slice under ``zero_specs`` (its ``param_specs`` block cut again over the
+data axes; ``init(blocks=True)`` draws it so) and ``forward``
+gathers a leaf whole only where it is used (``_Sliced``,
+``collectives.gather_params``): a layer's leaves inside the function
+``_run`` checkpoints, so the backward's recompute gathers them again and
+a layer's whole weights live only while it runs; the embedding at the
+lookup and again at the head, ``ln_f``, ``ln_enc``, ``proj`` and the
+vlm's memory projections where they are applied. A leaf whose data-axis
+dim is a stack's layer dim (Mamba2's ``A_log``, ``D``, ``dt_bias``,
+``norm``, ``conv_x``: their other large dim is the model axis') holds
+whole layers, so it is gathered whole once a forward, where the stack is
+indexed. The gradient of each gather reaches the slice summed over the
+data axes (reduce-scattered). Only a train step's ranks are FSDP:
+``prefill`` and ``decode_step`` take whole blocks, as a serving rank
+holds them.
 """
 from __future__ import annotations
 
@@ -55,7 +74,8 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe_layer as M
 from repro_torch.models import opt_flags
 from repro_torch.models import ssm as S
-from repro_torch.models.params import attn_dims, init_blocks, init_params, pattern_params
+from repro_torch.models.params import (attn_dims, cut_data, init_blocks, init_params,
+                                       pattern_params)
 
 CHUNKED_MIN_SEQ = 2048  # the reference's switch to chunked (flash) attention
 
@@ -109,14 +129,77 @@ def _init_fn(cfg: ArchConfig, mesh_info: Optional[dict], post=None, **kw) -> Cal
     seed, device, **kw)`` through ``post``; with ``blocks`` this rank's
     blocks of it on the bundle's mesh, drawn and cut leaf by leaf
     (``models/params.py init_blocks``)."""
-    post = post or (lambda p: p)
-
     def init(seed: int = 0, device="cuda", blocks: bool = False):
-        if blocks:
-            return post(init_blocks(cfg, seed, device, mesh_info, **kw))
-        return post(init_params(cfg, seed, device, **kw))
+        if not blocks:
+            tree = init_params(cfg, seed, device, **kw)
+            return tree if post is None else post(tree)
+        if post is None:
+            return init_blocks(cfg, seed, device, mesh_info, **kw)
+        # the tree ``post`` views is drawn in another layout: its blocks, then
+        # under FSDP each leaf of the viewed tree cut over the data axes
+        tree = post(init_blocks(cfg, seed, device, dict(mesh_info, fsdp=None), **kw))
+        dims = mesh_info.get("fsdp")
+        return tree if dims is None else cut_data(tree, dims, mesh_info)
 
     return init
+
+
+class _Sliced:
+    """A param leaf under FSDP in ``forward``: ``t``, this rank's slice
+    along ``dim`` over the data axes ``ax``. ``gather()`` is the whole leaf
+    (``collectives.gather_params``); indexing a stack keeps the slice
+    (entry l of each layer's slice), except where the indexed dim is the
+    sliced one: then the whole leaf is gathered once (kept for the next
+    index) and entry l of it is a tensor. ``shape`` is the whole leaf's."""
+
+    def __init__(self, t: torch.Tensor, dim: int, ax: C.Axis):
+        self.t, self.dim, self.ax, self._whole = t, dim, ax, None
+
+    @property
+    def shape(self) -> torch.Size:
+        s = list(self.t.shape)
+        s[self.dim] *= self.ax.size
+        return torch.Size(s)
+
+    @property
+    def requires_grad(self) -> bool:
+        return self.t.requires_grad
+
+    def gather(self) -> torch.Tensor:
+        return C.gather_params(self.t, self.ax, self.dim)
+
+    def __getitem__(self, l):
+        if self.dim == 0:
+            if self._whole is None:
+                self._whole = self.gather()
+            return self._whole[l]
+        return _Sliced(self.t[l], self.dim - 1, self.ax)
+
+
+def _whole(node):
+    """A param (sub)tree with every ``_Sliced`` leaf gathered whole."""
+    if isinstance(node, dict):
+        return {k: _whole(v) for k, v in node.items()}
+    return node.gather() if isinstance(node, _Sliced) else node
+
+
+def _fsdp(bundle: "ModelBundle") -> "ModelBundle":
+    """The bundle as a builder made it, or under FSDP with ``forward``
+    over ``_Sliced`` leaves (module docstring)."""
+    minfo = bundle.mesh_info
+    dims = minfo.get("fsdp") if minfo else None
+    if dims is None:
+        return bundle
+    ax = minfo["mesh"].axis(tuple(minfo["dp"]))
+
+    def view(node, d):
+        if isinstance(node, dict):
+            return {k: view(v, d[k]) for k, v in node.items()}
+        return node if d is None else _Sliced(node, d, ax)
+
+    forward = bundle.forward
+    return dataclasses.replace(
+        bundle, forward=lambda params, batch: forward(view(params, dims), batch))
 
 
 def pad_cache(cache, new_capacity: int, ring_axes: Dict[str, int]):
@@ -230,10 +313,23 @@ def _depth(stack) -> int:
 
 def _run(fn, x, *args):
     """fn(x, *args), under ``torch.utils.checkpoint`` where autograd records
-    (the reference's per-layer ``jax.checkpoint``)."""
+    (the reference's per-layer ``jax.checkpoint``). Under FSDP the layer's
+    params ``args[0]`` are gathered inside the checkpointed function, so
+    its recompute gathers them again."""
+    if _has_sliced(args[0]):
+        inner = fn
+
+        def fn(x, lp, *rest):
+            return inner(x, _whole(lp), *rest)
     if _records(x, args[0]):
         return checkpoint(fn, x, *args, use_reentrant=False)
     return fn(x, *args)
+
+
+def _has_sliced(node) -> bool:
+    if isinstance(node, dict):
+        return any(_has_sliced(v) for v in node.values())
+    return isinstance(node, _Sliced)
 
 
 def _records(x, lp) -> bool:
@@ -364,7 +460,7 @@ def _frontend(x, proj, d_model: int, tp: Optional[C.Axis]):
     """A frontend's inputs [B,N,frontend_dim] projected to d_model: ``x @
     proj`` where ``proj`` is whole, else this rank's column block of it,
     gathered whole over the model axis (``collectives.gather_from``)."""
-    y = L.linear(x.to(L.PDT), proj)
+    y = L.linear(x.to(L.PDT), _whole(proj))
     return C.gather_from(y, tp, -1) if proj.shape[-1] < d_model else y
 
 
@@ -379,9 +475,9 @@ def _vocab_head(params, tokens, vp: int, tp: Optional[C.Axis]):
     else the whole table."""
     embed = params["embed"]
     if tp is None or embed.shape[0] == vp:
-        return _embed(embed, tokens), lambda x: _logits(x, embed)
-    return (_embed_tp(embed, tokens, vp, tp),
-            lambda x: _logits(C.copy_to(x, tp), embed))
+        return _embed(_whole(embed), tokens), lambda x: _logits(x, _whole(embed))
+    return (_embed_tp(_whole(embed), tokens, vp, tp),
+            lambda x: _logits(C.copy_to(x, tp), _whole(embed)))
 
 
 def _whole_vocab(logits, vp: int, tp: Optional[C.Axis]):
@@ -452,7 +548,7 @@ def build_dense(cfg: ArchConfig, capacity_factor: Optional[float] = None,
             x, _, a = _run(_block_full, x, lp, win, cfg, chunked, False, capacity_factor,
                            shards[key])
             aux = aux + a
-        x = L.rms_norm(x, params["ln_f"], cfg.rms_eps)
+        x = L.rms_norm(x, _whole(params["ln_f"]), cfg.rms_eps)
         return head(x), aux / cfg.n_layers
 
     def prefill(params, batch):
@@ -498,8 +594,8 @@ def build_dense(cfg: ArchConfig, capacity_factor: Optional[float] = None,
             kv["k0"] = (n_dense,) + shape
         return dict(_ring(capacity, 0, device), **_kv_cache(cfg, kv, mesh_info, device))
 
-    return ModelBundle(cfg, init, forward, prefill, decode_step, init_cache,
-                       ring_axes={"k": 2, "v": 2, "k0": 2, "v0": 2}, mesh_info=mesh_info)
+    return _fsdp(ModelBundle(cfg, init, forward, prefill, decode_step, init_cache,
+                             ring_axes={"k": 2, "v": 2, "k0": 2, "v0": 2}, mesh_info=mesh_info))
 
 
 # ---------------------------------------------------------------------------
@@ -561,7 +657,7 @@ def build_dense_pattern(cfg: ArchConfig, mesh_info: Optional[dict] = None) -> Mo
             x, (k, v), _ = _run(_block_full, x, lp, win, cfg, chunked, True, None, shard)
             if emit_kv:
                 kv[key].append((k, v))
-        return head, L.rms_norm(x, params["ln_f"], cfg.rms_eps), kv
+        return head, L.rms_norm(x, _whole(params["ln_f"]), cfg.rms_eps), kv
 
     def forward(params, batch):
         head, x, _ = _run_full(params, batch["tokens"], emit_kv=False)
@@ -607,8 +703,8 @@ def build_dense_pattern(cfg: ArchConfig, mesh_info: Optional[dict] = None) -> Mo
         c = _kv_cache(cfg, kv, mesh_info, device)
         return dict(c, **_ring(capacity, 0, device))
 
-    return ModelBundle(cfg, init, forward, prefill, decode_step, init_cache,
-                       ring_axes={"k": 3, "v": 3, "kt": 2, "vt": 2}, mesh_info=mesh_info)
+    return _fsdp(ModelBundle(cfg, init, forward, prefill, decode_step, init_cache,
+                             ring_axes={"k": 3, "v": 3, "kt": 2, "vt": 2}, mesh_info=mesh_info))
 
 
 # ---------------------------------------------------------------------------
@@ -676,11 +772,12 @@ def build_vlm(cfg: ArchConfig, mesh_info: Optional[dict] = None) -> ModelBundle:
                                 None, shard)
                 if emit_kv:
                     self_kv.append(kv)
-            mk, mv = L.cross_kv(mem, blk["cross"]["attn"], dims, tp)
+            kv_proj = {k: v for k, v in blk["cross"]["attn"].items() if k in ("wk", "wv", "k_norm")}
+            mk, mv = L.cross_kv(mem, _whole(kv_proj), dims, tp)
             x = _run(_cross_full, x, blk["cross"], mk, mv)
             if emit_kv:
                 cross_kv.append((mk, mv))
-        return head, L.rms_norm(x, params["ln_f"], cfg.rms_eps), self_kv, cross_kv
+        return head, L.rms_norm(x, _whole(params["ln_f"]), cfg.rms_eps), self_kv, cross_kv
 
     def forward(params, batch):
         head, x, _, _ = _run_full(params, batch, emit_kv=False)
@@ -722,8 +819,8 @@ def build_vlm(cfg: ArchConfig, mesh_info: Optional[dict] = None) -> ModelBundle:
             "mk": (n_blocks, batch_size, cfg.n_frontend_tokens, hkv, hd)}, mesh_info, device),
             **_ring(capacity, 0, device))
 
-    return ModelBundle(cfg, init, forward, prefill, decode_step, init_cache,
-                       ring_axes={"k": 3, "v": 3}, mesh_info=mesh_info)
+    return _fsdp(ModelBundle(cfg, init, forward, prefill, decode_step, init_cache,
+                             ring_axes={"k": 3, "v": 3}, mesh_info=mesh_info))
 
 
 # ---------------------------------------------------------------------------
@@ -767,7 +864,7 @@ def build_encdec(cfg: ArchConfig, mesh_info: Optional[dict] = None) -> ModelBund
         chunked = x.shape[1] >= CHUNKED_MIN_SEQ
         for lp in _stack(params, "enc"):
             x = _run(_enc_block, x, lp, chunked)
-        return L.rms_norm(x, params["ln_enc"], cfg.rms_eps)
+        return L.rms_norm(x, _whole(params["ln_enc"]), cfg.rms_eps)
 
     def _dec_block(x, lp, enc_out, chunked):
         h, kv = L.self_attn_full(L.rms_norm(x, lp["ln1"], cfg.rms_eps), lp["attn"], dims,
@@ -786,7 +883,7 @@ def build_encdec(cfg: ArchConfig, mesh_info: Optional[dict] = None) -> ModelBund
             x, kv, mkv = _run(_dec_block, x, lp, enc_out, chunked)
             if emit_kv:
                 kvs.append((kv, mkv))
-        return head, L.rms_norm(x, params["ln_f"], cfg.rms_eps), kvs
+        return head, L.rms_norm(x, _whole(params["ln_f"]), cfg.rms_eps), kvs
 
     def forward(params, batch):
         enc_out = encode(params, batch["frames"])
@@ -827,8 +924,8 @@ def build_encdec(cfg: ArchConfig, mesh_info: Optional[dict] = None) -> ModelBund
                                     "mk": (cfg.n_layers, batch_size, mem_len, hkv, hd)},
                               mesh_info, device), **_ring(capacity, 0, device))
 
-    return ModelBundle(cfg, init, forward, prefill, decode_step, init_cache,
-                       ring_axes={"k": 2, "v": 2}, mesh_info=mesh_info)
+    return _fsdp(ModelBundle(cfg, init, forward, prefill, decode_step, init_cache,
+                             ring_axes={"k": 2, "v": 2}, mesh_info=mesh_info))
 
 
 # ---------------------------------------------------------------------------
@@ -877,7 +974,7 @@ def build_ssm(cfg: ArchConfig, mesh_info: Optional[dict] = None) -> ModelBundle:
             x, hfin, tails = _run(_mamba_full, x, lp, cfg, tp)
             if emit_state:
                 states.append((hfin, tails))
-        return head, L.rms_norm(x, params["ln_f"], cfg.rms_eps), states
+        return head, L.rms_norm(x, _whole(params["ln_f"]), cfg.rms_eps), states
 
     def forward(params, batch):
         head, x, _ = _run_full(params, batch["tokens"], emit_state=False)
@@ -917,8 +1014,8 @@ def build_ssm(cfg: ArchConfig, mesh_info: Optional[dict] = None) -> ModelBundle:
         cache["pos"] = torch.tensor(0, dtype=torch.int32, device=device)
         return cache
 
-    return ModelBundle(cfg, init, forward, prefill, decode_step, init_cache,
-                       mesh_info=mesh_info)
+    return _fsdp(ModelBundle(cfg, init, forward, prefill, decode_step, init_cache,
+                             mesh_info=mesh_info))
 
 
 # ---------------------------------------------------------------------------
@@ -988,7 +1085,7 @@ def build_hybrid(cfg: ArchConfig, mesh_info: Optional[dict] = None) -> ModelBund
             x, hfin, tails = _run(_mamba_full, x, _at(params["tail"], i), cfg, tp)
             if emit:
                 tail.append((hfin, tails))
-        return head, L.rms_norm(x, params["ln_f"], cfg.rms_eps), states, kvs, tail
+        return head, L.rms_norm(x, _whole(params["ln_f"]), cfg.rms_eps), states, kvs, tail
 
     def _ssm_cache(states, lead):
         """ssm / conv_* leaves of a list of (final state, conv tails)."""
@@ -1053,5 +1150,5 @@ def build_hybrid(cfg: ArchConfig, mesh_info: Optional[dict] = None) -> ModelBund
                 cfg, batch_size, (n_tail,), mesh_info, device).items()})
         return c
 
-    return ModelBundle(cfg, init, forward, prefill, decode_step, init_cache,
-                       ring_axes={"ak": 2, "av": 2}, mesh_info=mesh_info)
+    return _fsdp(ModelBundle(cfg, init, forward, prefill, decode_step, init_cache,
+                             ring_axes={"ak": 2, "av": 2}, mesh_info=mesh_info))

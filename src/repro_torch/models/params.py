@@ -73,24 +73,58 @@ def init_params(cfg: ArchConfig, seed: int = 0, device="cuda",
 
 def init_blocks(cfg: ArchConfig, seed: int, device, mesh_info: dict, **kw) -> Dict:
     """This rank's blocks of ``init_params(cfg, seed, device, **kw)`` under
-    ``launch/partition.py param_specs`` on the mesh of ``mesh_info``, each
-    leaf cut as soon as it is drawn (``keep``), so a rank holds its blocks
-    and one whole leaf at a time, not the whole tree: the values are
-    ``shard_params``' of the whole draw. The specs come from the tree on
-    ``meta``, whose leaves map to the draws in draw order. An MoE tree is
-    drawn whole and then cut (``init_params``' ``keep``)."""
+    ``launch/partition.py param_specs`` on the mesh of ``mesh_info`` (under
+    FSDP, ``mesh_info["fsdp"]`` the tree of each leaf's data-axis dim,
+    ``partition.data_dims``: each block's slice along that dim, its
+    ``zero_specs`` block), each leaf cut as soon as it is drawn (``keep``),
+    so a rank holds its blocks and one whole leaf at a time, not the whole
+    tree: the values are ``shard_params``' of the whole draw. The specs
+    come from the tree on ``meta``, whose leaves map to the draws in draw
+    order. An MoE tree is drawn whole and then cut (``init_params``'
+    ``keep``)."""
     from repro_torch.launch.partition import param_specs, shard_leaf
     mesh = mesh_info["mesh"]
     n_model = mesh.shape[mesh_info["tp"]]
+    dims = mesh_info.get("fsdp")
+
+    def specs_of(tree):
+        pspecs = param_specs(cfg, tree, n_model=n_model)
+        return pspecs if dims is None else _data_specs(pspecs, dims, mesh_info)
+
     if cfg.is_moe:
         whole = init_params(cfg, seed, device, **kw)
-        return shard_params(whole, param_specs(cfg, whole, n_model=n_model), mesh)
+        return shard_params(whole, specs_of(whole), mesh)
     drawn = []
     meta = init_params(cfg, seed, "meta", keep=lambda t: drawn.append(t) or t, **kw)
-    spec_of = dict(zip(map(id, _leaves(meta)),
-                       _leaves(param_specs(cfg, meta, n_model=n_model))))
+    spec_of = dict(zip(map(id, _leaves(meta)), _leaves(specs_of(meta))))
     specs = iter([spec_of[id(t)] for t in drawn])
     return init_params(cfg, seed, device, keep=lambda t: shard_leaf(t, next(specs), mesh), **kw)
+
+
+def _data_specs(specs, dims, mesh_info: dict):
+    """``specs`` (a tree of blocks' specs) with the data axes of
+    ``mesh_info`` added on each leaf's dim of ``dims`` (``partition.data_dims``;
+    None: none): ``zero_specs`` where ``specs`` are ``param_specs``."""
+    if isinstance(specs, dict):
+        return {k: _data_specs(v, dims[k], mesh_info) for k, v in specs.items()}
+    if dims is None:
+        return specs
+    spec = tuple(specs) + (None,) * (dims + 1 - len(specs))
+    return spec[:dims] + (tuple(mesh_info["dp"]),) + spec[dims + 1:]
+
+
+def cut_data(tree: Dict, dims, mesh_info: dict) -> Dict:
+    """This rank's slice of each leaf of ``tree`` along its data-axis dim
+    (``dims``, as in ``_data_specs``)."""
+    from repro_torch.launch.partition import shard_leaf
+
+    def cut(node, d):
+        if isinstance(node, dict):
+            return {k: cut(v, d[k]) for k, v in node.items()}
+        return node if d is None else shard_leaf(node, _data_specs((), d, mesh_info),
+                                                 mesh_info["mesh"])
+
+    return cut(tree, dims)
 
 
 def _leaves(tree) -> list:

@@ -25,7 +25,9 @@ Two interfaces over one update:
 moments sharded over the data axes (``launch/partition.py zero_specs``, the
 reference dry-run's ZeRO-1): each rank keeps and updates only its slice of
 each leaf's moments and parameters, then the parameters are all-gathered
-over the data axes.
+over the data axes; under FSDP (``mesh_info["fsdp"]``, ZeRO-3) the
+parameters themselves are the slices, their gradients arrive summed and
+sliced (``collectives.gather_params``), and nothing is gathered.
 """
 from __future__ import annotations
 
@@ -167,21 +169,29 @@ class ZeRO1:
     data rank. ``reduce`` sums a gradient leaf over the data axes and keeps
     the slice; ``update`` takes the averaged slices
     (``training/train_loop.py``), updates each slice in place, and
-    all-gathers the params over the data axes."""
+    all-gathers the params over the data axes.
+
+    Under FSDP (``mesh_info["fsdp"]`` not None: the tree of the leaves'
+    data-axis dims, ``dims`` here) the params this rank holds are the
+    slices themselves (``zero_specs``): a sliced leaf's gradient is already
+    the sum over the data axes (the forward's gathers reduce-scatter it in
+    f32 and autograd rounds it to the leaf's dtype), so ``reduce`` only
+    casts it to f32, and ``update`` updates the slices in place and gathers
+    nothing. A leaf with no data dim is whole on every data rank, reduced
+    and updated as without FSDP."""
 
     def __init__(self, opt: AdamW, pspecs, zspecs, mesh_info: dict):
         self.opt = opt
+        self.fsdp = mesh_info.get("fsdp") is not None
         mesh = mesh_info["mesh"]
         dp, tp = tuple(mesh_info["dp"]), mesh_info["tp"]
         self.dp = mesh.axis(dp)
         self.world = mesh.axis(mesh.axis_names)
-        self.dims, self.shares = [], []
-        for ps, zs in zip(tree_leaves(pspecs), tree_leaves(zspecs)):
-            zdim = [i for i, e in enumerate(zs) if e is not None
-                    and (i >= len(ps) or ps[i] is None)]
-            self.dims.append(zdim[0] if zdim else None)
+        from repro_torch.launch.partition import data_dims
+        self.dims, self.shares = tree_leaves(data_dims(pspecs, zspecs)), []
+        for ps, dim in zip(tree_leaves(pspecs), self.dims):
             # ranks holding the same slice: the leaf's sum of squares counts once
-            copies = (1 if zdim else self.dp.size) * (
+            copies = (1 if dim is not None else self.dp.size) * (
                 1 if any(e == tp or (isinstance(e, tuple) and tp in e) for e in ps)
                 else mesh.size(tp))
             self.shares.append(1.0 / copies)
@@ -190,8 +200,11 @@ class ZeRO1:
         """Leaf ``i``'s gradient summed over the data axes in f32, this
         rank's slice of it (a new tensor): reduce-scattered where the leaf's
         moments are sliced, else all-reduced. The f32 copy of ``g`` is the
-        only full-size tensor it makes."""
+        only full-size tensor it makes. Under FSDP a sliced leaf's gradient
+        is its slice already: cast to f32."""
         dim = self.dims[i]
+        if dim is not None and self.fsdp:
+            return g.float()
         if dim is None:
             return C.psum(g.to(torch.float32, memory_format=torch.contiguous_format),
                           self.dp, inplace=True)
@@ -199,8 +212,9 @@ class ZeRO1:
         return C.reduce_scatter(src, self.dp).movedim(0, dim).contiguous()
 
     def slices(self, tree) -> list:
-        """This rank's slice (a view) of each leaf (``tree_leaves`` order)."""
-        return [t if dim is None else t.chunk(self.dp.size, dim)[self.dp.index]
+        """This rank's slice (a view) of each leaf (``tree_leaves`` order);
+        under FSDP the leaves themselves."""
+        return [t if dim is None or self.fsdp else t.chunk(self.dp.size, dim)[self.dp.index]
                 for t, dim in zip(tree_leaves(tree), self.dims)]
 
     def init(self, params) -> AdamWState:
@@ -223,7 +237,7 @@ class ZeRO1:
                                        AdamWState(state.step, _keyed(state.m), _keyed(state.v)),
                                        like, grad_norm=gn)
         for t, dim, view in zip(tree_leaves(params), self.dims, views):
-            if dim is not None:
+            if dim is not None and not self.fsdp:
                 t.copy_(C.all_gather(view, self.dp, dim))
         return params, AdamWState(state.step, tree_unflatten(params, tree_leaves(state.m)),
                                   tree_unflatten(params, tree_leaves(state.v))), gn

@@ -17,7 +17,12 @@ axis, never the whole logits). After each microbatch's backward each
 gradient leaf is reduce-scattered over the data axes in f32 into its ZeRO
 slice (all-reduced where its moments are whole), so the f32 accumulator
 holds only this rank's slices (the reference's ``acc_constraint``); the
-step then averages it and updates the slices.
+step then averages it and updates the slices. Under FSDP
+(``mesh_info["fsdp"]``) the params are those slices and their gradients
+arrive summed and sliced by the forward's gathers
+(``collectives.gather_params``, rounded to the leaf's dtype), so
+``ZeRO1.reduce`` only casts them to f32; each microbatch's forward gathers
+the layers again, as the reference's lowered scan does.
 """
 from __future__ import annotations
 
