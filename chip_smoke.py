@@ -170,8 +170,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
   9. ssm_check — a small Mamba2 (2 layers, head_dim 64, state 128) through
                the model bundle on the card and on the CPU: the prefill
                logits must agree.
- 10. ssm     — Mamba2-2.7B at its published widths and all 64 layers,
-               random weights from ``--seed``: 4
+ 10. ssm     — Mamba2-2.7B at its published widths and ``SSM_LAYERS`` of
+               its 64 layers, random weights from ``--seed``: 4
                prompts of 2048 tokens one at a time, each ``prefill`` then
                32 greedy ``decode_step``s; TTFT, decode tokens/s, peak
                device memory. ``ssd_scan``'s count is reset just before and
@@ -447,13 +447,24 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                the sum (a gradient leaf past ``MESH_GRAD_TOL``), and a
                layer-dim leaf read from the rank's own slice as if the
                layer dim were whole (logits past ``BUNDLE_TOL`` against the
-               sound forward, on params whose layers differ). Last, in
+               sound forward, on params whose layers differ). Then, in
                the same processes, what ``launch/train.py --mesh 2x2``
-               runs on each rank (``rank_model``, then 2 steps of its
+               runs on each rank (``rank_model``, then a step of its
                4 x 4096 batch) on Qwen2-MoE-A2.7B at 3 layers, by the rule
                (``--fsdp auto``: it must turn FSDP on at ``state_gb_dev``
                10.12) and with FSDP off: each rank's peak must fall by
-               ``FSDP_PEAK_DROP`` at least.
+               ``FSDP_PEAK_DROP`` at least. Last, in the same processes,
+               the sp part (``REPRO_OPT_SEQ_PARALLEL`` on: the residual
+               stream a block of the sequence over the model axis):
+               Qwen2-MoE-A2.7B with the ZeRO-1 part's batches, seed and
+               steps, held against the rank's ZeRO-1 run (the flag off):
+               the forward's logits and step 1's loss bit for bit, every
+               gradient leaf and the params after the steps within
+               ``MESH_GRAD_TOL`` / ``MESH_PARAM_TOL``; a planted fault (the
+               norms' gradients left unsummed over the model axis) past
+               ``MESH_GRAD_TOL``; gemma3-1b's pattern stack at 7 layers,
+               forward only, its logits equal to the families part's; per
+               rank the peak, step ms and collectives by op, on and off.
                ``--mesh`` runs only this phase.
 
 Every phase line carries ``t_s``, the seconds since the script started.
@@ -2328,11 +2339,16 @@ def check_small_ssm(seed: int):
 
 # -- phase 10: Mamba2-2.7B through the model bundle ------------------------------
 
+# the ssm phase's depth of Mamba2-2.7B's 64 layers: all 64 until the mesh
+# phase's sp part took its time (half of this phase's 39-47 s on an H100)
+SSM_LAYERS = 32
+
+
 def serve_ssm(seed: int, ssd_scan):
     from repro_torch.configs.base import get_config
     from repro_torch.models.model import build, greedy_token
 
-    cfg = get_config("mamba2_2_7b")
+    cfg = dataclasses.replace(get_config("mamba2_2_7b"), n_layers=SSM_LAYERS)
     bundle = build(cfg)
     held_before = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
@@ -4865,17 +4881,14 @@ def mesh_fault_control(run, sound: dict, batches: list, ref: list, seed: int) ->
     return out
 
 
-def mesh_rank(local_rank: int, port: int, tmp: str, seed: int) -> None:
+def mesh_rank(local_rank: int, tmp: str, seed: int) -> None:
     """One rank of the mesh (a process of its own on the shared card):
     ``launch/train.py rank_setup`` and its ZeRO-1 run (``mesh_zero1``), the
     planted faults' readings against it (``mesh_fault_control``), then the
-    decode, families, fsdp and rule parts. Writes ``tmp/rank<r>.pt``, and
+    decode, families, fsdp, rule and sp parts. Writes ``tmp/rank<r>.pt``, and
     each part's ``HEAVY`` leaves to a file of their own as the part ends
-    (``spill``)."""
-    os.environ.update(RANK=str(local_rank), LOCAL_RANK=str(local_rank),
-                      WORLD_SIZE=str(math.prod(MESH_GRID)),
-                      LOCAL_WORLD_SIZE=str(math.prod(MESH_GRID)),
-                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    (``spill``). Started by ``launch/mesh.py spawn``, which sets its
+    environment."""
     sys.path.insert(0, str(ROOT / "src"))
     import torch.distributed as dist
     from repro_torch.launch.train import rank_setup
@@ -4898,6 +4911,8 @@ def mesh_rank(local_rank: int, port: int, tmp: str, seed: int) -> None:
     out["fsdp"] = mesh_fsdp_rank(run, tmp, seed, out)
     out["fsdp_rule"] = mesh_fsdp_rule_rank(run, seed)
     rank_note(r, "fsdp rule")
+    out["sp"] = mesh_sp_rank(run, tmp, seed, out)
+    rank_note(r, "sp")
     torch.save(out, tmp / f"rank{r}.pt")
     dist.barrier()
     dist.destroy_process_group()
@@ -4905,15 +4920,9 @@ def mesh_rank(local_rank: int, port: int, tmp: str, seed: int) -> None:
 
 def mesh_ranks(tmp: Path, seed: int) -> list:
     """Start the mesh's ranks on this card and return their records."""
-    import socket
-
-    import torch.multiprocessing as mp
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
+    from repro_torch.launch.mesh import spawn
     world = math.prod(MESH_GRID)
-    mp.start_processes(mesh_rank, args=(port, str(tmp), seed), nprocs=world,
-                       start_method="spawn")
+    spawn(mesh_rank, (str(tmp), seed), world)
     ranks = []
     for r in range(world):
         rec = torch.load(tmp / f"rank{r}.pt")
@@ -5724,6 +5733,9 @@ MESH_FSDP_RUNS = (MESH_ARCH, "mamba2_2_7b")
 # Qwen2-MoE-A2.7B's least depth at which the reference's rule turns FSDP on
 # for a 2 x 2 mesh (state_gb_dev 10.12 GB; 7.26 at 2 layers)
 FSDP_RULE_LAYERS = 3
+# steps of each rule run: the rule, the peak drop and step 1's loss need one
+# (2 until the sp part took its time: 22-35 s a rank on an H100, PERF.md)
+FSDP_RULE_STEPS = 1
 FSDP_RULE_STATE_GB = 10.12
 # each rank's peak under the rule must be this far below ZeRO-1's (fsdp off)
 FSDP_PEAK_DROP = 0.5e9
@@ -5907,7 +5919,7 @@ def mesh_fsdp_rule_rank(run, seed: int) -> dict:
     --mesh 2x2 --fsdp {auto,off}`` runs on each rank, in this process
     (saving two launches' start-up): ``rank_model`` of Qwen2-MoE-A2.7B at
     ``FSDP_RULE_LAYERS`` with ``fsdp`` None (the rule, ``--fsdp auto``) and
-    False (``--fsdp off``), each then ``MESH_STEPS`` steps of the
+    False (``--fsdp off``), each then ``FSDP_RULE_STEPS`` steps of the
     launcher's batch (``SyntheticLM``, ``MESH_B`` x ``MESH_S``); the peak
     reset just before the draw and read after the steps, the kernels'
     counts and the collectives over the steps."""
@@ -5924,7 +5936,8 @@ def mesh_fsdp_rule_rank(run, seed: int) -> dict:
         torch.cuda.reset_peak_memory_stats()
         t_part = time.perf_counter()
         rr = rank_model(cfg, run.mesh, run.device, run.ranks_per_card, seed, MESH_LR, fsdp=fsdp)
-        batches = [rr.shard_batch({"tokens": t}) for t in mesh_batches(cfg, seed)]
+        batches = [rr.shard_batch({"tokens": t})
+                   for t in mesh_batches(cfg, seed)[:FSDP_RULE_STEPS]]
         collectives.reset()
         for fn in kernels:
             fn.launches = 0
@@ -6008,7 +6021,7 @@ def fsdp_rule_held(ranks: list) -> dict:
     off = [r["fsdp_rule"]["off"] for r in ranks]
     drops = [o["max_memory_allocated"] - a["max_memory_allocated"] for a, o in zip(auto, off)]
     return dict(
-        layers=FSDP_RULE_LAYERS, batch=MESH_B, seq=MESH_S, steps=MESH_STEPS,
+        layers=FSDP_RULE_LAYERS, batch=MESH_B, seq=MESH_S, steps=FSDP_RULE_STEPS,
         ranks={k: [dict(rank=r["rank"], coords=r["coords"], **r["fsdp_rule"][k]) for r in ranks]
                for k in ("auto", "off")},
         first_loss_equal=[a["loss"][0] == o["loss"][0] for a, o in zip(auto, off)],
@@ -6016,6 +6029,188 @@ def fsdp_rule_held(ranks: list) -> dict:
         ok=(all(a["fsdp"] and round(a["state_gb_dev"], 2) == FSDP_RULE_STATE_GB
                 for a in auto)
             and not any(o["fsdp"] for o in off) and min(drops) >= FSDP_PEAK_DROP))
+
+
+# -- phase 20, sp: sequence parallelism on the mesh ---------------------------
+
+SP_PATTERN = "gemma3_1b"   # the pattern stack's forward, beside Qwen2-MoE's steps
+
+
+@contextlib.contextmanager
+def seq_parallel():
+    """``REPRO_OPT_SEQ_PARALLEL`` on for the block (``models/model.py``
+    reads it when a bundle is built), as it was otherwise."""
+    old = os.environ.get("REPRO_OPT_SEQ_PARALLEL")
+    os.environ["REPRO_OPT_SEQ_PARALLEL"] = "1"
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("REPRO_OPT_SEQ_PARALLEL", None)
+        else:
+            os.environ["REPRO_OPT_SEQ_PARALLEL"] = old
+
+
+def worst_leaf(m0, scale, want, want_scale) -> float:
+    """The worst of a step's gradient leaves (first moments ``m0`` over
+    their clip scale) against another run's (``MESH_GRAD_TOL``'s
+    measure)."""
+    worst = 0.0
+    for a, b in zip(m0, want):
+        a, b = a.cuda() / scale, b.cuda() / want_scale
+        worst = max(worst, float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30))
+    return worst
+
+
+def mesh_sp_rank(run, tmp: Path, seed: int, zero: dict) -> dict:
+    """A rank's sp part, last (``zero``: its record so far): Qwen2-MoE-A2.7B
+    at ``MESH_LAYERS`` built with ``REPRO_OPT_SEQ_PARALLEL`` on
+    (``launch/train.py rank_model``), the ZeRO-1 part's batches, seed and
+    steps, its router replaying its data shard's unsharded record: the
+    forward's logits and step 1's loss against the rank's ZeRO-1 run (the
+    flag off; bit for bit), every gradient leaf of step 1 and the params
+    after the steps against it (``MESH_GRAD_TOL``'s measure; the params'
+    squared distance and the ZeRO-1 run's squared update, which the parent
+    sums over the ranks), the peak, the steps' ms, collectives and kernel
+    launches; then the planted fault on the params drawn: one step with the
+    norms' weights not entering through ``copy_to`` (``models/model.py
+    _norm_w``: their gradients each rank's part), its worst gradient leaf
+    against the ZeRO-1 run's. Then ``SP_PATTERN``'s pattern stack at its
+    families part's depth, forward only, against that part's logits (bit
+    for bit). Only numbers leave the rank."""
+    from repro_torch import collectives
+    from repro_torch.kernels.expert_ffn import expert_ffn
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.train import rank_model
+    from repro_torch.models import model as TM
+    from repro_torch.training.optimizer import tree_leaves
+    from repro_torch.training.train_loop import make_train_step
+    kernels = (expert_ffn, flash_attention)
+    r, d = run.mesh.rank, run.mesh.coords["data"]
+    t_part = time.perf_counter()
+    cfg = mesh_cfg()
+    with seq_parallel():
+        sp = rank_model(cfg, run.mesh, run.device, run.ranks_per_card, seed, MESH_LR, fsdp=False)
+    adam = sp.opt.opt
+    scale = lambda gn: (1 - adam.b1) * min(1.0, adam.grad_clip / gn)
+    p0 = [t.to("cpu", copy=True) for t in tree_leaves(sp.params)]   # off the card: the peak
+    ref = torch.load(tmp / f"routes{d}.pt")
+    off = torch.load(tmp / f"rank{r}_zero1.pt")           # the ZeRO-1 run's m0, params
+    batches = [run.shard_batch({"tokens": t}) for t in mesh_batches(cfg, seed)]
+    rec = dict(draw_s=time.perf_counter() - t_part)
+    with routes(replay=ref) as own:
+        with torch.no_grad():
+            logits = sp.bundle.forward(sp.params, batches[0])[0]
+        rec["logits_equal_off"] = bool(torch.equal(logits[:, -MESH_TAIL:].cpu(), zero["logits"]))
+        del logits
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        collectives.reset()
+        for fn in kernels:
+            fn.launches = 0
+        step = make_train_step(sp.bundle, sp.opt)
+        params, state, rows = sp.params, sp.state, []
+        for i, b in enumerate(batches):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, mt = step(params, state, b)
+            rows.append(dict(loss=float(mt["loss"]), grad_norm=float(mt["grad_norm"]),
+                             ms=(time.perf_counter() - t0) * 1e3))
+            if i == 0:
+                rec["grad_leaf_rel_err_off"] = worst_leaf(
+                    tree_leaves(state.m), scale(rows[0]["grad_norm"]), off["m0"],
+                    scale(zero["steps"][0]["grad_norm"]))
+        rec.update(steps=rows, max_memory_allocated=torch.cuda.max_memory_allocated(),
+                   collectives=collectives.record(),
+                   launches={fn.__name__: fn.launches for fn in kernels},
+                   loss_equal_off=rows[0]["loss"] == zero["steps"][0]["loss"])
+    rec["route_flips_at_ties"] = flips(own, ref)
+    num = den = 0.0
+    for a, b, c in zip(tree_leaves(params), off["params"], p0):
+        b = b.cuda().float()
+        num += float((a.float() - b).square().sum())
+        den += float((b - c.cuda().float()).square().sum())
+    rec.update(param_num=num, param_den=den)
+    del params, state, step, off["params"]
+    release()
+    # the planted fault, one step on the params drawn
+    for leaf, t in zip(tree_leaves(sp.params), p0):
+        leaf.copy_(t.cuda())
+    del p0
+    n = cfg.n_layers      # router calls a forward; the step's own start after them
+    opt = type(sp.opt)(type(adam)(lr=MESH_LR), sp.pspecs, sp.zspecs, sp.mesh_info)
+    with routes(replay=ref[n:3 * n]), patched(TM, "_norm_w", lambda w, shard: w):
+        _, st, mt = make_train_step(sp.bundle, opt)(sp.params, opt.init(sp.params), batches[0])
+    rec["fault_norm_unsummed"] = dict(grad_leaf_rel_err_off=worst_leaf(
+        tree_leaves(st.m), scale(float(mt["grad_norm"])), off["m0"],
+        scale(zero["steps"][0]["grad_norm"])))
+    del sp, opt, st, off
+    release()
+    rec["part_s"] = time.perf_counter() - t_part
+    out = {MESH_ARCH: rec}
+    # the pattern stack, forward only, against the families part's
+    t_part = time.perf_counter()
+    pcfg = mesh_family_cfg(SP_PATTERN)
+    with static_window(pcfg), seq_parallel():
+        bundle = TM.build(pcfg, mesh_info=run.mesh_info)
+    params = bundle.init(seed, run.device, blocks=True)
+    forward = run.shard_batch(mesh_family_inputs(pcfg, SP_PATTERN, seed)[0])
+    collectives.reset()
+    flash_attention.launches = 0
+    with torch.no_grad():
+        logits = bundle.forward(params, forward)[0][:, -MESH_TAIL:].float().cpu()
+    out[SP_PATTERN] = dict(
+        layers=pcfg.n_layers,
+        logits_equal_off=bool(torch.equal(logits, zero["families"][SP_PATTERN]["logits"])),
+        collectives=collectives.record(), launches={"flash_attention": flash_attention.launches},
+        part_s=time.perf_counter() - t_part)
+    del bundle, params, forward, logits
+    release()
+    return out
+
+
+def sp_held(ranks: list) -> dict:
+    """The sp part against the ZeRO-1 ranks (the flag off): the logits and
+    step 1's loss equal on every rank, the worst gradient leaf within
+    ``MESH_GRAD_TOL``, the params after the steps within
+    ``MESH_PARAM_TOL`` of the ZeRO-1 run's update (over the whole tree and
+    every rank); the planted fault past ``MESH_GRAD_TOL`` on every rank;
+    the pattern stack's logits equal. Per rank: the peak, step ms and the
+    collectives by op with the flag on and off."""
+    moe = [r["sp"][MESH_ARCH] for r in ranks]
+    pat = [r["sp"][SP_PATTERN] for r in ranks]
+    fault = [m["fault_norm_unsummed"]["grad_leaf_rel_err_off"] for m in moe]
+    res = dict(
+        model=MESH_ARCH, layers=MESH_LAYERS, steps=MESH_STEPS,
+        logits_equal_off=[m["logits_equal_off"] for m in moe],
+        loss_equal_off=[m["loss_equal_off"] for m in moe],
+        grad_leaf_rel_err_off=max(m["grad_leaf_rel_err_off"] for m in moe),
+        param_update_rel_err_off=math.sqrt(sum(m["param_num"] for m in moe)
+                                           / sum(m["param_den"] for m in moe)),
+        limits=dict(grad_leaf_rel_err_off=MESH_GRAD_TOL, param_update_rel_err_off=MESH_PARAM_TOL),
+        planted=("norm_unsummed: the norms' weights not entering through copy_to (their "
+                 "gradients each rank's part), one step on the params drawn"),
+        fault_grad_leaf_rel_err_off=fault,
+        route_flips_at_ties=[m["route_flips_at_ties"] for m in moe],
+        ranks=[dict(rank=r["rank"], coords=r["coords"],
+                    max_memory_allocated=dict(sp=m["max_memory_allocated"],
+                                              off=r["max_memory_allocated"]),
+                    step_ms=dict(sp=[x["ms"] for x in m["steps"]],
+                                 off=[x["ms"] for x in r["steps"]]),
+                    loss=[x["loss"] for x in m["steps"]],
+                    collectives=dict(sp=m["collectives"], off=r["collectives"]),
+                    launches=m["launches"], draw_s=m["draw_s"], part_s=m["part_s"])
+               for r, m in zip(ranks, moe)],
+        pattern=dict(model=SP_PATTERN, layers=pat[0]["layers"],
+                     logits_equal_off=[p["logits_equal_off"] for p in pat],
+                     collectives=[p["collectives"] for p in pat],
+                     part_s=[p["part_s"] for p in pat]))
+    res["ok"] = (all(res["logits_equal_off"]) and all(res["loss_equal_off"])
+                 and all(res["pattern"]["logits_equal_off"])
+                 and res["grad_leaf_rel_err_off"] <= MESH_GRAD_TOL
+                 and res["param_update_rel_err_off"] <= MESH_PARAM_TOL
+                 and min(fault) > MESH_GRAD_TOL)
+    return res
 
 
 def encoder_attention(B, S, H, D, g, reps: int = 20, plain_reps: int = 5):
@@ -6164,6 +6359,7 @@ def mesh_phase(seed: int) -> dict:
         held_s["families"] = time.perf_counter() - t_ranks - sum(held_s.values())
         fsdp = fsdp_held(ranks, ref, fam_ref)
         held_s["fsdp"] = time.perf_counter() - t_ranks - sum(held_s.values())
+        sp = sp_held(ranks)
         del fam_ref
         for r in ranks:
             for part in [r] + list(r["families"].values()) + list(r["fsdp"].values()):
@@ -6200,7 +6396,7 @@ def mesh_phase(seed: int) -> dict:
     launches = {}
     for r in ranks:
         for part in [r["launches"]] + [x["launches"] for key in ("decode", "families", "fsdp",
-                                                                 "fsdp_rule")
+                                                                 "fsdp_rule", "sp")
                                        for x in r[key].values()]:
             for k, v in part.items():
                 launches[k] = launches.get(k, 0) + v
@@ -6209,6 +6405,10 @@ def mesh_phase(seed: int) -> dict:
                 for n in (("expert_ffn", "flash_attention") if arch == MESH_ARCH
                           else ("ssd_scan",))
                 if not sum(r["fsdp"][arch]["launches"][n] for r in ranks)]
+    # the sp part's kernels, from its runs on the ranks
+    sp_bad = [(arch, n) for arch, names in ((MESH_ARCH, ("expert_ffn", "flash_attention")),
+                                            (SP_PATTERN, ("flash_attention",)))
+              for n in names if not sum(r["sp"][arch]["launches"][n] for r in ranks)]
     # each decode model's kernels, from its run on the ranks
     decode_bad = [(arch, n) for arch, _ in MESH_DECODE_RUNS
                   for n in ("flash_attention", "flash_decode")
@@ -6257,6 +6457,7 @@ def mesh_phase(seed: int) -> dict:
                              models=list(families.values())),
                fsdp=dict(limits=MESH_FAMILY_LIMITS, logits_tol=BUNDLE_TOL, planted=fsdp["planted"],
                          models=list(fsdp["models"].values()), rule=fsdp["rule"]),
+               sp=sp,
                seconds=dict(unsharded=t_ref - t0, ranks=t_ranks - t_ref, held=t_held - t_ranks,
                             held_parts=held_s, controls=time.perf_counter() - t_held))
     bad = [n for n in ("expert_ffn", "flash_attention") if not launches.get(n)] + decode_bad
@@ -6275,13 +6476,13 @@ def mesh_phase(seed: int) -> dict:
     dec_caught = granite["averaged_partials_failed"] is True
     fam_sound = {f["model"]: f["sound"] for f in families.values()}
     fam_caught = {f["model"]: all(f["faults_failed"].values()) for f in families.values()}
-    bad += family_bad + fsdp_bad
+    bad += family_bad + fsdp_bad + sp_bad
     fsdp_sound = {f["model"]: f["sound"] for f in fsdp["models"].values()}
     fsdp_caught = fsdp["models"]["mamba2_2_7b"]["faults_failed"]
     rule_ok = fsdp["rule"]["ok"]
     if not (sound and caught and dec_sound and dec_caught and all(fam_sound.values())
             and all(fam_caught.values()) and all(fsdp_sound.values())
-            and all(fsdp_caught.values()) and rule_ok and not bad):
+            and all(fsdp_caught.values()) and rule_ok and sp["ok"] and not bad):
         emit(res)
         raise AssertionError(f"mesh: the 2 x 2 step parts from the unsharded one ({sound=}), "
                              f"or a control passed ({caught=}), or the decode parts from the "
@@ -6291,7 +6492,8 @@ def mesh_phase(seed: int) -> dict:
                              f"an FSDP run parts from its unsharded or ZeRO-1 run "
                              f"({fsdp_sound=}) or its fault passed ({fsdp_caught=}), or the "
                              f"FSDP by the rule or its peak drop failed ({rule_ok=}), or "
-                             f"kernels never launched {bad}")
+                             f"sequence parallelism parts from the flag off or its fault "
+                             f"passed (sp ok={sp['ok']}), or kernels never launched {bad}")
     return res
 
 

@@ -42,6 +42,34 @@ FSDP (ZeRO-3) of the params has its own gather over the data axes:
   right over the model axis, where every rank holds the whole gradient,
   and would here leave each rank its own shard's part.
 
+Sequence parallelism (``REPRO_OPT_SEQ_PARALLEL``, Megatron-LM's sequence
+parallel regions) keeps the residual stream between blocks as this rank's
+block of the sequence, dim 1 [B, S/n, d], over the model axis, and moves
+the regions' edges onto that dim; a block's rows carry their whole
+gradient:
+
+* ``split_seq(x, ax)`` — the rank's block forward, all-gather backward. It
+  leaves replicated compute (every rank holds the whole sequence): each
+  rank's gradient of its block is whole, and gathered it is the whole
+  gradient every rank's replicated compute needs.
+* ``gather_seq(x, ax)`` — all-gather forward, reduce-scatter backward (the
+  gradient summed in f32, rounded to x's type). It replaces ``copy_to``
+  where column-parallel products follow: their gradients are each rank's
+  part, and the sum of the parts, cut to the rank's block, is its
+  gradient. Where replicated compute takes the gathered sequence too (an
+  MoE layer's router, K / V projected whole for the local query heads),
+  ``gather_seq_pair`` gives the same gather twice: the first output's
+  gradient reduce-scattered, the second's (whole on every rank) cut to the
+  block. A gather whose only consumer is replicated compute is
+  ``gather_from(x, ax, 1)``: its reduce-scatter would add the same whole
+  gradient n times.
+* ``scatter_seq(x, ax)`` — reduce-scatter forward (the rank's block of the
+  sum), all-gather backward. It replaces ``reduce_from``: the row-parallel
+  products' f32 partials, the embedding's vocabulary blocks.
+
+A replicated weight applied to a block of the sequence (the norms) sees
+only its rows, so its gradient is a part: it enters through ``copy_to``.
+
 ``torch.distributed.nn.functional.all_reduce`` is not ``reduce_from``: its
 backward all-reduces the gradient too, which multiplies a replicated
 gradient by the axis size. Leaving ``copy_to`` out at the entry of a
@@ -191,6 +219,58 @@ class _GatherParams(torch.autograd.Function):
         return part.to(g.dtype, memory_format=torch.contiguous_format), None, None
 
 
+def _seq_block(t: torch.Tensor, ax: Axis) -> torch.Tensor:
+    """This rank's block of dim 1."""
+    n = t.shape[1] // ax.size
+    return t.narrow(1, ax.index * n, n)
+
+
+def _reduce_scatter_seq(t: torch.Tensor, ax: Axis) -> torch.Tensor:
+    """``t`` summed over the axis, this rank's block of dim 1 (contiguous)."""
+    return reduce_scatter(t.movedim(1, 0).contiguous(), ax).movedim(0, 1).contiguous()
+
+
+class _SplitSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax):
+        ctx.ax = ax
+        return _seq_block(x, ax).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.ax, 1), None
+
+
+class _GatherSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax, pair):
+        ctx.ax = ax
+        ctx.set_materialize_grads(False)
+        out = all_gather(x, ax, 1)
+        return (out, out.view_as(out)) if pair else out
+
+    @staticmethod
+    def backward(ctx, g, g_rep=None):
+        out = None
+        if g is not None:
+            out = _reduce_scatter_seq(g.float(), ctx.ax).to(g.dtype)
+        if g_rep is not None:
+            part = _seq_block(g_rep, ctx.ax)
+            out = part.contiguous() if out is None else out + part
+        return out, None, None
+
+
+class _ScatterSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax):
+        ctx.ax = ax
+        return _reduce_scatter_seq(x, ax)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.ax, 1), None
+
+
 class _PMean(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, ax):
@@ -230,6 +310,43 @@ def gather_params(w: torch.Tensor, ax: Optional[Axis], dim: int) -> torch.Tensor
     if ax is None or ax.size == 1:
         return w
     return _GatherParams.apply(w, ax, dim % w.ndim)
+
+
+def split_seq(x: torch.Tensor, ax: Optional[Axis]) -> torch.Tensor:
+    """This rank's block of the sequence (dim 1) forward, the blocks'
+    gradients all-gathered backward (module docstring)."""
+    if ax is None or ax.size == 1:
+        return x
+    return _SplitSeq.apply(x, ax)
+
+
+def gather_seq(x: torch.Tensor, ax: Optional[Axis]) -> torch.Tensor:
+    """The ranks' blocks of the sequence (dim 1) all-gathered forward, the
+    gradient summed in f32 and reduce-scattered to the block backward
+    (module docstring)."""
+    if ax is None or ax.size == 1:
+        return x
+    return _GatherSeq.apply(x, ax, False)
+
+
+def gather_seq_pair(x: torch.Tensor, ax: Optional[Axis]):
+    """One all-gather of the sequence (dim 1) as two tensors: the first for
+    column-parallel compute (its gradient reduce-scattered, as
+    ``gather_seq``'s), the second for replicated compute (its gradient cut
+    to the rank's block, as ``gather_from``'s); backward the two
+    summed (module docstring)."""
+    if ax is None or ax.size == 1:
+        return x, x
+    return _GatherSeq.apply(x, ax, True)
+
+
+def scatter_seq(x: torch.Tensor, ax: Optional[Axis]) -> torch.Tensor:
+    """Summed over the axis and cut to this rank's block of the sequence
+    (dim 1) in one reduce-scatter forward, in x's type; the gradient
+    all-gathered backward (module docstring)."""
+    if ax is None or ax.size == 1:
+        return x
+    return _ScatterSeq.apply(x, ax)
 
 
 def pmean(x: torch.Tensor, ax: Optional[Axis]) -> torch.Tensor:

@@ -69,7 +69,12 @@ this card's ``BUDGET_BYTES``. The reference
 lowers the step and reads XLA's cost; PyTorch has no HLO, so only bytes.
 
 Records go to ``results/dryrun_torch/<arch>__<shape>.json`` (mesh plans
-``<arch>__<shape>__single|multi.json``). ``--reduced``
+``<arch>__<shape>__single|multi.json``). As in the reference,
+``--optimized`` turns every ``REPRO_OPT_*`` flag on (``models/opt_flags.py
+set_all``) and suffixes the records ``__opt``, ``--opts a,b`` turns on the
+named ones only (``set_named``; suffix ``__opt-a-b``), each record lists the
+flags (``opt_flags``), and ``--skip-existing`` skips a pair whose record is
+there. ``--reduced``
 runs the ``reduced()`` configs at a test scale on the CPU
 (``reduced_shape``: sequences of at most ``REDUCED_SEQ`` tokens, batches
 of at most 2; ``long_500k`` keeps its 524288 positions and wrapped ring).
@@ -90,12 +95,16 @@ from repro_torch.configs.base import (INPUT_SHAPES, ArchConfig, InputShape, get_
                                       pairs, reduced)
 from repro_torch.launch.input_specs import decode_inputs, train_batch
 from repro_torch.models import layers as L
+from repro_torch.models import opt_flags
 from repro_torch.models.moe_layer import capacity_for, n_experts_padded
 from repro_torch.models.model import ModelBundle, build
 from repro_torch.models.ssm import ssm_dims
 from repro_torch.training.optimizer import AdamW, tree_leaves
 
 RESULTS_DIR = Path(__file__).resolve().parents[3] / "results" / "dryrun_torch"
+# what the REPRO_OPT_* flags do to a mesh plan
+MESH_PLAN_FLAGS = ("state bytes only (params, moments, accumulator, cache): no flag changes "
+                   "them; seq_parallel shards activations, which the plan does not count")
 DATA_SHARDS = 16             # the data axis of the reference's 16 x 16 mesh
 CARD_BYTES = 80 * 2 ** 30    # one H100's device memory
 BUDGET_BYTES = int(0.92 * CARD_BYTES)   # room for the CUDA context and fragmentation
@@ -446,7 +455,8 @@ def mesh_plan(cfg: ArchConfig, shape: InputShape, multi_pod: bool) -> dict:
     n_dp = n_chips(mesh) // n_model
     dp = minfo["dp"] if len(minfo["dp"]) > 1 else minfo["dp"][0]
     rec = dict(arch=cfg.name, shape=shape.name, mesh="2x16x16" if multi_pod else "16x16",
-               chips=n_chips(mesh), kind=shape.kind, budget_bytes=BUDGET_BYTES)
+               chips=n_chips(mesh), kind=shape.kind, budget_bytes=BUDGET_BYTES,
+               opt_flags_note=MESH_PLAN_FLAGS)
     params = init_params(cfg, device="meta", expert_slabs="device", n_model=n_model)
     pspecs = param_specs(cfg, params, n_model=n_model)
     zspecs = zero_specs(params, pspecs, dp=dp, n_dp=n_dp)
@@ -494,11 +504,35 @@ def plan_for(cfg: ArchConfig, shape: InputShape, reduced_scale: bool = False) ->
     return plan
 
 
-def write_record(rec: dict, out: Path) -> Path:
+def record_path(out: Path, arch: str, shape: str, tag: Optional[str] = None,
+                suffix: str = "") -> Path:
+    """``out/<arch>__<shape>[__<tag>]<suffix>.json`` (the reference's names:
+    ``tag`` a mesh plan's ``single`` / ``multi``, ``suffix`` the flags')."""
+    name = f"{arch.replace('.', '_')}__{shape}" + (f"__{tag}" if tag else "")
+    return out / f"{name}{suffix}.json"
+
+
+def write_record(rec: dict, out: Path, tag: Optional[str] = None, suffix: str = "") -> Path:
     out.mkdir(parents=True, exist_ok=True)
-    path = out / f"{rec['arch'].replace('.', '_')}__{rec['shape']}.json"
-    path.write_text(json.dumps(rec, indent=1))
+    path = record_path(out, rec["arch"], rec["shape"], tag, suffix)
+    path.write_text(json.dumps(dict(rec, opt_flags=opt_flags.enabled()), indent=1))
     return path
+
+
+def set_flags(optimized: bool, opts: Optional[str]) -> str:
+    """The reference dry-run's switches: ``optimized`` turns every flag on
+    (suffix ``__opt``), else ``opts`` (a comma list of ``opt_flags.FLAGS``
+    names) turns every flag off and the named ones on (suffix
+    ``__opt-<names>``); with neither, no flag is changed and there is no
+    suffix."""
+    if optimized:
+        opt_flags.set_all(True)
+        return "__opt"
+    if opts:
+        names = opts.split(",")
+        opt_flags.set_named(names)
+        return "__opt-" + "-".join(n.strip() for n in names)
+    return ""
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
@@ -513,22 +547,41 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--out", type=Path, default=RESULTS_DIR)
     ap.add_argument("--mesh", choices=("16x16", "2x16x16"), default=None,
                     help="only reckon each pair's per-device bytes on this pod mesh")
+    ap.add_argument("--skip-existing", action="store_true")
+    ap.add_argument("--optimized", action="store_true",
+                    help="enable all REPRO_OPT_* §Perf flags; results are "
+                         "suffixed __opt")
+    ap.add_argument("--opts", default=None,
+                    help="comma list of §Perf flags to enable "
+                         "(static_window,attn_bf16,active_gather,"
+                         "seq_parallel); suffix __opt-<names>")
     args = ap.parse_args(argv)
     if args.all == bool(args.arch or args.shape) or (args.arch is None) != (args.shape is None):
         ap.error("give --arch and --shape, or --all")
+    try:
+        suffix = set_flags(args.optimized, args.opts)
+    except KeyError as e:
+        ap.error(f"--opts: no flag {e}")
+
+    def skipped(path: Path) -> bool:
+        if args.skip_existing and path.exists():
+            print(f"[skip] {path.stem}", flush=True)
+            return True
+        return False
+
     if args.mesh:
         todo = pairs() if args.all else [(get_config(args.arch), INPUT_SHAPES[args.shape])]
+        tag = "multi" if args.mesh == "2x16x16" else "single"
         for cfg, shape in todo:
+            if skipped(record_path(args.out, cfg.name, shape.name, tag, suffix)):
+                continue
             rec = mesh_plan(cfg, shape, multi_pod=args.mesh == "2x16x16")
             b = rec["bytes_per_device"]
             print(f"[dryrun {args.mesh}] {cfg.name} / {shape.name}: "
                   + " ".join(f"{k} {v / 1e9:.2f} GB" for k, v in b.items())
                   + (f" fsdp={rec['fsdp']}" if "fsdp" in rec else "")
                   + f" (budget {BUDGET_BYTES / 1e9:.1f} GB)", flush=True)
-            args.out.mkdir(parents=True, exist_ok=True)
-            tag = "multi" if args.mesh == "2x16x16" else "single"
-            (args.out / f"{rec['arch'].replace('.', '_')}__{shape.name}__{tag}.json").write_text(
-                json.dumps(rec, indent=1))
+            write_record(rec, args.out, tag, suffix)
         return 0
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         print("repro_torch.launch.dryrun: no CUDA device (--device cpu --reduced runs the "
@@ -536,6 +589,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         return 2
     todo = pairs() if args.all else [(get_config(args.arch), INPUT_SHAPES[args.shape])]
     for cfg, shape in todo:
+        if skipped(record_path(args.out, cfg.name, shape.name, suffix=suffix)):
+            continue
         plan = plan_for(cfg, shape, args.reduced)
         tag = f"{plan.arch} / {shape.name}"
         if not plan.fits:
@@ -547,7 +602,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             print(f"[dryrun] {tag}: ok batch {plan.batch} depth {plan.cfg.n_layers} "
                   f"step {rec['step_ms']:.1f} ms ({rec['clock']})"
                   + (f" peak {peak / 1e9:.2f} GB" if peak is not None else ""), flush=True)
-        write_record(rec, args.out)
+        write_record(rec, args.out, suffix=suffix)
     return 0
 
 

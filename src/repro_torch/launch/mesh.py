@@ -6,7 +6,8 @@ the data axes together. Ranks are laid out row-major over the axes, so in a
 (data, model) mesh the model axis joins neighbouring ranks.
 
 ``make_mesh`` builds one over an initialized process group (``init_rank``
-initializes it from ``torchrun``'s environment variables); the reference's
+initializes it from ``torchrun``'s environment variables, or from the
+rendezvous ``spawn`` gives the ranks it starts); the reference's
 production meshes, 16 x 16 (data, model) and 2 x 16 x 16 (pod, data,
 model), exist here only as logical meshes for plans
 (``make_production_mesh``: no process group, this rank at the origin).
@@ -22,7 +23,9 @@ import dataclasses
 import itertools
 import math
 import os
-from typing import Dict, Optional, Sequence, Tuple, Union
+import shutil
+import tempfile
+from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -133,15 +136,47 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str], backend: str,
     return mesh
 
 
+# the environment variable that carries ``spawn``'s rendezvous to its ranks
+INIT_METHOD_ENV = "REPRO_INIT_METHOD"
+
+
 def init_rank(backend: str) -> None:
-    """Initialize the default process group from ``torchrun``'s environment
-    (RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT)."""
+    """Initialize the default process group: from ``spawn``'s rendezvous
+    (``INIT_METHOD_ENV``, RANK, WORLD_SIZE) in a rank it started, else from
+    ``torchrun``'s environment (RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT:
+    ``env://``)."""
     import torch.distributed as dist
-    missing = [k for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
-               if k not in os.environ]
+    init = os.environ.get(INIT_METHOD_ENV)
+    need = ("RANK", "WORLD_SIZE") + (() if init else ("MASTER_ADDR", "MASTER_PORT"))
+    missing = [k for k in need if k not in os.environ]
     if missing:
         raise RuntimeError(f"not started as a rank: {missing} unset (run under torchrun, "
                            "or give the launcher --spawn)")
     if not dist.is_initialized():
-        dist.init_process_group(backend, rank=int(os.environ["RANK"]),
+        dist.init_process_group(backend, init_method=init or "env://",
+                                rank=int(os.environ["RANK"]),
                                 world_size=int(os.environ["WORLD_SIZE"]))
+
+
+def spawn(fn: Callable, args: tuple, world: int) -> None:
+    """Start ``world`` ranks on this host, ``fn(rank, *args)`` each in a
+    process of its own (``torch.multiprocessing``'s spawn), and wait for
+    them. Their rendezvous is a ``FileStore`` in a new temporary directory
+    (removed when they end), named to each rank by ``INIT_METHOD_ENV``
+    beside torchrun's RANK, LOCAL_RANK, WORLD_SIZE and LOCAL_WORLD_SIZE, so
+    ``init_rank`` finds it: no port is picked and then released for rank 0
+    to bind, which another process could take in between."""
+    import torch.multiprocessing as mp
+    where = tempfile.mkdtemp(prefix="rendezvous-")
+    try:
+        init = "file://" + os.path.join(where, "store")
+        mp.start_processes(_spawned, args=(fn, args, world, init), nprocs=world,
+                           start_method="spawn")
+    finally:
+        shutil.rmtree(where, ignore_errors=True)
+
+
+def _spawned(rank: int, fn: Callable, args: tuple, world: int, init: str) -> None:
+    os.environ.update({"RANK": str(rank), "LOCAL_RANK": str(rank), "WORLD_SIZE": str(world),
+                       "LOCAL_WORLD_SIZE": str(world), INIT_METHOD_ENV: init})
+    fn(rank, *args)

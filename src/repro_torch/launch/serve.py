@@ -32,7 +32,11 @@ likewise, the ssm states' heads and channels, ``launch/partition.py
 cache_specs``) and decodes greedily. Rank 0 prints each request's tokens
 with the batch's TTFT and E2E walls; every rank prints one JSON line:
 coordinates, device, walls, peak memory, the collectives' counts and
-bytes, its kernels' launches.
+bytes, its kernels' launches and ``seq_parallel``: ``REPRO_OPT_SEQ_PARALLEL``
+as the rank read it (the spawned ranks inherit it; ``build_dense``'s, the
+pattern stack's and the vlm's self layers' prefill then runs
+sequence-parallel, ``models/model.py``; decode has one position and runs
+without it).
 
   python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b --layers 2 --mesh 2x2 \
       --backend gloo --spawn
@@ -157,7 +161,7 @@ def _mesh_main(ap, args, argv: list):
     import numpy as np
     import torch
 
-    from repro_torch.launch.train import _free_port, _spawned_rank, kernel_misfit, parse_mesh
+    from repro_torch.launch.train import _spawned_rank, kernel_misfit, parse_mesh
     try:
         shape, axes = parse_mesh(args.mesh)
     except ValueError as e:
@@ -171,11 +175,9 @@ def _mesh_main(ap, args, argv: list):
             ap.error(f"{cfg.name}: {misfit}")
     world = math.prod(shape)
     if args.spawn:
-        import torch.multiprocessing as mp
-        rest = [a for a in argv if a != "--spawn"]
+        from repro_torch.launch.mesh import spawn
         print(f"spawning {world} ranks, backend={args.backend}", flush=True)
-        mp.start_processes(_spawned_rank, args=(rest, _free_port(), world, main), nprocs=world,
-                           start_method="spawn")
+        spawn(_spawned_rank, ([a for a in argv if a != "--spawn"], main), world)
         return None
 
     import torch.distributed as dist
@@ -188,6 +190,7 @@ def _mesh_main(ap, args, argv: list):
     from repro_torch.kernels.ssd_scan import ssd_scan
     from repro_torch.launch.input_specs import frontend_inputs, generator
     from repro_torch.launch.train import rank_setup
+    from repro_torch.models import opt_flags
     from repro_torch.models.model import decode_cache, greedy_token
 
     run = rank_setup(cfg, shape, axes, args.backend, args.device, seed=0)
@@ -240,7 +243,8 @@ def _mesh_main(ap, args, argv: list):
                e2e_s=e2e, cache={k: list(v.shape) for k, v in cache.items()},
                max_memory_allocated=torch.cuda.max_memory_allocated() if cuda else None,
                collectives=collectives.record(),
-               launches={fn.__name__: fn.launches for fn in kernels})
+               launches={fn.__name__: fn.launches for fn in kernels},
+               seq_parallel=opt_flags.seq_parallel())
     dist.barrier()
     sys.stdout.write(json.dumps(rec) + "\n")   # one write: the ranks share the stream
     sys.stdout.flush()

@@ -22,7 +22,8 @@ them through ``training.train_loop.make_train_step`` with those inputs.
 ``--mesh DxM`` (or PxDxM, axes pod, data, model) runs the reference's
 sharded step: one process a rank, started by ``torchrun`` (its RANK,
 WORLD_SIZE, LOCAL_RANK, MASTER_ADDR and MASTER_PORT) or by ``--spawn``
-(the ranks on this host, on a free local port). ``--backend`` is said
+(the ranks on this host, meeting at a file store in a temporary
+directory: ``launch/mesh.py spawn``). ``--backend`` is said
 outright and printed with the ranks a card holds: ``nccl`` takes one card
 a rank and refuses more ranks than cards; ``gloo`` lets ranks share a card
 (several ranks on one H100) and runs on the CPU. A rank on the CPU while a
@@ -51,6 +52,13 @@ recompute again), the gradients reach the slices reduce-scattered, and
 ``on`` and ``off`` force it. Qwen2-MoE-A2.7B at 3 layers on 2 x 2 reckons
 10.12 GB and turns it on; at 2 layers, 7.26 GB, off.
 
+``REPRO_OPT_SEQ_PARALLEL=1`` in the environment (which ``--spawn``'s ranks
+inherit, as the reference's launchers read it) runs Megatron sequence
+parallelism on the mesh (``models/model.py``): the residual stream a block
+of the sequence over the model axis, each block's output all-reduces a
+reduce-scatter and an all-gather; the same values. Each rank's JSON line
+says ``seq_parallel``.
+
   torchrun --nproc-per-node 4 -m repro_torch.launch.train --arch qwen2-moe-a2.7b \
       --layers 2 --mesh 2x2 --backend gloo --batch 4 --seq 4096
   python -m repro_torch.launch.train --arch zamba2-7b --layers 7 --mesh 2x2 \
@@ -61,6 +69,8 @@ recompute again), the gradients reach the slices reduce-scattered, and
       --reduced --device cpu --mesh 2x2 --backend gloo --spawn --steps 2
   python -m repro_torch.launch.train --arch qwen2-moe-a2.7b --layers 3 --mesh 2x2 \
       --backend gloo --spawn --batch 4 --seq 4096 --fsdp auto
+  REPRO_OPT_SEQ_PARALLEL=1 python -m repro_torch.launch.train --arch qwen3-1.7b \
+      --reduced --device cpu --mesh 2x2 --backend gloo --spawn --steps 2
 """
 from __future__ import annotations
 
@@ -69,7 +79,6 @@ import dataclasses
 import json
 import math
 import os
-import socket
 import sys
 import time
 from typing import Optional, Sequence, Tuple
@@ -306,18 +315,10 @@ def rank_model(cfg, mesh, dev, per_card, seed: int, lr=None,
                    state_gb_dev)
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
-def _spawned_rank(local_rank: int, argv: list, port: int, world: int, entry=None) -> None:
-    """A rank started by ``--spawn``: torchrun's environment for it, then
-    ``entry(argv)`` (a launcher's ``main``, this one's by default)."""
-    os.environ.update(RANK=str(local_rank), LOCAL_RANK=str(local_rank),
-                      WORLD_SIZE=str(world), LOCAL_WORLD_SIZE=str(world),
-                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+def _spawned_rank(local_rank: int, argv: list, entry=None) -> None:
+    """A rank started by ``--spawn`` (``launch/mesh.py spawn``, which sets
+    its environment): ``entry(argv)``, a launcher's ``main``, this one's by
+    default."""
     (entry or main)(argv)
 
 
@@ -334,11 +335,9 @@ def _mesh_main(ap, args, argv: list):
         ap.error("--ckpt under --mesh is not ported: the ranks hold blocks of the params")
     world = math.prod(shape)
     if args.spawn:
-        import torch.multiprocessing as mp
-        rest = [a for a in argv if a != "--spawn"]
+        from repro_torch.launch.mesh import spawn
         print(f"spawning {world} ranks, backend={args.backend}", flush=True)
-        mp.start_processes(_spawned_rank, args=(rest, _free_port(), world), nprocs=world,
-                           start_method="spawn")
+        spawn(_spawned_rank, ([a for a in argv if a != "--spawn"],), world)
         return
 
     import torch.distributed as dist
@@ -348,6 +347,7 @@ def _mesh_main(ap, args, argv: list):
     from repro_torch.kernels.expert_ffn import expert_ffn
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.models import opt_flags
     from repro_torch.training.optimizer import cosine_schedule, tree_leaves
     from repro_torch.training.train_loop import make_train_step
 
@@ -375,7 +375,8 @@ def _mesh_main(ap, args, argv: list):
               f"batch={B} seq={S} microbatches={args.microbatches} backend={args.backend} "
               f"ranks_per_card={run.ranks_per_card} device={run.device.type} "
               f"rank0_params={n_params / 1e6:.1f}M fsdp={run.fsdp} "
-              f"state_gb_dev={run.state_gb_dev:.2f}", flush=True)
+              f"state_gb_dev={run.state_gb_dev:.2f} "
+              f"seq_parallel={opt_flags.seq_parallel()}", flush=True)
     step = make_train_step(run.bundle, run.opt, microbatches=args.microbatches)
     it = SyntheticLM(cfg.vocab, seed=args.seed).batches(B, S)
     cuda = run.device.type == "cuda"
@@ -403,6 +404,7 @@ def _mesh_main(ap, args, argv: list):
                collectives=collectives.record(),
                launches={fn.__name__: fn.launches for fn in kernels},
                fsdp=run.fsdp, state_gb_dev=run.state_gb_dev,
+               seq_parallel=opt_flags.seq_parallel(),
                planned_bytes=run.planned_bytes())
     dist.barrier()
     sys.stdout.write(json.dumps(rec) + "\n")   # one write: the ranks share the stream

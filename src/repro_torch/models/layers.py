@@ -45,6 +45,16 @@ ring's slots sharded, the ranks' blocks merged by log-sum-exp
 same rules, its memory K/V in ``cache_specs``' layout: KV heads sharded,
 the memory's slots sharded (the decode's blocks merged by log-sum-exp), or
 replicated.
+
+Sequence parallelism (``self_attn_full(..., sp=)``, ``swiglu(..., sp=)``,
+``REPRO_OPT_SEQ_PARALLEL``): x arrives as this rank's block of the sequence
+[B, S/n, d] and the output leaves the same way. The sequence is gathered
+where ``copy_to`` stood (``collectives.gather_seq``: its backward sums the
+column-parallel parts and cuts the block), the row-parallel sum becomes a
+reduce-scatter to the block (``collectives.scatter_seq``); a layer that
+runs whole on every rank gathers the sequence for replicated compute
+(``collectives.gather_from``) and keeps its block of the output
+(``collectives.split_seq``).
 """
 from __future__ import annotations
 
@@ -280,19 +290,26 @@ def flash_attention_xla(q, k, v, window, causal=True, q_block=512, kv_block=512)
     return _FlashAttentionXLA.apply(q, k, v, window, causal, q_block, kv_block)
 
 
-def _qkv(x, p, dims: AttnDims, positions, use_rope=True, tp: Optional[C.Axis] = None):
+def _qkv(x, p, dims: AttnDims, positions, use_rope=True, tp: Optional[C.Axis] = None,
+         sp: bool = False):
     """q, k, v [B,S,heads,hd]. ``tp``: the model axis where ``wq`` is this
     rank's column block (module docstring): x enters through ``copy_to``,
     the query heads are the rank's, and so are the KV heads where ``wk`` is
     sharded too; where it is whole the KV heads are projected whole, all of
-    them (``_select_kv`` takes the ones the local query heads read)."""
-    B, S, _ = x.shape
+    them (``_select_kv`` takes the ones the local query heads read). ``sp``:
+    x is this rank's block of the sequence over ``tp``, gathered in place of
+    ``copy_to`` (``gather_seq``; with whole KV heads, ``gather_seq_pair``'s
+    second tensor for their projection, which ``_select_kv`` sums)."""
     hd = dims.head_dim
-    xin = C.copy_to(x, tp)
+    whole_kv = (p["wq"].shape[-1] < dims.n_heads * hd
+                and p["wk"].shape[-1] == dims.n_kv_heads * hd)
+    if sp:
+        xin, kin = C.gather_seq_pair(x, tp) if whole_kv else (C.gather_seq(x, tp),) * 2
+    else:
+        xin = C.copy_to(x, tp)
+        kin = x if whole_kv else xin
+    B, S, _ = xin.shape
     q = linear(xin, p["wq"])
-    h_loc = q.shape[-1] // hd
-    whole_kv = h_loc < dims.n_heads and p["wk"].shape[-1] == dims.n_kv_heads * hd
-    kin = x if whole_kv else xin
     k = linear(kin, p["wk"])
     v = linear(kin, p["wv"])
     if dims.qkv_bias:
@@ -337,7 +354,7 @@ def _local_kv(q0: int, n: int, group: int):
 
 def self_attn_full(x, p, dims: AttnDims, *, window=None, causal=True,
                    chunked: bool = False, static_window: bool = False,
-                   tp: Optional[C.Axis] = None):
+                   tp: Optional[C.Axis] = None, sp: Optional[C.Axis] = None):
     """Full-sequence self attention (train / prefill). x: [B,S,d].
     Returns (out [B,S,d], (k, v) each [B,S,Hkv,hd]).
 
@@ -354,11 +371,19 @@ def self_attn_full(x, p, dims: AttnDims, *, window=None, causal=True,
     attention runs over the local heads and the output projection is
     summed over the axis. (k, v) are the local KV heads where ``wk`` is
     sharded, else all of them (the decode cache's layout, ``launch/
-    partition.py cache_specs``: its slots are sharded then, not its heads)."""
-    B, S, _ = x.shape
-    positions = torch.arange(S, device=x.device)[None, :]
+    partition.py cache_specs``: its slots are sharded then, not its heads).
+
+    ``sp``: the model axis where x is this rank's block of the sequence
+    [B, S/n, d] (module docstring): the output is the block too, (k, v) the
+    whole sequence's."""
     tp = _heads_axis(p, dims, tp)
-    q, k, v = _qkv(x, p, dims, positions, tp=tp)
+    if sp is not None and tp is None:   # the layer whole on every rank
+        h, kv = self_attn_full(C.gather_from(x, sp, 1), p, dims, window=window, causal=causal,
+                               chunked=chunked, static_window=static_window)
+        return C.split_seq(h, sp), kv
+    B, S = x.shape[0], x.shape[1] * (sp.size if sp is not None else 1)
+    positions = torch.arange(S, device=x.device)[None, :]
+    q, k, v = _qkv(x, p, dims, positions, tp=tp, sp=sp is not None)
     kv = (k, v)
     if tp is not None and k.shape[2] == dims.n_kv_heads:   # wk whole, wq sharded
         k, v = _select_kv(k, v, tp, q.shape[2], dims)
@@ -375,7 +400,7 @@ def self_attn_full(x, p, dims: AttnDims, *, window=None, causal=True,
     else:
         o = attention(q, k, v, q_pos=positions, k_pos=positions,
                       window=window, causal=causal)
-    return row_parallel(o.reshape(B, S, -1), p["wo"], tp), kv
+    return row_parallel(o.reshape(B, S, -1), p["wo"], tp, seq=sp is not None), kv
 
 
 def write_slot(cache: torch.Tensor, new: torch.Tensor, slot, lo: Optional[int] = None) -> None:
@@ -679,17 +704,20 @@ def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return _row_blocks(x.reshape(-1, x.shape[-1]), w).reshape(*x.shape[:-1], w.shape[1])
 
 
-def row_parallel(x: torch.Tensor, w: torch.Tensor, tp: Optional[C.Axis]) -> torch.Tensor:
+def row_parallel(x: torch.Tensor, w: torch.Tensor, tp: Optional[C.Axis],
+                 seq: bool = False) -> torch.Tensor:
     """``linear(x, w)`` where w's rows (x's last dim) are this rank's block
     of the model axis, summed over it. The partial products come in f32
     (``mm_f32``), are summed in f32 and rounded once to x's type, so the
     result is the unsharded product up to the order of its f32 sums; bf16
     partials summed in bf16 would round each rank's part and then the sum.
-    Without an axis, ``linear``."""
+    ``seq`` (sequence parallelism, x [B, S, k]): the sum is reduce-scattered
+    to this rank's block of the sequence, [B, S/n, N]. Without an axis,
+    ``linear``."""
     if tp is None or tp.size == 1:
         return linear(x, w)
     part = mm_f32(x.reshape(-1, x.shape[-1]), w).reshape(*x.shape[:-1], w.shape[1])
-    return C.reduce_from(part, tp).to(x.dtype)
+    return (C.scatter_seq if seq else C.reduce_from)(part, tp).to(x.dtype)
 
 
 def matmul_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -741,11 +769,18 @@ def swiglu_hidden(x, w1, w3):
     return silu(x @ w1) * (x @ w3)
 
 
-def swiglu(x, w1, w3, w2, tp: Optional[C.Axis] = None):
+def swiglu(x, w1, w3, w2, tp: Optional[C.Axis] = None, sp: Optional[C.Axis] = None):
     """The shared-expert FFN. Its three products go through ``linear``, so
     a row's output does not depend on the rows beside it on the card (a
     decode batch, a prefill chunk or a whole prompt); on the CPU the plain
     products, as before. ``tp``: w1 / w3 column- and w2 row-parallel over
-    the model axis (this rank's slices of the hidden dim), summed over it."""
+    the model axis (this rank's slices of the hidden dim), summed over it.
+    ``sp``: the model axis where x is this rank's block of the sequence,
+    the output the block too (module docstring)."""
+    if sp is not None:
+        if tp is None:    # the FFN whole on every rank
+            return C.split_seq(swiglu(C.gather_from(x, sp, 1), w1, w3, w2), sp)
+        x = C.gather_seq(x, tp)
+        return row_parallel(silu(linear(x, w1)) * linear(x, w3), w2, tp, seq=True)
     x = C.copy_to(x, tp)
     return row_parallel(silu(linear(x, w1)) * linear(x, w3), w2, tp)

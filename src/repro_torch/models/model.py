@@ -59,6 +59,23 @@ indexed. The gradient of each gather reaches the slice summed over the
 data axes (reduce-scattered). Only a train step's ranks are FSDP:
 ``prefill`` and ``decode_step`` take whole blocks, as a serving rank
 holds them.
+
+Sequence parallelism (``REPRO_OPT_SEQ_PARALLEL``, the reference's
+``_seq_parallel_pin``; read once when a bundle is built, recorded on its
+``_Shard``): on a mesh, where the model axis divides the sequence,
+``build_dense``'s and ``build_dense_pattern``'s ``forward`` and ``prefill``
+and the vlm's self-attention layers keep the residual stream between
+blocks as this rank's block of the sequence [B, S/n, d]: the embedding's
+vocab-parallel sum is reduce-scattered to the block
+(``collectives.scatter_seq``; a whole table: ``split_seq``), the norms run
+on the block (their weights through ``copy_to``, which sums their
+gradients over the model axis), each layer gathers the sequence and
+reduce-scatters its output (``models/layers.py``, ``moe_layer.moe_ffn``),
+and the head gathers it (``gather_seq``); prefill's K/V are the whole
+sequence's and its last logits the last rank's last row. The vlm's cross
+layers, its frontend and its head see the whole sequence. The ssm, the
+hybrid, the enc-dec and every ``decode_step`` run as without it, as in the
+reference. It changes no value: the logits equal those without it.
 """
 from __future__ import annotations
 
@@ -233,10 +250,19 @@ def pad_cache(cache, new_capacity: int, ring_axes: Dict[str, int]):
 class _Shard:
     """A stack's place on the mesh: the mesh, its model axis, and whether
     the stack's MLP hidden dim is sharded over it (``param_specs``: when it
-    divides the axis)."""
+    divides the axis); ``seq_parallel``: ``REPRO_OPT_SEQ_PARALLEL`` as the
+    bundle was built, and ``split``: in this call the residual stream is
+    this rank's block of the sequence (``_seq_parallel``)."""
     mesh_info: dict
     tp: C.Axis
     ff_split: bool
+    seq_parallel: bool = False
+    split: bool = False
+
+    @property
+    def sp(self) -> Optional[C.Axis]:
+        """The axis the sequence is split over in this call, else None."""
+        return self.tp if self.split else None
 
 
 def _ffn_apply(xn, lp, cfg: ArchConfig, dropless: bool, cf: Optional[float] = None,
@@ -249,34 +275,64 @@ def _ffn_apply(xn, lp, cfg: ArchConfig, dropless: bool, cf: Optional[float] = No
         if dropless:
             cf = float(cfg.top_k * M.n_experts_padded(cfg))  # => C = T*k
         return M.moe_ffn(xn, lp["moe"], cfg, capacity_factor=cf,
-                         mesh_info=shard.mesh_info if shard else None)
+                         mesh_info=shard.mesh_info if shard else None, seq=_split(shard))
     m = lp["mlp"]
     tp = shard.tp if shard is not None and shard.ff_split else None
-    return L.swiglu(xn, m["w1"], m["w3"], m["w2"], tp=tp), 0.0
+    return L.swiglu(xn, m["w1"], m["w3"], m["w2"], tp=tp, sp=shard.sp if shard else None), 0.0
 
 
-def _seq_parallel_pin(x, mesh_info):
-    """The reference's REPRO_OPT_SEQ_PARALLEL pin: a sharding constraint
-    that lets GSPMD lower the block outputs' all-reduces to reduce-scatter
-    + all-gather. It changes no value, and the port's collectives are
-    explicit, so it pins nothing here."""
-    return x
+def _seq_parallel(shard: Optional[_Shard], seq_len: int) -> Optional[_Shard]:
+    """The reference's ``_seq_parallel_pin`` condition: on a mesh, with
+    ``REPRO_OPT_SEQ_PARALLEL`` on, a sequence of ``seq_len`` tokens that
+    the model axis divides runs with the residual stream split (the shard
+    with ``split``); else the shard as it is, today's path. (The reference
+    also asks that the data axes divide the global batch; here a rank's
+    rows are its data shard already.)"""
+    if shard is None or not shard.seq_parallel or seq_len % shard.tp.size:
+        return shard
+    return dataclasses.replace(shard, split=True)
+
+
+def _split(shard: Optional[_Shard]) -> bool:
+    return shard is not None and shard.split
+
+
+def _norm_w(w, shard: Optional[_Shard]):
+    """A norm's weight where it is applied to the residual stream: under
+    sequence parallelism it sees this rank's rows only, so it enters
+    through ``copy_to`` (its gradient summed over the model axis)."""
+    return C.copy_to(w, shard.tp) if _split(shard) else w
+
+
+def _last(x, shard: Optional[_Shard]):
+    """The last position's hidden state [B, d]: under sequence parallelism
+    the last rank's last row, gathered."""
+    return C.all_gather(x[:, -1:], shard.tp, 1)[:, -1] if _split(shard) else x[:, -1]
+
+
+def _gather_whole(x, shard: _Shard):
+    """The whole sequence from the ranks' blocks for replicated compute
+    (the vlm's cross layer): an all-gather whose backward keeps the rank's
+    block of the gradient, which is whole on every rank
+    (``collectives.gather_from``)."""
+    return C.gather_from(x, shard.tp, 1)
 
 
 def _block_full(x, lp, win: int, cfg: ArchConfig, chunked: bool, static: bool = False,
                 cf: Optional[float] = None, shard: Optional[_Shard] = None):
     """One decoder block over a whole sequence (``static``: the window is
     the pattern stack's static one; ``cf``: the MoE capacity factor,
-    ``_ffn_apply``; ``shard``: its place on a mesh). Returns (x, (k, v),
-    aux)."""
-    mesh_info = shard.mesh_info if shard else None
-    h, kv = L.self_attn_full(L.rms_norm(x, lp["ln1"], cfg.rms_eps), lp["attn"],
+    ``_ffn_apply``; ``shard``: its place on a mesh, under sequence
+    parallelism with x this rank's block of the sequence). Returns (x,
+    (k, v), aux)."""
+    h, kv = L.self_attn_full(L.rms_norm(x, _norm_w(lp["ln1"], shard), cfg.rms_eps), lp["attn"],
                              attn_dims(cfg), window=win, chunked=chunked,
-                             static_window=static, tp=shard.tp if shard else None)
-    x = _seq_parallel_pin(x + h, mesh_info)
-    y, aux = _ffn_apply(L.rms_norm(x, lp["ln2"], cfg.rms_eps), lp, cfg, dropless=False, cf=cf,
-                        shard=shard)
-    return _seq_parallel_pin(x + y, mesh_info), kv, aux
+                             static_window=static, tp=shard.tp if shard else None,
+                             sp=shard.sp if shard else None)
+    x = x + h
+    y, aux = _ffn_apply(L.rms_norm(x, _norm_w(lp["ln2"], shard), cfg.rms_eps), lp, cfg,
+                        dropless=False, cf=cf, shard=shard)
+    return x + y, kv, aux
 
 
 def _block_decode(x, lp, win: int, cfg: ArchConfig, ck, cv, sp, slot, pos,
@@ -468,16 +524,26 @@ def _model_axis(mesh_info: Optional[dict]) -> Optional[C.Axis]:
     return None if mesh_info is None else mesh_info["mesh"].axis(mesh_info["tp"])
 
 
-def _vocab_head(params, tokens, vp: int, tp: Optional[C.Axis]):
-    """(embedded tokens, the tied output projection's function): the
-    vocab-parallel pair where the embedding is this rank's block of the
-    padded vocabulary (``_embed_tp``, the output's columns this block),
-    else the whole table."""
+def _vocab_head(params, tokens, vp: int, tp: Optional[C.Axis], split: bool = False):
+    """(embedded tokens, the tied output projection's function ``head(x,
+    block=False)``): the vocab-parallel pair where the embedding is this
+    rank's block of the padded vocabulary (``_embed_tp``, the output's
+    columns this block), else the whole table. ``split`` (sequence
+    parallelism): the embedded tokens are this rank's block of the
+    sequence; ``head(x, block=True)`` takes such a block and gathers the
+    sequence (``gather_seq`` into the vocab-parallel product, whose
+    gradient is each rank's part; ``gather_from`` into the whole one)."""
     embed = params["embed"]
     if tp is None or embed.shape[0] == vp:
-        return _embed(_whole(embed), tokens), lambda x: _logits(x, _whole(embed))
-    return (_embed_tp(_whole(embed), tokens, vp, tp),
-            lambda x: _logits(C.copy_to(x, tp), _whole(embed)))
+        x = _embed(_whole(embed), tokens)
+
+        def head(x, block=False):
+            return _logits(C.gather_from(x, tp, 1) if block else x, _whole(embed))
+        return (C.split_seq(x, tp) if split else x), head
+
+    def head(x, block=False):
+        return _logits(C.gather_seq(x, tp) if block else C.copy_to(x, tp), _whole(embed))
+    return _embed_tp(_whole(embed), tokens, vp, tp, split), head
 
 
 def _whole_vocab(logits, vp: int, tp: Optional[C.Axis]):
@@ -486,14 +552,16 @@ def _whole_vocab(logits, vp: int, tp: Optional[C.Axis]):
     return C.all_gather(logits, tp, -1) if logits.shape[-1] < vp else logits
 
 
-def _embed_tp(embed, tokens, vp: int, tp: C.Axis):
+def _embed_tp(embed, tokens, vp: int, tp: C.Axis, split: bool = False):
     """The vocab-parallel lookup: ids clipped into [0, vp) (the reference's
     ``mode="clip"``), each rank's rows of its vocabulary block and zeros
-    elsewhere, summed over the model axis."""
+    elsewhere, summed over the model axis (``split``: reduce-scattered to
+    this rank's block of the sequence)."""
     v_loc = embed.shape[0]
     ids = tokens.long().clamp(0, vp - 1) - tp.index * v_loc
     hit = (ids >= 0) & (ids < v_loc)
-    return C.reduce_from(embed[ids.clamp(0, v_loc - 1)] * hit[..., None], tp)
+    rows = embed[ids.clamp(0, v_loc - 1)] * hit[..., None]
+    return (C.scatter_seq if split else C.reduce_from)(rows, tp)
 
 
 def build_dense(cfg: ArchConfig, capacity_factor: Optional[float] = None,
@@ -528,7 +596,8 @@ def build_dense(cfg: ArchConfig, capacity_factor: Optional[float] = None,
     tp = _model_axis(mesh_info)
     shards = {"": None, "0": None}
     if tp is not None:
-        shards = {key: _Shard(mesh_info, tp, ff % tp.size == 0)
+        sp = opt_flags.seq_parallel()
+        shards = {key: _Shard(mesh_info, tp, ff % tp.size == 0, sp)
                   for key, ff in (("", cfg.d_ff), ("0", cfg.dense_d_ff))}
     n_model = tp.size if tp is not None else 16
 
@@ -541,25 +610,27 @@ def build_dense(cfg: ArchConfig, capacity_factor: Optional[float] = None,
 
     def forward(params, batch):
         tokens = batch["tokens"]
-        x, head = _vocab_head(params, tokens, vp, tp)
+        run = {key: _seq_parallel(s, tokens.shape[1]) for key, s in shards.items()}
+        x, head = _vocab_head(params, tokens, vp, tp, _split(run[""]))
         chunked = tokens.shape[1] >= CHUNKED_MIN_SEQ
         aux = 0.0
         for key, lp, win in _stacks(params):
             x, _, a = _run(_block_full, x, lp, win, cfg, chunked, False, capacity_factor,
-                           shards[key])
+                           run[key])
             aux = aux + a
-        x = L.rms_norm(x, _whole(params["ln_f"]), cfg.rms_eps)
-        return head(x), aux / cfg.n_layers
+        x = L.rms_norm(x, _norm_w(_whole(params["ln_f"]), run[""]), cfg.rms_eps)
+        return head(x, block=_split(run[""])), aux / cfg.n_layers
 
     def prefill(params, batch):
         tokens = batch["tokens"]
         B, Ssz = tokens.shape
-        x, head = _vocab_head(params, tokens, vp, tp)
+        run = {key: _seq_parallel(s, Ssz) for key, s in shards.items()}
+        x, head = _vocab_head(params, tokens, vp, tp, _split(run[""]))
         chunked = Ssz >= CHUNKED_MIN_SEQ
         kv = {"": [], "0": []}
         for key, lp, win in _stacks(params):
             x, (k, v), _ = _block_full(x, lp, win, cfg, chunked, False, capacity_factor,
-                                       shards[key])
+                                       run[key])
             kv[key].append((k, v))
         cache = {}
         for key, rows in kv.items():
@@ -568,7 +639,7 @@ def build_dense(cfg: ArchConfig, capacity_factor: Optional[float] = None,
                 cache["v" + key] = torch.stack([v for _, v in rows])
         cache.update(_ring(Ssz, Ssz, tokens.device))
         x = L.rms_norm(x, params["ln_f"], cfg.rms_eps)
-        return _whole_vocab(head(x[:, -1]), vp, tp), cache
+        return _whole_vocab(head(_last(x, run[""])), vp, tp), cache
 
     def decode_step(params, step, cache):
         x, head = _vocab_head(params, step["token"], vp, tp)
@@ -604,9 +675,10 @@ def build_dense(cfg: ArchConfig, capacity_factor: Optional[float] = None,
 # ---------------------------------------------------------------------------
 
 
-def _shard_of(cfg: ArchConfig, tp: Optional[C.Axis], mesh_info) -> Optional[_Shard]:
+def _shard_of(cfg: ArchConfig, tp: Optional[C.Axis], mesh_info,
+              seq_parallel: bool = False) -> Optional[_Shard]:
     """A stack's ``_Shard`` of ``d_ff`` on the mesh, None without one."""
-    return None if tp is None else _Shard(mesh_info, tp, cfg.d_ff % tp.size == 0)
+    return None if tp is None else _Shard(mesh_info, tp, cfg.d_ff % tp.size == 0, seq_parallel)
 
 
 def build_dense_pattern(cfg: ArchConfig, mesh_info: Optional[dict] = None) -> ModelBundle:
@@ -636,7 +708,7 @@ def build_dense_pattern(cfg: ArchConfig, mesh_info: Optional[dict] = None) -> Mo
     win_tail = [cfg.window_for_layer(n_pat * per + i) for i in range(n_tail)]
     vp = L.vocab_pad_of(cfg.vocab)
     tp = _model_axis(mesh_info)
-    shard = _shard_of(cfg, tp, mesh_info)
+    shard = _shard_of(cfg, tp, mesh_info, opt_flags.seq_parallel())
     init = _init_fn(cfg, mesh_info, post=lambda p: pattern_params(p, cfg))
 
     def _layers(params):
@@ -650,22 +722,24 @@ def build_dense_pattern(cfg: ArchConfig, mesh_info: Optional[dict] = None) -> Mo
         return out
 
     def _run_full(params, tokens, emit_kv):
+        """(head, the final norm's output, K/V by stack, this call's shard)."""
         chunked = tokens.shape[1] >= CHUNKED_MIN_SEQ
-        x, head = _vocab_head(params, tokens, vp, tp)
+        run = _seq_parallel(shard, tokens.shape[1])
+        x, head = _vocab_head(params, tokens, vp, tp, _split(run))
         kv = {"": [], "t": []}
         for key, _, lp, win in _layers(params):
-            x, (k, v), _ = _run(_block_full, x, lp, win, cfg, chunked, True, None, shard)
+            x, (k, v), _ = _run(_block_full, x, lp, win, cfg, chunked, True, None, run)
             if emit_kv:
                 kv[key].append((k, v))
-        return head, L.rms_norm(x, _whole(params["ln_f"]), cfg.rms_eps), kv
+        return head, L.rms_norm(x, _norm_w(_whole(params["ln_f"]), run), cfg.rms_eps), kv, run
 
     def forward(params, batch):
-        head, x, _ = _run_full(params, batch["tokens"], emit_kv=False)
-        return head(x), 0.0
+        head, x, _, run = _run_full(params, batch["tokens"], emit_kv=False)
+        return head(x, block=_split(run)), 0.0
 
     def prefill(params, batch):
         tokens = batch["tokens"]
-        head, x, kv = _run_full(params, tokens, emit_kv=True)
+        head, x, kv, run = _run_full(params, tokens, emit_kv=True)
         shape = (kv[""] or kv["t"])[0][0].shape     # [B, S, the rank's KV heads, hd]
 
         def stacked(rows, lead):   # n_pat may be 0 (fewer layers than a block)
@@ -679,7 +753,7 @@ def build_dense_pattern(cfg: ArchConfig, mesh_info: Optional[dict] = None) -> Mo
         if n_tail:
             cache["kt"] = stacked([k for k, _ in kv["t"]], (n_tail,))
             cache["vt"] = stacked([v for _, v in kv["t"]], (n_tail,))
-        return _whole_vocab(head(x[:, -1]), vp, tp), cache
+        return _whole_vocab(head(_last(x, run)), vp, tp), cache
 
     def decode_step(params, step, cache):
         x, head = _vocab_head(params, step["token"], vp, tp)
@@ -744,7 +818,7 @@ def build_vlm(cfg: ArchConfig, mesh_info: Optional[dict] = None) -> ModelBundle:
     dims = attn_dims(cfg)
     vp = L.vocab_pad_of(cfg.vocab)
     tp = _model_axis(mesh_info)
-    shard = _shard_of(cfg, tp, mesh_info)
+    shard = _shard_of(cfg, tp, mesh_info, opt_flags.seq_parallel() and n_self > 0)
     ff_tp = shard.tp if shard is not None and shard.ff_split else None
     init = _init_fn(cfg, mesh_info)
 
@@ -762,16 +836,21 @@ def build_vlm(cfg: ArchConfig, mesh_info: Optional[dict] = None) -> ModelBundle:
     def _run_full(params, batch, emit_kv):
         tokens = batch["tokens"]
         chunked = tokens.shape[1] >= CHUNKED_MIN_SEQ
+        run = _seq_parallel(shard, tokens.shape[1])
         mem = _frontend(batch["patch_embeds"], params["proj"], cfg.d_model, tp)
-        x, head = _vocab_head(params, tokens, vp, tp)
+        x, head = _vocab_head(params, tokens, vp, tp, _split(run))
         self_kv, cross_kv = [], []
         for b in range(n_blocks):
             blk = _at(params["blocks"], b)
+            if _split(run) and b:    # back to the blocks after a cross layer
+                x = C.split_seq(x, tp)
             for i in range(n_self):
                 x, kv, _ = _run(_block_full, x, _at(blk["self"], i), -1, cfg, chunked, False,
-                                None, shard)
+                                None, run)
                 if emit_kv:
                     self_kv.append(kv)
+            if _split(run):          # the cross layer sees the whole sequence
+                x = _gather_whole(x, run)
             kv_proj = {k: v for k, v in blk["cross"]["attn"].items() if k in ("wk", "wv", "k_norm")}
             mk, mv = L.cross_kv(mem, _whole(kv_proj), dims, tp)
             x = _run(_cross_full, x, blk["cross"], mk, mv)

@@ -23,7 +23,13 @@ either. Each rank routes every token (the router is replicated), dispatches
 the assignments its slice owns into a buffer of ``capacity_for`` its data
 shard's tokens, and the partial outputs are summed over the model axis
 (``collectives.reduce_from``: one all-reduce a layer); the aux loss is
-averaged over every axis.
+averaged over every axis. Under sequence parallelism (``moe_ffn(...,
+seq=True)``) x is this rank's block of the sequence: the tokens are
+gathered before routing (``collectives.gather_seq_pair``: one all-gather,
+the router's copy and the experts' copy), and the summed output is
+reduce-scattered back to the block (``collectives.scatter_seq``); the
+router, the dispatch and the capacity are the whole sequence's, as without
+it.
 
 The serving engines run the experts themselves (serving/engine.py) and
 take only ``route`` and ``n_experts_padded`` from here.
@@ -172,26 +178,37 @@ def load_balance_loss(probs: torch.Tensor, ids: torch.Tensor, n_real: int) -> to
 
 
 def moe_ffn_local(x2d, p, cfg: ArchConfig, *, capacity: int, e_start: int = 0,
-                  tp: Optional[C.Axis] = None):
+                  tp: Optional[C.Axis] = None, seq=None):
     """The MoE FFN on [T, d]: route, dispatch at ``capacity``, shared
     experts. Returns (y [T, d], aux). ``tp``: the model axis, ``p`` this
     rank's slice of the experts (from ``e_start``) and of the shared
     experts' hidden dim; the routed and the sharded shared outputs are
     summed over the axis, a shared FFN whose hidden dim does not divide it
-    runs whole on every rank after the sum."""
+    runs whole on every rank after the sum. ``seq`` (sequence parallelism):
+    (xin, the whole sequence's shape [B, S, d]) where x2d is the gathered
+    sequence's rows for the router and ``xin`` the same rows for this
+    rank's part (``collectives.gather_seq_pair``); y is then the rows of
+    this rank's block of the sequence."""
     w, ids, probs = route(x2d, p["router"], cfg.n_experts, cfg.top_k)
     amax = active_gather_max(x2d.shape[0], cfg.top_k, p["w1"].shape[0],
                              n_experts_padded(cfg))
     # the region of this rank's part: x and the router weights enter it
-    xin = C.copy_to(x2d, tp)
+    xin = C.copy_to(x2d, tp) if seq is None else seq[0]
     y = _dispatch_compute_combine(xin, C.copy_to(w, tp), ids, p["w1"], p["w3"], p["w2"],
                                   capacity=capacity, e_start=e_start, active_max=amax)
     shared = "sw1" in p
     split = shared and p["sw1"].shape[-1] < cfg.n_shared_experts * cfg.d_expert
     if shared and (tp is None or split):
         y = y + L.swiglu(xin, p["sw1"], p["sw3"], p["sw2"])
+    whole = shared and tp is not None and not split
+    if seq is not None:
+        full = seq[1]
+        y = C.scatter_seq(y.reshape(full), tp)
+        if whole:
+            y = y + C.split_seq(L.swiglu(x2d, p["sw1"], p["sw3"], p["sw2"]).reshape(full), tp)
+        return y.reshape(-1, full[-1]), load_balance_loss(probs, ids, cfg.n_experts)
     y = C.reduce_from(y, tp)
-    if shared and tp is not None and not split:
+    if whole:
         y = y + L.swiglu(x2d, p["sw1"], p["sw3"], p["sw2"])
     return y, load_balance_loss(probs, ids, cfg.n_experts)
 
@@ -205,7 +222,7 @@ def capacity_for(t_local: int, cfg: ArchConfig, e_pad: int,
 
 
 def moe_ffn(x, p, cfg: ArchConfig, *, capacity_factor: Optional[float] = None,
-            mesh_info: Optional[dict] = None):
+            mesh_info: Optional[dict] = None, seq: bool = False):
     """MoE FFN on [B, S, d] (or [T, d]). Returns (y in x's shape, aux).
 
     On one device exact by default: top-k ids are distinct per token, so
@@ -220,17 +237,25 @@ def moe_ffn(x, p, cfg: ArchConfig, *, capacity_factor: Optional[float] = None,
     (``launch/partition.py param_specs``), and the buffer holds
     ``capacity_for`` those tokens at ``capacity_factor`` (the config's when
     None), as the reference's ``shard_map`` body sizes it per data shard;
-    aux is averaged over every axis."""
+    aux is averaged over every axis. ``seq``: x [B, S/n, d] is this rank's
+    block of its tokens' sequence over the model axis, and y the block too
+    (module docstring); the capacity is the whole sequence's."""
     shp = x.shape
     x2d = x.reshape(-1, shp[-1])
-    t_loc = x2d.shape[0]
     if mesh_info is None:
+        t_loc = x2d.shape[0]
         cap = t_loc if capacity_factor is None else capacity_for(
             t_loc, cfg, p["w1"].shape[0], capacity_factor)
         y, aux = moe_ffn_local(x2d, p, cfg, capacity=cap)
         return y.reshape(shp), aux
     mesh, tp_name = mesh_info["mesh"], mesh_info["tp"]
     tp = mesh.axis(tp_name)
+    sp = None
+    if seq:
+        xin, xr = C.gather_seq_pair(x, tp)
+        sp = (xin.reshape(-1, shp[-1]), xr.shape)
+        x2d = xr.reshape(-1, shp[-1])
+    t_loc = x2d.shape[0]
     mode = expert_shard_mode(cfg, tp.size)
     e_loc = p["w1"].shape[0]
     if mode == "hidden" and cfg.d_expert % tp.size:
@@ -239,7 +264,7 @@ def moe_ffn(x, p, cfg: ArchConfig, *, capacity_factor: Optional[float] = None,
     e_pad = e_loc * tp.size if mode == "expert" else e_loc
     cap = capacity_for(t_loc, cfg, e_pad, capacity_factor)
     y, aux = moe_ffn_local(x2d, p, cfg, capacity=cap, e_start=expert_start(mode, tp.index, e_loc),
-                           tp=tp)
+                           tp=tp, seq=sp)
     aux = C.pmean(aux, mesh.axis(tuple(mesh_info["dp"]) + (tp_name,)))
     return y.reshape(shp), aux
 

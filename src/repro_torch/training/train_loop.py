@@ -22,7 +22,12 @@ step then averages it and updates the slices. Under FSDP
 arrive summed and sliced by the forward's gathers
 (``collectives.gather_params``, rounded to the leaf's dtype), so
 ``ZeRO1.reduce`` only casts them to f32; each microbatch's forward gathers
-the layers again, as the reference's lowered scan does.
+the layers again, as the reference's lowered scan does. Under sequence
+parallelism (``REPRO_OPT_SEQ_PARALLEL``) a replicated norm weight sees only
+its rank's block of the sequence; it enters the forward through
+``copy_to`` (``models/model.py _norm_w``), so its gradient reaches this
+step summed over the model axis, as every replicated leaf's does, and the
+reduce over the data axes, ZeRO-1 and FSDP take it as they are.
 """
 from __future__ import annotations
 

@@ -68,10 +68,8 @@ class Patch:
         setattr(self.obj, self.name, self.old)
 
 
-def rank_main(rank: int, ref: str, out_dir: str, port: int) -> None:
+def rank_main(rank: int, ref: str, out_dir: str) -> None:
     torch.set_num_threads(1)
-    os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE="4",
-                      LOCAL_WORLD_SIZE="4", MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
     sys.path.insert(0, str(SRC))
     import torch.distributed as dist
 
@@ -169,14 +167,9 @@ def rank_main(rank: int, ref: str, out_dir: str, port: int) -> None:
 
 
 def main():
-    import socket
-
-    import torch.multiprocessing as mp
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
-    mp.start_processes(rank_main, args=(sys.argv[1], sys.argv[2], port), nprocs=4,
-                       start_method="spawn")
+    sys.path.insert(0, str(SRC))
+    from repro_torch.launch.mesh import spawn
+    spawn(rank_main, (sys.argv[1], sys.argv[2],), 4)
 
 
 if __name__ == "__main__":

@@ -159,10 +159,8 @@ class _GatherSum(torch.autograd.Function):
         return C.psum(g, ctx.ax).narrow(ctx.dim, ctx.ax.index * ctx.size, ctx.size), None, None
 
 
-def rank_main(rank: int, out_dir: str, port: int) -> None:
+def rank_main(rank: int, out_dir: str) -> None:
     torch.set_num_threads(1)
-    os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE="4",
-                      LOCAL_WORLD_SIZE="4", MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
     sys.path.insert(0, str(SRC))
     import torch.distributed as dist
 
@@ -287,14 +285,9 @@ def rank_main(rank: int, out_dir: str, port: int) -> None:
 
 
 def main():
-    import socket
-
-    import torch.multiprocessing as mp
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
-    mp.start_processes(rank_main, args=(sys.argv[1], port), nprocs=4,
-                       start_method="spawn")
+    sys.path.insert(0, str(SRC))
+    from repro_torch.launch.mesh import spawn
+    spawn(rank_main, (sys.argv[1],), 4)
 
 
 if __name__ == "__main__":
